@@ -5,14 +5,22 @@ public names, configuration JSON and tensor layouts. It imports torch,
 numpy and the standard library only. Every entry point runs on ``cuda``
 unless the caller passes ``device="cpu"`` (``device.py``).
 
-This slice serves: int4-quantized ``MultiLayerNetwork`` inference through
-``ParallelInference``, with the int4 dot product in a hand-written CUDA
-kernel (``perf/kernels/int4_dot.py``, ``csrc/int4_dot.cu``).
+Ported so far:
+
+- serving: int4-quantized ``MultiLayerNetwork`` inference through
+  ``ParallelInference``, with the int4 dot product in a hand-written CUDA
+  kernel (``perf/kernels/int4_dot.py``, ``csrc/int4_dot.cu``);
+- training: ``ComputationGraph.fit`` (ResNet50 in bf16 with float32 master
+  weights), with the fused conv→BN→activation block's batch norm in the
+  hand-written ``bn_act_fwd`` / ``bn_act_bwd`` CUDA kernels
+  (``perf/kernels/bn_act.py``, ``csrc/bn_act_fwd.cu``, ``csrc/bn_act_bwd.cu``).
 """
 
 from deeplearning4j_tpu_torch.nn.conf import (InputType, MultiLayerConfiguration,
                                               NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.conf.graph import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 __all__ = ["InputType", "MultiLayerConfiguration", "NeuralNetConfiguration",
-           "MultiLayerNetwork"]
+           "MultiLayerNetwork", "ComputationGraphConfiguration", "ComputationGraph"]

@@ -8,7 +8,8 @@ from deeplearning4j_tpu_torch.models.zoo import ZooModel
 from deeplearning4j_tpu_torch.nn.conf.convolutional import ConvolutionLayer, SubsamplingLayer
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import DenseLayer, OutputLayer
-from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration, nesterovs
+from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
+from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs
 
 _VGG16_BLOCKS = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
 _VGG19_BLOCKS = [(64, 2), (128, 2), (256, 4), (512, 4), (512, 4)]
@@ -21,7 +22,7 @@ class VGG16(ZooModel):
     def __init__(self, num_classes: int = 1000, seed: int = 12345, input_shape=None,
                  updater=None):
         super().__init__(num_classes, seed, input_shape)
-        self.updater = updater or nesterovs(learning_rate=1e-2, momentum=0.9)
+        self.updater = updater or Nesterovs(learning_rate=1e-2, momentum=0.9)
 
     def conf(self):
         h, w, c = self.input_shape

@@ -2,7 +2,7 @@
 
 ``conf()`` builds the network configuration; ``init(device=...)`` returns a
 network with weights drawn from a ``torch.Generator`` seeded with the zoo
-model's seed. Pretrained weights are not part of this slice.
+model's seed. Pretrained weights are not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +22,17 @@ class ZooModel:
         raise NotImplementedError
 
     def init(self, device=None):
-        """Build and initialize on ``device`` (the port's device rule)."""
+        """Build and initialize on ``device`` (the port's device rule): a
+        ``MultiLayerNetwork`` or a ``ComputationGraph``, as the
+        configuration is. The JAX package's ``fold_bn=`` serving build is
+        not ported."""
+        from deeplearning4j_tpu_torch.nn.conf.graph import ComputationGraphConfiguration
+        from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
+        from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-        return MultiLayerNetwork(self.conf(), device).init()
+        c = self.conf()
+        if isinstance(c, MultiLayerConfiguration):
+            return MultiLayerNetwork(c, device).init()
+        if isinstance(c, ComputationGraphConfiguration):
+            return ComputationGraph(c, device).init()
+        raise TypeError(type(c))

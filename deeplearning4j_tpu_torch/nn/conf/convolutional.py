@@ -1,6 +1,6 @@
 """Convolution and pooling layers (counterpart of
-``deeplearning4j_tpu/nn/conf/convolutional.py``: ``ConvolutionLayer`` and
-``SubsamplingLayer``).
+``deeplearning4j_tpu/nn/conf/convolutional.py``: ``ConvolutionLayer``,
+``SubsamplingLayer`` and the fused ``FusedConvBNActivation`` block).
 
 Public layouts are the JAX package's: NHWC activations and HWIO kernels.
 Inside, a layer views its NHWC input as a ``channels_last`` NCHW tensor
@@ -29,8 +29,11 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, Layer, register_layer
+from deeplearning4j_tpu_torch.nn.conf.layers import (BaseLayer, Layer, dropout_input,
+                                                     register_layer)
+from deeplearning4j_tpu_torch.nn.conf.normalization import running_update, scale_shift
 from deeplearning4j_tpu_torch.nn.initializers import init_weights
+from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -78,8 +81,10 @@ def _pad_nchw(x, pads, value=0.0):
 
 def conv2d_nhwc(x, w_hwio, stride, padding, mode, dilation=(1, 1)):
     """NHWC input × HWIO kernel → NHWC output, the one 2-D convolution of the
-    port. Runs in the dtype of its operands (float32, or float64 for the
-    exact integer convolution of the int4/int8 layers)."""
+    port. Runs in the dtype of its operands (float32 or bfloat16, or float64
+    for the exact integer convolution of the int4/int8 layers). The result
+    is a permuted view: contiguous in NHWC only when cuDNN wrote
+    channels_last."""
     xc = x.permute(0, 3, 1, 2)                     # channels_last NCHW view
     k, s, dl = _pair(w_hwio.shape[:2]), _pair(stride), _pair(dilation)
     xc = _pad_nchw(xc, _padding_cfg(mode, padding, xc, k, s, dl))
@@ -128,14 +133,15 @@ class ConvolutionLayer(BaseLayer):
         if self.has_bias:
             params["b"] = torch.full((self.n_out,), float(self.bias_init),
                                      device=device)
-        return params
+        return params, {}
 
-    def apply(self, params, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
+        x = dropout_input(x, self.dropout, train, rng)
         z = conv2d_nhwc(x, params["W"], self.stride, self.padding,
                         self.convolution_mode, self.dilation)
         if self.has_bias:
             z = z + params["b"]
-        return get_activation(self.activation)(z)
+        return get_activation(self.activation)(z), state
 
 
 @register_layer
@@ -161,7 +167,7 @@ class SubsamplingLayer(Layer):
         w = _conv_out(it.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, it.channels)
 
-    def apply(self, params, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
         k, s = _pair(self.kernel_size), _pair(self.stride)
         pt = self.pooling_type.lower()
         if pt not in ("max", "avg", "pnorm"):
@@ -176,4 +182,109 @@ class SubsamplingLayer(Layer):
             p = float(self.pnorm)
             sums = F.avg_pool2d(_pad_nchw(xc.abs() ** p, pads), k, s) * (k[0] * k[1])
             out = sums ** (1.0 / p)
-        return out.permute(0, 2, 3, 1)
+        return out.permute(0, 2, 3, 1), state
+
+
+# ---------------------------------------------------------------------------
+# Fused Conv→BN→Activation(→residual add) block (the ``perf/fusion.py``
+# rewriter's target). Train-mode BN goes through ``fused_bn_act_train``: a
+# ``torch.autograd.Function`` whose forward is the ``bn_act_fwd`` kernel and
+# whose backward is the ``bn_act_bwd`` kernel. It saves only z (which the
+# conv's weight gradient keeps anyway), gamma, beta, res and the O(C) mean
+# and inv-std, and recomputes x-hat and the pre-activation in the backward
+# (the In-Place Activated BatchNorm recipe, Bulò et al., CVPR 2018).
+
+class _FusedBNAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, act, eps, z, gamma, beta, res):
+        out, mean, var, inv = bn_act.bn_act_fwd(act, eps, z, gamma, beta, res)
+        ctx.act, ctx.eps = act, eps
+        ctx.save_for_backward(z, gamma, beta, res, mean, inv)
+        # (mean, var) only feed the running-stat update: no gradient
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dout, _dmean, _dvar):
+        z, gamma, beta, res, mean, inv = ctx.saved_tensors
+        dz, dgamma, dbeta, dpre = bn_act.bn_act_bwd(ctx.act, ctx.eps, z, gamma,
+                                                    beta, res, mean, inv, dout)
+        dres = None if res is None else dpre.to(res.dtype)
+        return (None, None, dz, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                dres)
+
+
+def fused_bn_act_train(act: str, eps: float, z, gamma, beta, res=None):
+    """Train-mode BN + activation (+ residual add before the activation)
+    over the conv output ``z`` (channels last). Returns ``(out, mean,
+    var)``; mean and var are the batch stats for the running buffers and
+    carry no gradient."""
+    return _FusedBNAct.apply(act, float(eps), z, gamma, beta, res)
+
+
+def _fused_bn_tail(layer, params, state, z, train, res=None):
+    """The BN(+residual)(+activation) tail of a fused block: train mode
+    through :func:`fused_bn_act_train`, eval mode through the running-stat
+    scale/shift as plain tensor code (no kernel)."""
+    gamma, beta = params["gamma"], params["beta"]
+    if train:
+        out, mean, var = fused_bn_act_train(layer.activation, layer.eps,
+                                            z.contiguous(), gamma, beta,
+                                            None if res is None else res.contiguous())
+        return out, running_update(layer.decay, state, mean, var)
+    scale, shift, _ = scale_shift(layer.eps, gamma, beta, state["mean"],
+                                  state["var"])
+    return bn_act.bn_act_apply_plain(layer.activation, z, scale, shift, res), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class FusedConvBNActivation(BaseLayer):
+    """Conv → train-mode BatchNorm → activation (optionally + a residual
+    add before the activation) as one layer. Produced by ``perf.fusion.fuse``
+    from ConvolutionLayer → BatchNormalization → ActivationLayer
+    (→ ElementWiseVertex add) chains. ``residual=True`` (ComputationGraph
+    only) takes the add's other operand as a second vertex input. Params are
+    the conv's (W[, b]) plus the BN's (gamma, beta); the BN running stats
+    are the layer state."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    kernel_size: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "truncate"
+    dilation: Tuple[int, int] = (1, 1)
+    has_bias: bool = False
+    activation: str = "relu"
+    # BatchNormalization fields (gamma/beta are the INIT values)
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+    residual: bool = False
+
+    def input_kind(self):
+        return "cnn"
+
+    def output_type(self, it: InputType) -> InputType:
+        return ConvolutionLayer.output_type(self, it)
+
+    def with_n_in(self, n_in):
+        return self  # n_in is channels, set from the input type in init
+
+    def init(self, gen, it: InputType, device):
+        params, _ = ConvolutionLayer.init(self, gen, it, device)
+        params["gamma"] = torch.full((self.n_out,), float(self.gamma), device=device)
+        params["beta"] = torch.full((self.n_out,), float(self.beta), device=device)
+        state = {"mean": torch.zeros((self.n_out,), device=device),
+                 "var": torch.ones((self.n_out,), device=device)}
+        return params, state
+
+    def apply(self, params, state, x, *, train=False, rng=None, res=None):
+        x = dropout_input(x, self.dropout, train, rng)
+        z = conv2d_nhwc(x, params["W"], self.stride, self.padding,
+                        self.convolution_mode, self.dilation)
+        if self.has_bias:
+            z = z + params["b"]
+        return _fused_bn_tail(self, params, state, z, train, res)

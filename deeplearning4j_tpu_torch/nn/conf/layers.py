@@ -3,16 +3,22 @@
 
 Each config is a frozen dataclass with the JAX package's field names, so the
 configuration JSON is read and written under the same schema. Beside the
-config, each layer carries two plain functions on tensors:
+config, each layer carries two plain functions on tensors, with the JAX
+package's signatures:
 
-- ``init(gen, input_type, device) -> params``: a dict of tensors drawn from
-  an explicit ``torch.Generator``, in the JAX package's layouts
-  (``(n_in, n_out)`` dense weights);
-- ``apply(params, x) -> x``: the inference forward.
+- ``init(gen, input_type, device) -> (params, state)``: ``params`` is a dict
+  of trainable tensors drawn from an explicit ``torch.Generator``, in the
+  JAX package's layouts (``(n_in, n_out)`` dense weights); ``state`` a dict
+  of non-trainable buffers (batch-norm running stats);
+- ``apply(params, state, x, *, train=False, rng=None) -> (out, new_state)``:
+  the forward. ``rng`` is a ``torch.Generator`` for dropout. Gradients come
+  from autograd.
 
-This slice serves; it does not train. Dropout is inert at inference, the
-loss is carried as a config field only, and per-layer ``updater`` entries
-are kept as the JSON dicts the JAX package writes, verbatim.
+Dropout follows DL4J 0.9: ``dropout`` is the *retain* probability applied
+to the layer's input when training (0 disables). The training knobs
+``remat``, ``constraints`` and ``weight_noise`` are carried so the JSON
+round-trips; a layer that sets one raises ``NotImplementedError`` when it
+trains (:func:`apply_layer`).
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import lossfunctions
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.initializers import Distribution, init_weights
+from deeplearning4j_tpu_torch.optimize.updaters import Updater
 
 LAYER_REGISTRY = {}
 
@@ -62,20 +70,68 @@ def layer_from_dict(d: dict):
     for k, v in d.items():
         if k not in names:
             continue
-        if k == "dist" and isinstance(v, dict):
+        if k == "updater" and isinstance(v, dict):
+            v = Updater.from_dict(v)
+        elif k == "dist" and isinstance(v, dict):
             v = Distribution.from_dict(v)
         elif _names_layer(v):  # nested layer
             v = layer_from_dict(v)
         elif isinstance(v, list):  # JSON has no tuples
             v = tuple(layer_from_dict(e) if _names_layer(e) else e
                       for e in v)
-        # any other dict (updater, constraints, weight noise) stays verbatim
+        # any other dict (constraints, weight noise) stays verbatim
         kwargs[k] = v
     return cls(**kwargs)
 
 
 def _names_layer(v) -> bool:
     return isinstance(v, dict) and v.get("@class") in LAYER_REGISTRY
+
+
+def regularization_coefficients(layer):
+    """(l1, l2, l1_bias, l2_bias) for a layer; wrapper layers (those with a
+    nested ``layer`` field) fall back to the inner layer's coefficients when
+    their own are all zero."""
+    vals = (getattr(layer, "l1", 0.0) or 0.0, getattr(layer, "l2", 0.0) or 0.0,
+            getattr(layer, "l1_bias", 0.0) or 0.0,
+            getattr(layer, "l2_bias", 0.0) or 0.0)
+    inner = getattr(layer, "layer", None)
+    if inner is not None and not any(vals):
+        return regularization_coefficients(inner)
+    return vals
+
+
+def dropout_input(x, dropout, train: bool, rng: Optional[torch.Generator]):
+    """Inverted dropout on a layer's input; ``dropout`` is the retain
+    probability. The keep mask is drawn from ``rng`` (a generator on x's
+    device). Only the plain retain-probability form is ported; the JAX
+    package's IDropout objects are not."""
+    if not dropout:  # None / 0.0: disabled
+        return x
+    if not isinstance(dropout, (int, float)):
+        raise NotImplementedError(
+            f"dropout {dropout!r}: only a retain probability is ported")
+    p = float(dropout)
+    if not train or rng is None or p >= 1.0 or p <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) < p
+    return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype,
+                                                device=x.device)).to(x.dtype)
+
+
+def apply_layer(layer, params, state, x, *, train, rng, extra=None):
+    """The networks' single entry into ``layer.apply``. ``extra`` carries
+    additional inputs (the fused residual-add operand). Rematerialization,
+    constraints and weight noise are not ported: a layer that sets one
+    raises when it trains."""
+    if train:
+        for knob in ("remat", "constraints", "weight_noise"):
+            if getattr(layer, knob, None):
+                raise NotImplementedError(
+                    f"{type(layer).__name__} '{layer.name}' sets {knob}=; "
+                    f"training with {knob} is not in the PyTorch port yet")
+    return layer.apply(params, state, x, train=train, rng=rng,
+                       **(extra or {}))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,17 +141,24 @@ class Layer:
     name: Optional[str] = None
     dropout: float = 0.0
     # training-time rematerialization knob of the JAX package; carried so
-    # the JSON round-trips, inert at inference
+    # the JSON round-trips, refused in training (apply_layer)
     remat: Optional[str] = None
 
     def output_type(self, input_type: InputType) -> InputType:
         return input_type
 
-    def init(self, gen: torch.Generator, input_type: InputType, device) -> dict:
-        return {}
+    def init(self, gen: torch.Generator, input_type: InputType, device):
+        return {}, {}
 
-    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def apply(self, params, state, x, *, train=False, rng=None):
         raise NotImplementedError
+
+    # which param keys get l1/l2 (weights only)
+    def regularizable(self) -> Tuple[str, ...]:
+        return ()
+
+    def is_output_layer(self) -> bool:
+        return False
 
     def input_kind(self) -> str:
         """Preferred input family for automatic preprocessor insertion:
@@ -114,9 +177,10 @@ class Layer:
 
 @dataclasses.dataclass(frozen=True)
 class BaseLayer(Layer):
-    """Layers with weights (reference nn/conf/layers/BaseLayer.java).
-    ``updater``, ``constraints`` and ``weight_noise`` are training fields,
-    kept verbatim as the JSON values the JAX package writes."""
+    """Layers with weights (reference nn/conf/layers/BaseLayer.java): carry
+    activation, weight init, regularization and per-layer updater override.
+    ``constraints`` and ``weight_noise`` are kept verbatim as the JSON
+    values the JAX package writes."""
 
     activation: str = "identity"
     weight_init: str = "xavier"
@@ -126,11 +190,14 @@ class BaseLayer(Layer):
     l2: float = 0.0
     l1_bias: float = 0.0
     l2_bias: float = 0.0
-    updater: Optional[dict] = None
+    updater: Optional[Updater] = None
     gradient_normalization: Optional[str] = None
     gradient_normalization_threshold: float = 1.0
     constraints: Optional[tuple] = None
     weight_noise: Optional[object] = None
+
+    def regularizable(self):
+        return ("W",)
 
 
 def _dense_init(layer, gen, input_type, device) -> dict:
@@ -161,22 +228,44 @@ class DenseLayer(BaseLayer):
         return InputType.feed_forward(self.n_out)
 
     def init(self, gen, input_type, device):
-        return _dense_init(self, gen, input_type, device)
+        return _dense_init(self, gen, input_type, device), {}
 
-    def apply(self, params, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
+        x = dropout_input(x, self.dropout, train, rng)
         z = x @ params["W"]
         if self.has_bias:
             z = z + params["b"]
-        return get_activation(self.activation)(z)
+        return get_activation(self.activation)(z), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """Pure activation (reference nn/conf/layers/ActivationLayer.java).
+    ``activation_param`` feeds parameterized activations (LeakyReLU alpha,
+    ELU alpha, ThresholdedReLU theta)."""
+
+    activation: str = "relu"
+    activation_param: Optional[float] = None
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        fn = get_activation(self.activation)
+        if self.activation_param is not None:
+            return fn(x, self.activation_param), state
+        return fn(x), state
 
 
 @dataclasses.dataclass(frozen=True)
 class BaseOutputLayer(BaseLayer):
-    """Loss-bearing layers. ``pre_output`` returns the pre-activation z,
-    ``output_activations`` the network's predictions."""
+    """Loss-bearing layers. ``pre_output`` returns the pre-activation z used
+    by the numerically stable fused loss, ``output_activations`` the
+    network's predictions, ``compute_score`` the mask-aware mean loss."""
 
     loss: str = "mcxent"
     loss_weights: Optional[Tuple[float, ...]] = None
+
+    def is_output_layer(self):
+        return True
 
     def pre_output(self, params, x):
         z = x @ params["W"]
@@ -187,8 +276,18 @@ class BaseOutputLayer(BaseLayer):
     def output_activations(self, preout):
         return get_activation(self.activation)(preout)
 
-    def apply(self, params, x):
-        return self.output_activations(self.pre_output(params, x))
+    def compute_score(self, labels, preout, mask=None):
+        return lossfunctions.score(self.loss, labels, preout, self.activation,
+                                   mask, self.loss_weights)
+
+    def compute_score_array(self, labels, preout, mask=None):
+        return lossfunctions.score_array(self.loss, labels, preout,
+                                         self.activation, mask,
+                                         self.loss_weights)
+
+    def apply(self, params, state, x, *, train=False, rng=None):
+        x = dropout_input(x, self.dropout, train, rng)
+        return self.output_activations(self.pre_output(params, x)), state
 
 
 @register_layer
@@ -208,4 +307,4 @@ class OutputLayer(BaseOutputLayer):
         return InputType.feed_forward(self.n_out)
 
     def init(self, gen, input_type, device):
-        return _dense_init(self, gen, input_type, device)
+        return _dense_init(self, gen, input_type, device), {}

@@ -3,9 +3,9 @@
 
 ``MultiLayerConfiguration.to_json``/``from_json`` use the JAX package's
 schema key for key, so the port reads the JSON the JAX package writes and
-writes JSON the JAX package reads. Updaters are training-side: the port
-keeps each ``updater`` entry as the dict it finds in the JSON (the JAX
-package's ``Updater.to_dict()`` form), verbatim.
+writes JSON the JAX package reads. Updaters are the port's own
+``optimize.updaters`` objects, written and read in the JAX package's
+``Updater.to_dict()`` form.
 
 Builder defaults work as in the JAX package: a layer field still equal to
 its dataclass default is "unset" and inherits the builder's value.
@@ -21,20 +21,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     infer_preprocessor, preprocessor_from_dict, preprocessor_to_dict)
-
-
-def sgd(learning_rate: float = 0.1) -> dict:
-    """The JAX package's ``Sgd(learning_rate).to_dict()``: the default
-    updater entry of a configuration."""
-    return {"learning_rate": learning_rate, "lr_decay_rate": 0.0,
-            "lr_policy_steps": 1.0, "lr_policy_power": 2.0, "@class": "Sgd"}
-
-
-def nesterovs(learning_rate: float = 0.1, momentum: float = 0.9) -> dict:
-    """The JAX package's ``Nesterovs(learning_rate, momentum).to_dict()``."""
-    return {"learning_rate": learning_rate, "lr_decay_rate": 0.0,
-            "lr_policy_steps": 1.0, "lr_policy_power": 2.0,
-            "momentum": momentum, "@class": "Nesterovs"}
+from deeplearning4j_tpu_torch.optimize.updaters import Sgd, Updater
 
 
 def _apply_layer_defaults(layer: Layer, defaults: dict) -> Layer:
@@ -58,7 +45,7 @@ class MultiLayerConfiguration:
     input_type: Optional[InputType] = None
     seed: int = 12345
     dtype: str = "float32"
-    updater: dict = dataclasses.field(default_factory=sgd)
+    updater: Updater = Sgd(learning_rate=0.1)
     optimization_algo: str = "stochastic_gradient_descent"
     backprop_type: str = "standard"  # "standard" | "tbptt"
     tbptt_fwd_length: int = 20
@@ -100,13 +87,19 @@ class MultiLayerConfiguration:
         return {i: pre for i, (_, pre, _) in enumerate(self._walk())
                 if pre is not None}
 
+    def fused(self) -> "MultiLayerConfiguration":
+        """Conv→BN→Act fusion rewrite of this configuration
+        (``perf/fusion.py``)."""
+        from deeplearning4j_tpu_torch.perf.fusion import fuse
+        return fuse(self)
+
     # ---- serde: the JAX package's schema ----
     def to_json(self) -> str:
         d = {
             "layers": [l.to_dict() for l in self.layers],
             "seed": self.seed,
             "dtype": self.dtype,
-            "updater": self.updater,
+            "updater": self.updater.to_dict(),
             "optimization_algo": self.optimization_algo,
             "backprop_type": self.backprop_type,
             "tbptt_fwd_length": self.tbptt_fwd_length,
@@ -131,7 +124,7 @@ class MultiLayerConfiguration:
             input_type=InputType.from_dict(d["input_type"]) if "input_type" in d else None,
             seed=d.get("seed", 12345),
             dtype=d.get("dtype", "float32"),
-            updater=d["updater"],
+            updater=Updater.from_dict(d["updater"]),
             optimization_algo=d.get("optimization_algo",
                                     "stochastic_gradient_descent"),
             backprop_type=d.get("backprop_type", "standard"),
@@ -154,7 +147,7 @@ class Builder:
         self._defaults: dict = {}
         self._seed = 12345
         self._dtype = "float32"
-        self._updater: dict = sgd()
+        self._updater: Updater = Sgd(learning_rate=0.1)
 
     def seed(self, s: int) -> "Builder":
         self._seed = int(s)
@@ -164,9 +157,11 @@ class Builder:
         self._dtype = dt
         return self
 
-    def updater(self, u: dict) -> "Builder":
-        """``u`` is an updater entry in the JAX package's dict form
-        (``sgd(...)``, ``nesterovs(...)``)."""
+    def updater(self, u: Updater) -> "Builder":
+        """``u`` is an ``optimize.updaters`` object (``Adam(1e-3)``)."""
+        if not isinstance(u, Updater):
+            raise TypeError(f"updater(...) takes an Updater object; got "
+                            f"{type(u).__name__}")
         self._updater = u
         self._defaults["updater"] = u
         return self

@@ -4,7 +4,9 @@ inference branch of ``_forward``, ``output``, ``predict``, ``feed_forward``).
 
 Parameters are a list of per-layer dicts of tensors in the JAX package's
 layouts, so ``interop.params_from_jax`` can hand over a JAX network's
-weights leaf for leaf. PyTorch runs eagerly: there is no compiled program
+weights leaf for leaf; ``state`` is the list of per-layer buffer dicts
+(batch-norm running stats). Training a ``MultiLayerNetwork`` is not in the
+port yet: ``ComputationGraph`` trains. PyTorch runs eagerly: there is no compiled program
 per shape, and ``output`` returns a tensor on the network's device without
 waiting for it.
 """
@@ -36,6 +38,7 @@ class MultiLayerNetwork:
         if not self.layers:
             raise ValueError("Empty layer list")
         self.params: Optional[List[dict]] = None
+        self.state: List[dict] = [{} for _ in self.layers]
 
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one ``torch.Generator`` on the
@@ -43,15 +46,18 @@ class MultiLayerNetwork:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.conf.seed if seed is None else int(seed))
         types = self.conf.layer_input_types()
-        self.params = [layer.init(gen, it, self.device)
-                       for layer, it in zip(self.layers, types)]
+        ps = [layer.init(gen, it, self.device)
+              for layer, it in zip(self.layers, types)]
+        self.params = [p for p, _ in ps]
+        self.state = [s for _, s in ps]
         return self
 
     def to(self, device) -> "MultiLayerNetwork":
         """A new network on ``device`` with copies of these parameters."""
         out = MultiLayerNetwork(self.conf, device)
-        out.params = [{k: v.to(out.device, copy=True) for k, v in p.items()}
-                      for p in self.params]
+        out.params, out.state = ([{k: v.to(out.device, copy=True)
+                                   for k, v in p.items()} for p in tree]
+                                 for tree in (self.params, self.state))
         return out
 
     def _as_input(self, x) -> torch.Tensor:
@@ -63,7 +69,7 @@ class MultiLayerNetwork:
         for i, layer in enumerate(self.layers):
             if i in self._pre:
                 x = self._pre[i].apply(x)
-            x = layer.apply(self.params[i], x)
+            x, _ = layer.apply(self.params[i], self.state[i], x)
             acts.append(x)
         return acts
 

@@ -1,0 +1,300 @@
+"""Updaters and learning-rate schedules (counterpart of
+``deeplearning4j_tpu/optimize/updaters.py``).
+
+The JAX package lowers each updater to an optax transformation. Here the
+same algebra is written out as plain tensor code, per parameter tensor, so
+that each step is optax's by construction:
+
+- ``Sgd``: ``u = -lr * g``.
+- ``Nesterovs``: ``t = g + m*t``; ``u = -lr * (g + m*t)`` (optax ``trace``,
+  nesterov).
+- ``Adam``: ``mu = (1-b1) g + b1 mu``, ``nu = (1-b2) g² + b2 nu``; bias
+  correction by the step count ``k``: ``m̂ = mu / (1 - b1^k)``,
+  ``v̂ = nu / (1 - b2^k)``; ``u = -lr * m̂ / (√v̂ + ε)``, ε outside the root.
+- ``Nadam``: Adam with ``m̂ = b1 * mu/(1-b1^(k+1)) + (1-b1) * g/(1-b1^k)``.
+- ``AdaMax``: ``nu = max(|g| + ε, b2 nu)``; ``u = -lr * m̂ / nu``.
+- ``AdaGrad``: ``s = g² + s`` (s starts at 0.1);
+  ``u = -lr * rsqrt(s + ε) * g`` where ``s > 0``.
+- ``RmsProp``: ``nu = (1-d) g² + d nu``; ``u = -lr * rsqrt(nu + ε) * g``.
+- ``AdaDelta``: ``eg = (1-ρ) g² + ρ eg``;
+  ``d = √(ex + ε) / √(eg + ε) * g``; ``ex = (1-ρ) d² + ρ ex``; ``u = -d``.
+- ``NoOp``: ``u = 0``.
+
+The learning rate of step ``k`` (0 for the first update) is
+``_schedule(...)(k)``. State is a dict per layer: ``{"count": int, <slot>:
+{param key: tensor}}``. Bias corrections are computed in float32, as optax
+computes ``1 - decay**count``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+_UPDATER_REGISTRY = {}
+
+
+def register_updater(cls):
+    _UPDATER_REGISTRY[cls.__name__.lower()] = cls
+    return cls
+
+
+def _schedule(base_lr, policy, decay_rate, steps, power, schedule_map):
+    """A DL4J learning-rate decay policy as a function of the step count.
+    Policies: none|exponential|inverse|poly|sigmoid|step|schedule."""
+    p = (policy or "none").lower()
+    if p == "none":
+        return lambda step: base_lr
+    if p == "exponential":
+        return lambda step: base_lr * decay_rate ** step
+    if p == "inverse":
+        return lambda step: base_lr / (1.0 + decay_rate * step) ** power
+    if p == "poly":
+        return lambda step: base_lr * (1.0 - min(step / float(steps), 1.0)) ** power
+    if p == "sigmoid":
+        return lambda step: base_lr / (1.0 + math.exp(decay_rate * (step - steps)))
+    if p == "step":
+        return lambda step: base_lr * decay_rate ** math.floor(step / float(steps))
+    if p == "schedule":
+        if not schedule_map:
+            return lambda step: base_lr
+        bounds = sorted(int(k) for k in schedule_map)
+        rates = [float(schedule_map[k] if k in schedule_map else schedule_map[str(k)])
+                 for k in bounds]
+
+        def sched(step):
+            lr = base_lr
+            for b, r in zip(bounds, rates):
+                if step >= b:
+                    lr = r
+            return lr
+
+        return sched
+    raise ValueError(f"Unknown lr policy '{policy}'")
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in float32, on the host (a device scalar would
+    cost a host-to-device copy per tensor per step)."""
+    return float(np.float32(1) - np.float32(decay) ** count)
+
+
+@dataclasses.dataclass(frozen=True)
+class Updater:
+    """Base updater config: ``learning_rate`` plus an optional decay policy.
+    Subclasses name their per-tensor state slots in ``_slots`` and write
+    the direction of one step in ``_direction``."""
+
+    learning_rate: float = 1e-3
+    lr_policy: Optional[str] = None
+    lr_decay_rate: float = 0.0
+    lr_policy_steps: float = 1.0
+    lr_policy_power: float = 2.0
+    lr_schedule: Optional[dict] = None
+
+    _slots = ()
+
+    def lr(self, step: int) -> float:
+        return _schedule(self.learning_rate, self.lr_policy, self.lr_decay_rate,
+                         self.lr_policy_steps, self.lr_policy_power,
+                         self.lr_schedule)(step)
+
+    def _slot_init(self, slot: str, p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(p)
+
+    def init_state(self, params: dict) -> dict:
+        state = {"count": 0}
+        for slot in self._slots:
+            state[slot] = {k: self._slot_init(slot, p) for k, p in params.items()}
+        return state
+
+    def _direction(self, g, slots: dict, count: int):
+        """The step before the learning rate (optax's pre-scale update) and
+        the new slot values for one tensor."""
+        return g, slots
+
+    def update(self, grads: dict, state: dict):
+        """One step: ``(updates, new_state)``; apply as ``p + u``."""
+        count = state["count"]
+        lr = self.lr(count)
+        updates, new_state = {}, {"count": count + 1}
+        for slot in self._slots:
+            new_state[slot] = {}
+        for k, g in grads.items():
+            d, slots = self._direction(
+                g, {s: state[s][k] for s in self._slots}, count + 1)
+            updates[k] = d * (-lr)
+            for s in self._slots:
+                new_state[s][k] = slots[s]
+        return updates, new_state
+
+    def to_dict(self):
+        d = {k: v for k, v in dataclasses.asdict(self).items() if v is not None}
+        d["@class"] = type(self).__name__
+        return d
+
+    @staticmethod
+    def from_dict(d):
+        d = dict(d)
+        cls = _UPDATER_REGISTRY[d.pop("@class").lower()]
+        return cls(**d)
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class Sgd(Updater):
+    pass
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class Nesterovs(Updater):
+    learning_rate: float = 0.1
+    momentum: float = 0.9
+    momentum_schedule: Optional[dict] = None
+
+    _slots = ("trace",)
+
+    def _direction(self, g, slots, count):
+        t = g + self.momentum * slots["trace"]
+        return g + self.momentum * t, {"trace": t}
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class Adam(Updater):
+    learning_rate: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+
+    _slots = ("mu", "nu")
+
+    def _moments(self, g, slots):
+        mu = (1 - self.beta1) * g + self.beta1 * slots["mu"]
+        nu = (1 - self.beta2) * (g * g) + self.beta2 * slots["nu"]
+        return mu, nu
+
+    def _mu_hat(self, g, mu, count):
+        return mu / _bias_correction(self.beta1, count)
+
+    def _direction(self, g, slots, count):
+        mu, nu = self._moments(g, slots)
+        nu_hat = nu / _bias_correction(self.beta2, count)
+        d = self._mu_hat(g, mu, count) / (torch.sqrt(nu_hat) + self.epsilon)
+        return d, {"mu": mu, "nu": nu}
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class AdaMax(Adam):
+    def _direction(self, g, slots, count):
+        mu = (1 - self.beta1) * g + self.beta1 * slots["mu"]
+        nu = torch.maximum(torch.abs(g) + self.epsilon, self.beta2 * slots["nu"])
+        return self._mu_hat(g, mu, count) / nu, {"mu": mu, "nu": nu}
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class Nadam(Adam):
+    def _mu_hat(self, g, mu, count):
+        return (self.beta1 * (mu / _bias_correction(self.beta1, count + 1))
+                + (1 - self.beta1) * (g / _bias_correction(self.beta1, count)))
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class AdaGrad(Updater):
+    learning_rate: float = 0.1
+    epsilon: float = 1e-6
+
+    _slots = ("sum_of_squares",)
+
+    def _slot_init(self, slot, p):
+        return torch.full_like(p, 0.1)  # optax's initial_accumulator_value
+
+    def _direction(self, g, slots, count):
+        s = g * g + slots["sum_of_squares"]
+        inv = torch.where(s > 0, torch.rsqrt(s + self.epsilon),
+                          torch.zeros((), dtype=s.dtype, device=s.device))
+        return inv * g, {"sum_of_squares": s}
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class RmsProp(Updater):
+    learning_rate: float = 0.1
+    rms_decay: float = 0.95
+    epsilon: float = 1e-8
+
+    _slots = ("nu",)
+
+    def _direction(self, g, slots, count):
+        nu = (1 - self.rms_decay) * (g * g) + self.rms_decay * slots["nu"]
+        return torch.rsqrt(nu + self.epsilon) * g, {"nu": nu}
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class AdaDelta(Updater):
+    rho: float = 0.95
+    epsilon: float = 1e-6
+
+    _slots = ("e_g", "e_x")
+
+    def lr(self, step):
+        # DL4J's AdaDelta applies the raw delta as a descent step
+        return 1.0
+
+    def _direction(self, g, slots, count):
+        e_g = (1 - self.rho) * (g * g) + self.rho * slots["e_g"]
+        d = torch.sqrt(slots["e_x"] + self.epsilon) / torch.sqrt(e_g + self.epsilon) * g
+        e_x = (1 - self.rho) * (d * d) + self.rho * slots["e_x"]
+        return d, {"e_g": e_g, "e_x": e_x}
+
+
+@register_updater
+@dataclasses.dataclass(frozen=True)
+class NoOp(Updater):
+    """Frozen params."""
+
+    def _direction(self, g, slots, count):
+        return torch.zeros_like(g), slots
+
+
+def gradient_normalization(kind: Optional[str], threshold: float = 1.0):
+    """Per-layer gradient normalization (reference GradientNormalization
+    enum). Returns a function ``grads dict -> grads dict`` for one layer."""
+    if not kind or str(kind).lower() == "none":
+        return lambda g: g
+    k = str(kind).lower()
+
+    def l2(g):
+        return torch.sqrt(sum(torch.sum(x * x) for x in g.values()) + 1e-12)
+
+    if k == "renormalizel2perlayer":
+        def f(g):
+            n = l2(g)
+            return {key: x / n for key, x in g.items()}
+        return f
+    if k == "renormalizel2perparamtype":
+        return lambda g: {key: x / torch.sqrt(torch.sum(x * x) + 1e-12)
+                          for key, x in g.items()}
+    if k == "clipelementwiseabsolutevalue":
+        return lambda g: {key: x.clamp(-threshold, threshold)
+                          for key, x in g.items()}
+    if k == "clipl2perlayer":
+        def f(g):
+            scale = torch.clamp_max(threshold / l2(g), 1.0)
+            return {key: x * scale for key, x in g.items()}
+        return f
+    if k == "clipl2perparamtype":
+        return lambda g: {
+            key: x * torch.clamp_max(threshold / torch.sqrt(torch.sum(x * x) + 1e-12),
+                                     1.0)
+            for key, x in g.items()}
+    raise ValueError(f"Unknown gradient normalization '{kind}'")

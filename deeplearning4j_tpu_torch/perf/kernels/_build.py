@@ -3,9 +3,10 @@
 Each kernel is one source ``csrc/<name>.cu`` with a plain C entry point.
 On first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``deeplearning4j_tpu_torch/build/`` and loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is never served by a stale build. Nothing but the
-sources in ``csrc/`` goes into a build. A missing ``nvcc`` or a failed build
+``ctypes``. The library's file name carries a hash of the source, of the
+shared headers ``csrc/*.cuh`` and of the flags, so an edited source is never
+served by a stale build. Nothing but the sources in ``csrc/`` goes into a
+build. A missing ``nvcc`` or a failed build
 raises; there is no fallback.
 
 :func:`build` starts one ``nvcc`` per source, all together, and waits for
@@ -48,6 +49,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 

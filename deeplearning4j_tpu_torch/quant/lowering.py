@@ -153,7 +153,7 @@ class QuantizedDenseLayer(Layer):
         n_in = self.n_in or input_type.flat_size()
         wq_shape = ((self.n_out, packed_width(n_in))
                     if self.weight_bits == 4 else (n_in, self.n_out))
-        return _qparams(wq_shape, self.n_out, self.has_bias, device)
+        return _qparams(wq_shape, self.n_out, self.has_bias, device), {}
 
     def pre_output(self, params, x):
         xq = quantize_activation(x, self.act_scale)
@@ -163,8 +163,8 @@ class QuantizedDenseLayer(Layer):
             acc = _int_matmul(xq, params["Wq"])
         return _finish(self, params, acc)
 
-    def apply(self, params, x):
-        return get_activation(self.activation)(self.pre_output(params, x))
+    def apply(self, params, state, x, *, train=False, rng=None):
+        return get_activation(self.activation)(self.pre_output(params, x)), state
 
 
 @register_layer
@@ -222,9 +222,9 @@ class QuantizedConvolutionLayer(Layer):
         c_in = self.n_in or it.channels
         wq_shape = ((self.n_out, packed_width(kh * kw * c_in))
                     if self.weight_bits == 4 else (kh, kw, c_in, self.n_out))
-        return _qparams(wq_shape, self.n_out, self.has_bias, device)
+        return _qparams(wq_shape, self.n_out, self.has_bias, device), {}
 
-    def apply(self, params, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
         xq = quantize_activation(x, self.act_scale)
         if self.weight_bits == 4:
             w = _conv_weight_int8(params["Wq"], _pair(self.kernel_size),
@@ -234,7 +234,7 @@ class QuantizedConvolutionLayer(Layer):
         acc = conv2d_nhwc(xq.to(torch.float64), w.to(torch.float64),
                           self.stride, self.padding, self.convolution_mode,
                           self.dilation).to(torch.int32)
-        return get_activation(self.activation)(_finish(self, params, acc))
+        return get_activation(self.activation)(_finish(self, params, acc)), state
 
 
 @register_layer
@@ -271,9 +271,9 @@ class QuantizedConvolution1DLayer(Layer):
         wq_shape = ((self.n_out, packed_width(self.kernel_size * c_in))
                     if self.weight_bits == 4
                     else (self.kernel_size, c_in, self.n_out))
-        return _qparams(wq_shape, self.n_out, self.has_bias, device)
+        return _qparams(wq_shape, self.n_out, self.has_bias, device), {}
 
-    def apply(self, params, x):
+    def apply(self, params, state, x, *, train=False, rng=None):
         xq = quantize_activation(x, self.act_scale)
         if self.weight_bits == 4:
             w = _conv_weight_int8(params["Wq"], (self.kernel_size,),
@@ -290,7 +290,7 @@ class QuantizedConvolution1DLayer(Layer):
         acc = F.conv1d(xc, w.to(torch.float64).permute(2, 1, 0),
                        stride=self.stride, dilation=self.dilation)
         acc = acc.permute(0, 2, 1).to(torch.int32)
-        return get_activation(self.activation)(_finish(self, params, acc))
+        return get_activation(self.activation)(_finish(self, params, acc)), state
 
 
 _QUANTIZED_TYPES = (QuantizedDenseLayer, QuantizedConvolutionLayer,
@@ -374,7 +374,7 @@ def quantize(net, calibration, fold: bool = True, weight_bits: int = 8):
             "calibration record does not match this network's quantizable "
             f"layers (record: {list(calibration.signature)}; network: "
             f"{list(sig)}) — calibrate the same graph you quantize")
-    new_layers, new_params = [], []
+    new_layers, new_params, new_state = [], [], []
     for i, l in enumerate(net.conf.layers):
         kind = quantizable_kind(l)
         key = f"layer{i}"
@@ -382,16 +382,20 @@ def quantize(net, calibration, fold: bool = True, weight_bits: int = 8):
             new_layers.append(l)
             new_params.append({k: v.detach().clone()
                                for k, v in net.params[i].items()})
+            new_state.append({k: v.detach().clone()
+                              for k, v in net.state[i].items()})
             continue
         ql, qp = _lower_layer(net.layers[i], kind, net.params[i],
                               calibration.scale(key), int(weight_bits),
                               net.device)
         new_layers.append(ql)
         new_params.append(qp)
+        new_state.append({})
     conf = dataclasses.replace(net.conf, layers=tuple(new_layers),
                                dtype="float32")
     out = MultiLayerNetwork(conf, net.device)
     out.params = new_params
+    out.state = new_state
     out._quant_calibration = calibration
     return out
 

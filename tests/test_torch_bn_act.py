@@ -1,0 +1,207 @@
+"""bn_act_fwd / bn_act_bwd of the PyTorch port against the JAX package.
+
+On the CPU the port's wrappers take their plain versions; the JAX side runs
+``_bn_act_fwd_math`` / ``_fused_bn_act_bwd`` through both arms, its jnp
+reference (``perf.pallas.override(enabled=False)``) and its Pallas kernels
+in interpret mode (``enabled=True``), as tests/test_zz_pallas.py does.
+Inputs come from numpy with fixed seeds. A few channels hold symmetric
+small integers with beta = 0, so their mean is exactly 0 and the
+pre-activation is exactly 0 wherever z is: the activations' derivatives at
+the kink are taken there (relu' = 0, leakyrelu' = 1, as in JAX).
+
+Tolerances: float32 rtol 1e-5 / atol 1e-6 (the two frameworks sum the
+batch statistics in other orders); bfloat16 rtol 1e-2 / atol 1e-2 (XLA on
+the CPU may keep excess precision between the bf16 multiply and add of the
+normalisation, where PyTorch rounds each step to bf16: one bf16 ulp is
+2**-8 relative). The kernels themselves run only on a CUDA card: those
+tests carry the ``cuda`` marker and skip here.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.nn.conf import convolutional as jconv
+from deeplearning4j_tpu.perf import pallas as pk
+
+from deeplearning4j_tpu_torch.nn.conf.convolutional import fused_bn_act_train
+from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+EPS = 1e-5
+KINK_CHANNELS = 3
+TOL = {"float32": dict(rtol=1e-5, atol=1e-6), "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+# dgamma/dbeta sum up to 200 terms of order 1 with cancellation: float32
+# sums in other orders differ by a few 1e-6 absolute
+SUM_TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": TOL["bfloat16"]}
+
+
+def _operands(n, c, dtype, with_res, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((n, c)).astype(np.float32) * 2.0 + 0.5
+    half = rng.integers(-2, 3, (n // 2, KINK_CHANNELS)).astype(np.float32)
+    half[:3] = 0.0
+    z[:2 * (n // 2), :KINK_CHANNELS] = np.concatenate([half, -half])
+    z[2 * (n // 2):, :KINK_CHANNELS] = 0.0
+    gamma = rng.standard_normal(c).astype(np.float32)
+    beta = rng.standard_normal(c).astype(np.float32)
+    beta[:KINK_CHANNELS] = 0.0
+    res = None
+    if with_res:
+        res = rng.standard_normal((n, c)).astype(np.float32)
+        res[:, :KINK_CHANNELS] = np.where(z[:, :KINK_CHANNELS] == 0, 0.0,
+                                          res[:, :KINK_CHANNELS])
+    dout = rng.standard_normal((n, c)).astype(np.float32)
+    return z, gamma, beta, res, dout
+
+
+def _jax(x, dtype):
+    return None if x is None else jnp.asarray(x).astype(dtype)
+
+
+def _torch(x, dtype):
+    return None if x is None else torch.from_numpy(x).to(dtype)
+
+
+def _close(got, want, dtype, what, tol=TOL):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **tol[dtype], err_msg=what)
+
+
+@pytest.mark.parametrize("shape", [(96, 16), (200, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,with_res", [("relu", True), ("relu", False),
+                                          ("identity", True), ("leakyrelu", False),
+                                          ("leakyrelu", True)])
+def test_plain_matches_jax_both_arms(shape, dtype, act, with_res):
+    n, c = shape
+    z, gamma, beta, res, dout = _operands(n, c, dtype, with_res, seed=n + c)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tz, tg, tb, tr, td = (_torch(a, tdt) for a in (z, gamma, beta, res, dout))
+    out, mean, var, inv = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
+    dz, dgamma, dbeta, dpre = bn_act.bn_act_bwd(act, EPS, tz, tg, tb, tr, mean, inv, td)
+    # the kink: pre is exactly 0 where the symmetric channels hold 0
+    assert bool((mean[:KINK_CHANNELS] == 0).all())
+    assert bool((tz[:, :KINK_CHANNELS] == 0).any())
+    assert mean.dtype == torch.float32 and dgamma.dtype == torch.float32
+    assert out.dtype == tdt and dz.dtype == tdt
+    assert (dpre is None) == (res is None)
+    jz, jg, jb, jr, jd = (_jax(a, jdt) for a in (z, gamma, beta, res, dout))
+    for flag in (False, True):
+        with pk.override(enabled=flag):
+            jout, jmean, jvar, jinv = jconv._bn_act_fwd_math(act, EPS, jz, jg, jb, jr)
+            jdz, jdg, jdb, jdres = jconv._fused_bn_act_bwd(
+                act, EPS, (jz, jg, jb, jr, jmean, jinv), (jd, None, None))
+        arm = f"pallas={flag}"
+        _close(out, jout, dtype, f"out {arm}")
+        for got, want, what in ((mean, jmean, "mean"), (var, jvar, "var"),
+                                (inv, jinv, "inv")):
+            # float32 statistics in both dtypes
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{what} {arm}")
+        _close(dz, jdz, dtype, f"dz {arm}")
+        _close(dgamma.to(tdt), jdg, dtype, f"dgamma {arm}", SUM_TOL)
+        _close(dbeta.to(tdt), jdb, dtype, f"dbeta {arm}", SUM_TOL)
+        if res is not None:
+            _close(dpre, jdres, dtype, f"dres {arm}")
+
+
+def test_kink_derivatives_are_jax_s():
+    """relu has derivative 0 at 0, leakyrelu 1 (the where(x >= 0, ...) form)."""
+    pre = torch.tensor([-1.0, 0.0, -0.0, 2.0])
+    dout = torch.ones(4)
+    assert bn_act._act_vjp("relu", pre, dout).tolist() == [0.0, 0.0, 0.0, 1.0]
+    np.testing.assert_allclose(bn_act._act_vjp("leakyrelu", pre, dout).numpy(),
+                               [0.01, 1.0, 1.0, 1.0], rtol=1e-7)
+
+
+@pytest.mark.parametrize("act", ["relu", "identity", "leakyrelu", "tanh"])
+@pytest.mark.parametrize("with_res", [False, True])
+def test_gradcheck_fused_bn_act_train_float64(act, with_res):
+    rng = np.random.default_rng(3)
+    shape = (2, 3, 4, 5)
+    args = [torch.tensor(rng.standard_normal(shape) * 1.5 + 0.3, requires_grad=True),
+            torch.tensor(rng.standard_normal(5), requires_grad=True),
+            torch.tensor(rng.standard_normal(5), requires_grad=True)]
+    if with_res:
+        args.append(torch.tensor(rng.standard_normal(shape), requires_grad=True))
+
+    def f(z, gamma, beta, res=None):
+        return fused_bn_act_train(act, EPS, z, gamma, beta, res)[0]
+
+    assert torch.autograd.gradcheck(f, tuple(args), eps=1e-6, atol=1e-6)
+
+
+def test_wrappers_check_their_operands():
+    z = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="gamma"):
+        bn_act.bn_act_fwd("relu", EPS, z, torch.ones(2), torch.zeros(3))
+    with pytest.raises(ValueError, match="res"):
+        bn_act.bn_act_fwd("relu", EPS, z, torch.ones(3), torch.zeros(3),
+                          torch.zeros(4, 3, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="dout"):
+        bn_act.bn_act_bwd("relu", EPS, z, torch.ones(3), torch.zeros(3), None,
+                          torch.zeros(3), torch.ones(3), torch.zeros(3, 4))
+
+
+def test_row_blocks_cover_every_row_once():
+    for n, c in [(1, 1), (7, 130), (1001, 130), (25088, 1024), (1605632, 64)]:
+        nrb, rpb = bn_act.row_blocks(n, c)
+        assert nrb * rpb >= n > (nrb - 1) * rpb
+        assert 1 <= nrb <= 132 * 8
+
+
+# ------------------------------------------------------------- on the card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the bn_act kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1001, 130), (4096, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("act,with_res", [("relu", True), ("identity", False),
+                                          ("leakyrelu", True)])
+def test_kernels_match_plain_on_card(cuda_device, shape, dtype, act, with_res):
+    n, c = shape
+    z, gamma, beta, res, dout = _operands(n, c, str(dtype), with_res, seed=7)
+    tz, tg, tb, tr, td = (None if a is None else torch.from_numpy(a).to(cuda_device, dtype)
+                          for a in (z, gamma, beta, res, dout))
+    f0, b0 = bn_act.fwd_launches, bn_act.bwd_launches
+    out, mean, var, inv = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
+    dz, dg, db, dpre = bn_act.bn_act_bwd(act, EPS, tz, tg, tb, tr, mean, inv, td)
+    torch.cuda.synchronize()
+    assert (bn_act.fwd_launches, bn_act.bwd_launches) == (f0 + 1, b0 + 1)
+    pout, pmean, pvar, pinv = bn_act.bn_act_fwd_plain(act, EPS, tz, tg, tb, tr)
+    for got, want in ((mean, pmean), (var, pvar), (inv, pinv)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # at the kernel's own statistics the elementwise phase is the plain math
+    scale = tg.float() * inv
+    shift = tb.float() - mean * scale
+    assert torch.equal(out, bn_act.bn_act_apply_plain(act, tz, scale, shift, tr))
+    pdz, pdg, pdb, pdpre = bn_act.bn_act_bwd_plain(act, EPS, tz, tg, tb, tr, mean,
+                                                   inv, td)
+    if with_res:
+        assert torch.equal(dpre, pdpre)
+    torch.testing.assert_close(dg, pdg, rtol=1e-4, atol=1e-4 * float(pdg.abs().max()))
+    torch.testing.assert_close(db, pdb, rtol=1e-4, atol=1e-4 * float(pdb.abs().max()))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2  # a few ulps of bf16 / f16
+    torch.testing.assert_close(dz.float(), pdz.float(), rtol=tol,
+                               atol=tol * float(pdz.float().abs().max()))
+    # the reductions run in a fixed order: a second run agrees bitwise
+    again = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
+    for a, b in zip((out, mean, var, inv), again):
+        assert torch.equal(a, b)
+    again = bn_act.bn_act_bwd(act, EPS, tz, tg, tb, tr, mean, inv, td)
+    for a, b in zip((dz, dg, db), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_other_activation_raises_on_card(cuda_device):
+    z = torch.zeros(8, 4, device=cuda_device)
+    g, b = torch.ones(4, device=cuda_device), torch.zeros(4, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="tanh"):
+        bn_act.bn_act_fwd("tanh", EPS, z, g, b)
