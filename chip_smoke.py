@@ -45,7 +45,31 @@
    step as 3x the CPU float32 step's own error, or 1e-3 of the tensor's
    largest magnitude (float32 rounding alone moves the early layers'
    gradients by 1-2% at this size).
-7. Prints the kernels JSON line, the card line, and last
+7. Retrieval phase, at the JAX package's full retrieval benchmark size
+   (1,000,000 x 64 vectors from synthetic_corpus, 1024 queries): builds the
+   exact BruteForceIndex, BruteForceIndex(int4=True), PQIndex(M=8,
+   ksub=256, rerank=16) and IVFPQIndex(M=8, ksub=256, rerank=8) on the card.
+   - adc_pq and adc_ivf_pq, bitwise against their plain versions and
+     against themselves, at b = 1, 8, 64, 256 on the built indexes (the IVF
+     kernel on the index's real probe slots, p = 8) and at ragged shapes
+     (the p = 32 one takes the global-LUT path); timed beside the bound,
+     the plain version and F.embedding_bag(mode="sum"), whose max |diff|
+     is printed (its sum order may differ). int4_dot at (256, 1M, 64).
+   - Serving: each of int4, PQ and IVF-PQ behind IndexEndpoint(k_max=128)
+     after warmup(), four client threads of 64 requests (1-8 rows, k of 1,
+     10 or 32). Every answer checked (shape, ids in range, distances
+     finite and ascending); each kernel's launches equal the dispatches,
+     warm-up included. recall@10 on all 1024 queries against the exact
+     index, gated 0.01 under the JAX package's own indexes at this
+     configuration (PQ 0.9427, IVF-PQ 0.6938, measured on the card host's
+     CPU by tests/test_torch_retrieval.py's __main__); int4 printed.
+   - One PQ dispatch at b = 256 broken down (LUT, kernel, top-k, host copy,
+     re-rank).
+   - Card against CPU: each served index saved, loaded with device="cpu"
+     and asked the same 16 queries through the plain versions: distances
+     within rtol 1e-5, ids equal apart from near-ties (distances within
+     rtol 1e-5 of each other).
+8. Prints the kernels JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -91,6 +115,23 @@ BN_OPS_PER_ELT = {"fwd": 8, "bwd": 16}
 TRAIN_BATCH, TRAIN_SIDE, TRAIN_WARM, TRAIN_STEPS = 128, 224, 3, 10
 UNFUSED_WARM, UNFUSED_STEPS = 2, 5
 RESNET50_FUSED_BLOCKS = 53
+# retrieval: the JAX package's full retrieval benchmark (bench.py
+# bench_retrieval, non-QUICK): 1,000,000 x 64 vectors, 5,000 clusters,
+# 1024 queries; PQ M=8 ksub=256 rerank=16, IVF-PQ M=8 ksub=256 rerank=8
+# (1000 cells, nprobe 8)
+RETR_N, RETR_D, RETR_QUERIES = 1_000_000, 64, 1024
+ADC_BATCHES = [1, 8, 64, 256]
+# ragged shapes: flat (b, n, M, ksub), IVF (b, C, p, M, ksub); p = 32 at
+# M = 8, ksub = 256 is a 256 KB LUT, past shared memory: the global-LUT path
+ADC_RAGGED = [(3, 1001, 1, 2), (3, 1001, 3, 17), (3, 1001, 16, 17)]
+IVF_RAGGED = [(3, 1001, 32, 8, 256), (3, 1001, 5, 3, 17), (3, 1001, 2, 16, 2)]
+RETR_CLIENTS, RETR_REQUESTS = 4, 64
+# recall@10 on all 1024 queries: the JAX package's own indexes at this
+# configuration, on the card host's CPU (JAX_PLATFORMS=cpu python
+# tests/test_torch_retrieval.py), and the gates 0.01 under them
+JAX_RECALL = {"pq": 0.94267578125, "ivf_pq": 0.69384765625}
+RECALL_GATES = {name: r - 0.01 for name, r in JAX_RECALL.items()}
+NEAR_TIE_RTOL = 1e-5
 
 
 def card_line() -> str:
@@ -668,6 +709,374 @@ def _bn_kernel_entry(name, rows, launches):
                       "dtype": "bfloat16"}}
 
 
+# ------------------------------------------------------------- retrieval
+def bytes_ops_bound(nbytes: float, ops: float, peak_ops: float):
+    """(ms, "bytes"|"operations") at the card's published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def build_retrieval(torch, dev):
+    from deeplearning4j_tpu_torch.retrieval import (BruteForceIndex, IVFPQIndex,
+                                                    PQIndex, synthetic_corpus)
+    t0 = time.perf_counter()
+    V, Q = synthetic_corpus(RETR_N, RETR_D, n_clusters=max(16, RETR_N // 200),
+                            seed=0, queries=RETR_QUERIES)
+    print(f"retrieval corpus {V.shape} in {time.perf_counter() - t0:.1f} s", flush=True)
+    makers = {"exact": lambda: BruteForceIndex(V, device=dev),
+              "int4": lambda: BruteForceIndex(V, int4=True, device=dev),
+              "pq": lambda: PQIndex(V, M=8, ksub=256, rerank=16, device=dev),
+              "ivf_pq": lambda: IVFPQIndex(V, M=8, ksub=256, rerank=8, device=dev)}
+    indexes, build_s = {}, {}
+    for name, make in makers.items():
+        t0 = time.perf_counter()
+        indexes[name] = make()
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+        print(f"built {name} index in {build_s[name]:.1f} s", flush=True)
+    return V, Q, indexes, build_s
+
+
+def _hold_bitwise(torch, what, got, want, again):
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: kernel differs from its plain version "
+                             f"(max |diff| {err})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two runs of the kernel differ")
+    return err
+
+
+def adc_pq_case(torch, flush, lut, codes, label) -> dict:
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+
+    b, m_count, ksub = lut.shape
+    n = codes.shape[0]
+    got, again = adc.adc_pq(lut, codes), adc.adc_pq(lut, codes)
+    want = adc.adc_pq_plain(lut, codes)
+    torch.cuda.synchronize()
+    err = _hold_bitwise(torch, f"adc_pq {label} b={b} n={n} M={m_count} ksub={ksub}",
+                        got, want, again)
+    del want, again
+    ms = time_ms(torch, lambda: adc.adc_pq(lut, codes), flush)
+    plain_ms = time_ms(torch, lambda: adc.adc_pq_plain(lut, codes), flush)
+    # yardstick: bags of the M offsets m*ksub + code into the transposed LUT
+    weight = lut.permute(1, 2, 0).reshape(m_count * ksub, b).contiguous()
+    bags = codes.long() + torch.arange(m_count, device=lut.device) * ksub
+    lib_diff = float((F.embedding_bag(bags, weight, mode="sum").T - got).abs().max())
+    library_ms = time_ms(torch, lambda: F.embedding_bag(bags, weight, mode="sum"), flush)
+    del bags, weight, got
+    bound_ms, bound_by = bytes_ops_bound(n * m_count + 4 * b * m_count * ksub + 4 * b * n,
+                                         b * n * m_count, PEAK_F32_OPS_PER_S)
+    row = {"case": label, "b": b, "n": n, "M": m_count, "ksub": ksub,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library": "F.embedding_bag(mode='sum')", "library_max_abs_diff": lib_diff,
+           "lut_gathers": b * n * m_count}
+    print("adc_pq " + json.dumps(row), flush=True)
+    return row
+
+
+def adc_ivf_case(torch, flush, lut, codes, seg, pos, n_valid, label) -> dict:
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+
+    b, p, m_count, ksub = lut.shape
+    c = seg.shape[1]
+    args = (lut, codes, seg, pos)
+    got, again = adc.adc_ivf_pq(*args), adc.adc_ivf_pq(*args)
+    want = adc.adc_ivf_pq_plain(*args)
+    torch.cuda.synchronize()
+    err = _hold_bitwise(torch, f"adc_ivf_pq {label} b={b} C={c} p={p} M={m_count} "
+                        f"ksub={ksub}", got, want, again)
+    del want, again
+    ms = time_ms(torch, lambda: adc.adc_ivf_pq(*args), flush)
+    plain_ms = time_ms(torch, lambda: adc.adc_ivf_pq_plain(*args), flush)
+    # yardstick: a (b*p*M*ksub, 1) weight, bags ((i*p + seg)*M + m)*ksub + code
+    dev = lut.device
+    weight = lut.reshape(-1, 1)
+    cell = torch.arange(b, device=dev)[:, None] * p + seg.long()
+    bags = ((cell[..., None] * m_count + torch.arange(m_count, device=dev)) * ksub
+            + codes[pos.long()].long()).reshape(b * c, m_count)
+    lib_diff = float((F.embedding_bag(bags, weight, mode="sum").reshape(b, c)
+                      - got).abs().max())
+    library_ms = time_ms(torch, lambda: F.embedding_bag(bags, weight, mode="sum"), flush)
+    del bags, cell, got
+    # each slot reads seg, pos and writes d2; valid slots read M code bytes
+    bound_ms, bound_by = bytes_ops_bound(12 * b * c + n_valid * m_count
+                                         + 4 * b * p * m_count * ksub,
+                                         n_valid * m_count, PEAK_F32_OPS_PER_S)
+    row = {"case": label, "b": b, "C": c, "p": p, "M": m_count, "ksub": ksub,
+           "valid_slots": n_valid, "global_lut": 4 * p * m_count * ksub > 232448,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms,
+           "library": "F.embedding_bag(mode='sum')", "library_max_abs_diff": lib_diff,
+           "lut_gathers": b * c * m_count}
+    print("adc_ivf_pq " + json.dumps(row), flush=True)
+    return row
+
+
+def _ivf_inputs(torch, ix, q):
+    """The IVF-PQ scorer's kernel inputs for queries ``q``: per-probed-cell
+    LUTs and the index's real CSR slots (retrieval/pq.py::_score_ivf_pq)."""
+    from deeplearning4j_tpu_torch.retrieval.index import (_centroid_d2, _csr_slots,
+                                                          _topk_smallest)
+    from deeplearning4j_tpu_torch.retrieval.pq import _adc_lut
+
+    b = q.shape[0]
+    m_count, ksub, dsub = ix._codebooks.shape
+    _, probe = _topk_smallest(_centroid_d2(q, ix._centroids), ix.nprobe)
+    qc = q[:, None, :] - ix._centroids[probe]
+    lut = _adc_lut(qc.reshape(b * ix.nprobe, m_count, dsub),
+                   ix._codebooks).reshape(b, ix.nprobe, m_count, ksub)
+    seg, pos, valid = _csr_slots(ix._offsets, probe, ix.cand_pad)
+    return lut, seg, pos, int(valid.sum())
+
+
+def adc_kernel_phase(torch, dev, flush, Q, pq, ivf):
+    from deeplearning4j_tpu_torch.retrieval.pq import _adc_lut
+
+    qs = torch.from_numpy(Q[:max(ADC_BATCHES)]).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    pq_rows, ivf_rows = [], []
+    m_count, _, dsub = pq._codebooks.shape
+    for b in ADC_BATCHES:
+        lut = _adc_lut(qs[:b].reshape(b, m_count, dsub), pq._codebooks)
+        pq_rows.append(adc_pq_case(torch, flush, lut, pq._codes, "pq_1M"))
+    for b, n, m_count, ksub in ADC_RAGGED:
+        lut = torch.randn((b, m_count, ksub), generator=gen, device=dev)
+        codes = torch.randint(0, ksub, (n, m_count), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        pq_rows.append(adc_pq_case(torch, flush, lut, codes, "ragged"))
+    for b in ADC_BATCHES:
+        lut, seg, pos, n_valid = _ivf_inputs(torch, ivf, qs[:b])
+        ivf_rows.append(adc_ivf_case(torch, flush, lut, ivf._flat_codes, seg, pos,
+                                     n_valid, "ivf_pq_1M"))
+    for b, c, p, m_count, ksub in IVF_RAGGED:
+        lut = torch.randn((b, p, m_count, ksub), generator=gen, device=dev)
+        codes = torch.randint(0, ksub, (2000, m_count), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        seg = torch.randint(0, p, (b, c), generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.randint(0, 2000, (b, c), generator=gen, device=dev, dtype=torch.int32)
+        ivf_rows.append(adc_ivf_case(torch, flush, lut, codes, seg, pos, b * c, "ragged"))
+    int4_row = kernel_case(torch, dev, flush, max(ADC_BATCHES), RETR_N, RETR_D)
+    torch.cuda.empty_cache()
+    return pq_rows, ivf_rows, int4_row
+
+
+def _search_all(ix, Q, k, chunk=256):
+    parts = [ix.search(Q[lo:lo + chunk], k) for lo in range(0, len(Q), chunk)]
+    return (np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]))
+
+
+KERNEL_OF = {"int4": "int4_dot", "pq": "adc_pq", "ivf_pq": "adc_ivf_pq"}
+
+
+def _launch_counts():
+    from deeplearning4j_tpu_torch.perf.kernels import adc, int4_dot
+    return {"int4_dot": int4_dot.launches, "adc_pq": adc.pq_launches,
+            "adc_ivf_pq": adc.ivf_pq_launches}
+
+
+def _zero_launch_counts():
+    from deeplearning4j_tpu_torch.perf.kernels import adc, int4_dot
+    int4_dot.launches = adc.pq_launches = adc.ivf_pq_launches = 0
+
+
+def serve_index(name, ix, Q) -> dict:
+    """Serve one index through IndexEndpoint to RETR_CLIENTS client threads;
+    check every answer and the kernel's launches against the dispatches."""
+    from deeplearning4j_tpu_torch.retrieval import IndexEndpoint
+
+    ep = IndexEndpoint(name, ix, k_max=128)
+    answers, errors = [], []
+
+    def client(cid):
+        crng = np.random.default_rng(1000 + cid)
+        try:
+            for _ in range(RETR_REQUESTS):
+                rows = int(crng.integers(1, 9))
+                sel = crng.integers(0, len(Q), rows)
+                k = int(crng.choice([1, 10, 32], p=[0.15, 0.7, 0.15]))
+                t0 = time.perf_counter()
+                idx, dist = ep.query(Q[sel], k)
+                answers.append((rows, k, idx, dist, time.perf_counter() - t0))
+        except Exception as e:  # re-raised on the main thread below
+            errors.append(e)
+
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    ep.warmup()
+    warm_s = time.perf_counter() - t0
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(RETR_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    stats = ep.stats()
+    ep.shutdown()
+    if errors:
+        raise errors[0]
+    want = RETR_CLIENTS * RETR_REQUESTS
+    if any(t.is_alive() for t in threads) or len(answers) != want:
+        raise AssertionError(f"{name}: {len(answers)} of {want} requests answered")
+    for rows, k, idx, dist, _ in answers:
+        if idx.shape != (rows, k) or dist.shape != (rows, k):
+            raise AssertionError(f"{name}: answer of shape {idx.shape} for ({rows}, {k})")
+        if idx.min() < 0 or idx.max() >= ix.size:
+            raise AssertionError(f"{name}: ids out of range")
+        if not np.all(np.isfinite(dist)) or np.any(np.diff(dist, axis=1) < 0):
+            raise AssertionError(f"{name}: distances not finite and ascending")
+    dispatches = len(ep.warmed_pairs) + stats["batches_dispatched"]
+    kernel = KERNEL_OF[name]
+    if launches[kernel] != dispatches or any(v for k, v in launches.items() if k != kernel):
+        raise AssertionError(f"{name}: launches {launches} for {dispatches} dispatches "
+                             f"({len(ep.warmed_pairs)} warm-up), want {kernel} only")
+    lat = np.array([a[4] for a in answers]) * 1e3
+    rows_total = sum(a[0] for a in answers)
+    return {"warmup_dispatches": len(ep.warmed_pairs), "warmup_s": warm_s,
+            "batches_dispatched": stats["batches_dispatched"],
+            "requests": len(answers), "query_rows": rows_total,
+            "launches": launches[kernel], "kernel": kernel,
+            "p50_request_ms": float(np.percentile(lat, 50)),
+            "p99_request_ms": float(np.percentile(lat, 99)),
+            "queries_per_s": rows_total / wall, "requests_per_s": len(answers) / wall,
+            "serving_wall_s": wall}
+
+
+def pq_dispatch_breakdown(torch, ix, Q, k=10, reps=5) -> dict:
+    """Device ms (CUDA events) of the parts of one PQ dispatch at b = 256,
+    and host ms of the copy back and the re-rank; medians of ``reps``."""
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+    from deeplearning4j_tpu_torch.retrieval.index import _rerank_exact, _topk_smallest
+    from deeplearning4j_tpu_torch.retrieval.pq import _adc_lut
+
+    q_np = Q[:256]
+    k_dev = ix._rerank_k(k)          # the re-rank's candidates, as search() takes
+    kp = ix._k_pad(k_dev)
+    m_count, _, dsub = ix._codebooks.shape
+    parts = {"lut": [], "adc_pq": [], "top_k": [], "sqrt": [], "host_copy": [],
+             "rerank": [], "whole_search": []}
+    for _ in range(reps):
+        q = torch.from_numpy(q_np).to(ix.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        lut = _adc_lut(q.reshape(256, m_count, dsub), ix._codebooks)
+        ev[1].record()
+        d2 = adc.adc_pq(lut, ix._codes)
+        ev[2].record()
+        vals, idx = _topk_smallest(d2, kp)
+        ev[3].record()
+        dist = torch.sqrt(torch.clamp_min(vals, 0.0))
+        ev[4].record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = idx[:, :k_dev].to(torch.int32).cpu().numpy()
+        dist[:, :k_dev].cpu().numpy()
+        t1 = time.perf_counter()
+        _rerank_exact(ix._rerank_vecs, q_np, ids, k)
+        t2 = time.perf_counter()
+        ix.search(q_np, k)
+        t3 = time.perf_counter()
+        for name, (a, b) in zip(("lut", "adc_pq", "top_k", "sqrt"),
+                                zip(ev[:-1], ev[1:])):
+            parts[name].append(a.elapsed_time(b))
+        parts["host_copy"].append((t1 - t0) * 1e3)
+        parts["rerank"].append((t2 - t1) * 1e3)
+        parts["whole_search"].append((t3 - t2) * 1e3)
+        del d2, vals, idx, dist, lut
+    return {"b": 256, "k": k, "k_device": kp, "rerank_candidates": k_dev,
+            **{f"{name}_ms": float(np.median(v)) for name, v in parts.items()}}
+
+
+def card_vs_cpu_index(torch, name, ix, Q, tmpdir) -> dict:
+    """The served index saved, loaded on the CPU, asked the same 16 queries:
+    distances within rtol 1e-5; ids equal apart from near-ties."""
+    import os
+
+    from deeplearning4j_tpu_torch.retrieval import load_index
+
+    t0 = time.perf_counter()
+    cpu = load_index(ix.save(os.path.join(tmpdir, f"{name}.npz")), device="cpu")
+    qb = Q[-16:]
+    gi, gd = ix.search(qb, 10)
+    ci, cd = cpu.search(qb, 10)
+    if not np.allclose(gd, cd, rtol=NEAR_TIE_RTOL, atol=0.0):
+        raise AssertionError(f"{name}: card vs CPU distances differ by "
+                             f"{float(np.abs(gd - cd).max())}")
+    diff = gi != ci
+    if not np.allclose(gd[diff], cd[diff], rtol=NEAR_TIE_RTOL, atol=0.0):
+        raise AssertionError(f"{name}: card vs CPU ids differ beyond near-ties")
+    return {"id_mismatches": int(diff.sum()),
+            "max_rel_dist_diff": float(np.max(np.abs(gd - cd) / np.maximum(cd, 1e-30))),
+            "cpu_s": time.perf_counter() - t0}
+
+
+def retrieval_phase(torch, dev, flush, card):
+    import tempfile
+
+    t_phase = time.perf_counter()
+    V, Q, ix, build_s = build_retrieval(torch, dev)
+    pq_rows, ivf_rows, int4_row = adc_kernel_phase(torch, dev, flush, Q, ix["pq"],
+                                                   ix["ivf_pq"])
+    exact = _search_all(ix["exact"], Q, 10)[0]
+    served = {}
+    for name in ("int4", "pq", "ivf_pq"):
+        summary = serve_index(name, ix[name], Q)
+        got = _search_all(ix[name], Q, 10)[0]
+        recall = float(np.mean([len(np.intersect1d(g, w)) / 10.0
+                                for g, w in zip(got, exact)]))
+        st = ix[name].stats()
+        summary.update(card=card, index=name, build_s=build_s[name],
+                       memory_bytes=st["memory_bytes"], rerank=st["rerank"],
+                       n_cells=st.get("n_cells"), cand_pad=st.get("cand_pad"),
+                       recall_at_10=recall, recall_gate=RECALL_GATES.get(name),
+                       jax_recall_at_10=JAX_RECALL.get(name))
+        served[name] = summary
+        print("retrieval " + json.dumps(summary), flush=True)
+        if name in RECALL_GATES and recall < RECALL_GATES[name]:
+            raise AssertionError(f"{name}: recall@10 {recall:.4f} under the gate "
+                                 f"{RECALL_GATES[name]}")
+    print("retrieval_profile " + json.dumps(pq_dispatch_breakdown(torch, ix["pq"], Q)),
+          flush=True)
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmpdir:
+        checks = {name: card_vs_cpu_index(torch, name, ix[name], Q, tmpdir)
+                  for name in served}
+    print("retrieval_card_vs_cpu " + json.dumps(checks), flush=True)
+    del ix, V
+    torch.cuda.empty_cache()
+    print(f"retrieval phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return pq_rows, ivf_rows, int4_row, served
+
+
+def _build_dir():
+    from deeplearning4j_tpu_torch.perf.kernels import _build
+    _build.BUILD.mkdir(parents=True, exist_ok=True)
+    return _build.BUILD
+
+
+def _adc_kernel_entry(name, rows, launches, replaces_line):
+    """The kernels-line entry of adc_pq or adc_ivf_pq: numbers at b = 256 on
+    the 1M-vector index, max error over every case."""
+    head = next(r for r in rows if r["b"] == max(ADC_BATCHES) and r["case"] != "ragged")
+    return {"name": name, "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
+            "replaces": f"deeplearning4j_tpu/perf/pallas/adc.py:{replaces_line}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": {k: head[k] for k in ("b", "n", "C", "p", "M", "ksub") if k in head}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -683,7 +1092,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
-    names = ["int4_dot", "bn_act_fwd", "bn_act_bwd"]
+    names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -698,6 +1107,7 @@ def main() -> int:
     launches, buckets = serving_phase(torch, dev, card)
     bn_fwd, bn_bwd = training_phase(torch, dev, card)
     card_vs_cpu_phase(torch, dev)
+    pq_rows, ivf_rows, int4_retr, served = retrieval_phase(torch, dev, flush, card)
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
     # most often, timed above or here
@@ -710,13 +1120,21 @@ def main() -> int:
         "name": "int4_dot", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/int4_dot.cu",
         "replaces": "deeplearning4j_tpu/perf/pallas/adc.py:150",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1]),
+        # both of its paths: VGG16 serving and the int4 brute-force index
+        "launches": launches + served["int4"]["launches"],
+        "launches_by_path": {"vgg16_serving": launches,
+                             "retrieval_int4": served["int4"]["launches"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1, int4_retr]),
         "ms": fc1["ms"], "plain_ms": fc1["plain_ms"], "bound_ms": fc1["bound_ms"],
         "bound_by": fc1["bound_by"], "library_ms": fc1["library_ms"],
-        "shape": {"b": b, "n": n, "d": d}},
+        "shape": {"b": b, "n": n, "d": d},
+        "retrieval_shape": {k: int4_retr[k] for k in (
+            "b", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         _bn_kernel_entry("bn_act_fwd", bn_rows, bn_fwd),
-        _bn_kernel_entry("bn_act_bwd", bn_rows, bn_bwd)]}), flush=True)
+        _bn_kernel_entry("bn_act_bwd", bn_rows, bn_bwd),
+        _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),
+        _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103)]}),
+        flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

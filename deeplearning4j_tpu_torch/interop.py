@@ -18,6 +18,13 @@ layouts (NHWC/HWIO, dense ``(n_in, n_out)``, packed int4
         state_from_jax(host(jax_graph.state), device="cpu"))
 
 where ``host`` maps each leaf of the per-vertex dicts to ``np.asarray``.
+
+A vector index crosses as the ``.npz`` its ``save()`` writes (centroids,
+codebooks, codes, ids, offsets, scales and norms as numpy arrays, and a
+JSON meta entry); both packages write and read the same format:
+
+    jax_index.save("ix.npz")
+    ix = index_from_jax("ix.npz", device="cpu")
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 
 __all__ = ["params_from_jax", "state_from_jax", "conf_from_jax_json",
-           "graph_conf_from_jax_json"]
+           "graph_conf_from_jax_json", "index_from_jax"]
 
 
 def _tensors(tree, device):
@@ -67,3 +74,10 @@ def conf_from_jax_json(s: str) -> MultiLayerConfiguration:
 def graph_conf_from_jax_json(s: str) -> ComputationGraphConfiguration:
     """A ``ComputationGraphConfiguration`` written by the JAX package."""
     return ComputationGraphConfiguration.from_json(s)
+
+
+def index_from_jax(path, device=None):
+    """The port's index over an ``.npz`` written by the JAX package's
+    ``save()`` (brute-force fp32/int8/int4, PQ or IVF-PQ), on ``device``."""
+    from deeplearning4j_tpu_torch.retrieval.index import load_index
+    return load_index(path, device)

@@ -1,5 +1,5 @@
 """Batch-size bucketing (counterpart of ``deeplearning4j_tpu/perf/bucketing.py``:
-``BucketPolicy``, ``pad_to_bucket``, ``unpad``).
+``BucketPolicy`` with ``buckets_up_to``, ``pad_to_bucket``, ``unpad``).
 
 On XLA every new batch shape is a compile; PyTorch runs eagerly, so the
 ladder's job here is to hand the kernels a small set of batch sizes (a
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -49,14 +50,26 @@ class BucketPolicy:
             return -(-n // self.cap) * self.cap
         return min(1 << (int(n) - 1).bit_length(), self.cap)
 
+    def buckets_up_to(self, n: int) -> List[int]:
+        """All distinct buckets that sizes 1..n can map to (the warmup set)."""
+        out, b = [], 1
+        while b < n:
+            bb = self.bucket(b)
+            out.append(bb)
+            b = bb + 1
+        if not out or out[-1] < self.bucket(n):
+            out.append(self.bucket(n))
+        return out
+
     def __repr__(self):
         if self._explicit is not None:
             return f"BucketPolicy(buckets={self._explicit})"
         return f"BucketPolicy(floor={self.floor}, cap={self.cap})"
 
 
-def pad_to_bucket(t: torch.Tensor, target: int, dim: int = 0) -> torch.Tensor:
-    """Zero-pad ``t`` along ``dim`` to ``target`` rows (no-op if equal)."""
+def pad_to_bucket(t, target: int, dim: int = 0):
+    """Zero-pad ``t`` (a tensor, or a numpy array, which stays on the host)
+    along ``dim`` to ``target`` rows (no-op if equal)."""
     n = t.shape[dim]
     if n == target:
         return t
@@ -64,6 +77,8 @@ def pad_to_bucket(t: torch.Tensor, target: int, dim: int = 0) -> torch.Tensor:
         raise ValueError(f"cannot pad {n} rows down to {target}")
     shape = list(t.shape)
     shape[dim] = target - n
+    if isinstance(t, np.ndarray):
+        return np.concatenate([t, np.zeros(shape, t.dtype)], axis=dim)
     return torch.cat([t, t.new_zeros(shape)], dim=dim)
 
 
