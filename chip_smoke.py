@@ -69,7 +69,28 @@
      and asked the same 16 queries through the plain versions: distances
      within rtol 1e-5, ids equal apart from near-ties (distances within
      rtol 1e-5 of each other).
-8. Prints the kernels JSON line, the card line, and last
+8. Word2Vec phase, at the JAX package's full Word2Vec benchmark size
+   (bench.py bench_word2vec, non-QUICK: 25,000 x 20-token sentences from a
+   Zipf law over 10,000 words; layer 128, window 5, 5 negatives, batch
+   8192, one epoch), corpus-resident skip-gram on the card:
+   - The fit runs twice, as bench.py runs it, and the second is timed
+     (words/s: the vocab's token count over the fit's seconds). scatter_add
+     must launch 3 times per batch (367 batches) and no other kernel; the
+     losses must be finite; a second model from the same seed must reach
+     the first fit's tables bitwise. One corpus segment is profiled by
+     kernel family (idle share against an unprofiled run of it).
+   - scatter_add, bitwise against its plain version and against itself, on
+     a (10,000, 128) table at the path's shapes (N = 8192 contexts and
+     centers drawn from the corpus, the 5 shared negatives) and at
+     per-pair SGNS (B*K), CBOW (B*2W), HS (B*L) shapes, ragged shapes and a
+     hot row; the kernel alone, the sort + kernel wrapper, the plain
+     version and Tensor.index_add_ (atomics; its max |diff| printed) timed
+     beside the bound.
+   - Quality: the four host-path modes and the corpus-resident path on
+     tests/test_nlp.py's two-topic corpus, gated at its margins.
+   - Card against CPU: one host-path SGNS fit from one seed on both (the
+     same numpy pairs and negatives): tables within 1e-4.
+9. Prints the kernels JSON line (six kernels), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -132,6 +153,15 @@ RETR_CLIENTS, RETR_REQUESTS = 4, 64
 JAX_RECALL = {"pq": 0.94267578125, "ivf_pq": 0.69384765625}
 RECALL_GATES = {name: r - 0.01 for name, r in JAX_RECALL.items()}
 NEAR_TIE_RTOL = 1e-5
+# word2vec: the JAX package's full Word2Vec benchmark (bench.py
+# bench_word2vec, non-QUICK), not cut: 25,000 x 20-token Zipf sentences
+# over 10,000 words, corpus-resident skip-gram with negative sampling
+W2V_SENTS, W2V_LEN, W2V_VOCAB = 25_000, 20, 10_000
+W2V_KW = dict(layer_size=128, window_size=5, negative=5, epochs=1, batch_size=8192,
+              min_word_frequency=1, seed=1)
+# tests/test_nlp.py's quality settings on its two-topic corpus
+TWO_TOPIC_KW = dict(layer_size=32, window_size=3, epochs=20, batch_size=512,
+                    learning_rate=0.3, min_word_frequency=1, seed=42)
 
 
 def card_line() -> str:
@@ -877,14 +907,16 @@ KERNEL_OF = {"int4": "int4_dot", "pq": "adc_pq", "ivf_pq": "adc_ivf_pq"}
 
 
 def _launch_counts():
-    from deeplearning4j_tpu_torch.perf.kernels import adc, int4_dot
+    from deeplearning4j_tpu_torch.perf.kernels import adc, bn_act, int4_dot, scatter_add
     return {"int4_dot": int4_dot.launches, "adc_pq": adc.pq_launches,
-            "adc_ivf_pq": adc.ivf_pq_launches}
+            "adc_ivf_pq": adc.ivf_pq_launches, "bn_act_fwd": bn_act.fwd_launches,
+            "bn_act_bwd": bn_act.bwd_launches, "scatter_add": scatter_add.launches}
 
 
 def _zero_launch_counts():
-    from deeplearning4j_tpu_torch.perf.kernels import adc, int4_dot
+    from deeplearning4j_tpu_torch.perf.kernels import adc, bn_act, int4_dot, scatter_add
     int4_dot.launches = adc.pq_launches = adc.ivf_pq_launches = 0
+    bn_act.fwd_launches = bn_act.bwd_launches = scatter_add.launches = 0
 
 
 def serve_index(name, ix, Q) -> dict:
@@ -1056,6 +1088,319 @@ def retrieval_phase(torch, dev, flush, card):
     return pq_rows, ivf_rows, int4_row, served
 
 
+
+# ------------------------------------------------------------- word2vec
+def w2v_corpus():
+    """bench.py's full Word2Vec corpus (bench_word2vec, non-QUICK): 25,000
+    sentences of 20 tokens drawn from a Zipf law over 10,000 words."""
+    rng = np.random.default_rng(0)
+    ranks = np.arange(1, W2V_VOCAB + 1, dtype=np.float64)
+    probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+    words = np.array([f"w{i}" for i in range(W2V_VOCAB)])
+    choice = rng.choice(W2V_VOCAB, (W2V_SENTS, W2V_LEN), p=probs)
+    return [" ".join(words[row]) for row in choice]
+
+
+def two_topic_corpus(n=300, seed=7):
+    """tests/test_nlp.py's quality corpus: two disjoint topical vocabularies."""
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "horse", "cow", "sheep", "goat"]
+    tools = ["hammer", "wrench", "drill", "saw", "pliers", "chisel"]
+    sents = []
+    for _ in range(n):
+        pool = animals if rng.random() < 0.5 else tools
+        sents.append(" ".join(rng.choice(pool, size=rng.integers(4, 9))))
+    return sents, animals, tools
+
+
+def _bits_equal(torch, a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def scatter_case(torch, flush, table, idx, grads, label) -> dict:
+    """Hold scatter_add bitwise against its plain version and itself, and
+    time the kernel alone (on sorted work), the sort + kernel wrapper, the
+    plain version and Tensor.index_add_ beside the bound."""
+    from deeplearning4j_tpu_torch.perf.kernels import scatter_add as sa
+
+    n, (v, d) = idx.shape[0], table.shape
+    got = sa.scatter_add(table.clone(), idx, grads)
+    again = sa.scatter_add(table.clone(), idx, grads)
+    want = table.clone()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    sa.scatter_add_plain(want, idx, grads)
+    ev[1].record()
+    lib = table.clone().index_add_(0, idx, grads)
+    torch.cuda.synchronize()
+    what = f"scatter_add {label} V={v} D={d} N={n}"
+    if not _bits_equal(torch, got, want):
+        raise AssertionError(f"{what}: kernel differs from its plain version "
+                             f"(max |diff| {float((got - want).abs().max())})")
+    if not _bits_equal(torch, got, again):
+        raise AssertionError(f"{what}: two runs of the kernel differ")
+    lib_diff = float((lib - got).abs().max())
+    uniq, counts = torch.unique(idx, return_counts=True)
+    distinct, longest = int(uniq.numel()), int(counts.max())
+    del again, want, lib
+    rows, perm = torch.sort(idx, stable=True)
+    rows, perm = rows.to(torch.int32), perm.to(torch.int32)
+    t = table.clone()
+    ms = time_ms(torch, lambda: sa.launch_sorted(t, rows, perm, grads), flush)
+    wrapper_ms = time_ms(torch, lambda: sa.scatter_add(t, idx, grads), flush)
+    # the plain version takes one step per rank level: past 1000 levels
+    # (hundreds of ms) its one checking run is its time
+    plain_reps = 25 if longest <= 1000 else 1
+    plain_ms = (time_ms(torch, lambda: sa.scatter_add_plain(t, idx, grads), flush)
+                if plain_reps > 1 else ev[0].elapsed_time(ev[1]))
+    library_ms = time_ms(torch, lambda: t.index_add_(0, idx, grads), flush)
+    del t, got
+    # grads once, sorted rows and perm once, each distinct row read and
+    # written once; N*D float adds
+    bound_ms, bound_by = bytes_ops_bound(n * d * 4 + n * 4 * 2 + 2 * distinct * d * 4,
+                                         n * d, PEAK_F32_OPS_PER_S)
+    row = {"case": label, "V": v, "D": d, "N": n, "distinct_rows": distinct,
+           "longest_chain": longest, "max_abs_err": 0.0, "ms": ms,
+           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_reps": plain_reps,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+           "library": "Tensor.index_add_ (atomics)", "library_max_abs_diff": lib_diff}
+    print("scatter_add " + json.dumps(row), flush=True)
+    return row
+
+
+def scatter_kernel_phase(torch, dev, flush, v, corpus, neg_table, points):
+    """scatter_add at the shapes the NLP steps give it on a (V, 128) table:
+    the corpus path's three (contexts, centers, K = 5 shared negatives),
+    per-pair SGNS's syn1 negatives (B*K), CBOW's bags (B*2W), HS's path
+    nodes (B*L, padding included), ragged shapes and a hot row."""
+    B, K, W = W2V_KW["batch_size"], W2V_KW["negative"], W2V_KW["window_size"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def draw(table, n):
+        return table[torch.randint(0, table.shape[0], (n,), generator=gen,
+                                   device=dev)].to(torch.int32)
+
+    def grads(n, d=128):
+        return torch.randn((n, d), generator=gen, device=dev) * 0.01
+
+    def table(rows=v, d=128):
+        return torch.randn((rows, d), generator=gen, device=dev) * 0.1
+
+    centers = draw(corpus, B)
+    cases = [("corpus_contexts", table(), draw(corpus, B), grads(B)),
+             ("corpus_centers", table(), centers, grads(B)),
+             ("corpus_negatives", table(), draw(neg_table, K), grads(K)),
+             ("sgns_negatives", table(), draw(neg_table, B * K), grads(B * K)),
+             ("cbow_bags", table(), draw(corpus, B * 2 * W), grads(B * 2 * W)),
+             ("hs_points", table(), points[centers.long()].reshape(-1),
+              grads(B * points.shape[1])),
+             ("ragged", table(), draw(corpus, 1), grads(1)),
+             ("ragged", table(), draw(corpus, 1001), grads(1001)),
+             ("ragged", table(d=1), draw(corpus, 1001), grads(1001, 1)),
+             ("ragged", table(d=33), draw(corpus, 1001), grads(1001, 33)),
+             ("hot_row", table(), torch.full((B,), 7, dtype=torch.int32, device=dev),
+              grads(B))]
+    rows = [scatter_case(torch, flush, t, i, g, label) for label, t, i, g in cases]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _family(name: str) -> str:
+    key = name.lower()
+    for fam, marks in (("scatter_add", ("scatter_add_kernel",)),
+                       ("sort", ("sort", "radix")),
+                       ("matmuls", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "dot_kernel",
+                                    "splitk")),
+                       ("rng", ("philox", "random", "distribution")),
+                       ("gathers", ("index", "gather"))):
+        if any(m in key for m in marks):
+            return fam
+    return "elementwise"
+
+
+def w2v_profile(torch, model, sents) -> dict:
+    """One corpus segment under torch.profiler: device ms by family, device
+    busy against the segment's wall time, and the idle share. The segment
+    runs once unprofiled first, timed: the tracer slows the host's launches,
+    so the idle share is read against that run's wall time (the profiled
+    run's is printed beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    corpus, sid, T, nvb = next(model._corpus_segments(
+        lambda: (s.split() for s in sents)))
+    lr = model.min_learning_rate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model._train_corpus_segment(corpus, sid, nvb, lr)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses = model._train_corpus_segment(corpus, sid, nvb, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {k: 0.0 for k in ("scatter_add", "sort", "gathers", "matmuls", "rng",
+                            "elementwise")}
+    kernels = _kernel_times(prof)
+    for name, ms in kernels:
+        fam[_family(name)] += ms
+    busy = sum(fam.values())
+    return {"segment_tokens": T, "batches": nvb, "device_ms_by_family": fam,
+            "device_busy_ms": busy, "wall_ms_profiled": wall_ms,
+            "wall_ms_unprofiled": plain_wall_ms,
+            "idle_share": max(0.0, 1.0 - busy / plain_wall_ms),
+            "idle_share_profiled": max(0.0, 1.0 - busy / wall_ms),
+            "host_us_per_batch_unprofiled": 1e3 * plain_wall_ms / nvb,
+            "top_kernels_ms": [[name[:70], ms] for name, ms in kernels[:10]],
+            "top_host_ops_self_ms": _host_ops(prof, 10),
+            "mean_loss": float(losses.mean())}
+
+
+def _host_ops(prof, top):
+    """[op, host self ms, calls] of the ops that took the most host time in
+    a profile (the tracer's own cost included)."""
+    rows = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_cpu_time_total > 0]
+    return [[k[:50], ms, n] for k, ms, n in sorted(rows, key=lambda r: -r[1])[:top]]
+
+
+def w2v_quality(torch, dev) -> dict:
+    """The four host-path modes and the corpus-resident path on the
+    two-topic corpus, on the card, at tests/test_nlp.py's settings and
+    margins (intra-topic cosine above inter-topic by 0.3, 0.25)."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    out = {}
+    for name, kw, n, margin in (
+            ("sg_ns", dict(negative=5), 200, 0.3),
+            ("sg_hs", dict(negative=0), 200, 0.3),
+            ("cbow_ns", dict(negative=5, use_cbow=True, learning_rate=1.0, epochs=40),
+             200, 0.3),
+            ("cbow_hs", dict(negative=0, use_cbow=True), 200, 0.3),
+            ("corpus", dict(device_corpus=True), 300, 0.25)):
+        sents, animals, tools = two_topic_corpus(n=n)
+        t0 = time.perf_counter()
+        m = Word2Vec(device=dev, **dict(TWO_TOPIC_KW, **kw)).fit(sents)
+        intra = float(np.mean([m.similarity(a, b) for a in animals for b in animals
+                               if a != b]))
+        inter = float(np.mean([m.similarity(a, t) for a in animals for t in tools]))
+        out[name] = {"intra": intra, "inter": inter, "margin": margin,
+                     "first_loss": m.loss_history[0], "last_loss": m.loss_history[-1],
+                     "seconds": time.perf_counter() - t0}
+        if not intra > inter + margin:
+            raise AssertionError(f"word2vec {name} on the card: intra {intra:.3f} "
+                                 f"not above inter {inter:.3f} + {margin}")
+        if name == "corpus" and not m.loss_history[-1] < m.loss_history[0]:
+            raise AssertionError(f"corpus path loss did not fall: {m.loss_history}")
+    return out
+
+
+def w2v_card_vs_cpu(torch, dev) -> dict:
+    """A host-path SGNS fit of the two-topic corpus from one seed, on the
+    card and on the CPU: the same pairs and negatives (numpy draws, fewer
+    pairs than batch_size * 8, so no device-drawn macro). Tables within
+    1e-4 absolute (float32 rounding of the sums; the same fit's port-vs-JAX
+    drift on the CPU is 8.3e-7)."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    sents, _, _ = two_topic_corpus(n=200)
+    kw = dict(TWO_TOPIC_KW, batch_size=1024)
+    card = Word2Vec(device=dev, **kw).fit(sents)
+    cpu = Word2Vec(device="cpu", **kw).fit(sents)
+    errs = {k: float((getattr(card, k).cpu() - getattr(cpu, k)).abs().max())
+            for k in ("syn0", "syn1")}
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"word2vec card vs CPU tables differ: {errs}")
+    return {"max_abs_diff": errs, "max_abs": float(cpu.syn0.abs().max()),
+            "loss_card": card.loss_history[-1], "loss_cpu": cpu.loss_history[-1],
+            "batches": card.counters["batches"]}
+
+
+def word2vec_phase(torch, dev, flush, card):
+    """The main path: Word2Vec.fit at bench.py's full size on the card."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.vocab import build_huffman
+
+    t_phase = time.perf_counter()
+    sents = w2v_corpus()
+    model = Word2Vec(device=dev, **W2V_KW)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(sents)                       # vocab, tables, first pass
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = (model.syn0.clone(), model.syn1.clone())
+    b0, s0 = model.counters["corpus_batches"], model.counters["corpus_segments"]
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(sents)                       # timed, as bench.py times its second fit
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    batches = model.counters["corpus_batches"] - b0
+    words = model.vocab.total_word_occurrences
+    if launches["scatter_add"] != 3 * batches or batches == 0:
+        raise AssertionError(f"scatter_add launched {launches['scatter_add']} times in "
+                             f"{batches} corpus batches (want 3 each)")
+    if any(n for k, n in launches.items() if k != "scatter_add"):
+        raise AssertionError(f"another kernel ran on the word2vec path: {launches}")
+    if model.counters["batches"] or not np.isfinite(model.loss_history).all():
+        raise AssertionError(f"host-path batches ran or a loss is not finite: "
+                             f"{dict(model.counters)} {model.loss_history}")
+    shape = (model.vocab.num_words(), W2V_KW["layer_size"])
+    for name in ("syn0", "syn1"):
+        table = getattr(model, name)
+        if tuple(table.shape) != shape or not bool(torch.isfinite(table).all()):
+            raise AssertionError(f"{name}: shape {tuple(table.shape)} (want {shape}) "
+                                 "or non-finite entries")
+    # a second model from the same seed: its first fit, bitwise
+    twin = Word2Vec(device=dev, **W2V_KW).fit(sents)
+    repeat = {k: _bits_equal(torch, a, getattr(twin, k))
+              for k, a in zip(("syn0", "syn1"), first)}
+    if not all(repeat.values()):
+        raise AssertionError(f"two fits from one seed differ: {repeat}")
+    del twin, first
+    summary = {"card": card, "vocab": model.vocab.num_words(), "tokens": words,
+               "layer_size": W2V_KW["layer_size"], "batch_size": W2V_KW["batch_size"],
+               "segments": model.counters["corpus_segments"] - s0,
+               "batches": batches, "pairs_drawn": batches * W2V_KW["batch_size"],
+               "seconds": seconds, "first_fit_seconds": first_s,
+               "words_per_s": words / seconds, "scatter_add_launches": launches["scatter_add"],
+               "first_fit_batches": b0, "loss_per_epoch_both_fits": model.loss_history,
+               "two_fits_bitwise": repeat}
+    print("word2vec " + json.dumps(summary), flush=True)
+    print("word2vec_profile " + json.dumps(w2v_profile(torch, model, sents)), flush=True)
+    corpus = next(model._corpus_segments(lambda: (s.split() for s in sents)))[0]
+    points = torch.from_numpy(build_huffman(model.vocab)[1]).to(dev)
+    neg_table, v = model._neg_table_device(), model.vocab.num_words()
+    del model
+    rows = scatter_kernel_phase(torch, dev, flush, v, corpus, neg_table, points)
+    print("word2vec_quality " + json.dumps(w2v_quality(torch, dev)), flush=True)
+    print("word2vec_card_vs_cpu " + json.dumps(w2v_card_vs_cpu(torch, dev)), flush=True)
+    torch.cuda.empty_cache()
+    print(f"word2vec phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, summary
+
+
+def _scatter_kernel_entry(rows, summary):
+    """The kernels-line entry of scatter_add: numbers at the corpus path's
+    contexts shape (N = 8192, D = 128), the two other per-batch shapes
+    beside, max error over every case."""
+    head = {r["case"]: r for r in rows}
+    main = head["corpus_contexts"]
+    return {"name": "scatter_add", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/scatter_add.cu",
+            "replaces": "deeplearning4j_tpu/nlp/pallas_scatter.py:35",
+            "launches": summary["scatter_add_launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "wrapper_ms": main["wrapper_ms"],
+            "shape": {k: main[k] for k in ("V", "D", "N")},
+            "other_main_path_shapes": {c: {k: head[c][k] for k in (
+                "N", "ms", "wrapper_ms", "plain_ms", "bound_ms", "library_ms")}
+                for c in ("corpus_centers", "corpus_negatives")}}
+
 def _build_dir():
     from deeplearning4j_tpu_torch.perf.kernels import _build
     _build.BUILD.mkdir(parents=True, exist_ok=True)
@@ -1092,7 +1437,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
-    names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq"]
+    names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
+             "scatter_add"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1108,6 +1454,7 @@ def main() -> int:
     bn_fwd, bn_bwd = training_phase(torch, dev, card)
     card_vs_cpu_phase(torch, dev)
     pq_rows, ivf_rows, int4_retr, served = retrieval_phase(torch, dev, flush, card)
+    scatter_rows, w2v = word2vec_phase(torch, dev, flush, card)
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
     # most often, timed above or here
@@ -1133,7 +1480,8 @@ def main() -> int:
         _bn_kernel_entry("bn_act_fwd", bn_rows, bn_fwd),
         _bn_kernel_entry("bn_act_bwd", bn_rows, bn_bwd),
         _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),
-        _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103)]}),
+        _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103),
+        _scatter_kernel_entry(scatter_rows, w2v)]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,15 @@ Ported so far:
 - training: ``ComputationGraph.fit`` (ResNet50 in bf16 with float32 master
   weights), with the fused conv→BN→activation block's batch norm in the
   hand-written ``bn_act_fwd`` / ``bn_act_bwd`` CUDA kernels
-  (``perf/kernels/bn_act.py``, ``csrc/bn_act_fwd.cu``, ``csrc/bn_act_bwd.cu``).
+  (``perf/kernels/bn_act.py``, ``csrc/bn_act_fwd.cu``, ``csrc/bn_act_bwd.cu``);
+- retrieval: ``PQIndex`` / ``IVFPQIndex`` / int4 ``BruteForceIndex`` built on
+  the card and served by ``IndexEndpoint``, with the ADC gather-accumulate in
+  the ``adc_pq`` / ``adc_ivf_pq`` kernels (``perf/kernels/adc.py``) and the
+  int4 table through ``int4_dot``;
+- NLP: ``Word2Vec`` / ``ParagraphVectors`` / ``Glove`` training
+  (``nlp/``), with every embedding-table update in the ordered
+  ``scatter_add`` kernel (``perf/kernels/scatter_add.py``,
+  ``csrc/scatter_add.cu``).
 """
 
 from deeplearning4j_tpu_torch.nn.conf import (InputType, MultiLayerConfiguration,

@@ -25,6 +25,16 @@ JSON meta entry); both packages write and read the same format:
 
     jax_index.save("ix.npz")
     ix = index_from_jax("ix.npz", device="cpu")
+
+Word vectors cross as the JAX package's model zip (``config.json``,
+``vocab.json``, ``syn0.npy``, ``syn1.npy``), or as numpy arrays:
+
+    WordVectorSerializer.write_word2vec_model(jax_w2v, "w2v.zip")
+    w2v = word2vec_from_jax("w2v.zip", device="cpu")
+    sv = sequence_vectors_from_jax(jax_w2v.vocab.words(),
+                                   [vw.count for vw in jax_w2v.vocab.vocab_words()],
+                                   np.asarray(jax_w2v.syn0), np.asarray(jax_w2v.syn1),
+                                   {"layer_size": 32, "negative": 5}, device="cpu")
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ from deeplearning4j_tpu_torch.nn.conf.graph import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 
 __all__ = ["params_from_jax", "state_from_jax", "conf_from_jax_json",
-           "graph_conf_from_jax_json", "index_from_jax"]
+           "graph_conf_from_jax_json", "index_from_jax", "word2vec_from_jax",
+           "sequence_vectors_from_jax"]
 
 
 def _tensors(tree, device):
@@ -81,3 +92,18 @@ def index_from_jax(path, device=None):
     ``save()`` (brute-force fp32/int8/int4, PQ or IVF-PQ), on ``device``."""
     from deeplearning4j_tpu_torch.retrieval.index import load_index
     return load_index(path, device)
+
+
+def word2vec_from_jax(path, device=None):
+    """The port's ``Word2Vec`` over a model zip written by the JAX package's
+    ``WordVectorSerializer.write_word2vec_model``, tables on ``device``."""
+    from deeplearning4j_tpu_torch.nlp.serializer import WordVectorSerializer
+    return WordVectorSerializer.read_word2vec_model(path, device)
+
+
+def sequence_vectors_from_jax(words, counts, syn0, syn1, config, device=None):
+    """A port ``Word2Vec`` from a JAX model's parts: vocab words in index
+    order, their counts, the (V, D) ``syn0`` / ``syn1`` as numpy arrays and
+    the constructor keywords (``layer_size``, ``negative``, ...)."""
+    from deeplearning4j_tpu_torch.nlp.serializer import restore_word2vec
+    return restore_word2vec(config, words, counts, syn0, syn1, device)

@@ -284,7 +284,11 @@ def test_port_imports_nothing_of_jax():
     for module in ("retrieval/index.py", "retrieval/pq.py", "retrieval/build.py",
                    "retrieval/gates.py", "retrieval/service.py",
                    "clustering/kmeans.py", "serving/breaker.py",
-                   "perf/kernels/adc.py"):
+                   "perf/kernels/adc.py", "perf/kernels/scatter_add.py",
+                   "nlp/__init__.py", "nlp/kernels.py", "nlp/sequencevectors.py",
+                   "nlp/word2vec.py", "nlp/paragraphvectors.py", "nlp/glove.py",
+                   "nlp/serializer.py", "nlp/vocab.py", "nlp/tokenization.py",
+                   "nlp/sentenceiterator.py", "interop.py"):
         assert module in rel, module
     for path in files:
         with open(path, encoding="utf-8") as fh:
