@@ -90,7 +90,37 @@
      tests/test_nlp.py's two-topic corpus, gated at its margins.
    - Card against CPU: one host-path SGNS fit from one seed on both (the
      same numpy pairs and negatives): tables within 1e-4.
-9. Prints the kernels JSON line (six kernels), the card line, and last
+9. Flash attention kernel phase: flash_attn_fwd against its plain version
+   (parallel/ring_attention.reference_attention) at the transformer path's
+   (1, 12, 1024, 64) and (8, 12, 1024, 64) causal, read as head-split views
+   of (b, t, h, d) tensors as the path gives them, (8, 12, 1024, 64)
+   non-causal contiguous, (4, 8, 4096, 128) causal in float32 and bf16, and
+   ragged (3, 5, 1000, 40) causal and not, (2, 3, 129, 256), (1, 1, 1, 1).
+   Each element within 1e-5 * max|v| in float32 (the online softmax sums
+   and rescales in another order); in bf16 within one bf16 ulp of its own
+   |plain| more, the plain version computed in float32 from the same bf16
+   inputs (the kernel rounds once, at the output). Two launches agree
+   bitwise; the output keeps the inputs' layout. Kernel, plain version and
+   F.scaled_dot_product_attention (whose max |diff| is printed) timed
+   beside the bound.
+10. Transformer serving phase: a causal LM at GPT-2 small's widths (768
+   wide, 12 heads, 12 blocks, FFN 3072, t = 1024, vocab 50,257; random
+   weights from a seed) built with the port's builder and served by
+   ParallelInference(batch_limit=8) over a window of 128 one-row requests
+   from 16 client threads, enough to fill the 8-row bucket; p50/p90/p99
+   request ms, tokens/s and bucket occupancy over the whole window. Every
+   answer is checked (shape, finite, rows summing to 1 within 1e-4);
+   flash_attn_fwd must launch 12 times per dispatch, the attention path
+   counters read 12 flash calls per dispatch and no dense one, and no other
+   kernel runs. A new last token must leave the first 1023 positions
+   bitwise unchanged on the card. One request is recomputed by
+   net.to("cpu") through the plain versions (float32 matmuls without TF32
+   on the card): log-probabilities within 1e-4, which the same request with
+   TF32 products on the card must exceed, and top-1 ids equal wherever the
+   top-2 log-probabilities are more than 2e-4 apart. One full dispatch is
+   profiled by kernel family, with the device idle share from that same
+   dispatch's trace and wall time.
+11. Prints the kernels JSON line (seven kernels), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -162,6 +192,36 @@ W2V_KW = dict(layer_size=128, window_size=5, negative=5, epochs=1, batch_size=81
 # tests/test_nlp.py's quality settings on its two-topic corpus
 TWO_TOPIC_KW = dict(layer_size=32, window_size=3, epochs=20, batch_size=512,
                     learning_rate=0.3, min_word_frequency=1, seed=42)
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+# flash attention: (b, h, t, d, causal, dtype, layout). The transformer
+# path's shapes at 1 and 8 rows (a dispatch pads to 8) in the path's own
+# layout ("bthd": head-split views of (b, t, h, d) projections), the same
+# shape contiguous and non-causal, the JAX package's docstring shape
+# (ring_attention.py:111) in float32 and bf16, and ragged ones
+FLASH_CASES = [
+    (1, 12, 1024, 64, True, "float32", "bthd"),
+    (8, 12, 1024, 64, True, "float32", "bthd"),
+    (8, 12, 1024, 64, False, "float32", "bhtd"),
+    (4, 8, 4096, 128, True, "float32", "bhtd"),
+    (4, 8, 4096, 128, True, "bfloat16", "bhtd"),
+    (3, 5, 1000, 40, True, "float32", "bhtd"),
+    (3, 5, 1000, 40, False, "float32", "bhtd"),
+    (2, 3, 129, 256, True, "float32", "bhtd"),
+    (1, 1, 1, 1, False, "float32", "bhtd"),
+]
+FLASH_PATH_CASE = (8, 12, 1024, 64, True, "float32", "bthd")
+# transformer serving: GPT-2 small's widths (openai-community/gpt2
+# config.json: n_embd 768, n_head 12, n_layer 12, n_ctx 1024, vocab 50,257;
+# FFN 4 x 768), random weights from a seed. The repo's architecture has no
+# position embedding, no final LayerNorm and an untied output layer.
+LM_VOCAB, LM_WIDTH, LM_HEADS, LM_BLOCKS, LM_T = 50257, 768, 12, 12, 1024
+# the serving window: 16 clients, each sending 8 one-row requests (one
+# 1024-token sequence) in turn, so 8 requests queue behind the 8 in flight
+# and every dispatch fills the 8-row bucket; 128 requests in all
+LM_BATCH, LM_CLIENTS, LM_REQUESTS = 8, 16, 8
+# card against CPU, on log-probabilities: the card's float32 path must stay
+# within this of the CPU's, and the same request with TF32 products must not
+LM_LOGP_LIMIT = 1e-4
 
 
 def card_line() -> str:
@@ -907,16 +967,20 @@ KERNEL_OF = {"int4": "int4_dot", "pq": "adc_pq", "ivf_pq": "adc_ivf_pq"}
 
 
 def _launch_counts():
-    from deeplearning4j_tpu_torch.perf.kernels import adc, bn_act, int4_dot, scatter_add
+    from deeplearning4j_tpu_torch.perf.kernels import (adc, bn_act, flash_attention,
+                                                       int4_dot, scatter_add)
     return {"int4_dot": int4_dot.launches, "adc_pq": adc.pq_launches,
             "adc_ivf_pq": adc.ivf_pq_launches, "bn_act_fwd": bn_act.fwd_launches,
-            "bn_act_bwd": bn_act.bwd_launches, "scatter_add": scatter_add.launches}
+            "bn_act_bwd": bn_act.bwd_launches, "scatter_add": scatter_add.launches,
+            "flash_attn_fwd": flash_attention.launches}
 
 
 def _zero_launch_counts():
-    from deeplearning4j_tpu_torch.perf.kernels import adc, bn_act, int4_dot, scatter_add
+    from deeplearning4j_tpu_torch.perf.kernels import (adc, bn_act, flash_attention,
+                                                       int4_dot, scatter_add)
     int4_dot.launches = adc.pq_launches = adc.ivf_pq_launches = 0
     bn_act.fwd_launches = bn_act.bwd_launches = scatter_add.launches = 0
+    flash_attention.launches = 0
 
 
 def serve_index(name, ix, Q) -> dict:
@@ -1401,6 +1465,350 @@ def _scatter_kernel_entry(rows, summary):
                 "N", "ms", "wrapper_ms", "plain_ms", "bound_ms", "library_ms")}
                 for c in ("corpus_centers", "corpus_negatives")}}
 
+# ---------------------------------------------------------- transformer
+def _flash_tol(torch, want, vmax, dtype):
+    """Each element's limit: 1e-5 * max|v| in float32 (the online softmax
+    sums and rescales in another order); in bf16, one bf16 ulp of the
+    element's own |want| on top of that (the kernel rounds once, at the
+    output)."""
+    tol = torch.full_like(want, 1e-5 * vmax)
+    return tol if dtype == torch.float32 else tol + _bf16_ulp(torch, want.abs())
+
+
+def flash_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dict:
+    """Hold flash_attn_fwd against its plain version at one shape, element
+    by element within :func:`_flash_tol` (bf16 against the plain version
+    computed in float32 from the same bf16 inputs), and against itself
+    bitwise; time the kernel, the plain version in the case's dtype and
+    F.scaled_dot_product_attention beside the bound. ``layout`` "bthd" makes
+    q, k, v head-split views of (b, t, h, d) tensors, as the attention
+    layers give them; the output must come back in that layout."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel.ring_attention import reference_attention
+    from deeplearning4j_tpu_torch.perf.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * 1000003 + h * 1009 + t * 31 + d)
+    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    if layout == "bthd":
+        q, k, v = (a.transpose(1, 2) for a in (q, k, v))
+    got = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    want = reference_attention(q.float(), k.float(), v.float(), causal=causal)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    torch.cuda.synchronize()
+    what = f"flash_attn_fwd ({b}, {h}, {t}, {d}) {dtype_name} {layout} causal={causal}"
+    vmax = float(v.float().abs().max())
+    if got.shape != q.shape or got.dtype != dt or got.stride() != q.stride():
+        raise AssertionError(f"{what}: output {tuple(got.shape)} {got.dtype} strides "
+                             f"{got.stride()}, inputs' strides {q.stride()}")
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    over = float((diff / _flash_tol(torch, want, vmax, dt)).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{what}: max |kernel - plain| {err} is {over} times its "
+                             f"element's limit")
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    if not torch.equal(got.view(bits), again.view(bits)):
+        raise AssertionError(f"{what}: two launches differ")
+    lib_diff = _max_err(lib, want)
+    del got, again, want, lib, diff
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), flush)
+    plain_ms = time_ms(torch, lambda: reference_attention(q, k, v, causal=causal), flush)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), flush)
+    # the entries this run's masks keep: t*(t+1)/2 per (b, h) when causal;
+    # a multiply and an add for each of q.k and p.v over d
+    pairs = t * (t + 1) // 2 if causal else t * t
+    bound_ms, bound_by = bytes_ops_bound(
+        4 * b * h * t * d * q.element_size(), 4.0 * b * h * pairs * d,
+        PEAK_F32_OPS_PER_S if dt == torch.float32 else PEAK_BF16_OPS_PER_S)
+    del q, k, v
+    torch.cuda.empty_cache()
+    row = {"b": b, "h": h, "t": t, "d": d, "causal": causal, "dtype": dtype_name,
+           "layout": layout, "max_abs_err": err, "max_err_over_limit": over,
+           "max_abs_v": vmax, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "library": "F.scaled_dot_product_attention",
+           "library_max_abs_diff": lib_diff}
+    print("flash_attn_fwd " + json.dumps(row), flush=True)
+    return row
+
+
+def flash_kernel_phase(torch, dev, flush):
+    return [flash_case(torch, dev, flush, *case) for case in FLASH_CASES]
+
+
+def lm_conf():
+    """The GPT-2-small-width causal LM, built with the port's builder."""
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.attention import TransformerEncoderBlock
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import (EmbeddingSequenceLayer,
+                                                            RnnOutputLayer)
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    lb = (NeuralNetConfiguration.builder().seed(5).updater(Adam(1e-4))
+          .weight_init("xavier").list()
+          .layer(EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH)))
+    for _ in range(LM_BLOCKS):
+        lb = lb.layer(TransformerEncoderBlock(n_heads=LM_HEADS, causal=True))
+    return (lb.layer(RnnOutputLayer(n_out=LM_VOCAB, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(LM_VOCAB, LM_T)).build())
+
+
+def _lm_family(name: str) -> str:
+    key = name.lower()
+    for fam, marks in (("flash_attn_fwd", ("flash_fwd_kernel",)),
+                       ("host_copy", ("memcpy",)),
+                       ("softmax", ("softmax",)),
+                       ("matmuls", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk"))):
+        if any(m in key for m in marks):
+            return fam
+    return "elementwise"
+
+
+def _union_ms(spans) -> float:
+    """Length of the union of (start, end) spans, in ms (spans in us)."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def lm_dispatch_profile(torch, pi, x) -> dict:
+    """One dispatch of ``x`` (a full bucket) under torch.profiler. Device ms
+    by kernel family; the device's busy time as the union of its kernels'
+    and copies' spans in the trace; and the idle share of that same
+    dispatch against its own wall time on the host clock, with the copy to
+    the host counted as busy (``idle_share``) and not
+    (``idle_share_but_copy``). The wall time of an unprofiled dispatch is
+    printed beside, to show the tracer's cost; it enters no ratio."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pi.output(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pi.output(x)
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pi.output(x)  # synchronous: ends when the rows are on the host
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {k: 0.0 for k in ("flash_attn_fwd", "matmuls", "softmax", "elementwise",
+                            "host_copy")}
+    kernels = _kernel_times(prof)
+    for name, ms in kernels:
+        fam[_lm_family(name)] += ms
+    spans, compute_spans = [], []
+    for evt in prof.events():
+        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            continue
+        span = (float(evt.time_range.start), float(evt.time_range.end))
+        if span[1] <= span[0]:
+            continue
+        spans.append(span)
+        if _lm_family(evt.name) != "host_copy":
+            compute_spans.append(span)
+    busy, compute = _union_ms(spans), _union_ms(compute_spans)
+    if not spans:
+        raise AssertionError("transformer: the profile recorded no device activity")
+    return {"rows": len(x), "bucket": pi._pad_target(len(x)),
+            "device_ms_by_family": fam, "device_busy_ms": busy,
+            "kernel_busy_ms": compute, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms,
+            "idle_share_but_copy": 1.0 - compute / wall_ms,
+            "wall_ms_unprofiled": plain_wall_ms,
+            "host_copy_mb": len(x) * LM_T * LM_VOCAB * 4 / 1e6,
+            "top_kernels_ms": [[name[:70], ms] for name, ms in kernels[:10]]}
+
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def _logp_check(torch, net, x, served) -> dict:
+    """Card against CPU on one request: ``net.to("cpu")`` recomputes it
+    through the plain versions, and the card recomputes it once more with
+    TF32 products as a control. Log-probabilities are compared, so every
+    class weighs alike whatever its probability: the card's float32 path
+    must stay within LM_LOGP_LIMIT of the CPU and the TF32 control must
+    not, which shows the limit can tell a wrong path. Top-1 ids must agree
+    wherever the CPU's top-2 log-probabilities are more than twice the
+    limit apart."""
+    t0 = time.perf_counter()
+    cpu = net.to("cpu")
+    cpu_p = cpu.output(x).numpy()
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_p = net.output(x).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    lp_cpu = np.log(cpu_p.astype(np.float64))
+    err = float(np.abs(np.log(served.astype(np.float64)) - lp_cpu).max())
+    tf32_err = float(np.abs(np.log(tf32_p.astype(np.float64)) - lp_cpu).max())
+    top2 = np.partition(lp_cpu, -2, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 2 * LM_LOGP_LIMIT
+    top1_diff = served.argmax(-1) != cpu_p.argmax(-1)
+    out = {"rows": len(x), "cpu_s": cpu_s,
+           "max_abs_logp_diff": err, "tf32_control_max_abs_logp_diff": tf32_err,
+           "limit": LM_LOGP_LIMIT, "max_abs_p_diff": float(np.abs(served - cpu_p).max()),
+           "top1_decided_positions": int(decided.sum()),
+           "top1_diffs_where_decided": int((top1_diff & decided).sum()),
+           "top1_diffs": int(top1_diff.sum())}
+    print("transformer_card_vs_cpu " + json.dumps(out), flush=True)
+    if not err <= LM_LOGP_LIMIT < tf32_err or out["top1_diffs_where_decided"]:
+        raise AssertionError(f"transformer: card vs CPU {out}")
+    return out
+
+
+def transformer_phase(torch, dev, card):
+    """The main path: the GPT-2-small-width LM served by ParallelInference
+    over a window of LM_CLIENTS * LM_REQUESTS one-row requests."""
+    from deeplearning4j_tpu_torch.nn.conf import attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = MultiLayerNetwork(lm_conf(), dev).init()
+    n_params = sum(_numel(p) for p in net.params)
+    pi = ParallelInference(net, batch_limit=LM_BATCH)
+    rng = np.random.default_rng(99)
+    pi.output(rng.integers(0, LM_VOCAB, (1, LM_T)).astype(np.int32))  # first touch
+    full = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_T)).astype(np.int32)
+    answers, kept, errors = [], [], []
+
+    def client(cid):
+        crng = np.random.default_rng(100 + cid)
+        reqs = [crng.integers(0, LM_VOCAB, (1, LM_T)).astype(np.int32)
+                for _ in range(LM_REQUESTS)]
+        try:
+            for i, x in enumerate(reqs):
+                t0 = time.perf_counter()
+                out = pi.submit(x).get(timeout=600)
+                lat = time.perf_counter() - t0
+                # a NaN or an infinity anywhere in a row leaves its sum
+                # non-finite, so finite sums within 1e-4 of 1 check both
+                sums = out.sum(axis=-1, dtype=np.float64)
+                ok = (out.shape == (len(x), LM_T, LM_VOCAB) and out.dtype == np.float32
+                      and bool(np.isfinite(sums).all())
+                      and float(np.abs(sums - 1.0).max()) <= 1e-4)
+                answers.append((len(x), lat, ok))
+                if cid == 0 and i == 0:
+                    kept.append((x, out))
+        except Exception as e:  # re-raised on the main thread below
+            errors.append(e)
+
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = pi.stats()
+    try:
+        _zero_launch_counts()
+        for name in attention.counters:
+            attention.counters[name] = 0
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(LM_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches, paths = _launch_counts(), dict(attention.counters)
+        stats = pi.stats()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if errors:
+            raise errors[0]
+        want = LM_CLIENTS * LM_REQUESTS
+        if any(t.is_alive() for t in threads) or len(answers) != want:
+            raise AssertionError(f"transformer: {len(answers)} of {want} requests answered")
+        if not all(ok for _, _, ok in answers):
+            raise AssertionError(f"transformer: {sum(not a[2] for a in answers)} answers "
+                                 "of the wrong shape, not finite, or not summing to 1")
+        dispatches = stats["batches_dispatched"] - stats0["batches_dispatched"]
+        if (launches["flash_attn_fwd"] != LM_BLOCKS * dispatches or dispatches == 0
+                or paths["attention.flash"] != LM_BLOCKS * dispatches
+                or paths["attention.dense"] != 0):
+            raise AssertionError(f"transformer: flash_attn_fwd launched "
+                                 f"{launches['flash_attn_fwd']} times, paths {paths}, for "
+                                 f"{dispatches} dispatches (want {LM_BLOCKS} flash each)")
+        if any(n for k, n in launches.items() if k != "flash_attn_fwd"):
+            raise AssertionError(f"another kernel ran on the transformer path: {launches}")
+        buckets = {k: n - stats0["bucket_dispatches"].get(k, 0)
+                   for k, n in stats["bucket_dispatches"].items()}
+        profile = lm_dispatch_profile(torch, pi, full)
+    finally:
+        pi.shutdown()
+
+    # causality on the card: a new last token moves no earlier position
+    x = kept[0][0]
+    x2 = x.copy()
+    x2[0, -1] = (x2[0, -1] + 1) % LM_VOCAB
+    a, b2 = net.output(x), net.output(x2)
+    causal_bitwise = torch.equal(a[:, :-1].contiguous().view(torch.int32),
+                                 b2[:, :-1].contiguous().view(torch.int32))
+    if not causal_bitwise or torch.equal(a[:, -1], b2[:, -1]):
+        raise AssertionError("transformer: the last token moved an earlier position, "
+                             "or did not move its own")
+    del a, b2
+
+    check = _logp_check(torch, net, *kept[0])
+    lat = np.array([r[1] for r in answers]) * 1e3
+    rows = sum(r[0] for r in answers)
+    summary = {
+        "card": card, "params": n_params, "vocab": LM_VOCAB, "width": LM_WIDTH,
+        "heads": LM_HEADS, "blocks": LM_BLOCKS, "t": LM_T,
+        "clients": LM_CLIENTS, "batch_limit": LM_BATCH,
+        "requests": len(answers), "rows": rows, "dispatches": dispatches,
+        "bucket_dispatches": buckets,
+        "bucket_occupancy": rows / sum(int(k) * n for k, n in buckets.items()),
+        "flash_attn_fwd_launches": launches["flash_attn_fwd"], "attention_paths": paths,
+        "p50_request_ms": float(np.percentile(lat, 50)),
+        "p90_request_ms": float(np.percentile(lat, 90)),
+        "p99_request_ms": float(np.percentile(lat, 99)),
+        "max_request_ms": float(lat.max()), "serving_wall_s": wall,
+        "requests_per_s": len(answers) / wall, "tokens_per_s": rows * LM_T / wall,
+        "peak_memory_gb": peak_gb, "causal_prefix_bitwise": causal_bitwise,
+        "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "card_vs_cpu": check,
+    }
+    del net, answers, kept
+    torch.cuda.empty_cache()
+    print("transformer " + json.dumps(summary), flush=True)
+    print("transformer_profile " + json.dumps(profile), flush=True)
+    print(f"transformer phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return summary
+
+
+def _flash_kernel_entry(rows, summary):
+    """The kernels-line entry of flash_attn_fwd: numbers at the serving
+    path's shape and layout, (8, 12, 1024, 64) causal float32 head-split
+    views; the other shapes beside."""
+    key = ("b", "h", "t", "d", "causal", "dtype", "layout")
+    main = next(r for r in rows if tuple(r[k] for k in key) == FLASH_PATH_CASE)
+    return {"name": "flash_attn_fwd", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "deeplearning4j_tpu/parallel/ring_attention.py:108",
+            "launches": summary["flash_attn_fwd_launches"],
+            "max_abs_err": main["max_abs_err"],
+            "max_err_over_limit_all_cases": max(r["max_err_over_limit"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": {k: main[k] for k in key},
+            "other_shapes": [{k: r[k] for k in key + ("ms", "plain_ms", "bound_ms",
+                                                      "library_ms")}
+                             for r in rows if r is not main]}
+
+
 def _build_dir():
     from deeplearning4j_tpu_torch.perf.kernels import _build
     _build.BUILD.mkdir(parents=True, exist_ok=True)
@@ -1438,7 +1846,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
-             "scatter_add"]
+             "scatter_add", "flash_attn_fwd"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1455,6 +1863,8 @@ def main() -> int:
     card_vs_cpu_phase(torch, dev)
     pq_rows, ivf_rows, int4_retr, served = retrieval_phase(torch, dev, flush, card)
     scatter_rows, w2v = word2vec_phase(torch, dev, flush, card)
+    flash_rows = flash_kernel_phase(torch, dev, flush)
+    lm = transformer_phase(torch, dev, card)
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
     # most often, timed above or here
@@ -1481,7 +1891,8 @@ def main() -> int:
         _bn_kernel_entry("bn_act_bwd", bn_rows, bn_bwd),
         _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),
         _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103),
-        _scatter_kernel_entry(scatter_rows, w2v)]}),
+        _scatter_kernel_entry(scatter_rows, w2v),
+        _flash_kernel_entry(flash_rows, lm)]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

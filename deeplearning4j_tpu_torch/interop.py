@@ -4,20 +4,21 @@ The port never imports the JAX package. What crosses is data: the JSON that
 ``to_json()`` writes there, and the network's parameters and running stats
 as numpy arrays (``np.asarray`` of each leaf). Both packages keep the same
 layouts (NHWC/HWIO, dense ``(n_in, n_out)``, packed int4
-``(n_out, ceil(fan_in/2))``), so the arrays are taken as they are.
+``(n_out, ceil(fan_in/2))``), so the arrays are taken as they are. Nested
+parameter groups (the attention layers' ``{"q": {"W", "b"}, ...}``) keep
+their nesting.
 
     conf = conf_from_jax_json(jax_net.conf.to_json())
     net = MultiLayerNetwork(conf, device="cpu")
-    net.params = params_from_jax(
-        [{k: np.asarray(v) for k, v in p.items()} for p in jax_net.params],
-        device="cpu")
+    net.params = params_from_jax(host(jax_net.params), device="cpu")
 
     gconf = graph_conf_from_jax_json(jax_graph.conf.to_json())
     graph = ComputationGraph(gconf, device="cpu").set_params(
         params_from_jax(host(jax_graph.params), device="cpu"),
         state_from_jax(host(jax_graph.state), device="cpu"))
 
-where ``host`` maps each leaf of the per-vertex dicts to ``np.asarray``.
+where ``host`` maps every leaf, at any depth, to ``np.asarray``
+(``jax.tree_util.tree_map(np.asarray, tree)`` on the JAX side).
 
 A vector index crosses as the ``.npz`` its ``save()`` writes (centroids,
 codebooks, codes, ids, offsets, scales and norms as numpy arrays, and a

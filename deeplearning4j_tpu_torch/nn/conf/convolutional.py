@@ -135,7 +135,7 @@ class ConvolutionLayer(BaseLayer):
                                      device=device)
         return params, {}
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = dropout_input(x, self.dropout, train, rng)
         z = conv2d_nhwc(x, params["W"], self.stride, self.padding,
                         self.convolution_mode, self.dilation)
@@ -167,7 +167,7 @@ class SubsamplingLayer(Layer):
         w = _conv_out(it.width, kw, sw, pw, self.convolution_mode)
         return InputType.convolutional(h, w, it.channels)
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         k, s = _pair(self.kernel_size), _pair(self.stride)
         pt = self.pooling_type.lower()
         if pt not in ("max", "avg", "pnorm"):
@@ -281,7 +281,7 @@ class FusedConvBNActivation(BaseLayer):
                  "var": torch.ones((self.n_out,), device=device)}
         return params, state
 
-    def apply(self, params, state, x, *, train=False, rng=None, res=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None, res=None):
         x = dropout_input(x, self.dropout, train, rng)
         z = conv2d_nhwc(x, params["W"], self.stride, self.padding,
                         self.convolution_mode, self.dilation)

@@ -10,9 +10,10 @@ package's signatures:
   of trainable tensors drawn from an explicit ``torch.Generator``, in the
   JAX package's layouts (``(n_in, n_out)`` dense weights); ``state`` a dict
   of non-trainable buffers (batch-norm running stats);
-- ``apply(params, state, x, *, train=False, rng=None) -> (out, new_state)``:
-  the forward. ``rng`` is a ``torch.Generator`` for dropout. Gradients come
-  from autograd.
+- ``apply(params, state, x, *, train=False, rng=None, mask=None) -> (out,
+  new_state)``: the forward. ``rng`` is a ``torch.Generator`` for dropout;
+  ``mask`` a (batch, time) features mask, which the recurrent and attention
+  layers read and the others ignore. Gradients come from autograd.
 
 Dropout follows DL4J 0.9: ``dropout`` is the *retain* probability applied
 to the layer's input when training (0 disables). The training knobs
@@ -119,18 +120,19 @@ def dropout_input(x, dropout, train: bool, rng: Optional[torch.Generator]):
                                                 device=x.device)).to(x.dtype)
 
 
-def apply_layer(layer, params, state, x, *, train, rng, extra=None):
-    """The networks' single entry into ``layer.apply``. ``extra`` carries
-    additional inputs (the fused residual-add operand). Rematerialization,
-    constraints and weight noise are not ported: a layer that sets one
-    raises when it trains."""
+def apply_layer(layer, params, state, x, *, train, rng, mask=None, extra=None):
+    """The networks' single entry into ``layer.apply``. ``mask`` is the
+    (batch, time) features mask the recurrent and attention layers take;
+    ``extra`` carries additional inputs (the fused residual-add operand).
+    Rematerialization, constraints and weight noise are not ported: a layer
+    that sets one raises when it trains."""
     if train:
         for knob in ("remat", "constraints", "weight_noise"):
             if getattr(layer, knob, None):
                 raise NotImplementedError(
                     f"{type(layer).__name__} '{layer.name}' sets {knob}=; "
                     f"training with {knob} is not in the PyTorch port yet")
-    return layer.apply(params, state, x, train=train, rng=rng,
+    return layer.apply(params, state, x, train=train, rng=rng, mask=mask,
                        **(extra or {}))
 
 
@@ -150,7 +152,7 @@ class Layer:
     def init(self, gen: torch.Generator, input_type: InputType, device):
         return {}, {}
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         raise NotImplementedError
 
     # which param keys get l1/l2 (weights only)
@@ -230,7 +232,7 @@ class DenseLayer(BaseLayer):
     def init(self, gen, input_type, device):
         return _dense_init(self, gen, input_type, device), {}
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = dropout_input(x, self.dropout, train, rng)
         z = x @ params["W"]
         if self.has_bias:
@@ -248,7 +250,7 @@ class ActivationLayer(Layer):
     activation: str = "relu"
     activation_param: Optional[float] = None
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         fn = get_activation(self.activation)
         if self.activation_param is not None:
             return fn(x, self.activation_param), state
@@ -285,7 +287,7 @@ class BaseOutputLayer(BaseLayer):
                                          self.activation, mask,
                                          self.loss_weights)
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         x = dropout_input(x, self.dropout, train, rng)
         return self.output_activations(self.pre_output(params, x)), state
 

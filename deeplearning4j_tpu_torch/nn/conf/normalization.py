@@ -86,7 +86,7 @@ class BatchNormalization(BaseLayer):
                  "var": torch.ones((n,), device=device)}
         return params, state
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         if train:
             mean, var = batch_stats(x)
             new_state = running_update(self.decay, state, mean, var)

@@ -32,7 +32,7 @@ class GlobalPoolingLayer(Layer):
             return InputType.recurrent(it.size, 1)
         return it
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         if x.dim() == 4:      # NHWC: pool over H, W
             axes = (1, 2)
         elif x.dim() == 3:    # (batch, time, size): pool over time

@@ -5,9 +5,11 @@ Dynamic batching keeps the JAX package's shape: requests enqueue as
 observables on a BOUNDED queue; a background worker coalesces up to
 ``batch_limit`` requests (waiting at most ``queue_timeout_ms`` for
 stragglers) into ONE forward on the device, padded to the bucket ladder
-(``perf/bucketing.BucketPolicy``), and hands each request its rows. Answers
-are host arrays (numpy), as in the JAX package: the worker copies each
-batch's output to the host once.
+(``perf/bucketing.BucketPolicy``), and hands each request its rows. Requests
+are taken as float32, token ids ``(rows, t)`` for a model that starts with
+an embedding included (exact below 2**24). Answers are host arrays (numpy),
+as in the JAX package: the worker copies each batch's output to the host
+once.
 
 Requests past their deadline are evicted at batch formation
 (:class:`DeadlineExpiredError`); a queue that stays full raises
@@ -146,8 +148,11 @@ class ParallelInference:
         return self._dispatch(arr, self._pad_target(arr.shape[0]))
 
     def stats(self) -> dict:
-        """Request/dispatch counts, per-bucket dispatch counts and queue
-        counters."""
+        """Request/dispatch counts, per-bucket dispatch counts, queue
+        counters, and the attention path counters (``attention.flash`` /
+        ``attention.dense`` calls, counted process-wide by
+        ``nn/conf/attention.py``)."""
+        from deeplearning4j_tpu_torch.nn.conf.attention import counters
         with self._stats_lock:
             return {
                 "requests_served": self.requests_served,
@@ -159,6 +164,7 @@ class ParallelInference:
                           "expired": self.deadline_evictions},
                 "bucket_policy": (None if self.bucket_policy is None
                                   else repr(self.bucket_policy)),
+                "attention": dict(counters),
             }
 
     # -------------------------------------------------------- batched path

@@ -163,7 +163,7 @@ class QuantizedDenseLayer(Layer):
             acc = _int_matmul(xq, params["Wq"])
         return _finish(self, params, acc)
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         return get_activation(self.activation)(self.pre_output(params, x)), state
 
 
@@ -224,7 +224,7 @@ class QuantizedConvolutionLayer(Layer):
                     if self.weight_bits == 4 else (kh, kw, c_in, self.n_out))
         return _qparams(wq_shape, self.n_out, self.has_bias, device), {}
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         xq = quantize_activation(x, self.act_scale)
         if self.weight_bits == 4:
             w = _conv_weight_int8(params["Wq"], _pair(self.kernel_size),
@@ -273,7 +273,7 @@ class QuantizedConvolution1DLayer(Layer):
                     else (self.kernel_size, c_in, self.n_out))
         return _qparams(wq_shape, self.n_out, self.has_bias, device), {}
 
-    def apply(self, params, state, x, *, train=False, rng=None):
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         xq = quantize_activation(x, self.act_scale)
         if self.weight_bits == 4:
             w = _conv_weight_int8(params["Wq"], (self.kernel_size,),
