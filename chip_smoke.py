@@ -120,7 +120,39 @@
    top-2 log-probabilities are more than 2e-4 apart. One full dispatch is
    profiled by kernel family, with the device idle share from that same
    dispatch's trace and wall time.
-11. Prints the kernels JSON line (seven kernels), the card line, and last
+11. Flash attention backward kernel phase: flash_attn_bwd_dkv and
+   flash_attn_bwd_dq against their plain versions (dense math from the
+   forward's L and D = rowsum(dO * o)) at the training path's (8, 12, 1024,
+   64) causal, read as head-split views with dO as _unheads' backward
+   gives it, (4, 8, 4096, 128) causal in float32 and bf16, ragged (3, 5,
+   1000, 40) causal and not, (2, 3, 129, 256), (1, 1, 1, 1). float32: each
+   gradient's distance to a float64 plain referee (from the same L and D)
+   within 2x the plain float32 version's own, or 1e-5 of its largest
+   magnitude; bf16: each element within 2 bf16 ulps of the plain float32
+   version's magnitude there plus 1/8 ulp of its largest (the plain version
+   computed in float32 from the same bf16 inputs). Two launches agree
+   bitwise; gradients keep their inputs' layouts; L within 1e-5 of
+   logsumexp of the plain scores. Each kernel, each plain version and the
+   autograd backward of F.scaled_dot_product_attention timed beside the
+   bounds.
+12. Transformer training phase, the main path of this slice: the LM of 10
+   trained through MultiLayerNetwork.fit with Adam(1e-4) on one seeded batch
+   of 8 x 1024 ids and next-token one-hot labels (1.65 GB), made on the
+   card, in float32 and then in bf16 with float32 masters; 3 warm-up and 10
+   timed steps each. Every loss finite, the last below the first; each step
+   launches flash_attn_fwd, flash_attn_bwd_dkv and flash_attn_bwd_dq 12
+   times each and no other kernel, with 12 flash calls and no dense one.
+   Step ms, tokens/s, peak memory; one step profiled by kernel family, with
+   the idle share from that same step's trace and wall time.
+13. Training card against CPU: one Adam step of the LM at full width with 2
+   blocks, batch 1 x t 1024 (the flash path), float32, on the card and on
+   the CPU with copied weights, and in float64 on the CPU as the referee:
+   loss, the gradients of W_q, W_k, W_v in both blocks and the updated
+   weights within the limits lm_training_card_vs_cpu states; a control step
+   with the dK/dV kernel's outputs zeroed must miss the W_k and W_v limits.
+14. LeNet (BASELINE configs[0]) through fit at batch 64: losses finite and
+   falling.
+15. Prints the kernels JSON line (nine kernels), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -195,12 +227,14 @@ TWO_TOPIC_KW = dict(layer_size=32, window_size=3, epochs=20, batch_size=512,
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # flash attention: (b, h, t, d, causal, dtype, layout). The transformer
 # path's shapes at 1 and 8 rows (a dispatch pads to 8) in the path's own
-# layout ("bthd": head-split views of (b, t, h, d) projections), the same
-# shape contiguous and non-causal, the JAX package's docstring shape
-# (ring_attention.py:111) in float32 and bf16, and ragged ones
+# layout ("bthd": head-split views of (b, t, h, d) projections), the bf16
+# training run's shape and layout, the same shape contiguous and
+# non-causal, the JAX package's docstring shape (ring_attention.py:111) in
+# float32 and bf16, and ragged ones
 FLASH_CASES = [
     (1, 12, 1024, 64, True, "float32", "bthd"),
     (8, 12, 1024, 64, True, "float32", "bthd"),
+    (8, 12, 1024, 64, True, "bfloat16", "bthd"),
     (8, 12, 1024, 64, False, "float32", "bhtd"),
     (4, 8, 4096, 128, True, "float32", "bhtd"),
     (4, 8, 4096, 128, True, "bfloat16", "bhtd"),
@@ -222,6 +256,33 @@ LM_BATCH, LM_CLIENTS, LM_REQUESTS = 8, 16, 8
 # card against CPU, on log-probabilities: the card's float32 path must stay
 # within this of the CPU's, and the same request with TF32 products must not
 LM_LOGP_LIMIT = 1e-4
+# flash attention backward: (b, h, t, d, causal, dtype, layout). The training
+# path's shape in its own layout (q, k, v and dO head-split views of (b, t, h,
+# d) tensors, dO as _unheads' backward gives it) in float32 and in bf16 (the
+# two training runs), the JAX package's docstring shape (ring_attention.py:111)
+# in float32 and bf16, and ragged ones
+FLASH_BWD_CASES = [
+    (8, 12, 1024, 64, True, "float32", "bthd"),
+    (8, 12, 1024, 64, True, "bfloat16", "bthd"),
+    (4, 8, 4096, 128, True, "float32", "bhtd"),
+    (4, 8, 4096, 128, True, "bfloat16", "bhtd"),
+    (3, 5, 1000, 40, True, "float32", "bhtd"),
+    (3, 5, 1000, 40, False, "float32", "bhtd"),
+    (2, 3, 129, 256, True, "float32", "bhtd"),
+    (1, 1, 1, 1, False, "float32", "bhtd"),
+]
+# the backward's limits (see _bwd_limit) and L's (absolute; L is O(10), so
+# about ten float32 ulps)
+FLASH_BWD_F32_MULT, FLASH_BWD_F32_FRAC, FLASH_BWD_BF16_ULPS = 2.0, 1e-5, 2
+L_LIMIT = 1e-5
+# LM training through fit: 3 warm-up and 10 timed steps per dtype; the card
+# against CPU step at full width and 2 blocks, in both dtypes; the loss's
+# floor is 1e-6 of it in float32 and, in bf16, LM_CHECK_FRAC of it, as the
+# gradients' floor is
+LM_TRAIN_WARM, LM_TRAIN_STEPS = 3, 10
+LM_CHECK_BLOCKS, LM_CHECK_MULT, LM_CHECK_FRAC = 2, 4.0, 1e-4
+LM_CHECK_LOSS_FRAC = {"float32": 1e-6, "bfloat16": LM_CHECK_FRAC}
+LENET_BATCH, LENET_STEPS = 64, 10
 
 
 def card_line() -> str:
@@ -972,7 +1033,9 @@ def _launch_counts():
     return {"int4_dot": int4_dot.launches, "adc_pq": adc.pq_launches,
             "adc_ivf_pq": adc.ivf_pq_launches, "bn_act_fwd": bn_act.fwd_launches,
             "bn_act_bwd": bn_act.bwd_launches, "scatter_add": scatter_add.launches,
-            "flash_attn_fwd": flash_attention.launches}
+            "flash_attn_fwd": flash_attention.launches,
+            "flash_attn_bwd_dkv": flash_attention.launches_bwd_dkv,
+            "flash_attn_bwd_dq": flash_attention.launches_bwd_dq}
 
 
 def _zero_launch_counts():
@@ -981,6 +1044,7 @@ def _zero_launch_counts():
     int4_dot.launches = adc.pq_launches = adc.ivf_pq_launches = 0
     bn_act.fwd_launches = bn_act.bwd_launches = scatter_add.launches = 0
     flash_attention.launches = 0
+    flash_attention.launches_bwd_dkv = flash_attention.launches_bwd_dq = 0
 
 
 def serve_index(name, ix, Q) -> dict:
@@ -1543,8 +1607,9 @@ def flash_kernel_phase(torch, dev, flush):
     return [flash_case(torch, dev, flush, *case) for case in FLASH_CASES]
 
 
-def lm_conf():
-    """The GPT-2-small-width causal LM, built with the port's builder."""
+def lm_conf(blocks=None):
+    """The GPT-2-small-width causal LM, built with the port's builder
+    (``blocks`` deep, LM_BLOCKS by default)."""
     from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
     from deeplearning4j_tpu_torch.nn.conf.attention import TransformerEncoderBlock
     from deeplearning4j_tpu_torch.nn.conf.recurrent import (EmbeddingSequenceLayer,
@@ -1554,7 +1619,7 @@ def lm_conf():
     lb = (NeuralNetConfiguration.builder().seed(5).updater(Adam(1e-4))
           .weight_init("xavier").list()
           .layer(EmbeddingSequenceLayer(n_in=LM_VOCAB, n_out=LM_WIDTH)))
-    for _ in range(LM_BLOCKS):
+    for _ in range(LM_BLOCKS if blocks is None else blocks):
         lb = lb.layer(TransformerEncoderBlock(n_heads=LM_HEADS, causal=True))
     return (lb.layer(RnnOutputLayer(n_out=LM_VOCAB, activation="softmax", loss="mcxent"))
             .set_input_type(InputType.recurrent(LM_VOCAB, LM_T)).build())
@@ -1789,16 +1854,27 @@ def transformer_phase(torch, dev, card):
     return summary
 
 
-def _flash_kernel_entry(rows, summary):
+def _launches_by_path(name, train, serving=None):
+    """A kernel's launches on each main path this run drove (the serving
+    window, each training run) and their sum."""
+    paths = {} if serving is None else {"transformer_serving": serving}
+    paths.update({f"lm_training_{dt}": r["launches"][name] for dt, r in train.items()})
+    return {"launches": sum(paths.values()), "launches_are": "the sum of launches_by_path",
+            "launches_by_path": paths}
+
+
+def _flash_kernel_entry(rows, summary, train):
     """The kernels-line entry of flash_attn_fwd: numbers at the serving
     path's shape and layout, (8, 12, 1024, 64) causal float32 head-split
-    views; the other shapes beside."""
+    views, which is the float32 training run's too; launches on every path
+    (the serving window and both training runs); the other shapes
+    beside."""
     key = ("b", "h", "t", "d", "causal", "dtype", "layout")
     main = next(r for r in rows if tuple(r[k] for k in key) == FLASH_PATH_CASE)
     return {"name": "flash_attn_fwd", "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/flash_attn_fwd.cu",
             "replaces": "deeplearning4j_tpu/parallel/ring_attention.py:108",
-            "launches": summary["flash_attn_fwd_launches"],
+            **_launches_by_path("flash_attn_fwd", train, summary["flash_attn_fwd_launches"]),
             "max_abs_err": main["max_abs_err"],
             "max_err_over_limit_all_cases": max(r["max_err_over_limit"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -1806,6 +1882,445 @@ def _flash_kernel_entry(rows, summary):
             "shape": {k: main[k] for k in key},
             "other_shapes": [{k: r[k] for k in key + ("ms", "plain_ms", "bound_ms",
                                                       "library_ms")}
+                             for r in rows if r is not main]}
+
+
+# --------------------------------------------------------- transformer training
+def _bwd_limit(torch, got, plain, ref, dtype):
+    """(max |kernel - plain|, max limit ratio, the stated limit) for one
+    gradient tensor. float32: the kernel's distance to the float64 referee
+    within FLASH_BWD_F32_MULT times the plain float32 version's own, or
+    FLASH_BWD_F32_FRAC of the referee's largest magnitude, whichever is
+    larger. bf16: each element within FLASH_BWD_BF16_ULPS bf16 ulps of the
+    plain float32 version's magnitude there, plus 1/8 ulp of its largest
+    magnitude (where the float32 sums' own order shows)."""
+    err = _max_err(got, plain)
+    if dtype == torch.float32:
+        kernel_err = float((got.double() - ref).abs().max())
+        plain_err = float((plain.double() - ref).abs().max())
+        limit = max(FLASH_BWD_F32_MULT * plain_err, FLASH_BWD_F32_FRAC * float(ref.abs().max()))
+        return err, kernel_err / limit, {"kernel_vs_f64": kernel_err, "plain_vs_f64": plain_err,
+                                         "limit": limit}
+    top = _bf16_ulp(torch, plain.abs().max()) / 8
+    tol = FLASH_BWD_BF16_ULPS * _bf16_ulp(torch, plain.abs()) + top
+    return err, float(((got.float() - plain).abs() / tol).max()), {"ulps": FLASH_BWD_BF16_ULPS}
+
+
+def flash_bwd_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dict:
+    """Hold flash_attn_bwd_dkv and flash_attn_bwd_dq against their plain
+    versions at one shape (limits in :func:`_bwd_limit`), against
+    themselves bitwise, and the forward's L against logsumexp of the plain
+    float32 scores (within L_LIMIT); time each kernel, each plain version
+    and the autograd backward of F.scaled_dot_product_attention (dq, dk and
+    dv in one call) beside the bounds. ``layout`` "bthd" makes q, k, v and
+    dO head-split views of (b, t, h, d) tensors, dO as _unheads' backward
+    gives it; the gradients must come back in those layouts."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.perf.kernels import flash_attention as fa
+
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * 1000003 + h * 1009 + t * 31 + d + 7)
+    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(dt) for _ in range(4))
+    if layout == "bthd":
+        q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
+    what = f"flash_attn_bwd ({b}, {h}, {t}, {d}) {dtype_name} {layout} causal={causal}"
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    f32 = [a.float() for a in (q, k, v, do)]
+    l_err = _max_err(lse, fa.flash_fwd_plain(*f32[:3], causal)[1])
+    if not l_err <= L_LIMIT:
+        raise AssertionError(f"{what}: max |L - plain logsumexp| {l_err} > {L_LIMIT}")
+    row = {"b": b, "h": h, "t": t, "d": d, "causal": causal, "dtype": dtype_name,
+           "layout": layout, "L_max_abs_err": l_err}
+    kernels = {"flash_attn_bwd_dkv": (fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, (k, v)),
+               "flash_attn_bwd_dq": (lambda *a: (fa.flash_bwd_dq(*a),),
+                                     lambda *a: (fa.flash_bwd_dq_plain(*a),), (q,))}
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    pairs = t * (t + 1) // 2 if causal else t * t
+    peak = PEAK_F32_OPS_PER_S if dt == torch.float32 else PEAK_BF16_OPS_PER_S
+    io = 4 * b * h * t * d * q.element_size() + 2 * 4 * b * h * t  # q, k, v, dO; L, D
+    for name, (kernel, plain, like) in kernels.items():
+        got = kernel(q, k, v, do, lse, delta, causal)
+        again = kernel(q, k, v, do, lse, delta, causal)
+        want = plain(*f32, lse, delta, causal)
+        ref = (plain(*(a.double() for a in f32), lse.double(), delta.double(), causal)
+               if dt == torch.float32 else [None] * len(got))
+        torch.cuda.synchronize()
+        errs, overs, limits = [], [], []
+        for g, a, w, r, x in zip(got, again, want, ref, like):
+            if g.shape != x.shape or g.dtype != dt or g.stride() != x.stride():
+                raise AssertionError(f"{what} {name}: output {tuple(g.shape)} {g.dtype} "
+                                     f"strides {g.stride()}, input's {x.stride()}")
+            if not torch.equal(g.view(bits), a.view(bits)):
+                raise AssertionError(f"{what} {name}: two launches differ")
+            err, over, limit = _bwd_limit(torch, g, w, r, dt)
+            errs.append(err)
+            overs.append(over)
+            limits.append(limit)
+        if not max(overs) <= 1.0:
+            raise AssertionError(f"{what} {name}: {max(overs)} times its limit {limits}")
+        del got, again, want, ref
+        ms = time_ms(torch, lambda: kernel(q, k, v, do, lse, delta, causal), flush)
+        plain_ms = time_ms(torch, lambda: plain(q, k, v, do, lse, delta, causal), flush)
+        products, outputs = (4, 2) if name.endswith("dkv") else (3, 1)
+        bound_ms, bound_by = bytes_ops_bound(
+            io + outputs * b * h * t * d * q.element_size(),
+            products * 2.0 * b * h * pairs * d, peak)
+        row[name] = {"max_abs_err": max(errs), "max_err_over_limit": max(overs),
+                     "limits": limits, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        torch.cuda.empty_cache()
+    leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    lib = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    want = fa.flash_bwd_dq_plain(*f32, lse, delta, causal)
+    row["library_max_abs_diff_dq"] = _max_err(lib[0], want)
+    del lib, want
+    row["library_ms"] = time_ms(
+        torch, lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), flush)
+    row["library"] = "autograd backward of F.scaled_dot_product_attention"
+    del q, k, v, do, o, lse, delta, f32, leaves, out
+    torch.cuda.empty_cache()
+    print("flash_attn_bwd " + json.dumps(row), flush=True)
+    return row
+
+
+def flash_bwd_kernel_phase(torch, dev, flush):
+    return [flash_bwd_case(torch, dev, flush, *case) for case in FLASH_BWD_CASES]
+
+
+def _lm_train_family(name: str) -> str:
+    key = name.lower()
+    for fam, marks in (("flash_attn_fwd", ("flash_fwd_kernel",)),
+                       ("flash_attn_bwd_dkv", ("flash_bwd_dkv",)),
+                       ("flash_attn_bwd_dq", ("flash_bwd_dq",)),
+                       ("copies", ("memcpy", "memset")),
+                       ("softmax_loss", ("softmax",)),
+                       ("products", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk"))):
+        if any(m in key for m in marks):
+            return fam
+    return "elementwise"
+
+
+def _device_spans(prof):
+    spans = []
+    for evt in prof.events():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            span = (float(evt.time_range.start), float(evt.time_range.end))
+            if span[1] > span[0]:
+                spans.append(span)
+    return spans
+
+
+def _host_enqueue_ms(torch, net, x, y, reps: int = 3) -> float:
+    """The host's time for one training step, untraced: from the step's
+    start to the return of its last launch, before the synchronise that
+    waits for the device (median of ``reps``). CUDA's launch queue blocks
+    the host when the device falls far behind, so this bounds the host's
+    own work from above; near the step's time, the host sets the pace."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads, state = net._loss_and_grads(x, y, net._gen)
+        net._apply_updates(grads)
+        net._commit_state(state)
+        out.append((time.perf_counter() - t0) * 1e3)
+        del grads
+        torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def lm_step_profile(torch, net, x, y, step_ms) -> dict:
+    """One training step under torch.profiler, in two traces split where the
+    step turns from the gradients to the update (a synchronise between):
+    device ms by kernel family (the update's kernels are the optimizer's);
+    busy time as the union of each trace's device spans; the idle share of
+    that same step against its own wall time, the two traces' walls
+    summed, and against the median unprofiled step (the tracer and the
+    split lengthen the traced wall, so the first overstates the idle share
+    and the second, whose busy time comes from the traced step, is the
+    nearer reading of an untraced step); the device kernels and copies the
+    step ran and the kernel launches the host made for them; and, untraced,
+    the host's enqueue time for a step (:func:`_host_enqueue_ms`). Runs twice
+    and keeps the second: the first pays the tracer's start-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as fb:
+            t0 = time.perf_counter()
+            loss, grads, state = net._loss_and_grads(x, y, net._gen)
+            torch.cuda.synchronize()
+            wall_fb = time.perf_counter() - t0
+        with profile(activities=acts) as up:
+            t0 = time.perf_counter()
+            net._apply_updates(grads)
+            net._commit_state(state)
+            torch.cuda.synchronize()
+            wall_up = time.perf_counter() - t0
+        del grads
+    fam = {k: 0.0 for k in ("products", "flash_attn_fwd", "flash_attn_bwd_dkv",
+                            "flash_attn_bwd_dq", "elementwise", "softmax_loss", "copies")}
+    kernels = _kernel_times(fb)
+    for name, ms in kernels:
+        fam[_lm_train_family(name)] += ms
+    fam["optimizer"] = sum(ms for _, ms in _kernel_times(up))
+    spans_fb, spans_up = _device_spans(fb), _device_spans(up)
+    if not spans_fb or not spans_up:
+        raise AssertionError("lm training: the profile recorded no device activity")
+    busy = _union_ms(spans_fb) + _union_ms(spans_up)
+    wall_ms = (wall_fb + wall_up) * 1e3
+    launch_calls = sum(1 for prof in (fb, up) for evt in prof.events()
+                       if "LaunchKernel" in evt.name)
+    return {"device_ms_by_family": fam, "device_busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms, "median_step_ms_unprofiled": step_ms,
+            "idle_share_vs_unprofiled_step": 1.0 - busy / step_ms,
+            "device_events": len(spans_fb) + len(spans_up),
+            "host_kernel_launch_calls": launch_calls,
+            "host_enqueue_ms": _host_enqueue_ms(torch, net, x, y),
+            "loss": float(loss),
+            "top_kernels_ms": [[name[:70], ms] for name, ms in kernels[:12]]}
+
+
+def lm_train_run(torch, dev, card, dtype_name) -> dict:
+    """The main path: the GPT-2-small-width LM trained through
+    MultiLayerNetwork.fit on one seeded batch of LM_BATCH x LM_T ids and
+    their next-token one-hot labels, both made on the card (the labels are
+    1.65 GB), LM_TRAIN_WARM warm-up and LM_TRAIN_STEPS timed steps. Each
+    step must launch each flash kernel LM_BLOCKS times and no other kernel,
+    with LM_BLOCKS flash calls and no dense one; every loss finite, the last
+    below the first."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import attention
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = dataclasses.replace(lm_conf(), dtype=dtype_name)
+    net = MultiLayerNetwork(conf, dev).init()
+    n_params = net.num_params()
+    ids = torch.from_numpy(np.random.default_rng(7).integers(0, LM_VOCAB, (LM_BATCH, LM_T + 1)))
+    ids = ids.to(dev)
+    x = ids[:, :-1].float()
+    y = torch.zeros((LM_BATCH, LM_T, LM_VOCAB), device=dev)
+    y.scatter_(2, ids[:, 1:, None], 1.0)
+    ds = DataSet(x, y)
+    per_step = {"flash_attn_fwd": LM_BLOCKS, "flash_attn_bwd_dkv": LM_BLOCKS,
+                "flash_attn_bwd_dq": LM_BLOCKS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    _zero_launch_counts()
+    for name in attention.counters:
+        attention.counters[name] = 0
+    for i in range(LM_TRAIN_WARM + LM_TRAIN_STEPS):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net._score)
+        moved = {k: n - before[k] for k, n in _launch_counts().items()}
+        if moved != {k: per_step.get(k, 0) for k in moved}:
+            raise AssertionError(f"lm training {dtype_name} step {i}: launches {moved}, "
+                                 f"want {per_step} and no other kernel")
+    launches, paths = _launch_counts(), dict(attention.counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = LM_TRAIN_WARM + LM_TRAIN_STEPS
+    if paths != {"attention.flash": LM_BLOCKS * steps, "attention.dense": 0}:
+        raise AssertionError(f"lm training {dtype_name}: attention paths {paths}")
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm training {dtype_name}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"lm training {dtype_name}: loss did not fall {losses}")
+    step_ms = float(np.median(times[LM_TRAIN_WARM:]))
+    profile = lm_step_profile(torch, net, x, y, step_ms)
+    del net, ds, x, y, ids
+    torch.cuda.empty_cache()
+    summary = {"card": card, "dtype": dtype_name, "masters": "float32", "params": n_params,
+               "batch": LM_BATCH, "t": LM_T, "blocks": LM_BLOCKS, "updater": "Adam(1e-4)",
+               "steps": steps, "median_step_ms": step_ms,
+               "min_step_ms": min(times[LM_TRAIN_WARM:]),
+               "step_ms": times, "tokens_per_s": LM_BATCH * LM_T / (step_ms / 1e3),
+               "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+               "launches": {k: launches[k] for k in per_step}, "attention_paths": paths,
+               "peak_memory_gb": peak_gb,
+               "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    print(f"lm_training_{dtype_name} " + json.dumps(summary), flush=True)
+    print(f"lm_training_profile_{dtype_name} " + json.dumps(profile), flush=True)
+    return summary
+
+
+def lm_training_phase(torch, dev, card):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    runs = {dt: lm_train_run(torch, dev, card, dt) for dt in ("float32", "bfloat16")}
+    print(f"lm training phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return runs
+
+
+def _lm_check_step(net, x, y):
+    """One Adam step through the training step's own parts: (loss, grads)."""
+    loss, grads, _ = net._loss_and_grads(x.to(net.device), y.to(net.device), net._gen)
+    net._apply_updates(grads)
+    return float(loss), grads
+
+
+def lm_training_card_vs_cpu(torch, dev) -> dict:
+    """One Adam step of the LM at full width and LM_CHECK_BLOCKS blocks,
+    batch 1 x t 1024 (the flash path), from the same float32 weights, in
+    float32 and in bf16 with float32 masters, each on the card through the
+    kernels and on the CPU through the plain versions; one float64 step on
+    the CPU is the referee of both. TF32 stays off. Held, in each dtype: the
+    loss within LM_CHECK_MULT times the CPU step's distance to the referee,
+    or LM_CHECK_LOSS_FRAC of it; the gradients of W_q, W_k and W_v in every
+    block within LM_CHECK_MULT times the CPU gradient's distance to the
+    referee, or LM_CHECK_FRAC of the referee's largest magnitude; the
+    updated weights within lr * min(2, dg / (|g| + eps)) + 1e-6 |w| of the
+    referee's, dg that gradient's limit (Adam's first step is lr * g / (|g|
+    + eps), whose slope in g is at most 1 / (|g| + eps)). A control step on
+    the card with the dK/dV kernel's outputs zeroed must miss the gradient
+    limit of W_k and W_v in every block."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+    from deeplearning4j_tpu_torch.perf.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    base = lm_conf(LM_CHECK_BLOCKS)
+    start = [tree_map(lambda v: v.cpu(), p) for p in MultiLayerNetwork(base, dev).init().params]
+    ids = np.random.default_rng(11).integers(0, LM_VOCAB, (1, LM_T + 1))
+    x = torch.from_numpy(ids[:, :-1].astype(np.float32))
+    y = torch.from_numpy(np.eye(LM_VOCAB, dtype=np.float32)[ids[:, 1:]])
+    referee = MultiLayerNetwork(dataclasses.replace(base, dtype="float64"), "cpu").set_params(
+        tree_map(lambda v: v.double(), start))
+    l64, g64 = _lm_check_step(referee, x, y)
+    upd = base.updater
+    summary = {"blocks": LM_CHECK_BLOCKS, "t": LM_T, "cpu_f64_loss": l64}
+    for dt in ("float32", "bfloat16"):
+        conf = dataclasses.replace(base, dtype=dt)
+        card = MultiLayerNetwork(conf, dev).set_params(
+            tree_map(lambda v: v.to(dev, copy=True), start))
+        _zero_launch_counts()
+        lg, gg = _lm_check_step(card, x, y)
+        counts = _launch_counts()
+        if any(counts[k] != LM_CHECK_BLOCKS for k in
+               ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")):
+            raise AssertionError(f"lm card vs cpu {dt}: the card step launched {counts}")
+        cpu = MultiLayerNetwork(conf, "cpu").set_params(tree_map(lambda v: v.clone(), start))
+        lc, gc = _lm_check_step(cpu, x, y)
+        del cpu
+        loss_limit = max(LM_CHECK_MULT * abs(lc - l64), LM_CHECK_LOSS_FRAC[dt] * abs(l64))
+        if not abs(lg - l64) <= loss_limit:
+            raise AssertionError(f"lm card vs cpu {dt}: loss {lg} vs float64 {l64} "
+                                 f"(CPU {lc}, limit {loss_limit})")
+        report, limits = {}, {}
+        for block in range(1, LM_CHECK_BLOCKS + 1):
+            for group in ("q", "k", "v"):
+                key = f"{block}/{group}/W"
+                ref = g64[block][group]["W"]
+                scale = float(ref.abs().max())
+                cpu_err = float((gc[block][group]["W"].double() - ref).abs().max())
+                card_err = float((gg[block][group]["W"].cpu().double() - ref).abs().max())
+                limits[key] = limit = max(LM_CHECK_MULT * cpu_err, LM_CHECK_FRAC * scale)
+                if not card_err <= limit:
+                    raise AssertionError(f"lm card vs cpu {dt}: gradient {key} card vs "
+                                         f"float64 {card_err} > {limit} (CPU {cpu_err}, "
+                                         f"max {scale})")
+                w64 = referee.params[block][group]["W"]
+                w_card = card.params[block][group]["W"].cpu().double()
+                w_limit = (upd.learning_rate * torch.clamp_max(
+                    limit / (ref.abs() + upd.epsilon), 2.0) + 1e-6 * w64.abs())
+                w_over = float(((w_card - w64).abs() / w_limit).max())
+                if not w_over <= 1.0:
+                    raise AssertionError(f"lm card vs cpu {dt}: updated {key} {w_over} "
+                                         f"times its limit")
+                report[key] = {"card_vs_f64": card_err, "cpu_vs_f64": cpu_err,
+                               "limit": limit, "max_abs": scale,
+                               "updated_weight_over_limit": w_over}
+        del card, gg, gc
+        # control: the same step with dK/dV zeroed must miss the limits
+        control = MultiLayerNetwork(conf, dev).set_params(
+            tree_map(lambda v: v.to(dev, copy=True), start))
+        real = fa.flash_bwd_dkv
+        fa.flash_bwd_dkv = lambda *a, **kw: tuple(torch.zeros_like(g) for g in real(*a, **kw))
+        try:
+            _, g_zero, _ = control._loss_and_grads(x.to(dev), y.to(dev))
+        finally:
+            fa.flash_bwd_dkv = real
+        control_errs = {}
+        for block in range(1, LM_CHECK_BLOCKS + 1):
+            for group in ("k", "v"):
+                key = f"{block}/{group}/W"
+                control_errs[key] = float((g_zero[block][group]["W"].cpu().double()
+                                           - g64[block][group]["W"]).abs().max())
+                if not control_errs[key] > limits[key]:
+                    raise AssertionError(f"lm card vs cpu {dt}: the zeroed-dK/dV control "
+                                         f"meets the limit of {key} ({control_errs[key]} "
+                                         f"<= {limits[key]})")
+        del control, g_zero
+        torch.cuda.empty_cache()
+        summary[dt] = {"card_loss": lg, "cpu_loss": lc, "loss_limit": loss_limit,
+                       "grads": report, "zeroed_dkv_control_grad_err": control_errs}
+    summary["seconds"] = time.perf_counter() - t0
+    print("lm_training_card_vs_cpu " + json.dumps(summary), flush=True)
+    return summary
+
+
+def lenet_phase(torch, dev) -> dict:
+    """LeNet (BASELINE configs[0]) through MultiLayerNetwork.fit on the card:
+    one batch of LENET_BATCH synthetic_mnist images, 2 warm-up and
+    LENET_STEPS timed Adam steps; every loss finite, the last below the
+    first; no kernel of the port runs (LeNet has no TPU kernel)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet, synthetic_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    net = LeNet().init(dev)
+    x, y = synthetic_mnist(LENET_BATCH, seed=0)
+    ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    _zero_launch_counts()
+    losses, times = _timed_steps(torch, net, ds, 2, LENET_STEPS)
+    if any(_launch_counts().values()):
+        raise AssertionError(f"lenet launched a kernel of the port: {_launch_counts()}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lenet: losses {losses}")
+    summary = {"batch": LENET_BATCH, "steps": len(losses), "first_loss": losses[0],
+               "last_loss": losses[-1], "median_step_ms": float(np.median(times)),
+               "params": net.num_params()}
+    print("lenet " + json.dumps(summary), flush=True)
+    return summary
+
+
+def _flash_bwd_kernel_entry(name, rows, train):
+    """The kernels-line entry of flash_attn_bwd_dkv or flash_attn_bwd_dq:
+    numbers at the training path's shape and layout, (8, 12, 1024, 64)
+    causal float32 head-split views; launches on both training runs; the
+    other shapes beside."""
+    key = ("b", "h", "t", "d", "causal", "dtype", "layout")
+    main = next(r for r in rows if tuple(r[k] for k in key) == FLASH_BWD_CASES[0])
+    line = {"dkv": 941, "dq": 1287}[name.rsplit("_", 1)[1]]
+    return {"name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": "deeplearning4j_tpu/parallel/ring_attention.py:108",
+            "tpu_kernel": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
+            **_launches_by_path(name, train),
+            "max_abs_err": main[name]["max_abs_err"],
+            "max_err_over_limit_all_cases": max(r[name]["max_err_over_limit"] for r in rows),
+            "ms": main[name]["ms"], "plain_ms": main[name]["plain_ms"],
+            "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
+            "library_ms": main["library_ms"],
+            "library": "autograd backward of F.scaled_dot_product_attention (dq, dk, dv)",
+            "shape": {k: main[k] for k in key},
+            "other_shapes": [dict({k: r[k] for k in key + ("library_ms",)},
+                                  **{f: r[name][f] for f in ("ms", "plain_ms", "bound_ms")})
                              for r in rows if r is not main]}
 
 
@@ -1846,7 +2361,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
-             "scatter_add", "flash_attn_fwd"]
+             "scatter_add", "flash_attn_fwd", "flash_attn_bwd"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1865,6 +2380,10 @@ def main() -> int:
     scatter_rows, w2v = word2vec_phase(torch, dev, flush, card)
     flash_rows = flash_kernel_phase(torch, dev, flush)
     lm = transformer_phase(torch, dev, card)
+    bwd_rows = flash_bwd_kernel_phase(torch, dev, flush)
+    train = lm_training_phase(torch, dev, card)
+    lm_training_card_vs_cpu(torch, dev)
+    lenet_phase(torch, dev)
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
     # most often, timed above or here
@@ -1892,7 +2411,9 @@ def main() -> int:
         _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),
         _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103),
         _scatter_kernel_entry(scatter_rows, w2v),
-        _flash_kernel_entry(flash_rows, lm)]}),
+        _flash_kernel_entry(flash_rows, lm, train),
+        _flash_bwd_kernel_entry("flash_attn_bwd_dkv", bwd_rows, train),
+        _flash_bwd_kernel_entry("flash_attn_bwd_dq", bwd_rows, train)]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

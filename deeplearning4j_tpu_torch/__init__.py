@@ -21,7 +21,13 @@ Ported so far:
 - NLP: ``Word2Vec`` / ``ParagraphVectors`` / ``Glove`` training
   (``nlp/``), with every embedding-table update in the ordered
   ``scatter_add`` kernel (``perf/kernels/scatter_add.py``,
-  ``csrc/scatter_add.cu``).
+  ``csrc/scatter_add.cu``);
+- attention: causal transformer LMs served through ``ParallelInference``
+  and trained through ``MultiLayerNetwork.fit`` (float32, or bf16 with
+  float32 masters), with the attention in the flash kernels: forward
+  ``csrc/flash_attn_fwd.cu``, backward ``csrc/flash_attn_bwd.cu`` (dK/dV
+  and dQ), behind a ``torch.autograd.Function``
+  (``perf/kernels/flash_attention.py``).
 """
 
 from deeplearning4j_tpu_torch.nn.conf import (InputType, MultiLayerConfiguration,

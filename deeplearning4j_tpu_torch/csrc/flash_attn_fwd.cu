@@ -7,7 +7,12 @@
 // t axes go by the strides passed in, so the head-split views of the
 // projections ((b, t, h, d) in memory) are read and written in place. Every
 // sum, the softmax and the accumulator are float32, and o is written once,
-// in q's type.
+// in q's type. When asked (a non-null pointer), the kernel also writes each
+// row's log-sum-exp L[b, h, i] = m + log(l), float32, (b, h, t) contiguous,
+// in the scaled units of the scores (s = q . k / sqrt(d)): the backward
+// kernels (flash_attn_bwd.cu) recompute p = exp(s - L) from it. The JAX
+// library saves m and l apart, each broadcast over 128 lanes
+// (flash_attention.py:675-692); one float per row carries the same.
 //
 // Replaces the TPU kernel that deeplearning4j_tpu/parallel/ring_attention.py::
 // flash_self_attention reaches: JAX's library Pallas flash attention
@@ -106,8 +111,9 @@ __device__ __forceinline__ float lane(const float4 &a, int c) {
 template <int DP, typename E>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const E *__restrict__ q, const E *__restrict__ k, const E *__restrict__ v,
-                 E *__restrict__ o, Strides sq, Strides sk, Strides sv, Strides so,
-                 int h, int bh_count, int t, int d, float sqrt_d, int causal) {
+                 E *__restrict__ o, float *__restrict__ lse, Strides sq, Strides sk,
+                 Strides sv, Strides so, int h, int bh_count, int t, int d, float sqrt_d,
+                 int causal) {
   constexpr int kQK = DP + 4;  // row stride of Q and K in shared memory
   constexpr int kJ = DP / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -225,6 +231,8 @@ flash_fwd_kernel(const E *__restrict__ q, const E *__restrict__ k, const E *__re
   for (int i = 0; i < 4; ++i) {
     const int q_pos = q0 + 4 * ty + i;
     if (q_pos >= t) continue;
+    // every thread of the half-warp holds the row's m and l
+    if (lse != nullptr && tx == 0) lse[(long long)bh * t + q_pos] = m[i] + logf(l[i]);
     E *const row = o + bi * so.b + hi * so.h + q_pos * so.t;
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
@@ -235,8 +243,8 @@ flash_fwd_kernel(const E *__restrict__ q, const E *__restrict__ k, const E *__re
 }
 
 template <int DP, typename E>
-int run(const void *q, const void *k, const void *v, void *o, const Strides *st, int b,
-        int h, int t, int d, int causal, cudaStream_t stream) {
+int run(const void *q, const void *k, const void *v, void *o, float *lse, const Strides *st,
+        int b, int h, int t, int d, int causal, cudaStream_t stream) {
   const int smem = (int)sizeof(float) * (2 * kTile * (DP + 4) + kTile * DP + kTile * kPStride);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<DP, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -245,33 +253,36 @@ int run(const void *q, const void *k, const void *v, void *o, const Strides *st,
   const long long blocks = (long long)((t + kTile - 1) / kTile) * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   flash_fwd_kernel<DP, E><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const E *)q, (const E *)k, (const E *)v, (E *)o, st[0], st[1], st[2], st[3], h, bh, t,
-      d, sqrtf((float)d), causal);
+      (const E *)q, (const E *)k, (const E *)v, (E *)o, lse, st[0], st[1], st[2], st[3], h,
+      bh, t, d, sqrtf((float)d), causal);
   return (int)cudaGetLastError();
 }
 
 template <typename E>
-int dispatch(const void *q, const void *k, const void *v, void *o, const Strides *st, int b,
-             int h, int t, int d, int causal, cudaStream_t s) {
-  if (d <= 32) return run<32, E>(q, k, v, o, st, b, h, t, d, causal, s);
-  if (d <= 64) return run<64, E>(q, k, v, o, st, b, h, t, d, causal, s);
-  if (d <= 128) return run<128, E>(q, k, v, o, st, b, h, t, d, causal, s);
-  return run<256, E>(q, k, v, o, st, b, h, t, d, causal, s);
+int dispatch(const void *q, const void *k, const void *v, void *o, float *lse,
+             const Strides *st, int b, int h, int t, int d, int causal, cudaStream_t s) {
+  if (d <= 32) return run<32, E>(q, k, v, o, lse, st, b, h, t, d, causal, s);
+  if (d <= 64) return run<64, E>(q, k, v, o, lse, st, b, h, t, d, causal, s);
+  if (d <= 128) return run<128, E>(q, k, v, o, lse, st, b, h, t, d, causal, s);
+  return run<256, E>(q, k, v, o, lse, st, b, h, t, d, causal, s);
 }
 
 }  // namespace
 
 // strides: the element strides of the b, h and t axes of q, k, v and o, in
-// that order (12 values; the d axis is contiguous). dtype 0 float32,
-// 1 bfloat16. Returns a cudaError_t (0: launched).
+// that order (12 values; the d axis is contiguous). lse: a float32 (b, h, t)
+// contiguous buffer for the rows' log-sum-exp, or null (the serving path:
+// nothing more is written). dtype 0 float32, 1 bfloat16. Returns a
+// cudaError_t (0: launched).
 extern "C" int flash_attn_fwd_launch(const void *q, const void *k, const void *v, void *o,
-                                     const long long *strides, int b, int h, int t, int d,
-                                     int dtype, int causal, void *stream) {
+                                     void *lse, const long long *strides, int b, int h,
+                                     int t, int d, int dtype, int causal, void *stream) {
   if (b <= 0 || h <= 0 || t <= 0) return 0;
   if (d < 1 || d > 256 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   Strides st[4];
   for (int i = 0; i < 4; ++i) st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<float>(q, k, v, o, st, b, h, t, d, causal, s);
-  return dispatch<__nv_bfloat16>(q, k, v, o, st, b, h, t, d, causal, s);
+  float *const l = (float *)lse;
+  if (dtype == 0) return dispatch<float>(q, k, v, o, l, st, b, h, t, d, causal, s);
+  return dispatch<__nv_bfloat16>(q, k, v, o, l, st, b, h, t, d, causal, s);
 }

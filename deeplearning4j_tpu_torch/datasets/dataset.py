@@ -1,6 +1,9 @@
 """DataSet / MultiDataSet containers (counterpart of
-``deeplearning4j_tpu/datasets/dataset.py``): numpy holders; a network moves
-each batch to its device when it trains on it."""
+``deeplearning4j_tpu/datasets/dataset.py``). Features, labels and masks are
+numpy arrays or tensors (on the CPU or the card); a network moves each
+batch to its device when it trains on it, and takes a tensor already there
+as it is. Slicing, shuffling and merging keep tensors tensors, on their
+device: nothing passes through numpy."""
 
 from __future__ import annotations
 
@@ -8,6 +11,23 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
+
+
+def _take(a, idx: np.ndarray):
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a[torch.as_tensor(idx, device=a.device)]
+    return a[idx]
+
+
+def _cat(parts):
+    if parts[0] is None:
+        return None
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=0)
+    return np.concatenate(parts, axis=0)
 
 
 @dataclasses.dataclass
@@ -21,13 +41,12 @@ class DataSet:
         return int(self.features.shape[0])
 
     def shuffle(self, rng: np.random.Generator):
+        """Permute the examples by ``rng.permutation`` (the JAX package's
+        order for the same generator)."""
         idx = rng.permutation(self.num_examples())
-        self.features = self.features[idx]
-        self.labels = self.labels[idx]
-        if self.features_mask is not None:
-            self.features_mask = self.features_mask[idx]
-        if self.labels_mask is not None:
-            self.labels_mask = self.labels_mask[idx]
+        self.features, self.labels, self.features_mask, self.labels_mask = (
+            _take(a, idx) for a in (self.features, self.labels, self.features_mask,
+                                    self.labels_mask))
 
     def split(self, batch_size: int):
         n = self.num_examples()
@@ -44,8 +63,7 @@ class DataSet:
     @staticmethod
     def merge(datasets: Sequence["DataSet"]) -> "DataSet":
         def cat(name):
-            parts = [getattr(d, name) for d in datasets]
-            return None if parts[0] is None else np.concatenate(parts, axis=0)
+            return _cat([getattr(d, name) for d in datasets])
         return DataSet(cat("features"), cat("labels"), cat("features_mask"),
                        cat("labels_mask"))
 

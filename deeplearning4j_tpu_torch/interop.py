@@ -17,6 +17,13 @@ their nesting.
         params_from_jax(host(jax_graph.params), device="cpu"),
         state_from_jax(host(jax_graph.state), device="cpu"))
 
+An updater's state crosses per layer, taken apart on the JAX side (optax's
+``ScaleByAdamState`` is ``count``, ``mu``, ``nu``):
+
+    adam = jax_net.opt_state[i][0]
+    net.opt_state[i] = updater_state_from_jax(
+        adam.count, {"mu": host(adam.mu), "nu": host(adam.nu)}, device="cpu")
+
 where ``host`` maps every leaf, at any depth, to ``np.asarray``
 (``jax.tree_util.tree_map(np.asarray, tree)`` on the JAX side).
 
@@ -47,7 +54,8 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.graph import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 
-__all__ = ["params_from_jax", "state_from_jax", "conf_from_jax_json",
+__all__ = ["params_from_jax", "state_from_jax", "updater_state_from_jax",
+           "conf_from_jax_json",
            "graph_conf_from_jax_json", "index_from_jax", "word2vec_from_jax",
            "sequence_vectors_from_jax"]
 
@@ -76,6 +84,14 @@ def state_from_jax(state, device=None):
     """The running stats (``net.state``) of a JAX network, as
     :func:`params_from_jax` takes its parameters."""
     return _tensors(state, device)
+
+
+def updater_state_from_jax(count, slots: dict, device=None) -> dict:
+    """One layer's updater state in the port's form (``{"count": int,
+    <slot>: tree}``, ``optimize/updaters.py``) from a JAX layer's optax
+    state taken apart: the step count and each slot's tree of numpy arrays,
+    nested as the layer's parameters are."""
+    return {"count": int(np.asarray(count)), **_tensors(slots, device)}
 
 
 def conf_from_jax_json(s: str) -> MultiLayerConfiguration:

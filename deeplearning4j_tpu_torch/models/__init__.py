@@ -1,6 +1,7 @@
 """Zoo models of the port."""
 
+from deeplearning4j_tpu_torch.models.lenet import LeNet
 from deeplearning4j_tpu_torch.models.resnet50 import ResNet50
 from deeplearning4j_tpu_torch.models.vgg import VGG16, VGG19
 
-__all__ = ["ResNet50", "VGG16", "VGG19"]
+__all__ = ["LeNet", "ResNet50", "VGG16", "VGG19"]

@@ -5,9 +5,11 @@ pre-LN ``TransformerEncoderBlock``, over (batch, time, features).
 Both share :func:`_attend`, which takes the JAX package's selection rule:
 with no features mask and ``t >= 128``, the flash path
 (``parallel/ring_attention.flash_self_attention``: the hand-written CUDA
-kernel on the card, its plain version on the CPU); otherwise the dense
-``reference_attention`` with the mask on the keys. Each call adds one to
-:data:`counters` under the JAX package's names (``attention.flash``,
+kernels on the card, their plain versions on the CPU; differentiable
+through the wrapper's ``torch.autograd.Function``, whose backward runs the
+dK/dV and dQ kernels); otherwise the dense ``reference_attention`` with the
+mask on the keys. Each forward call, in serving and in training, adds one
+to :data:`counters` under the JAX package's names (``attention.flash``,
 ``attention.dense``); ``ParallelInference.stats()`` reports them. The
 kernel takes every ``t`` and head dims up to 256, so the JAX package's
 ``attention.flash_fallback`` (a TPU block-shape refusal) has no

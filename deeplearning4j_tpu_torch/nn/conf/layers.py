@@ -102,6 +102,53 @@ def regularization_coefficients(layer):
     return vals
 
 
+def resolve_param_path(params: dict, key: str):
+    """A possibly nested '/'-separated parameter key (the attention layers'
+    ``"q/W"``) resolved in ``params``; None where it is missing."""
+    node = params
+    for part in key.split("/"):
+        if isinstance(node, dict) and part in node:
+            node = node[part]
+        else:
+            return None
+    return node
+
+
+def _bias_keys(layer, params: dict) -> list:
+    """Bias parameter paths: a top-level ``"b"``, plus the sibling ``.../b``
+    of every nested weight path (``"q/W"`` -> ``"q/b"``)."""
+    keys = []
+    if resolve_param_path(params, "b") is not None:
+        keys.append("b")
+    for wk in layer.regularizable():
+        if "/" in wk:
+            bk = wk.rsplit("/", 1)[0] + "/b"
+            if bk not in keys and resolve_param_path(params, bk) is not None:
+                keys.append(bk)
+    return keys
+
+
+def regularization_penalty(layer, params: dict):
+    """The layer's l1/l2 score term (reference BaseLayer.calcL1/calcL2):
+    ``layer.regularizable()`` paths with l1/l2, :func:`_bias_keys` with
+    l1_bias/l2_bias; low-precision leaves are summed in float32."""
+    l1, l2, l1b, l2b = regularization_coefficients(layer)
+    terms = [(w, l1, l2) for w in (resolve_param_path(params, k)
+                                    for k in layer.regularizable()) if w is not None]
+    if l1b or l2b:
+        terms += [(resolve_param_path(params, k), l1b, l2b)
+                  for k in _bias_keys(layer, params)]
+    total = 0.0
+    for w, c1, c2 in terms:
+        if w.dtype in (torch.bfloat16, torch.float16):
+            w = w.float()
+        if c2:
+            total = total + 0.5 * c2 * torch.sum(w * w)
+        if c1:
+            total = total + c1 * torch.sum(torch.abs(w))
+    return total
+
+
 def dropout_input(x, dropout, train: bool, rng: Optional[torch.Generator]):
     """Inverted dropout on a layer's input; ``dropout`` is the retain
     probability. The keep mask is drawn from ``rng`` (a generator on x's

@@ -11,7 +11,7 @@ integer-valued floats. The LSTM family is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
@@ -62,6 +62,8 @@ class EmbeddingLayer(BaseLayer):
     n_out: int = 0
     has_bias: bool = True
     activation: str = "identity"
+    #: its input is ids: a network's compute dtype is not applied to it
+    takes_ids: ClassVar[bool] = True
 
     def input_kind(self):
         return "ff"
@@ -90,6 +92,8 @@ class EmbeddingSequenceLayer(BaseLayer):
 
     n_in: Optional[int] = None  # vocab size
     n_out: int = 0
+    #: its input is ids: a network's compute dtype is not applied to it
+    takes_ids: ClassVar[bool] = True
 
     def input_kind(self):
         return "rnn"

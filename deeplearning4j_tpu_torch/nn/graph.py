@@ -6,19 +6,14 @@ in the JAX package's layouts, so ``interop.params_from_jax`` and
 ``interop.state_from_jax`` hand over a JAX graph's weights and running
 stats leaf for leaf.
 
-One training step (``_fit_batch``) does what the JAX package's jitted step
-does, eagerly:
-
-- the float32 master parameters are cast to the compute dtype once per
-  step (inside autograd, so gradients land on the masters in float32);
-  the inputs are cast too; output-layer pre-activations go to float32 for
-  the loss;
-- the loss is the sum of every output layer's score plus l1/l2;
-- gradients come from ``torch.autograd.grad``; each layer's gradients go
-  through its gradient normalization and its updater
-  (``optimize/updaters.py``) and are added to the masters in place;
-- batch-norm running stats are updated **in place** under
-  ``torch.no_grad()``, where the JAX package returns new state.
+One training step (``_fit_batch``) is the step of ``nn/training.py``,
+which ``MultiLayerNetwork`` shares: float32 masters cast to the compute
+dtype inside autograd (the inputs are cast too; output-layer
+pre-activations go to float32 for the loss), the loss the sum of every
+output layer's score plus l1/l2, each layer's gradients through its
+gradient normalization and its updater, added to the masters in place, and
+batch-norm running stats updated **in place** under ``torch.no_grad()``,
+where the JAX package returns new state.
 
 Not ported (they raise ``NotImplementedError``): ``bucket_policy``,
 ``prefetch``, ``checkpoint_manager``, truncated BPTT, gradient compression,
@@ -37,15 +32,12 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.graph import (ComputationGraphConfiguration,
                                                     DuplicateToTimeSeriesVertex)
 from deeplearning4j_tpu_torch.nn.conf.layers import (Layer, apply_layer, dropout_input,
-                                                     regularization_coefficients)
+                                                     regularization_penalty)
 from deeplearning4j_tpu_torch.nn.conf.normalization import LOW_PRECISION
-from deeplearning4j_tpu_torch.optimize.updaters import gradient_normalization
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16, "float64": torch.float64}
+from deeplearning4j_tpu_torch.nn.training import TrainStep
 
 
-class ComputationGraph:
+class ComputationGraph(TrainStep):
     """DAG network. ``device`` follows the port's device rule: ``cuda``
     unless the caller passes ``device="cpu"``."""
 
@@ -56,31 +48,15 @@ class ComputationGraph:
         self.vertices = conf.wired_vertices()
         self.vertex_input_types = conf.vertex_input_types()
         self._vpre = conf.resolved_vertex_preprocessors()
-        if conf.dtype not in _DTYPES:
-            raise ValueError(f"unknown dtype '{conf.dtype}' (known: {sorted(_DTYPES)})")
-        self._dtype = _DTYPES[conf.dtype]
         self._layer_names = [n for n in self.order
                              if isinstance(self.vertices[n][0], Layer)]
-        self._updaters, self._gnorms = {}, {}
-        for n in self._layer_names:
-            layer = self.vertices[n][0]
-            self._updaters[n] = getattr(layer, "updater", None) or conf.updater
-            self._gnorms[n] = gradient_normalization(
-                getattr(layer, "gradient_normalization", None),
-                getattr(layer, "gradient_normalization_threshold", 1.0))
+        self._init_training({n: self.vertices[n][0] for n in self._layer_names})
         for out in conf.network_outputs:
             obj = self.vertices[out][0]
             if not (isinstance(obj, Layer) and obj.is_output_layer()):
                 raise ValueError(f"Network output '{out}' must be an output/loss layer")
         self.params: Optional[Dict[str, dict]] = None
         self.state: Optional[Dict[str, dict]] = None
-        self.opt_state: Optional[Dict[str, dict]] = None
-        self.iteration = 0
-        self.epoch = 0
-        self.last_batch_size: Optional[int] = None
-        self.grad_compression = None
-        self._score = None
-        self._gen: Optional[torch.Generator] = None  # dropout stream
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
@@ -98,28 +74,15 @@ class ComputationGraph:
                     gen, self.vertex_input_types[name][0], self.device)
             else:
                 params[name], state[name] = {}, {}
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed + 1)
+        self._seed_dropout(seed)
         return self.set_params(params, state)
 
     def set_params(self, params: Dict[str, dict], state: Dict[str, dict]):
         """Take these parameters and state (e.g. from ``interop``); updater
         state starts anew."""
         self.params, self.state = params, state
-        self.opt_state = {n: self._updaters[n].init_state(params[n])
-                          for n in self._layer_names}
-        if self._gen is None:
-            self._gen = torch.Generator(device=self.device)
-            self._gen.manual_seed(self.conf.seed + 1)
+        self._reset_updaters()
         return self
-
-    def num_params(self) -> int:
-        if self.params is None:
-            return 0
-        return sum(t.numel() for p in self.params.values() for t in p.values())
-
-    def score(self):
-        return None if self._score is None else float(self._score)
 
     def set_augmentation(self, augmentation):
         raise NotImplementedError("on-device augmentation is not in the PyTorch port yet")
@@ -129,9 +92,7 @@ class ComputationGraph:
         """Run the DAG. Returns (activations, output pre-activations, new
         state), all dicts keyed by vertex name."""
         cdt = self._dtype
-        if cdt != torch.float32:
-            params = {n: {k: (v.to(cdt) if v.is_floating_point() else v)
-                          for k, v in p.items()} for n, p in params.items()}
+        params = self._cast(params)
         acts: Dict[str, torch.Tensor] = {}
         for name, x in zip(self.conf.network_inputs, inputs):
             acts[name] = (x.to(cdt) if cdt != torch.float32 and x.is_floating_point()
@@ -168,22 +129,11 @@ class ComputationGraph:
         return acts, preouts, new_state
 
     def _regularization(self, params):
+        """l1/l2 over every layer's regularizable paths and biases, nested
+        ones included (the JAX package's ``_regularization``)."""
         total = 0.0
         for name in self._layer_names:
-            layer = self.vertices[name][0]
-            p = params[name]
-            l1, l2, l1b, l2b = regularization_coefficients(layer)
-            keys = [(k, l1, l2) for k in layer.regularizable() if k in p]
-            if (l1b or l2b) and "b" in p:
-                keys.append(("b", l1b, l2b))
-            for key, c1, c2 in keys:
-                w = p[key]
-                if w.dtype in LOW_PRECISION:
-                    w = w.float()
-                if c2:
-                    total = total + 0.5 * c2 * torch.sum(w * w)
-                if c1:
-                    total = total + c1 * torch.sum(torch.abs(w))
+            total = total + regularization_penalty(self.vertices[name][0], params[name])
         return total
 
     def _loss_fn(self, params, state, inputs, labels, rng=None, lmasks=None):
@@ -200,52 +150,13 @@ class ComputationGraph:
                 y, preouts[out_name], lm)
         return loss + self._regularization(params), new_state
 
-    def _loss_and_grads(self, inputs, labels, rng=None, lmasks=None):
-        """(loss, grads per layer, new state) at the current parameters."""
-        leaves = {n: {k: v.detach().requires_grad_(True) for k, v in p.items()}
-                  for n, p in self.params.items()}
-        loss, new_state = self._loss_fn(leaves, self.state, inputs, labels,
-                                        rng, lmasks)
-        keys = [(n, k) for n in self._layer_names for k in leaves[n]]
-        grads = {n: {} for n in self._layer_names}
-        if keys:
-            flat = torch.autograd.grad(loss, [leaves[n][k] for n, k in keys],
-                                       allow_unused=True)
-            for (n, k), g in zip(keys, flat):
-                grads[n][k] = torch.zeros_like(leaves[n][k]) if g is None else g
-        return loss.detach(), grads, new_state
-
-    def _apply_updates(self, grads):
-        with torch.no_grad():
-            for n in self._layer_names:
-                if not self.params[n]:
-                    continue
-                g = self._gnorms[n](grads[n])
-                updates, self.opt_state[n] = self._updaters[n].update(
-                    g, self.opt_state[n])
-                for k, u in updates.items():
-                    self.params[n][k].add_(u)
-
-    def _commit_state(self, new_state):
-        with torch.no_grad():
-            for n, st in new_state.items():
-                cur = self.state[n]
-                for k, v in st.items():
-                    if v is not cur[k]:
-                        cur[k].copy_(v)
-
     # ------------------------------------------------------------------- fit
     def fit(self, data, num_epochs: int = 1, bucket_policy=None,
             prefetch: bool = False, checkpoint_manager=None):
         """Train on MultiDataSets, DataSets (single input and output) or a
         list of them, ``num_epochs`` times over."""
-        for knob, val in (("bucket_policy", bucket_policy), ("prefetch", prefetch),
-                          ("checkpoint_manager", checkpoint_manager),
-                          ("grad_compression", self.grad_compression)):
-            if val:
-                raise NotImplementedError(f"fit with {knob} is not in the PyTorch port yet")
-        if self.conf.backprop_type == "tbptt":
-            raise NotImplementedError("truncated BPTT is not in the PyTorch port yet")
+        self._refuse(bucket_policy=bucket_policy, prefetch=prefetch,
+                     checkpoint_manager=checkpoint_manager)
         if self.params is None:
             self.init()
         if isinstance(data, (DataSet, MultiDataSet)):
@@ -277,12 +188,8 @@ class ComputationGraph:
 
     def _fit_batch(self, mds: MultiDataSet):
         inputs, labels, lmasks = self._batch(mds)
-        loss, grads, new_state = self._loss_and_grads(inputs, labels, self._gen, lmasks)
-        self._apply_updates(grads)
-        self._commit_state(new_state)
-        self._score = loss
+        self._train_step(inputs, labels, lmasks)
         self.last_batch_size = int(inputs[0].shape[0])
-        self.iteration += 1
 
     # ---------------------------------------------------------------- output
     def output(self, *inputs, features_masks=None) -> List[np.ndarray]:

@@ -1,7 +1,8 @@
-"""MultiLayerNetwork — the sequential-stack network, inference side
-(counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, the
-inference branch of ``_forward`` with its features mask, ``output``,
-``predict``, ``feed_forward``).
+"""MultiLayerNetwork — the sequential-stack network (counterpart of
+``deeplearning4j_tpu/nn/multilayer.py``: ``init``, ``_forward`` with its
+features mask, ``fit``, ``fit_fused``, ``_fit_batch``, ``_loss_fn``,
+``_regularization``, ``score``, ``score_dataset``, ``output``, ``predict``,
+``feed_forward``).
 
 Parameters are a list of per-layer dicts of tensors in the JAX package's
 layouts (nested, for the attention layers' ``q``/``k``/``v``/``o``
@@ -9,10 +10,27 @@ groups), so ``interop.params_from_jax`` can hand over a JAX network's
 weights leaf for leaf; ``state`` is the list of per-layer buffer dicts
 (batch-norm running stats). Inputs are taken as float32, token ids
 included: float32 holds every id below 2**24 exactly, and the embedding
-layers cast them to long. Training a ``MultiLayerNetwork`` is not in the
-port yet: ``ComputationGraph`` trains. PyTorch runs eagerly: there is no
-compiled program per shape, and ``output`` returns a tensor on the
-network's device without waiting for it.
+layers cast them to long. PyTorch runs eagerly: there is no compiled
+program per shape, and ``output`` returns a tensor on the network's device
+without waiting for it.
+
+One training step (``_fit_batch``) is the step of ``nn/training.py``,
+which ``ComputationGraph`` shares: float32 masters cast to the compute
+dtype (``conf.dtype``: float32, bfloat16, float16 or float64) inside
+autograd; the features cast too, unless the first layer takes ids (which
+bf16 would round past 256); the output layer's pre-activation in float32
+for the loss, which is its score over the labels mask or else the features
+mask that survives to the output, plus l1/l2; each layer's gradients
+through its gradient normalization and its updater, added to the masters
+in place; running stats updated in place; dropout drawn from a
+``torch.Generator`` seeded with ``conf.seed + 1`` (or ``init``'s seed
++ 1).
+
+``fit_fused`` (an XLA scan over K stacked batches there) is the same step
+in a Python loop. Not ported (they raise ``NotImplementedError``):
+``bucket_policy``, ``prefetch``, ``checkpoint_manager``, gradient
+compression, augmentation, listeners, truncated BPTT and the solver
+optimization algorithms.
 """
 
 from __future__ import annotations
@@ -22,51 +40,62 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.nn.conf.layers import apply_layer
+from deeplearning4j_tpu_torch.nn.conf.layers import (apply_layer, dropout_input,
+                                                     regularization_penalty)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf.normalization import LOW_PRECISION
+from deeplearning4j_tpu_torch.nn.training import TrainStep
+from deeplearning4j_tpu_torch.nn.tree import tree_map
 
 
 def _copy_tree(tree, device):
     """A copy of a (nested) dict of tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: _copy_tree(v, device) for k, v in tree.items()}
-    return tree.to(device, copy=True)
+    return tree_map(lambda v: v.to(device, copy=True), tree)
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(TrainStep):
     """Sequential network. ``device`` follows the port's device rule:
     ``cuda`` unless the caller passes ``device="cpu"``."""
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.device = resolve_device(device)
-        if conf.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype '{conf.dtype}': this slice of the port serves float32 "
-                "networks only; reduced-precision compute comes with training")
         self.conf = conf
         self.layers = conf.wired_layers()
         self._pre = conf.resolved_preprocessors()
         if not self.layers:
             raise ValueError("Empty layer list")
+        self._takes_ids = getattr(self.layers[0], "takes_ids", False)
         # whether each layer's output keeps the time axis a features mask
         # applies to; the mask is dropped after a layer that collapses time
         self._mask_survives = [layer.output_type(it).kind in ("rnn", "cnn1d")
                                for layer, it in zip(self.layers,
                                                     conf.layer_input_types())]
+        self._init_training(self.layers)
         self.params: Optional[List[dict]] = None
         self.state: List[dict] = [{} for _ in self.layers]
 
+    # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one ``torch.Generator`` on the
-        network's device, seeded with ``conf.seed`` (or ``seed``)."""
+        network's device, seeded with ``conf.seed`` (or ``seed``); dropout
+        draws from a second one (seed + 1)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.conf.seed if seed is None else int(seed))
+        self._seed_dropout(seed)
         types = self.conf.layer_input_types()
         ps = [layer.init(gen, it, self.device)
               for layer, it in zip(self.layers, types)]
-        self.params = [p for p, _ in ps]
-        self.state = [s for _, s in ps]
+        return self.set_params([p for p, _ in ps], [s for _, s in ps])
+
+    def set_params(self, params: List[dict], state: Optional[List[dict]] = None):
+        """Take these parameters (and state), e.g. from ``interop``; updater
+        state starts anew."""
+        self.params = params
+        if state is not None:
+            self.state = state
+        self._reset_updaters()
         return self
 
     def to(self, device) -> "MultiLayerNetwork":
@@ -76,23 +105,54 @@ class MultiLayerNetwork:
                                  for tree in (self.params, self.state))
         return out
 
+    # ---------------------------------------------------------- not ported
+    def set_listeners(self, *listeners):
+        raise NotImplementedError("training listeners are not in the PyTorch port yet")
+
+    add_listener = set_listeners
+
+    def set_augmentation(self, augmentation):
+        raise NotImplementedError("on-device augmentation is not in the PyTorch port yet")
+
+    # --------------------------------------------------------------- forward
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
-    def _forward(self, x: torch.Tensor, mask=None) -> List[torch.Tensor]:
-        """Inference forward; returns every layer's activation. The features
-        ``mask`` (batch, time) reaches each layer while its input has a time
-        axis."""
-        acts = []
+    def _as_labels(self, y) -> torch.Tensor:
+        if not isinstance(y, torch.Tensor):
+            y = np.asarray(y)
+            if y.dtype == np.float64:  # the JAX package computes it in float32
+                y = y.astype(np.float32)
+        return torch.as_tensor(y, device=self.device)
+
+    def _forward(self, params, state, x, train: bool, rng=None, mask=None):
+        """The forward pass: (every layer's activation, the output layer's
+        pre-activation in float32 or None, new state, the features mask that
+        survives to the output). ``mask`` (batch, time) reaches each layer
+        while its input has a time axis."""
+        params = self._cast(params)
+        if self._dtype != torch.float32 and not self._takes_ids:
+            x = x.to(self._dtype)
+        acts, new_state, preout = [], [], None
+        last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             if i in self._pre:
                 x = self._pre[i].apply(x)
-            x, _ = apply_layer(layer, self.params[i], self.state[i], x, train=False,
-                               rng=None, mask=mask)
+            if i == last and layer.is_output_layer():
+                preout = layer.pre_output(params[i], dropout_input(x, layer.dropout,
+                                                                   train, rng))
+                if preout.dtype in LOW_PRECISION:  # loss math in float32
+                    preout = preout.float()
+                x = layer.output_activations(preout)
+                new_state.append(state[i])
+            else:
+                x, st = apply_layer(layer, params[i], state[i], x, train=train, rng=rng,
+                                    mask=mask)
+                new_state.append(st)
             if not self._mask_survives[i]:
                 mask = None
             acts.append(x)
-        return acts
+        return acts, preout, new_state, mask
 
     @torch.inference_mode()
     def output(self, x, features_mask=None) -> torch.Tensor:
@@ -100,9 +160,9 @@ class MultiLayerNetwork:
         the features mask of its 4-argument overload)."""
         if self.params is None:
             self.init()
-        fm = (None if features_mask is None else
-              torch.as_tensor(features_mask, dtype=torch.float32, device=self.device))
-        return self._forward(self._as_input(x), fm)[-1]
+        fm = None if features_mask is None else self._as_input(features_mask)
+        return self._forward(self.params, self.state, self._as_input(x), False,
+                             mask=fm)[0][-1]
 
     def predict(self, x, features_mask=None) -> np.ndarray:
         """Class indices (reference MultiLayerNetwork.predict)."""
@@ -111,4 +171,89 @@ class MultiLayerNetwork:
     @torch.inference_mode()
     def feed_forward(self, x) -> List[torch.Tensor]:
         """All layer activations (reference feedForward)."""
-        return self._forward(self._as_input(x))
+        return self._forward(self.params, self.state, self._as_input(x), False)[0]
+
+    # ------------------------------------------------------------ train step
+    def _regularization(self, params):
+        """l1/l2 over every layer's regularizable paths and biases, nested
+        ones included (reference calcL1/calcL2)."""
+        total = 0.0
+        for layer, p in zip(self.layers, params):
+            total = total + regularization_penalty(layer, p)
+        return total
+
+    def _loss_fn(self, params, state, x, y, rng=None, fmask=None, lmask=None,
+                 train: bool = True):
+        """(loss, new state): the output layer's score over the labels mask,
+        or the surviving features mask, plus l1/l2."""
+        out_layer = self.layers[-1]
+        if not out_layer.is_output_layer():
+            raise ValueError("Last layer must be an output/loss layer to fit()")
+        _, preout, new_state, cur_mask = self._forward(params, state, x, train, rng, fmask)
+        lm = lmask if lmask is not None else cur_mask
+        if y.dtype in LOW_PRECISION:
+            y = y.float()
+        return out_layer.compute_score(y, preout, lm) + self._regularization(params), new_state
+
+    def _batch(self, ds: DataSet):
+        fm, lm = ds.features_mask, ds.labels_mask
+        return (self._as_input(ds.features), self._as_labels(ds.labels),
+                None if fm is None else self._as_input(fm),
+                None if lm is None else self._as_input(lm))
+
+    def _fit_batch(self, ds: DataSet):
+        x, y, fm, lm = self._batch(ds)
+        self._train_step(x, y, fm, lm)
+        self.last_batch_size = int(x.shape[0])
+
+    # ------------------------------------------------------------------- fit
+    def fit(self, data, labels=None, num_epochs: int = 1, bucket_policy=None,
+            prefetch: bool = False, checkpoint_manager=None) -> "MultiLayerNetwork":
+        """Train (reference MultiLayerNetwork.fit): ``data`` is a DataSet, an
+        iterable of DataSets, or features with ``labels``. Features, labels
+        and masks may be numpy arrays or tensors; tensors already on the
+        network's device are used without a copy."""
+        self._refuse(bucket_policy=bucket_policy, prefetch=prefetch,
+                     checkpoint_manager=checkpoint_manager)
+        if self.params is None:
+            self.init()
+        if labels is not None:
+            data = [DataSet(data, labels)]
+        elif isinstance(data, DataSet):
+            data = [data]
+        for _ in range(num_epochs):
+            for ds in data:
+                self._fit_batch(ds)
+            self.epoch += 1
+        return self
+
+    def fit_fused(self, datasets, bucket_policy=None) -> "MultiLayerNetwork":
+        """K steps over a list of equally shaped DataSets, or a pre-stacked
+        ``(xs, ys)`` pair of (K, batch, ...) arrays: the JAX package's
+        one-dispatch scan, here the same step as ``fit`` in a loop, so it
+        gives what ``fit`` on each batch in order gives, bitwise."""
+        self._refuse(bucket_policy=bucket_policy)
+        if self.params is None:
+            self.init()
+        if isinstance(datasets, tuple) and len(datasets) == 2:
+            xs, ys = datasets
+            if not (hasattr(xs, "shape") and hasattr(ys, "shape")):
+                raise TypeError("fit_fused((a, b)) expects pre-stacked (K, batch, ...) "
+                                "ARRAYS; pass multiple DataSets as a list")
+            if len(xs.shape) < 3:
+                raise ValueError("pre-stacked inputs must be (K, batch, ...); for one "
+                                 "batch of (features, labels) use fit()")
+            datasets = [DataSet(xs[i], ys[i]) for i in range(int(xs.shape[0]))]
+        for ds in datasets:
+            self._fit_batch(ds)
+        return self
+
+    def score_dataset(self, ds: DataSet) -> float:
+        """Loss on a dataset (reference MultiLayerNetwork.score(DataSet)):
+        the inference-mode forward, no dropout, plus l1/l2."""
+        if self.params is None:
+            self.init()
+        x, y, fm, lm = self._batch(ds)
+        with torch.no_grad():
+            return float(self._loss_fn(self.params, self.state, x, y, None, fm, lm,
+                                       train=False)[0])

@@ -1,0 +1,141 @@
+"""The training step that ``ComputationGraph`` and ``MultiLayerNetwork``
+share, over their parameter trees: a dict keyed by vertex name in the
+graph, a list indexed by layer in the sequential network.
+
+A network class mixes in :class:`TrainStep`, calls ``_init_training`` from
+its constructor with its layers (in the same dict or list form), and gives
+``_loss_fn(params, state, inputs, labels, rng, *masks) -> (loss, new
+state)``. The step does what the JAX package's jitted step does, eagerly:
+
+- ``_cast`` casts the float32 master parameters to the compute dtype
+  (``conf.dtype``) inside autograd, so gradients land on the masters in
+  float32;
+- ``_loss_and_grads`` takes gradients of every leaf with
+  ``torch.autograd.grad`` (zeros for a leaf the loss does not reach);
+- ``_apply_updates`` sends each layer's gradient tree through its gradient
+  normalization and its updater and adds the updates to the masters in
+  place;
+- ``_commit_state`` writes the new running stats into the state in place;
+- dropout draws from a ``torch.Generator`` seeded with the init seed + 1.
+
+Every walk goes to every depth (``nn/tree.py``), so the attention layers'
+``q``/``k``/``v``/``o`` groups train like flat parameters.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.tree import leaf_grads, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.optimize.updaters import gradient_normalization
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "float64": torch.float64}
+_SGD_FAMILY = ("sgd", "stochastic_gradient_descent")
+
+
+def _items(tree):
+    return tree.items() if isinstance(tree, dict) else enumerate(tree)
+
+
+def _keyed(tree, fn):
+    """``fn(key, value)`` for each entry, in a dict or list as ``tree`` is."""
+    if isinstance(tree, dict):
+        return {k: fn(k, v) for k, v in tree.items()}
+    return [fn(i, v) for i, v in enumerate(tree)]
+
+
+class TrainStep:
+    """The shared step; see the module docstring for what a network gives."""
+
+    def _init_training(self, layers):
+        conf = self.conf
+        if conf.dtype not in DTYPES:
+            raise ValueError(f"unknown dtype '{conf.dtype}' (known: {sorted(DTYPES)})")
+        self._dtype = DTYPES[conf.dtype]
+        self._updaters = _keyed(layers, lambda _, layer: getattr(layer, "updater", None)
+                                or conf.updater)
+        self._gnorms = _keyed(layers, lambda _, layer: gradient_normalization(
+            getattr(layer, "gradient_normalization", None),
+            getattr(layer, "gradient_normalization_threshold", 1.0)))
+        self.opt_state = None
+        self.iteration = 0
+        self.epoch = 0
+        self.last_batch_size: Optional[int] = None
+        self.grad_compression = None
+        self._score = None
+        self._gen: Optional[torch.Generator] = None  # dropout stream
+
+    def _seed_dropout(self, seed: Optional[int] = None):
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed((self.conf.seed if seed is None else int(seed)) + 1)
+
+    def _reset_updaters(self):
+        """Updater state anew for the current parameters."""
+        self.opt_state = _keyed(self._updaters, lambda k, u: u.init_state(self.params[k]))
+        if self._gen is None:
+            self._seed_dropout()
+
+    def num_params(self) -> int:
+        return 0 if self.params is None else sum(t.numel() for t in tree_leaves(self.params))
+
+    def score(self) -> Optional[float]:
+        """Most recent minibatch score (reference Model.score())."""
+        return None if self._score is None else float(self._score)
+
+    def _refuse(self, **knobs):
+        """Raise for a knob of ``fit`` that the port does not have."""
+        knobs["grad_compression"] = self.grad_compression
+        for knob, val in knobs.items():
+            if val:
+                raise NotImplementedError(f"fit with {knob} is not in the PyTorch port yet")
+        if self.conf.backprop_type == "tbptt":
+            raise NotImplementedError("truncated BPTT is not in the PyTorch port yet")
+        algo = str(getattr(self.conf, "optimization_algo", "sgd")).strip().lower()
+        if algo.replace(" ", "_").replace("-", "_") not in _SGD_FAMILY:
+            raise NotImplementedError(f"optimization_algo '{self.conf.optimization_algo}' "
+                                      "(a host solver) is not in the PyTorch port yet")
+
+    def _cast(self, params):
+        """``params`` in the compute dtype (float leaves only)."""
+        cdt = self._dtype
+        if cdt == torch.float32:
+            return params
+        return tree_map(lambda v: v.to(cdt) if v.is_floating_point() else v, params)
+
+    def _loss_and_grads(self, *batch):
+        """(loss, gradient tree, new state) at the current parameters;
+        ``batch`` is what ``_loss_fn`` takes after the parameters and
+        state."""
+        leaves = tree_map(lambda v: v.detach().requires_grad_(True), self.params)
+        loss, new_state = self._loss_fn(leaves, self.state, *batch)
+        return loss.detach(), leaf_grads(loss, leaves), new_state
+
+    def _apply_updates(self, grads):
+        with torch.no_grad():
+            for k, updater in _items(self._updaters):
+                if not tree_leaves(self.params[k]):
+                    continue
+                updates, self.opt_state[k] = updater.update(self._gnorms[k](grads[k]),
+                                                            self.opt_state[k])
+                tree_map(torch.Tensor.add_, self.params[k], updates)
+
+    def _commit_state(self, new_state):
+        with torch.no_grad():
+            for k, st in _items(new_state):
+                cur = self.state[k]
+                for name, v in st.items():
+                    if v is not cur[name]:
+                        cur[name].copy_(v)
+
+    def _train_step(self, inputs, labels, *masks):
+        """One step on one batch: gradients, updates, state, score."""
+        if self.opt_state is None:  # parameters assigned directly
+            self._reset_updaters()
+        loss, grads, new_state = self._loss_and_grads(inputs, labels, self._gen, *masks)
+        self._apply_updates(grads)
+        self._commit_state(new_state)
+        self._score = loss
+        self.iteration += 1

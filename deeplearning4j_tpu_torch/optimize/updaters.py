@@ -22,8 +22,10 @@ that each step is optax's by construction:
 
 The learning rate of step ``k`` (0 for the first update) is
 ``_schedule(...)(k)``. State is a dict per layer: ``{"count": int, <slot>:
-{param key: tensor}}``. Bias corrections are computed in float32, as optax
-computes ``1 - decay**count``.
+tree}``, each slot's tree mirroring the layer's parameter tree, nested
+groups (``{"q": {"W", "b"}, ...}``) included, as optax's state mirrors the
+pytree. Bias corrections are computed in float32, as optax computes
+``1 - decay**count``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.nn.tree import tree_leaves, tree_map
 
 _UPDATER_REGISTRY = {}
 
@@ -109,7 +113,7 @@ class Updater:
     def init_state(self, params: dict) -> dict:
         state = {"count": 0}
         for slot in self._slots:
-            state[slot] = {k: self._slot_init(slot, p) for k, p in params.items()}
+            state[slot] = tree_map(lambda p, s=slot: self._slot_init(s, p), params)
         return state
 
     def _direction(self, g, slots: dict, count: int):
@@ -117,20 +121,23 @@ class Updater:
         the new slot values for one tensor."""
         return g, slots
 
+    def _step(self, g, slots: dict, count: int, lr: float):
+        """(update tree, {slot: new tree}) for the (nested) gradients ``g``."""
+        if isinstance(g, dict):
+            steps = {k: self._step(x, {s: slots[s][k] for s in self._slots}, count, lr)
+                     for k, x in g.items()}
+            return ({k: u for k, (u, _) in steps.items()},
+                    {s: {k: new[s] for k, (_, new) in steps.items()} for s in self._slots})
+        d, new = self._direction(g, slots, count)
+        return d * (-lr), new
+
     def update(self, grads: dict, state: dict):
-        """One step: ``(updates, new_state)``; apply as ``p + u``."""
+        """One step: ``(updates, new_state)``; apply as ``p + u``. ``grads``
+        may nest, as the parameters do."""
         count = state["count"]
-        lr = self.lr(count)
-        updates, new_state = {}, {"count": count + 1}
-        for slot in self._slots:
-            new_state[slot] = {}
-        for k, g in grads.items():
-            d, slots = self._direction(
-                g, {s: state[s][k] for s in self._slots}, count + 1)
-            updates[k] = d * (-lr)
-            for s in self._slots:
-                new_state[s][k] = slots[s]
-        return updates, new_state
+        updates, slots = self._step(grads, {s: state[s] for s in self._slots},
+                                    count + 1, self.lr(count))
+        return updates, {"count": count + 1, **slots}
 
     def to_dict(self):
         d = {k: v for k, v in dataclasses.asdict(self).items() if v is not None}
@@ -268,33 +275,34 @@ class NoOp(Updater):
 
 def gradient_normalization(kind: Optional[str], threshold: float = 1.0):
     """Per-layer gradient normalization (reference GradientNormalization
-    enum). Returns a function ``grads dict -> grads dict`` for one layer."""
+    enum). Returns a function ``grads tree -> grads tree`` for one layer;
+    "per layer" norms run over every leaf of the (nested) tree, "per param
+    type" ones leaf by leaf."""
     if not kind or str(kind).lower() == "none":
         return lambda g: g
     k = str(kind).lower()
 
     def l2(g):
-        return torch.sqrt(sum(torch.sum(x * x) for x in g.values()) + 1e-12)
+        return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(g)) + 1e-12)
+
+    def leaf_l2(x):
+        return torch.sqrt(torch.sum(x * x) + 1e-12)
 
     if k == "renormalizel2perlayer":
         def f(g):
             n = l2(g)
-            return {key: x / n for key, x in g.items()}
+            return tree_map(lambda x: x / n, g)
         return f
     if k == "renormalizel2perparamtype":
-        return lambda g: {key: x / torch.sqrt(torch.sum(x * x) + 1e-12)
-                          for key, x in g.items()}
+        return lambda g: tree_map(lambda x: x / leaf_l2(x), g)
     if k == "clipelementwiseabsolutevalue":
-        return lambda g: {key: x.clamp(-threshold, threshold)
-                          for key, x in g.items()}
+        return lambda g: tree_map(lambda x: x.clamp(-threshold, threshold), g)
     if k == "clipl2perlayer":
         def f(g):
             scale = torch.clamp_max(threshold / l2(g), 1.0)
-            return {key: x * scale for key, x in g.items()}
+            return tree_map(lambda x: x * scale, g)
         return f
     if k == "clipl2perparamtype":
-        return lambda g: {
-            key: x * torch.clamp_max(threshold / torch.sqrt(torch.sum(x * x) + 1e-12),
-                                     1.0)
-            for key, x in g.items()}
+        return lambda g: tree_map(
+            lambda x: x * torch.clamp_max(threshold / leaf_l2(x), 1.0), g)
     raise ValueError(f"Unknown gradient normalization '{kind}'")

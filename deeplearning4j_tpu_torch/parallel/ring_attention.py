@@ -5,10 +5,13 @@ and ``flash_self_attention``).
 Shapes are the JAX package's: q, k, v are ``(batch, heads, time,
 head_dim)``. ``reference_attention`` is the dense attention, and the plain
 PyTorch version of the flash kernel (``perf/kernels/flash_attention.py``).
-``flash_self_attention`` goes through that kernel's wrapper: the kernel on a
-CUDA tensor, the plain version on a CPU tensor, as the JAX package takes its
-dense path off the TPU. The sequence-parallel ``ring_self_attention`` (a mesh
-of devices) is not ported yet.
+``flash_self_attention`` goes through that kernel's wrapper: the kernels on a
+CUDA tensor, the plain versions on a CPU tensor, as the JAX package takes its
+dense path off the TPU. It is differentiable, as the JAX entry is through the
+library's ``custom_vjp``: with grad on, the wrapper's
+``torch.autograd.Function`` saves the rows' log-sum-exp and its backward runs
+the dK/dV and dQ kernels. The sequence-parallel ``ring_self_attention`` (a
+mesh of devices) is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,11 +42,15 @@ def reference_attention(q, k, v, causal: bool = False, key_mask=None):
 
 
 def flash_self_attention(q, k, v, causal: bool = False):
-    """Attention through the hand-written flash kernel on a CUDA tensor
-    (tiled online softmax; the (t, t) score matrix is never stored), the
-    plain :func:`reference_attention` on a CPU tensor. No key mask: padded
-    batches take ``reference_attention``. The kernel reads head-split views
-    in place (any strides but a contiguous last axis) and writes the output
-    in q's layout."""
+    """Attention through the hand-written flash kernels on a CUDA tensor
+    (tiled online softmax; the (t, t) score matrix is never stored), their
+    plain versions on a CPU tensor; differentiable. No key mask: padded
+    batches take ``reference_attention``. The kernels read head-split views
+    in place (any strides but a contiguous last axis) and write the outputs
+    in the inputs' layouts. float64, which no kernel takes, runs only on the
+    CPU, where it takes :func:`reference_attention` and its autograd (a
+    float64 network is a referee for the float32 one)."""
+    if q.dtype == torch.float64 and q.device.type == "cpu":
+        return reference_attention(q, k, v, causal=causal)
     from deeplearning4j_tpu_torch.perf.kernels import flash_attention
     return flash_attention.flash_attention(q, k, v, causal=causal)

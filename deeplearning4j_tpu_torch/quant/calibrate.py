@@ -144,7 +144,7 @@ def calibrate(net, data, observer: str = "minmax",
         if max_batches is not None and n >= max_batches:
             break
         x = net._as_input(_features(item))
-        acts = net._forward(x)
+        acts = net._forward(net.params, net.state, x, False)[0]
         vecs = []
         for i in idxs:
             xin = x if i == 0 else acts[i - 1]
