@@ -6,13 +6,16 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
    started together) and prints the build seconds and a summary of nvcc's
-   -Xptxas -v report (registers, shared memory, spills).
+   -Xptxas -v report (registers, shared memory, spills). The first designs
+   of int4_dot and flash_attn_fwd (csrc/*_v1.cu) are built beside them and
+   timed on the same operands as "previous_ms".
 3. Kernel phases: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, and times both (CUDA events, median
    of 25 launches after warm-up, L2 flushed before each launch), beside the
    bound the card's published peaks allow and a library call that computes
    the same function (a yardstick the port never calls).
-   - int4_dot, bitwise, at VGG16's fc shapes.
+   - int4_dot, bitwise against its plain version and against itself, at
+     VGG16's fc shapes.
    - bn_act_fwd / bn_act_bwd at ResNet50's batch-norm shapes at batch 128
      (stem, res2, res4, res5) and a ragged one, in bf16 and float32. Stats
      (mean, var, inv) within rtol 1e-5 / atol 1e-6 of the plain version.
@@ -54,7 +57,8 @@
      kernel on the index's real probe slots, p = 8) and at ragged shapes
      (the p = 32 one takes the global-LUT path); timed beside the bound,
      the plain version and F.embedding_bag(mode="sum"), whose max |diff|
-     is printed (its sum order may differ). int4_dot at (256, 1M, 64).
+     is printed (its sum order may differ). int4_dot at (b, 1M, 64) for the
+     same b, bitwise against its plain version and itself.
    - Serving: each of int4, PQ and IVF-PQ behind IndexEndpoint(k_max=128)
      after warmup(), four client threads of 64 requests (1-8 rows, k of 1,
      10 or 32). Every answer checked (shape, ids in range, distances
@@ -100,9 +104,9 @@
    and rescales in another order); in bf16 within one bf16 ulp of its own
    |plain| more, the plain version computed in float32 from the same bf16
    inputs (the kernel rounds once, at the output). Two launches agree
-   bitwise; the output keeps the inputs' layout. Kernel, plain version and
-   F.scaled_dot_product_attention (whose max |diff| is printed) timed
-   beside the bound.
+   bitwise; the output keeps the inputs' layout. Kernel, its first design,
+   plain version and F.scaled_dot_product_attention (whose max |diff| is
+   printed) timed beside the bound.
 10. Transformer serving phase: a causal LM at GPT-2 small's widths (768
    wide, 12 heads, 12 blocks, FFN 3072, t = 1024, vocab 50,257; random
    weights from a seed) built with the port's builder and served by
@@ -317,6 +321,33 @@ def int4_dot_bound(b: int, n: int, d: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _first_design(name: str, argtypes):
+    """The C entry of a kernel's first design (csrc/<name>_v1.cu), the
+    yardstick its redesign is timed against: previous_ms. ``argtypes``
+    leaves out the trailing stream."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.perf.kernels import _build
+    fn = getattr(_build.load(f"{name}_v1"), f"{name}_v1_launch")
+    fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def first_design_int4(torch, qq, packed, d: int):
+    """int4_dot's first design (one warp per table row) on the same operands."""
+    import ctypes
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = _first_design("int4_dot", [P, L, P, L, P, L, I, I, I])
+    out = torch.empty((qq.shape[0], packed.shape[0]), dtype=torch.int32, device=qq.device)
+    err = fn(qq.data_ptr(), qq.stride(0), packed.data_ptr(), packed.stride(0),
+             out.data_ptr(), out.stride(0), qq.shape[0], packed.shape[0], d,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"int4_dot_v1 launch failed with CUDA error {err}")
+    return out
+
+
 def kernel_case(torch, dev, flush, b: int, n: int, d: int) -> dict:
     """Hold int4_dot against its plain version at one shape, bitwise, and
     time the kernel, the plain version and the library yardstick."""
@@ -337,7 +368,12 @@ def kernel_case(torch, dev, flush, b: int, n: int, d: int) -> dict:
     if not torch.equal(got, want):
         raise AssertionError(f"int4_dot differs from its plain version at "
                              f"b={b} n={n} d={d}: max |diff| {err}")
+    again = int4_dot.int4_matmul(qq, packed, d)
+    if not torch.equal(got, again):
+        raise AssertionError(f"int4_dot: two launches differ at b={b} n={n} d={d}")
+    del again
     ms = time_ms(torch, lambda: int4_dot.int4_matmul(qq, packed, d), flush)
+    previous_ms = time_ms(torch, lambda: first_design_int4(torch, qq, packed, d), flush)
     plain_ms = time_ms(torch, lambda: int4_dot.int4_matmul_plain(qq, packed, d),
                        flush)
     # torch._int_mm needs more than 16 rows and k % 8 == 0: the yardstick
@@ -356,10 +392,14 @@ def kernel_case(torch, dev, flush, b: int, n: int, d: int) -> dict:
         library_note = f"torch._int_mm refused: {str(e).splitlines()[0]}"
     bound_ms, bound_by = int4_dot_bound(b, n, d)
     row = {"b": b, "n": n, "d": d, "max_abs_err": err, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms, "library": library_note}
+           "previous_ms": previous_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms, "library": library_note}
     print("int4_dot " + json.dumps(row), flush=True)
     return row
+
+
+INT4_KEYS = ("b", "n", "d", "ms", "previous_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
 
 
 def kernel_phase(torch, dev, flush):
@@ -1014,9 +1054,9 @@ def adc_kernel_phase(torch, dev, flush, Q, pq, ivf):
         seg = torch.randint(0, p, (b, c), generator=gen, device=dev, dtype=torch.int32)
         pos = torch.randint(0, 2000, (b, c), generator=gen, device=dev, dtype=torch.int32)
         ivf_rows.append(adc_ivf_case(torch, flush, lut, codes, seg, pos, b * c, "ragged"))
-    int4_row = kernel_case(torch, dev, flush, max(ADC_BATCHES), RETR_N, RETR_D)
+    int4_rows = [kernel_case(torch, dev, flush, b, RETR_N, RETR_D) for b in ADC_BATCHES]
     torch.cuda.empty_cache()
-    return pq_rows, ivf_rows, int4_row
+    return pq_rows, ivf_rows, int4_rows
 
 
 def _search_all(ix, Q, k, chunk=256):
@@ -1184,8 +1224,8 @@ def retrieval_phase(torch, dev, flush, card):
 
     t_phase = time.perf_counter()
     V, Q, ix, build_s = build_retrieval(torch, dev)
-    pq_rows, ivf_rows, int4_row = adc_kernel_phase(torch, dev, flush, Q, ix["pq"],
-                                                   ix["ivf_pq"])
+    pq_rows, ivf_rows, int4_rows = adc_kernel_phase(torch, dev, flush, Q, ix["pq"],
+                                                    ix["ivf_pq"])
     exact = _search_all(ix["exact"], Q, 10)[0]
     served = {}
     for name in ("int4", "pq", "ivf_pq"):
@@ -1213,7 +1253,7 @@ def retrieval_phase(torch, dev, flush, card):
     del ix, V
     torch.cuda.empty_cache()
     print(f"retrieval phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return pq_rows, ivf_rows, int4_row, served
+    return pq_rows, ivf_rows, int4_rows, served
 
 
 
@@ -1539,6 +1579,22 @@ def _flash_tol(torch, want, vmax, dtype):
     return tol if dtype == torch.float32 else tol + _bf16_ulp(torch, want.abs())
 
 
+def first_design_flash(torch, q, k, v, causal):
+    """flash_attn_fwd's first design (float32 CUDA-core tiles for both
+    dtypes) on the same operands, no L: the serving call."""
+    import ctypes
+    fn = _first_design("flash_attn_fwd", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6)
+    o = torch.empty_like(q)
+    b, h, t, d = q.shape
+    strides = (ctypes.c_longlong * 12)(*(x for a in (q, k, v, o) for x in a.stride()[:3]))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
+             ctypes.addressof(strides), b, h, t, d, int(q.dtype == torch.bfloat16),
+             int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attn_fwd_v1 launch failed with CUDA error {err}")
+    return o
+
+
 def flash_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dict:
     """Hold flash_attn_fwd against its plain version at one shape, element
     by element within :func:`_flash_tol` (bf16 against the plain version
@@ -1582,6 +1638,7 @@ def flash_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dic
     lib_diff = _max_err(lib, want)
     del got, again, want, lib, diff
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), flush)
+    previous_ms = time_ms(torch, lambda: first_design_flash(torch, q, k, v, causal), flush)
     plain_ms = time_ms(torch, lambda: reference_attention(q, k, v, causal=causal), flush)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal), flush)
@@ -1595,7 +1652,7 @@ def flash_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dic
     torch.cuda.empty_cache()
     row = {"b": b, "h": h, "t": t, "d": d, "causal": causal, "dtype": dtype_name,
            "layout": layout, "max_abs_err": err, "max_err_over_limit": over,
-           "max_abs_v": vmax, "ms": ms,
+           "max_abs_v": vmax, "ms": ms, "previous_ms": previous_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms, "library": "F.scaled_dot_product_attention",
            "library_max_abs_diff": lib_diff}
@@ -1627,7 +1684,7 @@ def lm_conf(blocks=None):
 
 def _lm_family(name: str) -> str:
     key = name.lower()
-    for fam, marks in (("flash_attn_fwd", ("flash_fwd_kernel",)),
+    for fam, marks in (("flash_attn_fwd", ("flash_fwd_",)),
                        ("host_copy", ("memcpy",)),
                        ("softmax", ("softmax",)),
                        ("matmuls", ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk"))):
@@ -1684,6 +1741,8 @@ def lm_dispatch_profile(torch, pi, x) -> dict:
     busy, compute = _union_ms(spans), _union_ms(compute_spans)
     if not spans:
         raise AssertionError("transformer: the profile recorded no device activity")
+    if fam["flash_attn_fwd"] == 0.0:
+        raise AssertionError("transformer: the profile found no flash_attn_fwd kernel")
     return {"rows": len(x), "bucket": pi._pad_target(len(x)),
             "device_ms_by_family": fam, "device_busy_ms": busy,
             "kernel_busy_ms": compute, "wall_ms": wall_ms,
@@ -1877,11 +1936,12 @@ def _flash_kernel_entry(rows, summary, train):
             **_launches_by_path("flash_attn_fwd", train, summary["flash_attn_fwd_launches"]),
             "max_abs_err": main["max_abs_err"],
             "max_err_over_limit_all_cases": max(r["max_err_over_limit"] for r in rows),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "ms": main["ms"], "previous_ms": main["previous_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": {k: main[k] for k in key},
-            "other_shapes": [{k: r[k] for k in key + ("ms", "plain_ms", "bound_ms",
-                                                      "library_ms")}
+            "other_shapes": [{k: r[k] for k in key + ("ms", "previous_ms", "plain_ms",
+                                                      "bound_ms", "library_ms")}
                              for r in rows if r is not main]}
 
 
@@ -1994,7 +2054,7 @@ def flash_bwd_kernel_phase(torch, dev, flush):
 
 def _lm_train_family(name: str) -> str:
     key = name.lower()
-    for fam, marks in (("flash_attn_fwd", ("flash_fwd_kernel",)),
+    for fam, marks in (("flash_attn_fwd", ("flash_fwd_",)),
                        ("flash_attn_bwd_dkv", ("flash_bwd_dkv",)),
                        ("flash_attn_bwd_dq", ("flash_bwd_dq",)),
                        ("copies", ("memcpy", "memset")),
@@ -2073,6 +2133,10 @@ def lm_step_profile(torch, net, x, y, step_ms) -> dict:
     spans_fb, spans_up = _device_spans(fb), _device_spans(up)
     if not spans_fb or not spans_up:
         raise AssertionError("lm training: the profile recorded no device activity")
+    missing = [f for f in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+               if fam[f] == 0.0]
+    if missing:
+        raise AssertionError(f"lm training: the profile found no kernel of {missing}")
     busy = _union_ms(spans_fb) + _union_ms(spans_up)
     wall_ms = (wall_fb + wall_up) * 1e3
     launch_calls = sum(1 for prof in (fb, up) for evt in prof.events()
@@ -2360,8 +2424,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
+    # the two *_v1 sources are the first designs of int4_dot and
+    # flash_attn_fwd, timed beside their redesigns (previous_ms)
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
-             "scatter_add", "flash_attn_fwd", "flash_attn_bwd"]
+             "scatter_add", "flash_attn_fwd", "flash_attn_bwd", "int4_dot_v1",
+             "flash_attn_fwd_v1"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2377,6 +2444,7 @@ def main() -> int:
     bn_fwd, bn_bwd = training_phase(torch, dev, card)
     card_vs_cpu_phase(torch, dev)
     pq_rows, ivf_rows, int4_retr, served = retrieval_phase(torch, dev, flush, card)
+    int4_head = next(r for r in int4_retr if r["b"] == max(ADC_BATCHES))
     scatter_rows, w2v = word2vec_phase(torch, dev, flush, card)
     flash_rows = flash_kernel_phase(torch, dev, flush)
     lm = transformer_phase(torch, dev, card)
@@ -2400,12 +2468,14 @@ def main() -> int:
         "launches": launches + served["int4"]["launches"],
         "launches_by_path": {"vgg16_serving": launches,
                              "retrieval_int4": served["int4"]["launches"]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1, int4_retr]),
-        "ms": fc1["ms"], "plain_ms": fc1["plain_ms"], "bound_ms": fc1["bound_ms"],
-        "bound_by": fc1["bound_by"], "library_ms": fc1["library_ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1] + int4_retr),
+        "ms": fc1["ms"], "previous_ms": fc1["previous_ms"], "plain_ms": fc1["plain_ms"],
+        "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
+        "library_ms": fc1["library_ms"],
         "shape": {"b": b, "n": n, "d": d},
-        "retrieval_shape": {k: int4_retr[k] for k in (
-            "b", "n", "d", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+        "retrieval_shape": {k: int4_head[k] for k in INT4_KEYS},
+        "retrieval_batches": [{k: r[k] for k in INT4_KEYS} for r in int4_retr
+                              if r is not int4_head]},
         _bn_kernel_entry("bn_act_fwd", bn_rows, bn_fwd),
         _bn_kernel_entry("bn_act_bwd", bn_rows, bn_bwd),
         _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),

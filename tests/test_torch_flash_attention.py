@@ -144,3 +144,28 @@ def test_kernel_matches_plain_bfloat16(cuda_device, shape, causal):
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
     tol = ulp + 1e-5 * float(v.float().abs().max())
     assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def _bf16_limit(want, v):
+    """chip_smoke.py's _flash_tol for bf16: one bf16 ulp of each element's
+    own |want| plus 1e-5 of the largest |v|."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+    return ulp + 1e-5 * float(v.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 63, 65, 1000])
+@pytest.mark.parametrize("d", [40, 64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_bfloat16_tile_edges_on_head_split_views(cuda_device, t, d, causal):
+    # the tensor-core path at the edges of its 64-row query tiles and its key
+    # tiles (64 wide, 32 at d = 256), on (b, t, h, d) memory seen as (b, h, t, d)
+    q, k, v = (a.to(cuda_device).transpose(1, 2)
+               for a in _qkv((2, t, 3, d), t * 7 + d + causal, torch.bfloat16))
+    got = fa.flash_attention(q, k, v, causal=causal)
+    again = fa.flash_attention(q, k, v, causal=causal)
+    want = reference_attention(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
+    assert bool(((got.float() - want).abs() <= _bf16_limit(want, v)).all())
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))

@@ -30,6 +30,15 @@ def _operands(b, n, d, seed):
     return qq, packed
 
 
+def _random_operands(b, n, d, seed, device):
+    # every byte value, so both nibbles take all 16 codes (and the padding
+    # nibble of odd d is junk that must not count)
+    rng = np.random.default_rng(seed)
+    qq = rng.integers(-127, 128, (b, d)).astype(np.int8)
+    packed = rng.integers(-128, 128, (n, (d + 1) // 2)).astype(np.int8)
+    return torch.from_numpy(qq).to(device), torch.from_numpy(packed).to(device)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -125,3 +134,44 @@ def test_kernel_takes_row_strided_views(cuda_device):
     got = int4_dot.int4_matmul(q, p, 96)
     want = int4_dot.int4_matmul_plain(q.contiguous(), p.contiguous(), 96)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 33])
+@pytest.mark.parametrize("d", [1, 33, 63, 64, 65, 25088])
+def test_kernel_tile_edges_bitwise(cuda_device, b, d):
+    # b <= 16 takes the one-fragment tile (64 table rows), b > 16 the 64 x 128
+    # tile; n = 1000 is a multiple of neither N-tile. Few tiles at a long d
+    # split k across blocks (int32 atomics), many tiles do not.
+    n = 1000
+    q, p = _random_operands(b, n, d, b * 7 + d, cuda_device)
+    got = int4_dot.int4_matmul(q, p, d)
+    again = int4_dot.int4_matmul(q, p, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int4_dot.int4_matmul_plain(q, p, d))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(8, 4096), (16, 4096), (64, 4096), (256, 20000)])
+def test_kernel_split_k_and_many_tiles_bitwise(cuda_device, b, n):
+    # fc1's shape (d = 25,088) at serving batches splits k; (256, 20000, 64)
+    # has more tiles than the card holds blocks, so each block walks several
+    d = 25088 if n == 4096 else 64
+    q, p = _random_operands(b, n, d, b + n, cuda_device)
+    got = int4_dot.int4_matmul(q, p, d)
+    again = int4_dot.int4_matmul(q, p, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int4_dot.int4_matmul_plain(q, p, d))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_unaligned_row_strides(cuda_device):
+    # row strides that are not multiples of 16 bytes take the byte-wise copy
+    q, p = _random_operands(20, 300, 70, 4, cuda_device)
+    qv = torch.nn.functional.pad(q, (0, 3))[:, :70]
+    pv = torch.nn.functional.pad(p, (0, 5))[:, :35]
+    assert qv.stride(0) % 16 and pv.stride(0) % 16
+    got = int4_dot.int4_matmul(qv, pv, 70)
+    assert torch.equal(got, int4_dot.int4_matmul_plain(q, p, 70))
