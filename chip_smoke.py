@@ -7,8 +7,9 @@
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
    started together) and prints the build seconds and a summary of nvcc's
    -Xptxas -v report (registers, shared memory, spills). The first designs
-   of int4_dot and flash_attn_fwd (csrc/*_v1.cu) are built beside them and
-   timed on the same operands as "previous_ms".
+   of int4_dot, flash_attn_fwd, scatter_add and flash_attn_bwd_dkv
+   (csrc/*_v1.cu) are built beside them and timed on the same operands as
+   "previous_ms".
 3. Kernel phases: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, and times both (CUDA events, median
    of 25 launches after warm-up, L2 flushed before each launch), beside the
@@ -87,9 +88,10 @@
      a (10,000, 128) table at the path's shapes (N = 8192 contexts and
      centers drawn from the corpus, the 5 shared negatives) and at
      per-pair SGNS (B*K), CBOW (B*2W), HS (B*L) shapes, ragged shapes and a
-     hot row; the kernel alone, the sort + kernel wrapper, the plain
-     version and Tensor.index_add_ (atomics; its max |diff| printed) timed
-     beside the bound.
+     hot row; the kernel alone, its first design (previous_ms), the sort
+     alone, the sort + kernel wrapper, the plain version and
+     Tensor.index_add_ (atomics; its max |diff| printed) timed beside the
+     bound.
    - Quality: the four host-path modes and the corpus-resident path on
      tests/test_nlp.py's two-topic corpus, gated at its margins.
    - Card against CPU: one host-path SGNS fit from one seed on both (the
@@ -138,7 +140,7 @@
    bitwise; gradients keep their inputs' layouts; L within 1e-5 of
    logsumexp of the plain scores. Each kernel, each plain version and the
    autograd backward of F.scaled_dot_product_attention timed beside the
-   bounds.
+   bounds; the dK/dV kernel's first design (previous_ms) too.
 12. Transformer training phase, the main path of this slice: the LM of 10
    trained through MultiLayerNetwork.fit with Adam(1e-4) on one seeded batch
    of 8 x 1024 ids and next-token one-hot labels (1.65 GB), made on the
@@ -321,14 +323,15 @@ def int4_dot_bound(b: int, n: int, d: int):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def _first_design(name: str, argtypes):
-    """The C entry of a kernel's first design (csrc/<name>_v1.cu), the
-    yardstick its redesign is timed against: previous_ms. ``argtypes``
-    leaves out the trailing stream."""
+def _first_design(name: str, argtypes, source: str = ""):
+    """The C entry <name>_v1_launch of a kernel's first design
+    (csrc/<source>.cu, by default <name>_v1), the yardstick its redesign is
+    timed against: previous_ms. ``argtypes`` leaves out the trailing
+    stream."""
     import ctypes
 
     from deeplearning4j_tpu_torch.perf.kernels import _build
-    fn = getattr(_build.load(f"{name}_v1"), f"{name}_v1_launch")
+    fn = getattr(_build.load(source or f"{name}_v1"), f"{name}_v1_launch")
     fn.argtypes = list(argtypes) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -1285,10 +1288,26 @@ def _bits_equal(torch, a, b):
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def first_design_scatter(torch, table, rows32, perm32, grads):
+    """scatter_add's first design (one warp per segment) on the same sorted
+    work, its rows and perm cast to int32 as it takes them."""
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _first_design("scatter_add", [P, P, P, P, ctypes.c_longlong, I, I, I])
+    v, d = table.shape
+    vec = int(d % 4 == 0 and table.data_ptr() % 16 == 0 and grads.data_ptr() % 16 == 0)
+    err = fn(table.data_ptr(), rows32.data_ptr(), perm32.data_ptr(), grads.data_ptr(),
+             rows32.shape[0], v, d, vec, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"scatter_add_v1 launch failed with CUDA error {err}")
+    return table
+
+
 def scatter_case(torch, flush, table, idx, grads, label) -> dict:
     """Hold scatter_add bitwise against its plain version and itself, and
-    time the kernel alone (on sorted work), the sort + kernel wrapper, the
-    plain version and Tensor.index_add_ beside the bound."""
+    time the kernel alone (on sorted work), its first design on the same
+    work, the sort alone, the sort + kernel wrapper, the plain version and
+    Tensor.index_add_ beside the bound."""
     from deeplearning4j_tpu_torch.perf.kernels import scatter_add as sa
 
     n, (v, d) = idx.shape[0], table.shape
@@ -1312,9 +1331,12 @@ def scatter_case(torch, flush, table, idx, grads, label) -> dict:
     distinct, longest = int(uniq.numel()), int(counts.max())
     del again, want, lib
     rows, perm = torch.sort(idx, stable=True)
-    rows, perm = rows.to(torch.int32), perm.to(torch.int32)
+    rows32, perm32 = rows.to(torch.int32), perm.to(torch.int32)
     t = table.clone()
     ms = time_ms(torch, lambda: sa.launch_sorted(t, rows, perm, grads), flush)
+    previous_ms = time_ms(torch, lambda: first_design_scatter(torch, t, rows32, perm32, grads),
+                          flush)
+    sort_ms = time_ms(torch, lambda: torch.sort(idx, stable=True), flush)
     wrapper_ms = time_ms(torch, lambda: sa.scatter_add(t, idx, grads), flush)
     # the plain version takes one step per rank level: past 1000 levels
     # (hundreds of ms) its one checking run is its time
@@ -1329,6 +1351,7 @@ def scatter_case(torch, flush, table, idx, grads, label) -> dict:
                                          n * d, PEAK_F32_OPS_PER_S)
     row = {"case": label, "V": v, "D": d, "N": n, "distinct_rows": distinct,
            "longest_chain": longest, "max_abs_err": 0.0, "ms": ms,
+           "previous_ms": previous_ms, "sort_ms": sort_ms,
            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_reps": plain_reps,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
            "library": "Tensor.index_add_ (atomics)", "library_max_abs_diff": lib_diff}
@@ -1561,13 +1584,17 @@ def _scatter_kernel_entry(rows, summary):
             "replaces": "deeplearning4j_tpu/nlp/pallas_scatter.py:35",
             "launches": summary["scatter_add_launches"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "ms": main["ms"], "previous_ms": main["previous_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "wrapper_ms": main["wrapper_ms"],
+            "wrapper_ms": main["wrapper_ms"], "sort_ms": main["sort_ms"],
             "shape": {k: main[k] for k in ("V", "D", "N")},
             "other_main_path_shapes": {c: {k: head[c][k] for k in (
-                "N", "ms", "wrapper_ms", "plain_ms", "bound_ms", "library_ms")}
-                for c in ("corpus_centers", "corpus_negatives")}}
+                "N", "ms", "previous_ms", "wrapper_ms", "sort_ms", "plain_ms", "bound_ms",
+                "library_ms")} for c in ("corpus_centers", "corpus_negatives")},
+            "other_shapes": [{k: r[k] for k in ("case", "D", "N", "longest_chain", "ms",
+                                                "previous_ms", "library_ms")}
+                             for r in rows if not r["case"].startswith("corpus_")]}
 
 # ---------------------------------------------------------- transformer
 def _flash_tol(torch, want, vmax, dtype):
@@ -1966,6 +1993,25 @@ def _bwd_limit(torch, got, plain, ref, dtype):
     return err, float(((got.float() - plain).abs() / tol).max()), {"ulps": FLASH_BWD_BF16_ULPS}
 
 
+def first_design_flash_bwd_dkv(torch, q, k, v, do, lse, delta, causal):
+    """flash_attn_bwd_dkv's first design (float32 CUDA-core tiles for both
+    dtypes) on the same operands."""
+    import ctypes
+    fn = _first_design("flash_attn_bwd_dkv", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6,
+                       "flash_attn_bwd_v1")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    b, h, t, d = q.shape
+    strides = (ctypes.c_longlong * 18)(*(x for a in (q, k, v, do, dk, dv)
+                                         for x in a.stride()[:3]))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides), b, h, t,
+             d, int(q.dtype == torch.bfloat16), int(causal),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attn_bwd_dkv_v1 launch failed with CUDA error {err}")
+    return dk, dv
+
+
 def flash_bwd_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dict:
     """Hold flash_attn_bwd_dkv and flash_attn_bwd_dq against their plain
     versions at one shape (limits in :func:`_bwd_limit`), against
@@ -2023,14 +2069,17 @@ def flash_bwd_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) ->
         if not max(overs) <= 1.0:
             raise AssertionError(f"{what} {name}: {max(overs)} times its limit {limits}")
         del got, again, want, ref
-        ms = time_ms(torch, lambda: kernel(q, k, v, do, lse, delta, causal), flush)
+        timed = {"ms": time_ms(torch, lambda: kernel(q, k, v, do, lse, delta, causal), flush)}
+        if name.endswith("dkv"):
+            timed["previous_ms"] = time_ms(torch, lambda: first_design_flash_bwd_dkv(
+                torch, q, k, v, do, lse, delta, causal), flush)
         plain_ms = time_ms(torch, lambda: plain(q, k, v, do, lse, delta, causal), flush)
         products, outputs = (4, 2) if name.endswith("dkv") else (3, 1)
         bound_ms, bound_by = bytes_ops_bound(
             io + outputs * b * h * t * d * q.element_size(),
             products * 2.0 * b * h * pairs * d, peak)
         row[name] = {"max_abs_err": max(errs), "max_err_over_limit": max(overs),
-                     "limits": limits, "ms": ms, "plain_ms": plain_ms,
+                     "limits": limits, **timed, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         torch.cuda.empty_cache()
     leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
@@ -2371,20 +2420,24 @@ def _flash_bwd_kernel_entry(name, rows, train):
     key = ("b", "h", "t", "d", "causal", "dtype", "layout")
     main = next(r for r in rows if tuple(r[k] for k in key) == FLASH_BWD_CASES[0])
     line = {"dkv": 941, "dq": 1287}[name.rsplit("_", 1)[1]]
+    # dK/dV was redesigned: its first design is timed beside it
+    timed = ("ms", "previous_ms") if name.endswith("dkv") else ("ms",)
+    source = "flash_attn_bwd_dkv.cu" if name.endswith("dkv") else "flash_attn_bwd.cu"
     return {"name": name, "route": "cuda",
-            "source": "deeplearning4j_tpu_torch/csrc/flash_attn_bwd.cu",
+            "source": f"deeplearning4j_tpu_torch/csrc/{source}",
             "replaces": "deeplearning4j_tpu/parallel/ring_attention.py:108",
             "tpu_kernel": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
             **_launches_by_path(name, train),
             "max_abs_err": main[name]["max_abs_err"],
             "max_err_over_limit_all_cases": max(r[name]["max_err_over_limit"] for r in rows),
-            "ms": main[name]["ms"], "plain_ms": main[name]["plain_ms"],
+            **{f: main[name][f] for f in timed},
+            "plain_ms": main[name]["plain_ms"],
             "bound_ms": main[name]["bound_ms"], "bound_by": main[name]["bound_by"],
             "library_ms": main["library_ms"],
             "library": "autograd backward of F.scaled_dot_product_attention (dq, dk, dv)",
             "shape": {k: main[k] for k in key},
             "other_shapes": [dict({k: r[k] for k in key + ("library_ms",)},
-                                  **{f: r[name][f] for f in ("ms", "plain_ms", "bound_ms")})
+                                  **{f: r[name][f] for f in timed + ("plain_ms", "bound_ms")})
                              for r in rows if r is not main]}
 
 
@@ -2424,11 +2477,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
-    # the two *_v1 sources are the first designs of int4_dot and
-    # flash_attn_fwd, timed beside their redesigns (previous_ms)
+    # the *_v1 sources are the first designs of int4_dot, flash_attn_fwd,
+    # scatter_add and flash_attn_bwd_dkv, timed beside their redesigns
+    # (previous_ms)
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
-             "scatter_add", "flash_attn_fwd", "flash_attn_bwd", "int4_dot_v1",
-             "flash_attn_fwd_v1"]
+             "scatter_add", "flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd",
+             "int4_dot_v1", "flash_attn_fwd_v1", "scatter_add_v1", "flash_attn_bwd_v1"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)

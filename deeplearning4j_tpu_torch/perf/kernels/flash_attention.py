@@ -27,10 +27,11 @@ Sums are float32; outputs are rounded once. L and D are float32
   Otherwise (serving, ``torch.inference_mode``) it runs the forward alone
   and computes no L.
 - :func:`flash_fwd`, :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` are the
-  kernels' wrappers. A CPU tensor takes the plain version. On a CUDA tensor
-  each launches its kernel on the current stream, or raises, and adds one to
-  its counter: :data:`launches` (forward), :data:`launches_bwd_dkv`,
-  :data:`launches_bwd_dq`.
+  wrappers of ``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd_dkv.cu`` and
+  ``csrc/flash_attn_bwd.cu``. A CPU tensor takes the plain version. On a
+  CUDA tensor each launches its kernel on the current stream, or raises,
+  and adds one to its counter: :data:`launches` (forward),
+  :data:`launches_bwd_dkv`, :data:`launches_bwd_dq`.
 - The plain versions: the forward is ``parallel/ring_attention.
   reference_attention`` (dense scores, ``-0.7 * finfo.max`` masking) plus L;
   :func:`flash_bwd_dkv_plain` and :func:`flash_bwd_dq_plain` do the dense
@@ -218,7 +219,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     _on_cuda(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
-        _launch("flash_attn_bwd", "flash_attn_bwd_dkv_launch",
+        _launch("flash_attn_bwd_dkv", "flash_attn_bwd_dkv_launch",
                 (q, k, v, do, lse, delta, dk, dv), (q, k, v, do, dk, dv), q, causal,
                 "flash_attn_bwd_dkv")
     return dk, dv

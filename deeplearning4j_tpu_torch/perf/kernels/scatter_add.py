@@ -19,7 +19,9 @@ here passes).
   (plain tensor code, as the LUT is in ``adc.py``) and launches
   ``csrc/scatter_add.cu`` on the current stream, or raises, through
   :func:`launch_sorted` (the kernel alone, on sorted work), which adds one
-  to :data:`launches` for each launch.
+  to :data:`launches` for each launch. The sort's outputs go to the kernel
+  as they are (rows in idx's dtype, perm int64): the sort and the launch
+  are the wrapper's only device work.
 - :func:`scatter_add_plain` is the plain PyTorch version. It uses neither
   ``index_add_`` nor ``index_put_(accumulate=True)``, whose CUDA versions
   add with atomics in no fixed order: with the stable sort it ranks each
@@ -98,9 +100,8 @@ def _kernel():
         if _fn is None:
             from deeplearning4j_tpu_torch.perf.kernels import _build
             fn = _build.load("scatter_add").scatter_add_launch
-            P = ctypes.c_void_p
-            fn.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, P]
+            P, I = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [P, P, I, P, P, ctypes.c_longlong, I, I, I, P]
             fn.restype = ctypes.c_int
             _fn = fn
         return _fn
@@ -121,22 +122,25 @@ def scatter_add(table: torch.Tensor, idx: torch.Tensor,
     # the sort orders the work (equal rows together, in n order); the adds
     # are the kernel's
     rows, perm = torch.sort(idx, stable=True)
-    return launch_sorted(table, rows.to(torch.int32), perm.to(torch.int32),
-                         grads.contiguous())
+    return launch_sorted(table, rows, perm, grads.contiguous())
 
 
 def launch_sorted(table, rows, perm, grads) -> torch.Tensor:
     """The kernel alone, on work the wrapper has ordered: ``rows`` the
-    stably sorted indices and ``perm`` their positions in ``grads``, both
-    int32 on the table's card, ``grads`` contiguous."""
+    stably sorted indices (int32 or int64) and ``perm`` their positions in
+    ``grads`` (int64), as ``torch.sort`` returns them, on the table's card;
+    ``grads`` contiguous."""
     global launches
+    if rows.dtype not in (torch.int32, torch.int64) or perm.dtype != torch.int64:
+        raise TypeError(f"scatter_add's kernel takes int32 or int64 rows and int64 perm; "
+                        f"got {rows.dtype} and {perm.dtype}")
     v, d = table.shape
     vec = int(d % 4 == 0 and table.data_ptr() % 16 == 0 and grads.data_ptr() % 16 == 0)
     fn = _kernel()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(table.data_ptr(), rows.data_ptr(), perm.data_ptr(), grads.data_ptr(),
-                 rows.shape[0], v, d, vec, stream)
+        err = fn(table.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.int64),
+                 perm.data_ptr(), grads.data_ptr(), rows.shape[0], v, d, vec, stream)
     if err != 0:
         raise RuntimeError(f"scatter_add launch failed with CUDA error {err}")
     with _count_lock:

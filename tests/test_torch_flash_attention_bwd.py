@@ -13,6 +13,13 @@ tensors, D, strides, dtypes) is tested here:
   another order; the gradients are O(1));
 - no L under ``torch.inference_mode``, and the serving output unchanged.
 
+The bf16 dK/dV kernel runs its products on tensor cores from bf16
+operands with float32 sums, P and dS split into hi = bf16(x) and lo =
+bf16(x - hi). A float emulation of that arithmetic runs here: within the
+card's limit of 2 bf16 ulps of the plain float32 version's magnitude plus
+1/8 ulp of its largest (chip_smoke.py's ``_bwd_limit``), and closer than the
+same emulation without the split.
+
 The kernels run only on a CUDA card: those tests carry the ``cuda`` marker
 and skip here. There each kernel is held against its plain version:
 float32 within 1e-5 of the plain float32 result's largest magnitude, bf16
@@ -153,18 +160,71 @@ def test_backward_wrappers_check_their_operands():
         fa.flash_bwd_dq(q.double(), k.double(), v.double(), do.double(), lse, delta)
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp of |x| (a power of two), at least the smallest normal's."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _bf16_over_limit(got, plain):
+    """max |got - plain| over the bf16 limit: 2 bf16 ulps of |plain| there
+    plus 1/8 ulp of max |plain| (chip_smoke.py's _bwd_limit)."""
+    tol = 2 * _bf16_ulp(plain) + _bf16_ulp(plain.abs().max()) / 8
+    return float(((got.float() - plain).abs() / tol).max())
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_bf16_dkv(q, k, v, do, lse, delta, causal, split=True):
+    """The bf16 dK/dV kernel's arithmetic in float32 on bf16-valued inputs:
+    S^T = K Q^T and dP^T = V dO^T as float32 sums of exact products;
+    P^T = exp2(S^T c - L log2 e), c = log2(e)/sqrt(d); dS^T = P^T (dP^T - D);
+    dV = P^T dO and dK = dS^T Q / sqrt(d), each of P^T and dS^T entering
+    the products as hi + lo (or as hi alone); rounded once to bf16."""
+    d = q.shape[-1]
+    c = np.float32(np.log2(np.e) / np.sqrt(d))
+    st = torch.einsum("bhkd,bhqd->bhkq", k, q)
+    dpt = torch.einsum("bhkd,bhqd->bhkq", v, do)
+    pt = torch.exp2(st * c - (lse * np.float32(np.log2(np.e)))[:, :, None, :])
+    if causal:
+        t = q.shape[2]
+        pt = pt.masked_fill(torch.ones((t, t), dtype=torch.bool).tril(-1), 0.0)
+    dst = pt * (dpt - delta[:, :, None, :])
+
+    def product(a, m):
+        hi = _bf16(a)
+        out = torch.einsum("bhkq,bhqd->bhkd", hi, m)
+        return out + torch.einsum("bhkq,bhqd->bhkd", _bf16(a - hi), m) if split else out
+
+    dv = product(pt, do)
+    dk = product(dst, q) / np.float32(np.sqrt(d))
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 2, 130, 64), True), ((1, 2, 130, 64), False),
+                                          ((2, 1, 97, 40), True), ((1, 1, 64, 128), False)])
+def test_bf16_kernel_arithmetic_emulated_is_within_the_card_limit(shape, causal):
+    q, k, v, do = (_bf16(a) for a in _qkv_do(shape, 80 + sum(shape)))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do * o).sum(-1)
+    plain = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    split = _emulate_bf16_dkv(q, k, v, do, lse, delta, causal)
+    alone = _emulate_bf16_dkv(q, k, v, do, lse, delta, causal, split=False)
+    for got, bare, want in zip(split, alone, plain):
+        over = _bf16_over_limit(got, want)
+        assert over <= 1.0
+        # P and dS rounded to bf16 alone come nearer the limit (or past it)
+        assert _bf16_over_limit(bare, want) > over
+
+
 # ------------------------------------------------------------------ on a card
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the flash backward kernels have no CPU mode")
     return torch.device("cuda")
-
-
-def _bf16_ulp(x):
-    """One bf16 ulp of |x| (a power of two), at least the smallest normal's."""
-    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
-    return torch.exp2(e - 7)
 
 
 @pytest.mark.cuda
@@ -214,3 +274,58 @@ def test_function_on_the_card_matches_the_cpu(cuda_device):
                                                            do.to(dev).transpose(1, 2))])
     for c, g in zip(*grads):
         assert float((g - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
+def _dkv_over_limit(got, plain, ref, dtype):
+    """chip_smoke.py's _bwd_limit: float32 within 2x the plain float32
+    version's distance to the float64 referee, or 1e-5 of the referee's
+    largest magnitude; bf16 as :func:`_bf16_over_limit`."""
+    if dtype == torch.bfloat16:
+        return _bf16_over_limit(got, plain)
+    limit = max(2 * float((plain.double() - ref).abs().max()), 1e-5 * float(ref.abs().max()))
+    return float((got.double() - ref).abs().max()) / limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1000, 129])
+@pytest.mark.parametrize("d,layout", [(40, "bhtd"), (64, "bthd"), (128, "bthd"),
+                                      (256, "bhtd")])
+def test_dkv_kernel_within_limit_and_repeats_bitwise(cuda_device, d, layout, t, causal, dtype):
+    b, h = 2, 3
+    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
+    q, k, v, do = (a.to(cuda_device, dtype) for a in _qkv_do(shape, d + t + causal))
+    if layout == "bthd":  # head-split views, dO as _unheads' backward gives it
+        q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    count = fa.launches_bwd_dkv
+    got = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    again = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    f32 = [a.float() for a in (q, k, v, do)]
+    plain = fa.flash_bwd_dkv_plain(*f32, lse, delta, causal)
+    ref = fa.flash_bwd_dkv_plain(*(a.double() for a in f32), lse.double(), delta.double(),
+                                 causal)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_dkv == count + 2
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for g, a, w, r, x in zip(got, again, plain, ref, (k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and g.stride() == x.stride()
+        assert torch.equal(g.view(bits), a.view(bits))
+        assert _dkv_over_limit(g, w, r, dtype) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dkv_kernel_takes_a_dO_whose_last_axis_is_not_contiguous(cuda_device, dtype):
+    q, k, v, do = (a.to(cuda_device, dtype) for a in _qkv_do((1, 2, 300, 64), 90))
+    strided = do.transpose(2, 3).contiguous().transpose(2, 3)
+    assert strided.stride(-1) != 1
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    got = fa.flash_bwd_dkv(q, k, v, strided, lse, delta, True)
+    want = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(bits), w.view(bits))

@@ -8,8 +8,12 @@ the same order, one float32 rounding per add, so the two agree BITWISE:
 no tolerance, signed zeros included (the cases put -0.0 in the table and
 +0.0 in the gradients, where a skipped or reordered add would show).
 
-The kernel itself runs only on a CUDA card: its test carries the ``cuda``
-marker and skips here.
+The kernel itself runs only on a CUDA card: its tests carry the ``cuda``
+marker and skip here. There they hold it bitwise against its plain version
+and against itself where its two roles meet: segments just below, at and
+above its long-segment threshold (64 positions, ``kLong`` in
+csrc/scatter_add.cu), long and hot chains cut into column slices, widths
+that are not a multiple of the slice or of 4, and unaligned rows.
 """
 
 import jax.numpy as jnp
@@ -132,3 +136,88 @@ def test_kernel_matches_plain_bitwise(cuda_device, V, D, N, kind):
     assert sa.launches == before + 2
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_launch_sorted_takes_the_sorts_dtypes():
+    """The kernel takes perm as the sort returns it (int64): the first
+    design's int32 cast is refused before any build or launch."""
+    idx = torch.tensor([3, 1, 3], dtype=torch.int32)
+    rows, perm = torch.sort(idx, stable=True)
+    assert rows.dtype == torch.int32 and perm.dtype == torch.int64
+    t, g = torch.zeros((4, 8)), torch.ones((3, 8))
+    with pytest.raises(TypeError):
+        sa.launch_sorted(t, rows, perm.to(torch.int32), g)
+    with pytest.raises(TypeError):
+        sa.launch_sorted(t, rows.float(), perm, g)
+
+
+def _chains(seed, V, lengths):
+    """Indices whose sorted segments have the given lengths, shuffled."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(V, len(lengths), replace=False)
+    idx = np.repeat(rows, lengths).astype(np.int32)
+    return idx[rng.permutation(idx.size)]
+
+
+def _run_on_card(dev, table, idx, grads, idx_dtype=torch.int32):
+    i = torch.from_numpy(idx).to(dev, idx_dtype)
+    g = torch.from_numpy(grads).to(dev)
+    before = sa.launches
+    got = sa.scatter_add(torch.from_numpy(table).to(dev), i, g)
+    again = sa.scatter_add(torch.from_numpy(table).to(dev), i, g)
+    want = sa.scatter_add_plain(torch.from_numpy(table).to(dev), i, g)
+    torch.cuda.synchronize()
+    assert sa.launches == before + 2
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+LONG_CASES = [
+    # (V, D, segment lengths): around the threshold, then long chains
+    (500, 128, [63, 64, 65, 1, 127, 128, 129, 2, 191]),
+    (500, 33, [63, 64, 65, 200, 1, 700]),
+    (500, 1, [64, 65, 3000, 5]),
+    (500, 129, [64, 866, 853, 12, 63]),
+    (500, 20, [64, 100, 1]),
+    (10_000, 128, [8192]),  # hot row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("V,D,lengths", LONG_CASES)
+def test_kernel_long_segments_bitwise(cuda_device, V, D, lengths, idx_dtype):
+    table, _, grads = _operands(V + D + len(lengths), V, D, sum(lengths))
+    _run_on_card(cuda_device, table, _chains(D, V, lengths), grads, idx_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 33, 129, 128])
+def test_kernel_zipf_long_chains_bitwise(cuda_device, D):
+    """A Zipf draw of 40,960 over 10,000 rows: the head rows run to
+    thousands of positions, the tail to one."""
+    table, idx, grads = _operands(D + 5, 10_000, D, 40_960)
+    _run_on_card(cuda_device, table, idx, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 33])
+def test_kernel_unaligned_rows_bitwise(cuda_device, D):
+    """A table and gradients that start 4 bytes past a 16-byte boundary
+    take the 4-byte copies; the result is the same bits."""
+    V, lengths = 300, [64, 1000, 65, 63, 2] + [1] * 200
+    N = sum(lengths)
+    table, _, grads = _operands(D + 9, V, D, N)
+    idx = _chains(D, V, lengths)
+    i = torch.from_numpy(idx).to(cuda_device)
+    t_store = torch.zeros(V * D + 1, device=cuda_device)
+    g_store = torch.zeros(N * D + 1, device=cuda_device)
+    t = t_store[1:].view(V, D)
+    g = g_store[1:].view(N, D)
+    t.copy_(torch.from_numpy(table))
+    g.copy_(torch.from_numpy(grads))
+    assert t.data_ptr() % 16 and g.data_ptr() % 16 and t.is_contiguous()
+    want = sa.scatter_add_plain(torch.from_numpy(table).to(cuda_device), i, g.clone())
+    got = sa.scatter_add(t, i, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
