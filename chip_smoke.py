@@ -6,15 +6,22 @@
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per source, all
    started together) and prints the build seconds and a summary of nvcc's
-   -Xptxas -v report (registers, shared memory, spills). The first designs
-   of int4_dot, flash_attn_fwd, scatter_add and flash_attn_bwd_dkv
+   -Xptxas -v report (registers, shared memory, spills), and counts the
+   bf16 tensor-core instructions (HMMA.16816.F32.BF16, cuobjdump -sass) in
+   the three flash libraries, each of which must hold some. The first
+   designs of int4_dot, bn_act_bwd, flash_attn_fwd, scatter_add,
+   flash_attn_bwd_dkv (flash_attn_bwd_v1.cu) and flash_attn_bwd_dq
    (csrc/*_v1.cu) are built beside them and timed on the same operands as
    "previous_ms".
 3. Kernel phases: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, and times both (CUDA events, median
-   of 25 launches after warm-up, L2 flushed before each launch), beside the
-   bound the card's published peaks allow and a library call that computes
-   the same function (a yardstick the port never calls).
+   of 25 launches after warm-up, L2 flushed before each launch and a device
+   sleep between the flush and the start event, so that the host's enqueue
+   stays out of device times), beside the bound the card's published peaks
+   allow and a library call that computes the same function (a yardstick
+   the port never calls). Each kernel's wrapper is also timed on the host
+   clock from an idle card until it returns ("host_ms"), so that host work
+   a wrapper adds stays visible.
    - int4_dot, bitwise against its plain version and against itself, at
      VGG16's fc shapes.
    - bn_act_fwd / bn_act_bwd at ResNet50's batch-norm shapes at batch 128
@@ -28,7 +35,8 @@
      bitwise; dgamma/dbeta within rtol 1e-4 of the plain float32 sums (1.6 M
      rows summed in another order); dz within rtol 1e-4 (float32) or 2 bf16
      ulps, plus 1e-5 of its largest magnitude (it inherits the sums'
-     rounding). Two runs of each kernel agree bitwise.
+     rounding). Two runs of each kernel agree bitwise. bn_act_bwd's first
+     design is timed beside it.
 4. Serving phase: VGG16 at full width (224x224x3, 1000 classes, random
    weights from a seeded torch.Generator) is calibrated on two seeded
    batches, quantized to int4 weights and served by ParallelInference
@@ -140,7 +148,7 @@
    bitwise; gradients keep their inputs' layouts; L within 1e-5 of
    logsumexp of the plain scores. Each kernel, each plain version and the
    autograd backward of F.scaled_dot_product_attention timed beside the
-   bounds; the dK/dV kernel's first design (previous_ms) too.
+   bounds; each kernel's first design (previous_ms) too.
 12. Transformer training phase, the main path of this slice: the LM of 10
    trained through MultiLayerNetwork.fit with Adam(1e-4) on one seeded batch
    of 8 x 1024 ids and next-token one-hot labels (1.65 GB), made on the
@@ -179,6 +187,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, NVIDIA data sheet
 PEAK_INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core rate
 PEAK_F32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+SLEEP_CYCLES = 500_000         # about 0.25 ms of the card's clock: time_ms's head start
 FC_SHAPES = [(4096, 25088), (4096, 4096), (1000, 4096)]  # VGG16 fc1, fc2, out
 KERNEL_BATCHES = [1, 8, 16]
 RAGGED = (3, 1000, 33)  # (b, n, d)
@@ -299,12 +308,16 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, flush, reps: int = 25, warm: int = 3) -> float:
-    """Median device time of one ``fn()`` call, L2 flushed before each."""
+    """Median device time of one ``fn()`` call, L2 flushed before each. A
+    device-side sleep between the flush and the start event lets the host
+    enqueue the call before the card reaches it, so that a small kernel's
+    time holds no host time."""
     for _ in range(warm):
         fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -313,6 +326,23 @@ def time_ms(torch, fn, flush, reps: int = 25, warm: int = 3) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def host_ms(torch, fn, reps: int = 25, warm: int = 3) -> float:
+    """Median host time of one ``fn()`` call, from the idle card until the
+    call returns: a wrapper's own checks, allocations and launch enqueues
+    (and device time only where the wrapper waits for the card). time_ms's
+    sleep hides this from the device times."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * float(np.median(times))
 
 
 def int4_dot_bound(b: int, n: int, d: int):
@@ -376,6 +406,7 @@ def kernel_case(torch, dev, flush, b: int, n: int, d: int) -> dict:
         raise AssertionError(f"int4_dot: two launches differ at b={b} n={n} d={d}")
     del again
     ms = time_ms(torch, lambda: int4_dot.int4_matmul(qq, packed, d), flush)
+    wrapper_host_ms = host_ms(torch, lambda: int4_dot.int4_matmul(qq, packed, d))
     previous_ms = time_ms(torch, lambda: first_design_int4(torch, qq, packed, d), flush)
     plain_ms = time_ms(torch, lambda: int4_dot.int4_matmul_plain(qq, packed, d),
                        flush)
@@ -394,7 +425,7 @@ def kernel_case(torch, dev, flush, b: int, n: int, d: int) -> dict:
     except RuntimeError as e:
         library_note = f"torch._int_mm refused: {str(e).splitlines()[0]}"
     bound_ms, bound_by = int4_dot_bound(b, n, d)
-    row = {"b": b, "n": n, "d": d, "max_abs_err": err, "ms": ms,
+    row = {"b": b, "n": n, "d": d, "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms,
            "previous_ms": previous_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms, "library": library_note}
     print("int4_dot " + json.dumps(row), flush=True)
@@ -560,13 +591,34 @@ def _bf16_ulp(torch, mag):
     return torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
 
 
-def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
-    """Hold bn_act_fwd and bn_act_bwd against their plain versions at one
-    shape and time the kernels, the plain versions and the library
-    yardsticks."""
-    import torch.nn.functional as F
+def first_design_bn_bwd(torch, act, z, gamma, beta, res, mean, inv, dout):
+    """bn_act_bwd's first design (scalar loads, threads along C) on the same
+    operands."""
+    import ctypes
 
-    from deeplearning4j_tpu_torch.nn.activations import get_activation
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = _first_design("bn_act_bwd", [I, I, P, P, P, P, P, P, P, L, I, P, P, P, P, P, I, L])
+    c = z.shape[-1]
+    n = z.numel() // c
+    nrb, rpb = bn_act.row_blocks(n, c)
+    dz = torch.empty_like(z)
+    dpre = None if res is None else torch.empty_like(z)
+    dg, db = (torch.empty(c, dtype=torch.float32, device=z.device) for _ in range(2))
+    scratch = torch.empty(2 * nrb * c + 4 * c, dtype=torch.float32, device=z.device)
+    ptr = (lambda a: None if a is None else a.data_ptr())
+    err = fn(bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act], z.data_ptr(), gamma.data_ptr(),
+             beta.data_ptr(), ptr(res), mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c,
+             dz.data_ptr(), dg.data_ptr(), db.data_ptr(), ptr(dpre), scratch.data_ptr(), nrb,
+             rpb, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"bn_act_bwd_v1 launch failed with CUDA error {err}")
+    return dz, dg, db, dpre
+
+
+def bn_operands(torch, dev, n, c, dtype_name, act, residual):
+    """Seeded (z, gamma, beta, res) of one batch-norm shape, the forward's
+    (out, mean, var, inv) through the kernel, and a dout from them."""
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
     dt = getattr(torch, dtype_name)
@@ -578,14 +630,49 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
     gamma = (torch.rand(c, generator=gen, device=dev) + 0.5).to(dt)
     beta = ((torch.rand(c, generator=gen, device=dev) - 0.5) * 0.4).to(dt)
     res = torch.randn((n, c), generator=gen, device=dev).to(dt) if residual else None
-    args = (act, BN_EPS, z, gamma, beta, res)
+    fwd = bn_act.bn_act_fwd(act, BN_EPS, z, gamma, beta, res)
+    dout = (fwd[0].float() + 0.5 + 0.1 * torch.randn((n, c), generator=gen, device=dev)).to(dt)
+    return (z, gamma, beta, res), fwd, dout
 
-    out, mean, var, inv = bn_act.bn_act_fwd(*args)
+
+def hold_bn_bwd(torch, label, got, want) -> float:
+    """Hold bn_act_bwd's (dz, dgamma, dbeta, dpre) against the plain
+    version's from the same saved stats: dpre bitwise, dgamma/dbeta within
+    rtol 1e-4, dz within rtol 1e-4 (float32) or 2 bf16 ulps, plus 1e-5 of
+    its largest magnitude. Returns max |dz - plain|."""
+    (dz, dg, db, dpre), (p_dz, p_dg, p_db, p_dpre) = got, want
+    if dpre is not None and not torch.equal(dpre, p_dpre):
+        raise AssertionError(f"bn_act_bwd {label}: dpre differs from the plain version")
+    _close(f"bn_act_bwd dgamma {label}", dg, p_dg, 1e-4, 1e-6 * float(p_dg.abs().max()))
+    _close(f"bn_act_bwd dbeta {label}", db, p_db, 1e-4, 1e-6 * float(p_db.abs().max()))
+    err = _max_err(dz, p_dz)
+    dz_floor = 1e-5 * float(p_dz.float().abs().max())
+    if dz.dtype == torch.float32:
+        _close(f"bn_act_bwd dz {label}", dz, p_dz, 1e-4, dz_floor)
+    else:
+        mag = torch.maximum(dz.float().abs(), p_dz.float().abs())
+        _hold(f"bn_act_bwd dz {label} (2 bf16 ulps)",
+              (dz.float() - p_dz.float()).abs() <= 2 * _bf16_ulp(torch, mag) + dz_floor, err)
+    return err
+
+
+def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
+    """Hold bn_act_fwd and bn_act_bwd against their plain versions at one
+    shape and time the kernels, the plain versions and the library
+    yardsticks."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.nn.activations import get_activation
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    dt = getattr(torch, dtype_name)
+    (z, gamma, beta, res), (out, mean, var, inv), dout = bn_operands(
+        torch, dev, n, c, dtype_name, act, residual)
+    args = (act, BN_EPS, z, gamma, beta, res)
     p_out, p_mean, p_var, p_inv = bn_act.bn_act_fwd_plain(*args)
-    dout = (out.float() + 0.5 + 0.1 * torch.randn((n, c), generator=gen, device=dev)).to(dt)
     bargs = (act, BN_EPS, z, gamma, beta, res, mean, inv, dout)
     dz, dg, db, dpre = bn_act.bn_act_bwd(*bargs)
-    p_dz, p_dg, p_db, p_dpre = bn_act.bn_act_bwd_plain(*bargs)
+    plain_bwd = bn_act.bn_act_bwd_plain(*bargs)
     torch.cuda.synchronize()
     label = f"{case} {n}x{c} {dtype_name} {act}{' +res' if residual else ''}"
 
@@ -611,25 +698,12 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
         _hold(f"bn_act_fwd out {label} (2 bf16 ulps)",
               (out.float() - p_out.float()).abs() <= 2 * _bf16_ulp(torch, mag), fwd_err)
         del mag
-    if res is not None and not torch.equal(dpre, p_dpre):
-        raise AssertionError(f"bn_act_bwd {label}: dpre differs from the plain version")
-    _close(f"bn_act_bwd dgamma {label}", dg, p_dg, 1e-4, 1e-6 * float(p_dg.abs().max()))
-    _close(f"bn_act_bwd dbeta {label}", db, p_db, 1e-4, 1e-6 * float(p_db.abs().max()))
-    bwd_err = _max_err(dz, p_dz)
-    dz_floor = 1e-5 * float(p_dz.float().abs().max())
-    if dt == torch.float32:
-        _close(f"bn_act_bwd dz {label}", dz, p_dz, 1e-4, dz_floor)
-    else:
-        mag = torch.maximum(dz.float().abs(), p_dz.float().abs())
-        _hold(f"bn_act_bwd dz {label} (2 bf16 ulps)",
-              (dz.float() - p_dz.float()).abs() <= 2 * _bf16_ulp(torch, mag) + dz_floor,
-              bwd_err)
-        del mag
+    bwd_err = hold_bn_bwd(torch, label, (dz, dg, db, dpre), plain_bwd)
     for what, first, again in (("bn_act_fwd", (out, mean, var, inv), bn_act.bn_act_fwd(*args)),
                                ("bn_act_bwd", (dz, dg, db), bn_act.bn_act_bwd(*bargs)[:3])):
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{what} {label}: two runs differ")
-    del p_out, p_dz, p_dpre
+    del p_out, plain_bwd
 
     # library yardsticks (timed here, never called by the port):
     # F.batch_norm(training=True) + add + activation, and its autograd backward
@@ -665,7 +739,11 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
              lambda: bn_act.bn_act_bwd_plain(*bargs), 5 if residual else 3, bwd_err)):
         bound_ms, bound_by = bn_bound(n, c, esize, tensors, BN_OPS_PER_ELT[kind])
         r = dict(base, max_abs_err=err, ms=time_ms(torch, kernel, flush),
-                 plain_ms=time_ms(torch, plain, flush), bound_ms=bound_ms,
+                 host_ms=host_ms(torch, kernel))
+        if kind == "bwd":  # redesigned: its first design on the same operands
+            r["previous_ms"] = time_ms(torch, lambda: first_design_bn_bwd(
+                torch, act, z, gamma, beta, res, mean, inv, dout), flush)
+        r.update(plain_ms=time_ms(torch, plain, flush), bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=lib_ms[kind])
         print(f"bn_act_{kind} " + json.dumps(r), flush=True)
         row[kind] = r
@@ -887,20 +965,28 @@ def card_vs_cpu_phase(torch, dev):
 
 def _bn_kernel_entry(name, rows, launches):
     """The kernels-line entry of bn_act_fwd or bn_act_bwd: numbers at the
-    stem shape in bf16, max error over every case."""
+    stem shape in bf16, max error over every case; bn_act_bwd (redesigned)
+    also its first design's time and every other case's."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
+    timed = ("ms", "host_ms", "previous_ms") if kind == "bwd" else ("ms", "host_ms")
+    extra = {} if kind == "fwd" else {
+        "previous_ms": stem["previous_ms"],
+        "other_shapes": [{k: r[kind][k] for k in ("case", "rows", "channels", "dtype", "act",
+                                                  "residual") + timed
+                          + ("plain_ms", "bound_ms", "library_ms")}
+                         for r in rows if r[kind] is not stem]}
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             "replaces": "deeplearning4j_tpu/perf/pallas/bn.py:"
                         + ("88" if kind == "fwd" else "169"),
             "launches": launches, "max_abs_err": stem["max_abs_err"],
             "max_abs_err_all_cases": max(r[kind]["max_abs_err"] for r in rows),
-            "ms": stem["ms"], "plain_ms": stem["plain_ms"],
+            "ms": stem["ms"], "host_ms": stem["host_ms"], "plain_ms": stem["plain_ms"],
             "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"],
             "library_ms": stem["library_ms"],
             "shape": {"rows": stem["rows"], "channels": stem["channels"],
-                      "dtype": "bfloat16"}}
+                      "dtype": "bfloat16"}, **extra}
 
 
 # ------------------------------------------------------------- retrieval
@@ -955,6 +1041,7 @@ def adc_pq_case(torch, flush, lut, codes, label) -> dict:
                         got, want, again)
     del want, again
     ms = time_ms(torch, lambda: adc.adc_pq(lut, codes), flush)
+    wrapper_host_ms = host_ms(torch, lambda: adc.adc_pq(lut, codes))
     plain_ms = time_ms(torch, lambda: adc.adc_pq_plain(lut, codes), flush)
     # yardstick: bags of the M offsets m*ksub + code into the transposed LUT
     weight = lut.permute(1, 2, 0).reshape(m_count * ksub, b).contiguous()
@@ -965,7 +1052,8 @@ def adc_pq_case(torch, flush, lut, codes, label) -> dict:
     bound_ms, bound_by = bytes_ops_bound(n * m_count + 4 * b * m_count * ksub + 4 * b * n,
                                          b * n * m_count, PEAK_F32_OPS_PER_S)
     row = {"case": label, "b": b, "n": n, "M": m_count, "ksub": ksub,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library": "F.embedding_bag(mode='sum')", "library_max_abs_diff": lib_diff,
            "lut_gathers": b * n * m_count}
@@ -988,6 +1076,7 @@ def adc_ivf_case(torch, flush, lut, codes, seg, pos, n_valid, label) -> dict:
                         f"ksub={ksub}", got, want, again)
     del want, again
     ms = time_ms(torch, lambda: adc.adc_ivf_pq(*args), flush)
+    wrapper_host_ms = host_ms(torch, lambda: adc.adc_ivf_pq(*args))
     plain_ms = time_ms(torch, lambda: adc.adc_ivf_pq_plain(*args), flush)
     # yardstick: a (b*p*M*ksub, 1) weight, bags ((i*p + seg)*M + m)*ksub + code
     dev = lut.device
@@ -1005,7 +1094,8 @@ def adc_ivf_case(torch, flush, lut, codes, seg, pos, n_valid, label) -> dict:
                                          n_valid * m_count, PEAK_F32_OPS_PER_S)
     row = {"case": label, "b": b, "C": c, "p": p, "M": m_count, "ksub": ksub,
            "valid_slots": n_valid, "global_lut": 4 * p * m_count * ksub > 232448,
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library": "F.embedding_bag(mode='sum')", "library_max_abs_diff": lib_diff,
            "lut_gathers": b * c * m_count}
@@ -1338,6 +1428,7 @@ def scatter_case(torch, flush, table, idx, grads, label) -> dict:
                           flush)
     sort_ms = time_ms(torch, lambda: torch.sort(idx, stable=True), flush)
     wrapper_ms = time_ms(torch, lambda: sa.scatter_add(t, idx, grads), flush)
+    wrapper_host_ms = host_ms(torch, lambda: sa.scatter_add(t, idx, grads))
     # the plain version takes one step per rank level: past 1000 levels
     # (hundreds of ms) its one checking run is its time
     plain_reps = 25 if longest <= 1000 else 1
@@ -1352,7 +1443,8 @@ def scatter_case(torch, flush, table, idx, grads, label) -> dict:
     row = {"case": label, "V": v, "D": d, "N": n, "distinct_rows": distinct,
            "longest_chain": longest, "max_abs_err": 0.0, "ms": ms,
            "previous_ms": previous_ms, "sort_ms": sort_ms,
-           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "plain_reps": plain_reps,
+           "wrapper_ms": wrapper_ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+           "plain_reps": plain_reps,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
            "library": "Tensor.index_add_ (atomics)", "library_max_abs_diff": lib_diff}
     print("scatter_add " + json.dumps(row), flush=True)
@@ -1587,7 +1679,8 @@ def _scatter_kernel_entry(rows, summary):
             "ms": main["ms"], "previous_ms": main["previous_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "wrapper_ms": main["wrapper_ms"], "sort_ms": main["sort_ms"],
+            "wrapper_ms": main["wrapper_ms"], "host_ms": main["host_ms"],
+            "sort_ms": main["sort_ms"],
             "shape": {k: main[k] for k in ("V", "D", "N")},
             "other_main_path_shapes": {c: {k: head[c][k] for k in (
                 "N", "ms", "previous_ms", "wrapper_ms", "sort_ms", "plain_ms", "bound_ms",
@@ -1665,6 +1758,7 @@ def flash_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dic
     lib_diff = _max_err(lib, want)
     del got, again, want, lib, diff
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal), flush)
+    wrapper_host_ms = host_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal))
     previous_ms = time_ms(torch, lambda: first_design_flash(torch, q, k, v, causal), flush)
     plain_ms = time_ms(torch, lambda: reference_attention(q, k, v, causal=causal), flush)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1679,7 +1773,7 @@ def flash_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dic
     torch.cuda.empty_cache()
     row = {"b": b, "h": h, "t": t, "d": d, "causal": causal, "dtype": dtype_name,
            "layout": layout, "max_abs_err": err, "max_err_over_limit": over,
-           "max_abs_v": vmax, "ms": ms, "previous_ms": previous_ms,
+           "max_abs_v": vmax, "ms": ms, "host_ms": wrapper_host_ms, "previous_ms": previous_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library_ms, "library": "F.scaled_dot_product_attention",
            "library_max_abs_diff": lib_diff}
@@ -1963,7 +2057,7 @@ def _flash_kernel_entry(rows, summary, train):
             **_launches_by_path("flash_attn_fwd", train, summary["flash_attn_fwd_launches"]),
             "max_abs_err": main["max_abs_err"],
             "max_err_over_limit_all_cases": max(r["max_err_over_limit"] for r in rows),
-            "ms": main["ms"], "previous_ms": main["previous_ms"],
+            "ms": main["ms"], "host_ms": main["host_ms"], "previous_ms": main["previous_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": {k: main[k] for k in key},
@@ -2010,6 +2104,22 @@ def first_design_flash_bwd_dkv(torch, q, k, v, do, lse, delta, causal):
     if err:
         raise RuntimeError(f"flash_attn_bwd_dkv_v1 launch failed with CUDA error {err}")
     return dk, dv
+
+
+def first_design_flash_bwd_dq(torch, q, k, v, do, lse, delta, causal):
+    """flash_attn_bwd_dq's first design (float32 CUDA-core tiles for both
+    dtypes) on the same operands."""
+    import ctypes
+    fn = _first_design("flash_attn_bwd_dq", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6)
+    dq = torch.empty_like(q)
+    b, h, t, d = q.shape
+    strides = (ctypes.c_longlong * 15)(*(x for a in (q, k, v, do, dq) for x in a.stride()[:3]))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dq.data_ptr(), ctypes.addressof(strides), b, h, t, d,
+             int(q.dtype == torch.bfloat16), int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attn_bwd_dq_v1 launch failed with CUDA error {err}")
+    return dq
 
 
 def flash_bwd_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) -> dict:
@@ -2069,10 +2179,11 @@ def flash_bwd_case(torch, dev, flush, b, h, t, d, causal, dtype_name, layout) ->
         if not max(overs) <= 1.0:
             raise AssertionError(f"{what} {name}: {max(overs)} times its limit {limits}")
         del got, again, want, ref
-        timed = {"ms": time_ms(torch, lambda: kernel(q, k, v, do, lse, delta, causal), flush)}
-        if name.endswith("dkv"):
-            timed["previous_ms"] = time_ms(torch, lambda: first_design_flash_bwd_dkv(
-                torch, q, k, v, do, lse, delta, causal), flush)
+        first = first_design_flash_bwd_dkv if name.endswith("dkv") else first_design_flash_bwd_dq
+        timed = {"ms": time_ms(torch, lambda: kernel(q, k, v, do, lse, delta, causal), flush),
+                 "host_ms": host_ms(torch, lambda: kernel(q, k, v, do, lse, delta, causal)),
+                 "previous_ms": time_ms(torch, lambda: first(torch, q, k, v, do, lse, delta,
+                                                             causal), flush)}
         plain_ms = time_ms(torch, lambda: plain(q, k, v, do, lse, delta, causal), flush)
         products, outputs = (4, 2) if name.endswith("dkv") else (3, 1)
         bound_ms, bound_by = bytes_ops_bound(
@@ -2420,11 +2531,10 @@ def _flash_bwd_kernel_entry(name, rows, train):
     key = ("b", "h", "t", "d", "causal", "dtype", "layout")
     main = next(r for r in rows if tuple(r[k] for k in key) == FLASH_BWD_CASES[0])
     line = {"dkv": 941, "dq": 1287}[name.rsplit("_", 1)[1]]
-    # dK/dV was redesigned: its first design is timed beside it
-    timed = ("ms", "previous_ms") if name.endswith("dkv") else ("ms",)
-    source = "flash_attn_bwd_dkv.cu" if name.endswith("dkv") else "flash_attn_bwd.cu"
+    # both were redesigned: each first design is timed beside it
+    timed = ("ms", "host_ms", "previous_ms")
     return {"name": name, "route": "cuda",
-            "source": f"deeplearning4j_tpu_torch/csrc/{source}",
+            "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             "replaces": "deeplearning4j_tpu/parallel/ring_attention.py:108",
             "tpu_kernel": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line}",
             **_launches_by_path(name, train),
@@ -2439,6 +2549,22 @@ def _flash_bwd_kernel_entry(name, rows, train):
             "other_shapes": [dict({k: r[k] for k in key + ("library_ms",)},
                                   **{f: r[name][f] for f in timed + ("plain_ms", "bound_ms")})
                              for r in rows if r is not main]}
+
+
+def sass_counts(build, names, mark):
+    """How many SASS instructions of ``mark`` each named library holds
+    (cuobjdump -sass); raises if one of them holds none."""
+    import os
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    counts = {}
+    for name in names:
+        out = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                             capture_output=True, text=True, check=True, timeout=300).stdout
+        counts[name] = out.count(mark)
+    print(f"sass {mark}: " + json.dumps(counts), flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"a tensor-core kernel holds no {mark}: {counts}")
+    return counts
 
 
 def _build_dir():
@@ -2456,7 +2582,7 @@ def _adc_kernel_entry(name, rows, launches, replaces_line):
             "replaces": f"deeplearning4j_tpu/perf/pallas/adc.py:{replaces_line}",
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": {k: head[k] for k in ("b", "n", "C", "p", "M", "ksub") if k in head}}
@@ -2478,11 +2604,12 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
     # the *_v1 sources are the first designs of int4_dot, flash_attn_fwd,
-    # scatter_add and flash_attn_bwd_dkv, timed beside their redesigns
-    # (previous_ms)
+    # scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1), flash_attn_bwd_dq
+    # and bn_act_bwd, timed beside their redesigns (previous_ms)
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
-             "scatter_add", "flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd",
-             "int4_dot_v1", "flash_attn_fwd_v1", "scatter_add_v1", "flash_attn_bwd_v1"]
+             "scatter_add", "flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
+             "int4_dot_v1", "bn_act_bwd_v1", "flash_attn_fwd_v1", "scatter_add_v1",
+             "flash_attn_bwd_v1", "flash_attn_bwd_dq_v1"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2490,6 +2617,8 @@ def main() -> int:
         log = _build.build_log.get(name, "")
         print(f"ptxas {name}: {ptxas_summary(log)}", flush=True)
         print(log.strip(), flush=True)
+    hmma = sass_counts(_build, ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq"),
+                       "HMMA.16816.F32.BF16")
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     rows = kernel_phase(torch, dev, flush)
@@ -2523,7 +2652,8 @@ def main() -> int:
         "launches_by_path": {"vgg16_serving": launches,
                              "retrieval_int4": served["int4"]["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1] + int4_retr),
-        "ms": fc1["ms"], "previous_ms": fc1["previous_ms"], "plain_ms": fc1["plain_ms"],
+        "ms": fc1["ms"], "host_ms": fc1["host_ms"], "previous_ms": fc1["previous_ms"],
+        "plain_ms": fc1["plain_ms"],
         "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
         "library_ms": fc1["library_ms"],
         "shape": {"b": b, "n": n, "d": d},
@@ -2536,8 +2666,10 @@ def main() -> int:
         _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103),
         _scatter_kernel_entry(scatter_rows, w2v),
         _flash_kernel_entry(flash_rows, lm, train),
-        _flash_bwd_kernel_entry("flash_attn_bwd_dkv", bwd_rows, train),
-        _flash_bwd_kernel_entry("flash_attn_bwd_dq", bwd_rows, train)]}),
+        dict(_flash_bwd_kernel_entry("flash_attn_bwd_dkv", bwd_rows, train),
+             sass_hmma_bf16=hmma["flash_attn_bwd_dkv"]),
+        dict(_flash_bwd_kernel_entry("flash_attn_bwd_dq", bwd_rows, train),
+             sass_hmma_bf16=hmma["flash_attn_bwd_dq"])]}),
         flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

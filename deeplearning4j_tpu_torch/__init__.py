@@ -25,8 +25,8 @@ Ported so far:
 - attention: causal transformer LMs served through ``ParallelInference``
   and trained through ``MultiLayerNetwork.fit`` (float32, or bf16 with
   float32 masters), with the attention in the flash kernels: forward
-  ``csrc/flash_attn_fwd.cu``, backward ``csrc/flash_attn_bwd.cu`` (dK/dV
-  and dQ), behind a ``torch.autograd.Function``
+  ``csrc/flash_attn_fwd.cu``, backward ``csrc/flash_attn_bwd_dkv.cu`` and
+  ``csrc/flash_attn_bwd_dq.cu``, behind a ``torch.autograd.Function``
   (``perf/kernels/flash_attention.py``).
 """
 

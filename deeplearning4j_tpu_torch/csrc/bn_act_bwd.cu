@@ -16,21 +16,47 @@
 // (and res) once and writes dz (and dpre) once. At ResNet50's stem at batch
 // 128 (1,605,632 x 64, bf16) that is 617 MB, about 184 us.
 //
-// Design: the same row blocking as bn_act_fwd, for the same reason (a
-// channel column of all rows does not fit on an SM).
-//   1. bn_bwd_partials, (channel tiles x row blocks) of (32 x 8) threads,
-//      threads along C: recompute pre, dpre and xhat, write dpre when res is
-//      given, and per block the per-channel partial sums of dpre*xhat and
-//      dpre (row lanes added in lane order).
-//   2. bn_bwd_finalize, one thread per channel: add the partials in block
-//      order (in double), write dgamma/dbeta and the per-channel
-//      coefficients of phase 3.
-//   3. bn_bwd_dz, elementwise: recompute pre, dpre, xhat and write dz.
+// Design (the first design, bn_act_bwd_v1.cu, ran threads along C with one
+// 2-byte load per bf16 element, and a pass over the elements that took a
+// 64-bit modulo and six coefficient loads per element):
+// - Each thread owns a fixed group of V channels, V = 16 bytes / element
+//   size (8 bf16/f16 or 4 float32), and walks rows, two in flight: z, dout,
+//   res, dz and dpre move as 16-byte vectors, so a warp reads whole 128-byte
+//   lines (at the stem in bf16, 4 rows of 64 channels). Its per-channel
+//   values (scale, shift, mean, inv and the two finalized coefficients) sit
+//   in registers. Where C * element size is not a multiple of 16 or an
+//   operand is not 16-byte aligned (ragged C, offset views), V = 1: the same
+//   code and arithmetic on scalars.
+// - A block of 256 threads holds GC channel groups (a power of two, at
+//   most 256) by RL = 256/GC row lanes. The grid (plan) is nrb row blocks
+//   times the channel tiles, one work item a block, and is as large as the
+//   card holds at once: at most two blocks an SM, and no more than the
+//   occupancy calculator finds resident for the kernel as built.
+// - One cooperative launch (bn_bwd_fused) runs three passes with a
+//   grid-wide sync between them:
+//   1. recompute pre, dpre and xhat, write dpre when res is given, and per
+//      block the per-channel partial sums of dpre*xhat and dpre (each
+//      lane's rows in order, then the lanes in order);
+//   2. one thread per channel adds the partials in block order (in double)
+//      and writes dgamma/dbeta and the coefficients of pass 3;
+//   3. recompute pre, dpre and xhat and write dz, each block walking its own
+//      rows in the reverse of pass 1's order, so that the rows it read last,
+//      still in the 50 MB L2, are read again first.
+//   The other choice, three launches with pass 3 walking the work items
+//   and their rows in reverse, was slower: at the stem in bf16 392.8 us
+//   against 381.7 for one launch; at res5 79.0 against 69.8; at the ragged
+//   C = 130 28.7 against 20.4 (tools/kernel_variants.py, H100 SXM, 700 W).
+//   Rereading in pass 1's order instead costs 1-4%.
 // No atomics: the order of every sum is fixed by the shape, so two runs
-// agree bitwise. Phase 3 reads z, dout (and res) again: the kernel moves
-// about 1.7x the bytes of its bound.
+// agree bitwise. Pass 3 reads z, dout (and res) again: past the L2 (the
+// stem's z and dout are 411 MB) the kernel moves about 1.7x the bytes of
+// its bound.
 
+#include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
 
 #include "bn_act_common.cuh"
 
@@ -38,154 +64,352 @@ namespace {
 
 using namespace bn_act;
 
-template <typename T, int ACT, bool RES>
-__global__ void __launch_bounds__(kTC *kTR)
-bn_bwd_partials(const T *__restrict__ z, const T *__restrict__ res,
-                const T *__restrict__ dout, const T *__restrict__ gamma,
-                const T *__restrict__ beta, const float *__restrict__ mean,
-                const float *__restrict__ inv, long long n, int C, long long rpb,
-                float *__restrict__ pg, float *__restrict__ pb, T *__restrict__ dpre) {
-  __shared__ float bg[kTR][kTC + 1], bb[kTR][kTC + 1];
-  const int c = blockIdx.x * kTC + threadIdx.x;
-  const long long r0 = (long long)blockIdx.y * rpb;
-  const long long r1 = min(n, r0 + rpb);
-  float g = 0.f, b = 0.f;
-  if (c < C) {
-    const float m = mean[c], iv = inv[c];
-    const float sc = __fmul_rn(Cvt<T>::f(gamma[c]), iv);
-    const float sh = __fsub_rn(Cvt<T>::f(beta[c]), __fmul_rn(m, sc));
-#pragma unroll 2
-    for (long long r = r0 + threadIdx.y; r < r1; r += kTR) {
-      const long long i = r * C + c;
-      const float d = act_bwd<T, ACT>(pre_act<T, RES>(z, res, i, sc, sh),
-                                      Cvt<T>::f(dout[i]));
-      if (RES) dpre[i] = Cvt<T>::t(d);
-      const float xh = __fmul_rn(__fsub_rn(Cvt<T>::f(z[i]), m), iv);
-      g = __fmaf_rn(d, xh, g);
-      b = __fadd_rn(b, d);
+constexpr int kThreads = 256;
+constexpr int kMinBlocks = 2;  // blocks an SM the grid is sized for
+constexpr int kMaxV = 8;
+constexpr int kRows = 2;  // rows a thread has in flight
+constexpr int kMaxDevices = 64;
+
+struct Args {
+  const void *z, *res, *dout, *gamma, *beta;
+  const float *mean, *inv;
+  void *dz, *dpre;
+  float *dgamma, *dbeta, *pg, *pb, *coef;
+  long long n, rpb;
+  int C, G, GC, RL, tiles, nrb;
+};
+
+// V elements of T at p, one load or store (16 bytes when V > 1: p is then
+// 16-byte aligned)
+template <typename T, int V>
+struct alignas(V * sizeof(T) == 16 ? 16 : alignof(T)) Pack {
+  T e[V];
+};
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> ld(const T *p) {
+  return *reinterpret_cast<const Pack<T, V> *>(p);
+}
+template <typename T, int V>
+__device__ __forceinline__ void st(T *p, const Pack<T, V> &x) {
+  *reinterpret_cast<Pack<T, V> *>(p) = x;
+}
+
+// The block's work item: channel tile, row block, and the thread's place.
+struct Item {
+  int c0;         // the thread's first channel (c0 .. c0+V-1)
+  bool active;    // c0 < C
+  int lane;       // row lane
+  long long r0, r1;  // the row block
+};
+template <int V>
+__device__ __forceinline__ Item item_of(const Args &a, int item) {
+  const int tile = item % a.tiles, rb = item / a.tiles;
+  const int gl = threadIdx.x % a.GC;
+  Item it;
+  it.c0 = (tile * a.GC + gl) * V;
+  it.active = tile * a.GC + gl < a.G;
+  it.lane = threadIdx.x / a.GC;
+  it.r0 = (long long)rb * a.rpb;
+  it.r1 = min(a.n, it.r0 + a.rpb);
+  return it;
+}
+
+// pre, then dpre, of V elements
+template <typename T, int V, int ACT, bool RES>
+__device__ __forceinline__ void dpre_of(const Pack<T, V> &z, const Pack<T, V> &r,
+                                        const Pack<T, V> &dd, const float (&sc)[V],
+                                        const float (&sh)[V], float (&d)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e)
+    d[e] = act_bwd<T, ACT>(
+        pre_act_of<T, RES>(Cvt<T>::f(z.e[e]), RES ? Cvt<T>::f(r.e[e]) : 0.f, sc[e], sh[e]),
+        Cvt<T>::f(dd.e[e]));
+}
+
+// Pass 1 for one work item: the per-channel partial sums of dpre*xhat and
+// dpre over the item's rows, and dpre itself when res is given.
+template <typename T, int V, int ACT, bool RES>
+__device__ __forceinline__ void partials(const Args &a, int item, float *red) {
+  const Item it = item_of<V>(a, item);
+  const T *const z = (const T *)a.z, *const res = (const T *)a.res;
+  const T *const dout = (const T *)a.dout;
+  float g[V], b[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) g[e] = b[e] = 0.f;
+  if (it.active) {
+    float m[V], iv[V], sc[V], sh[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int c = it.c0 + e;
+      m[e] = a.mean[c];
+      iv[e] = a.inv[c];
+      sc[e] = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv[e]);
+      sh[e] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m[e], sc[e]));
+    }
+    for (long long r = it.r0 + it.lane; r < it.r1; r += kRows * a.RL) {
+      long long i[kRows];
+      bool ok[kRows];
+      Pack<T, V> zv[kRows], dv[kRows], rv[kRows];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {  // every row's loads first
+        const long long rk = r + k * a.RL;
+        ok[k] = rk < it.r1;
+        i[k] = (ok[k] ? rk : r) * a.C + it.c0;
+        zv[k] = ld<T, V>(z + i[k]);
+        dv[k] = ld<T, V>(dout + i[k]);
+        if (RES) rv[k] = ld<T, V>(res + i[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        if (!ok[k]) break;
+        float d[V];
+        dpre_of<T, V, ACT, RES>(zv[k], rv[k], dv[k], sc, sh, d);
+        if (RES) {
+          Pack<T, V> out;
+#pragma unroll
+          for (int e = 0; e < V; ++e) out.e[e] = Cvt<T>::t(d[e]);
+          st<T, V>((T *)a.dpre + i[k], out);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float xh = __fmul_rn(__fsub_rn(Cvt<T>::f(zv[k].e[e]), m[e]), iv[e]);
+          g[e] = __fmaf_rn(d[e], xh, g[e]);
+          b[e] = __fadd_rn(b[e], d[e]);
+        }
+      }
     }
   }
-  g = lane_sum(bg, g);
-  b = lane_sum(bb, b);
-  if (threadIdx.y == 0 && c < C) {
-    pg[(long long)blockIdx.y * C + c] = g;
-    pb[(long long)blockIdx.y * C + c] = b;
+  // the row lanes in order
+  const int gl = threadIdx.x % a.GC, width = a.GC * V;
+  float *const rg = red, *const rb = red + kThreads * kMaxV;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    rg[it.lane * width + gl * V + e] = g[e];
+    rb[it.lane * width + gl * V + e] = b[e];
+  }
+  __syncthreads();
+  const int tile = item % a.tiles, rbk = item / a.tiles;
+  for (int j = threadIdx.x; j < width; j += kThreads) {
+    const int c = tile * width + j;
+    if (c >= a.C) continue;
+    float sg = rg[j], sb = rb[j];
+    for (int l = 1; l < a.RL; ++l) {
+      sg = __fadd_rn(sg, rg[l * width + j]);
+      sb = __fadd_rn(sb, rb[l * width + j]);
+    }
+    a.pg[(long long)rbk * a.C + c] = sg;
+    a.pb[(long long)rbk * a.C + c] = sb;
   }
 }
 
-// coef holds, per channel: scale, shift, dbeta/n, dgamma/n.
+// Pass 2 for channel c. coef holds, per channel: scale, shift, dbeta/n,
+// dgamma/n.
 template <typename T>
-__global__ void bn_bwd_finalize(const float *__restrict__ pg, const float *__restrict__ pb,
-                                int nrb, int C, long long n, const T *__restrict__ gamma,
-                                const T *__restrict__ beta, const float *__restrict__ mean,
-                                const float *__restrict__ inv, float *dgamma,
-                                float *dbeta, float *coef) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+__device__ __forceinline__ void finalize(const Args &a, int c) {
   double G = 0.0, B = 0.0;
-  for (int k = 0; k < nrb; ++k) {
-    G += pg[(long long)k * C + c];
-    B += pb[(long long)k * C + c];
+  for (int k = 0; k < a.nrb; ++k) {
+    G += a.pg[(long long)k * a.C + c];
+    B += a.pb[(long long)k * a.C + c];
   }
-  const float dg = (float)G, db = (float)B, nf = (float)n;
-  dgamma[c] = dg;
-  dbeta[c] = db;
-  const float sc = __fmul_rn(Cvt<T>::f(gamma[c]), inv[c]);
-  coef[c] = sc;
-  coef[C + c] = __fsub_rn(Cvt<T>::f(beta[c]), __fmul_rn(mean[c], sc));
-  coef[2 * C + c] = __fdiv_rn(db, nf);
-  coef[3 * C + c] = __fdiv_rn(dg, nf);
+  const float dg = (float)G, db = (float)B, nf = (float)a.n;
+  a.dgamma[c] = dg;
+  a.dbeta[c] = db;
+  const float sc = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), a.inv[c]);
+  a.coef[c] = sc;
+  a.coef[a.C + c] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(a.mean[c], sc));
+  a.coef[2 * a.C + c] = __fdiv_rn(db, nf);
+  a.coef[3 * a.C + c] = __fdiv_rn(dg, nf);
 }
 
-template <typename T, int ACT, bool RES>
-__global__ void bn_bwd_dz(const T *__restrict__ z, const T *__restrict__ res,
-                          const T *__restrict__ dout, const float *__restrict__ mean,
-                          const float *__restrict__ inv, const float *__restrict__ coef,
-                          long long total, int C, T *__restrict__ dz) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    const float sc = coef[c];
-    const float d = act_bwd<T, ACT>(pre_act<T, RES>(z, res, i, sc, coef[C + c]),
-                                    Cvt<T>::f(dout[i]));
-    const float xh = __fmul_rn(__fsub_rn(Cvt<T>::f(z[i]), mean[c]), inv[c]);
-    const float t = __fsub_rn(__fsub_rn(d, coef[2 * C + c]), __fmul_rn(xh, coef[3 * C + c]));
-    dz[i] = Cvt<T>::t(__fmul_rn(sc, t));
+// Pass 3 for one work item: dz over the item's rows, walked from the last.
+template <typename T, int V, int ACT, bool RES>
+__device__ __forceinline__ void dz_pass(const Args &a, int item) {
+  const Item it = item_of<V>(a, item);
+  if (!it.active) return;
+  const T *const z = (const T *)a.z, *const res = (const T *)a.res;
+  const T *const dout = (const T *)a.dout;
+  float sc[V], sh[V], m[V], iv[V], cb[V], cg[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int c = it.c0 + e;
+    sc[e] = a.coef[c];
+    sh[e] = a.coef[a.C + c];
+    cb[e] = a.coef[2 * a.C + c];
+    cg[e] = a.coef[3 * a.C + c];
+    m[e] = a.mean[c];
+    iv[e] = a.inv[c];
+  }
+  for (long long r = it.r1 - 1 - it.lane; r >= it.r0; r -= kRows * a.RL) {
+    long long i[kRows];
+    bool ok[kRows];
+    Pack<T, V> zv[kRows], dv[kRows], rv[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {  // every row's loads first
+      const long long rk = r - k * a.RL;
+      ok[k] = rk >= it.r0;
+      i[k] = (ok[k] ? rk : r) * a.C + it.c0;
+      zv[k] = ld<T, V>(z + i[k]);
+      dv[k] = ld<T, V>(dout + i[k]);
+      if (RES) rv[k] = ld<T, V>(res + i[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (!ok[k]) break;
+      float d[V];
+      dpre_of<T, V, ACT, RES>(zv[k], rv[k], dv[k], sc, sh, d);
+      Pack<T, V> out;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float xh = __fmul_rn(__fsub_rn(Cvt<T>::f(zv[k].e[e]), m[e]), iv[e]);
+        const float t = __fsub_rn(__fsub_rn(d[e], cb[e]), __fmul_rn(xh, cg[e]));
+        out.e[e] = Cvt<T>::t(__fmul_rn(sc[e], t));
+      }
+      st<T, V>((T *)a.dz + i[k], out);
+    }
   }
 }
 
-template <typename T, int ACT, bool RES>
-int run_act(const T *z, const T *res, const T *dout, const T *gamma, const T *beta,
-            const float *mean, const float *inv, long long n, int C, T *dz,
-            float *dgamma, float *dbeta, T *dpre, float *scratch, int nrb,
-            long long rpb, cudaStream_t st) {
-  float *pg = scratch, *pb = scratch + (long long)nrb * C;
-  float *coef = pb + (long long)nrb * C;
-  cudaError_t err;
-  bn_bwd_partials<T, ACT, RES><<<dim3((C + kTC - 1) / kTC, nrb), dim3(kTC, kTR), 0, st>>>(
-      z, res, dout, gamma, beta, mean, inv, n, C, rpb, pg, pb, dpre);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  bn_bwd_finalize<T><<<(C + 127) / 128, 128, 0, st>>>(pg, pb, nrb, C, n, gamma, beta,
-                                                      mean, inv, dgamma, dbeta, coef);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long total = n * (long long)C;
-  bn_bwd_dz<T, ACT, RES><<<elt_blocks(total), kEltThreads, 0, st>>>(
-      z, res, dout, mean, inv, coef, total, C, dz);
-  return (int)cudaGetLastError();
+// The three passes in one cooperative launch: every block is resident (see
+// plan), so the grid-wide syncs cannot deadlock.
+template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_fused(const Args a) {
+  __shared__ float red[2 * kThreads * kMaxV];
+  partials<T, V, ACT, RES>(a, blockIdx.x, red);
+  cooperative_groups::this_grid().sync();
+  for (int c = blockIdx.x * kThreads + threadIdx.x; c < a.C; c += gridDim.x * kThreads)
+    finalize<T>(a, c);
+  cooperative_groups::this_grid().sync();
+  dz_pass<T, V, ACT, RES>(a, blockIdx.x);
+}
+
+// The grid for V-element channel groups: fills GC, RL, tiles, nrb and rpb.
+// Its blocks number at most min(kMinBlocks, the blocks of this kernel the
+// occupancy calculator finds resident on an SM) times the SMs.
+template <typename T, int V, int ACT, bool RES>
+int plan(Args &a) {
+  static std::atomic<int> resident[kMaxDevices];  // blocks, by device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_bwd_fused<T, V, ACT, RES>,
+                                                        kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    blocks = std::min(per_sm, kMinBlocks) * sms;
+    if (dev < kMaxDevices) resident[dev].store(blocks, std::memory_order_relaxed);
+  }
+  a.G = a.C / V;
+  a.GC = 1;
+  while (a.GC < a.G && a.GC < kThreads) a.GC *= 2;
+  a.RL = kThreads / a.GC;
+  a.tiles = (a.G + a.GC - 1) / a.GC;
+  if (a.tiles > blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long nrb =
+      std::max(1LL, std::min((long long)(blocks / a.tiles), (a.n + a.RL - 1) / a.RL));
+  a.rpb = (a.n + nrb - 1) / nrb;
+  a.nrb = (int)((a.n + a.rpb - 1) / a.rpb);
+  return 0;
+}
+
+// Plans the grid and sets *need to the scratch it takes (floats); then,
+// given scratch of at least that, launches.
+template <typename T, int V, int ACT, bool RES>
+int run_v(Args &a, float *scratch, long long cap, long long *need, cudaStream_t st) {
+  const int err = plan<T, V, ACT, RES>(a);
+  if (err != 0) return err;
+  *need = 2LL * a.nrb * a.C + 4LL * a.C;
+  if (scratch == nullptr) return 0;
+  if (cap < *need) return (int)cudaErrorInvalidValue;
+  a.pg = scratch;
+  a.pb = a.pg + (long long)a.nrb * a.C;
+  a.coef = a.pb + (long long)a.nrb * a.C;
+  void *args[] = {(void *)&a};
+  return (int)cudaLaunchCooperativeKernel((const void *)bn_bwd_fused<T, V, ACT, RES>,
+                                          a.tiles * a.nrb, kThreads, args, 0, st);
 }
 
 template <typename T, int ACT>
-int run_res(const void *z, const void *res, const void *dout, const void *gamma,
-            const void *beta, const float *mean, const float *inv, long long n, int C,
-            void *dz, float *dgamma, float *dbeta, void *dpre, float *scratch, int nrb,
-            long long rpb, cudaStream_t st) {
+int run_act(Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
+            cudaStream_t st) {
+  constexpr int kV = 16 / (int)sizeof(T);
   if (res)
-    return run_act<T, ACT, true>((const T *)z, (const T *)res, (const T *)dout,
-                                 (const T *)gamma, (const T *)beta, mean, inv, n, C,
-                                 (T *)dz, dgamma, dbeta, (T *)dpre, scratch, nrb, rpb, st);
-  return run_act<T, ACT, false>((const T *)z, nullptr, (const T *)dout, (const T *)gamma,
-                                (const T *)beta, mean, inv, n, C, (T *)dz, dgamma, dbeta,
-                                nullptr, scratch, nrb, rpb, st);
+    return vec == 1 ? run_v<T, 1, ACT, true>(a, scratch, cap, need, st)
+                    : run_v<T, kV, ACT, true>(a, scratch, cap, need, st);
+  return vec == 1 ? run_v<T, 1, ACT, false>(a, scratch, cap, need, st)
+                  : run_v<T, kV, ACT, false>(a, scratch, cap, need, st);
 }
 
 template <typename T>
-int run(int act, const void *z, const void *res, const void *dout, const void *gamma,
-        const void *beta, const float *mean, const float *inv, long long n, int C,
-        void *dz, float *dgamma, float *dbeta, void *dpre, float *scratch, int nrb,
-        long long rpb, cudaStream_t st) {
-  if (act == kRelu)
-    return run_res<T, kRelu>(z, res, dout, gamma, beta, mean, inv, n, C, dz, dgamma,
-                             dbeta, dpre, scratch, nrb, rpb, st);
-  if (act == kLeakyRelu)
-    return run_res<T, kLeakyRelu>(z, res, dout, gamma, beta, mean, inv, n, C, dz,
-                                  dgamma, dbeta, dpre, scratch, nrb, rpb, st);
-  return run_res<T, kIdentity>(z, res, dout, gamma, beta, mean, inv, n, C, dz, dgamma,
-                               dbeta, dpre, scratch, nrb, rpb, st);
+int run(int act, Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
+        cudaStream_t st) {
+  if (vec != 1 && vec != 16 / (int)sizeof(T)) return (int)cudaErrorInvalidValue;
+  if (act == kRelu) return run_act<T, kRelu>(a, res, vec, scratch, cap, need, st);
+  if (act == kLeakyRelu) return run_act<T, kLeakyRelu>(a, res, vec, scratch, cap, need, st);
+  return run_act<T, kIdentity>(a, res, vec, scratch, cap, need, st);
+}
+
+int dispatch(int dtype, int act, Args &a, bool res, int vec, float *scratch, long long cap,
+             long long *need, cudaStream_t st) {
+  if (a.n <= 0 || a.C <= 0 || act < kIdentity || act > kLeakyRelu || vec < 1 ||
+      a.C % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32:
+      return run<float>(act, a, res, vec, scratch, cap, need, st);
+    case kBF16:
+      return run<__nv_bfloat16>(act, a, res, vec, scratch, cap, need, st);
+    case kF16:
+      return run<__half>(act, a, res, vec, scratch, cap, need, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Scratch: 2 * nrb * C + 4 * C floats; row blocks as in bn_act_fwd_launch.
-// res and dpre are null together. Returns a cudaError_t.
+// vec: V, the elements each thread moves at a time (1, or 16 bytes' worth:
+// C * element size a multiple of 16 and every (n, C) operand 16-byte
+// aligned). The scratch floats a launch over (n, C) takes, or minus a
+// cudaError_t.
+extern "C" long long bn_act_bwd_scratch(int dtype, int act, int has_res, long long n, int C,
+                                        int vec) {
+  Args a{};
+  a.n = n;
+  a.C = C;
+  long long need = 0;
+  const int err = dispatch(dtype, act, a, has_res != 0, vec, nullptr, 0, &need, nullptr);
+  return err != 0 ? -(long long)err : need;
+}
+
+// scratch: scratch_floats floats, at least bn_act_bwd_scratch's count. res
+// and dpre are null together. Returns a cudaError_t.
 extern "C" int bn_act_bwd_launch(int dtype, int act, const void *z, const void *gamma,
                                  const void *beta, const void *res, const float *mean,
                                  const float *inv, const void *dout, long long n, int C,
                                  void *dz, float *dgamma, float *dbeta, void *dpre,
-                                 float *scratch, int nrb, long long rpb, void *stream) {
+                                 float *scratch, long long scratch_floats, int vec,
+                                 void *stream) {
   if (n <= 0 || C <= 0) return 0;
-  if (act < kIdentity || act > kLeakyRelu || (res == nullptr) != (dpre == nullptr))
+  if ((res == nullptr) != (dpre == nullptr) || scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case kF32:
-      return run<float>(act, z, res, dout, gamma, beta, mean, inv, n, C, dz, dgamma,
-                        dbeta, dpre, scratch, nrb, rpb, st);
-    case kBF16:
-      return run<__nv_bfloat16>(act, z, res, dout, gamma, beta, mean, inv, n, C, dz,
-                                dgamma, dbeta, dpre, scratch, nrb, rpb, st);
-    case kF16:
-      return run<__half>(act, z, res, dout, gamma, beta, mean, inv, n, C, dz, dgamma,
-                         dbeta, dpre, scratch, nrb, rpb, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.z = z;
+  a.res = res;
+  a.dout = dout;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.mean = mean;
+  a.inv = inv;
+  a.dz = dz;
+  a.dpre = dpre;
+  a.dgamma = dgamma;
+  a.dbeta = dbeta;
+  a.n = n;
+  a.C = C;
+  long long need = 0;
+  return dispatch(dtype, act, a, res != nullptr, vec, scratch, scratch_floats, &need,
+                  (cudaStream_t)stream);
 }

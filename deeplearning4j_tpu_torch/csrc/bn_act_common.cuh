@@ -46,13 +46,20 @@ __device__ __forceinline__ float rnd(float v) {
 // pre = T(T(z * T(scale)) + T(shift)), plus res rounded to T when given:
 // scale and shift are cast to z's type before the multiply-add, as the JAX
 // reference casts them (nn/conf/convolutional.py _bn_act_fwd_math).
+// The same from the values of z and res (as floats; r is not read without
+// RES).
+template <typename T, bool RES>
+__device__ __forceinline__ float pre_act_of(float z, float r, float sc, float sh) {
+  float p = rnd<T>(__fmul_rn(z, rnd<T>(sc)));
+  p = rnd<T>(__fadd_rn(p, rnd<T>(sh)));
+  if (RES) p = rnd<T>(__fadd_rn(p, r));
+  return p;
+}
+
 template <typename T, bool RES>
 __device__ __forceinline__ float pre_act(const T *z, const T *res, long long i,
                                          float sc, float sh) {
-  float p = rnd<T>(__fmul_rn(Cvt<T>::f(z[i]), rnd<T>(sc)));
-  p = rnd<T>(__fadd_rn(p, rnd<T>(sh)));
-  if (RES) p = rnd<T>(__fadd_rn(p, Cvt<T>::f(res[i])));
-  return p;
+  return pre_act_of<T, RES>(Cvt<T>::f(z[i]), RES ? Cvt<T>::f(res[i]) : 0.f, sc, sh);
 }
 
 template <typename T, int ACT>

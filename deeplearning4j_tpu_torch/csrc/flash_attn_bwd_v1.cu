@@ -2,7 +2,7 @@
 // backward (CUDA cores only), kept as the yardstick its redesign
 // (flash_attn_bwd_dkv.cu) is timed against (chip_smoke.py's "previous_ms").
 // Nothing on the port's path launches it. The dQ kernel that shared this
-// design lives on in flash_attn_bwd.cu.
+// design is kept as flash_attn_bwd_dq_v1.cu.
 //
 // Given q, k, v, the upstream gradient dO, each row's log-sum-exp L (written
 // by flash_attn_fwd.cu) and D = rowsum(dO * O) (computed by the wrapper):

@@ -10,9 +10,10 @@
 // in q's type. When asked (a non-null pointer), the kernel also writes each
 // row's log-sum-exp L[b, h, i] = m + log(l), float32, (b, h, t) contiguous,
 // in the scaled units of the scores (s = q . k / sqrt(d)): the backward
-// kernels (flash_attn_bwd.cu) recompute p = exp(s - L) from it. The JAX
-// library saves m and l apart, each broadcast over 128 lanes
-// (flash_attention.py:675-692); one float per row carries the same.
+// kernels (flash_attn_bwd_dkv.cu, flash_attn_bwd_dq.cu) recompute p =
+// exp(s - L) from it. The JAX library saves m and l apart, each broadcast
+// over 128 lanes (flash_attention.py:675-692); one float per row carries
+// the same.
 //
 // Replaces the TPU kernel that deeplearning4j_tpu/parallel/ring_attention.py::
 // flash_self_attention reaches: JAX's library Pallas flash attention
@@ -71,20 +72,16 @@
 // first design read V as scalars). DP = 128 and 256 take RT = 4 (256
 // threads), which keeps their accumulators in registers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int kRows = 64;  // query rows per block
 constexpr unsigned kAll = 0xffffffffu;
-
-// Element strides of the b, h and t axes of one operand (d's is 1).
-struct Strides {
-  long long b, h, t;
-};
 
 struct Params {
   const void *q, *k, *v;
@@ -95,45 +92,6 @@ struct Params {
   float sqrt_d, c;  // c = log2(e) / sqrt(d)
   int causal, vec_in, vec_out;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void *p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void *dst, const void *src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-template <typename E>
-__device__ __forceinline__ E zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16(0.f); }
-
-// Rows row0 .. row0+R-1 of a (t, d) matrix with row stride src_t into
-// dst[r * PITCH + c], c < DP; zero past t and past d.
-template <typename E, int R, int DP, int PITCH, int NT>
-__device__ __forceinline__ void load_tile(E *dst, const E *src, long long src_t, int row0,
-                                          int t, int d, int vec) {
-  constexpr int kPer = 16 / (int)sizeof(E);
-  constexpr int kPieces = DP / kPer;
-  for (int i = threadIdx.x; i < R * kPieces; i += NT) {
-    const int r = i / kPieces, c = (i % kPieces) * kPer;
-    const bool ok = row0 + r < t;
-    const E *s = src + (long long)(ok ? row0 + r : 0) * src_t + c;
-    E *dd = dst + r * PITCH + c;
-    const int n = ok ? max(0, min(kPer, d - c)) : 0;
-    if (vec) {
-      cp_async16(dd, n ? s : src, n * (int)sizeof(E));
-    } else {
-      for (int e = 0; e < kPer; ++e) dd[e] = e < n ? s[e] : zero<E>();
-    }
-  }
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(kAll, x, 1));
@@ -155,36 +113,6 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 // --------------------------------------------------------------- bfloat16
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void *p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void *p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x0, x1) -> hi = bf16(x), lo = bf16(x - hi), each a bf16 pair
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t &hi, uint32_t &lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t *>(&h);
-  lo = *reinterpret_cast<const uint32_t *>(&l);
-}
-
 template <int DP, int BN>
 struct Bf16Cfg {
   static constexpr int kThreads = 128;
@@ -316,10 +244,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+      a_split(s, kk, ph, pl);
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t vb[4];

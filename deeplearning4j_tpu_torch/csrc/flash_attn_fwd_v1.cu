@@ -15,9 +15,10 @@
 // in q's type. When asked (a non-null pointer), the kernel also writes each
 // row's log-sum-exp L[b, h, i] = m + log(l), float32, (b, h, t) contiguous,
 // in the scaled units of the scores (s = q . k / sqrt(d)): the backward
-// kernels (flash_attn_bwd.cu) recompute p = exp(s - L) from it. The JAX
-// library saves m and l apart, each broadcast over 128 lanes
-// (flash_attention.py:675-692); one float per row carries the same.
+// kernels (flash_attn_bwd_dkv.cu, flash_attn_bwd_dq.cu) recompute p =
+// exp(s - L) from it. The JAX library saves m and l apart, each broadcast
+// over 128 lanes (flash_attention.py:675-692); one float per row carries
+// the same.
 //
 // Replaces the TPU kernel that deeplearning4j_tpu/parallel/ring_attention.py::
 // flash_self_attention reaches: JAX's library Pallas flash attention

@@ -42,7 +42,8 @@ from deeplearning4j_tpu_torch.nn.conf.normalization import (batch_stats, normali
                                                             scale_shift)
 
 __all__ = ["bn_act_fwd", "bn_act_bwd", "bn_act_fwd_plain", "bn_act_bwd_plain",
-           "bn_act_apply_plain", "fwd_launches", "bwd_launches", "KERNEL_ACTS"]
+           "bn_act_apply_plain", "bwd_vec", "fwd_launches", "bwd_launches",
+           "KERNEL_ACTS"]
 
 #: wrapper calls that launched the forward kernel (a caller may reset it)
 fwd_launches = 0
@@ -52,8 +53,8 @@ bwd_launches = 0
 #: activation name -> the kernels' activation code
 KERNEL_ACTS = {"identity": 0, "linear": 0, "relu": 1, "leakyrelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# a reduction block holds 32 channels x 8 row lanes; about 8 blocks per SM
-# of an H100 (132 SMs) are asked for, each with at least 8 rows
+# the forward's reduction block holds 32 channels x 8 row lanes; about 8
+# blocks per SM of an H100 (132 SMs) are asked for, each with at least 8 rows
 _TILE_C, _LANES, _BLOCKS = 32, 8, 132 * 8
 
 _count_lock = threading.Lock()
@@ -105,11 +106,19 @@ def bn_act_bwd_plain(act: str, eps: float, z, gamma, beta, res, mean, inv, dout)
 
 # ------------------------------------------------------------------ wrappers
 def row_blocks(n: int, c: int):
-    """(row blocks, rows per block) of the kernels' reduction grid."""
+    """(row blocks, rows per block) of the forward kernel's reduction grid."""
     tiles = -(-c // _TILE_C)
     nrb = max(1, min(-(-_BLOCKS // tiles), -(-n // _LANES)))
     rpb = -(-n // nrb)
     return -(-n // rpb), rpb
+
+
+def bwd_vec(c: int, esize: int, aligned: bool = True) -> int:
+    """The channels each thread of the backward kernel moves at a time over
+    rows of ``c`` elements of ``esize`` bytes: 16 bytes' worth when
+    ``c * esize`` is a multiple of 16 and the operands are 16-byte
+    ``aligned``, else 1. The kernel plans its grid itself."""
+    return 16 // esize if aligned and (c * esize) % 16 == 0 else 1
 
 
 def _check(name, z, gamma, beta, res):
@@ -153,20 +162,21 @@ def _check_cuda(name, act, z, tensors, stats):
             raise ValueError(f"{name}: {nm} on {t.device}, z on {z.device}")
 
 
-def _kernel(name: str, argtypes):
+def _kernel(name: str, argtypes, entry: str = "launch", restype=ctypes.c_int):
     with _fn_lock:
-        if name not in _fns:
+        if (name, entry) not in _fns:
             from deeplearning4j_tpu_torch.perf.kernels import _build
-            fn = getattr(_build.load(name), f"{name}_launch")
+            fn = getattr(_build.load(name), f"{name}_{entry}")
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
-        return _fns[name]
+            fn.restype = restype
+            _fns[name, entry] = fn
+        return _fns[name, entry]
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FWD_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _I, _L, _P]
-_BWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _L, _P]
+_BWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _L, _I, _P]
+_BWD_SCRATCH_ARGS = [_I, _I, _I, _L, _I, _I]
 
 
 def _ptr(t):
@@ -219,20 +229,25 @@ def bn_act_bwd(act: str, eps: float, z, gamma, beta, res, mean, inv, dout):
                  ("dout", dout)), (("mean", mean), ("inv", inv)))
     c = z.shape[-1]
     n = z.numel() // c
-    nrb, rpb = row_blocks(n, c)
     dz = torch.empty_like(z)
     dpre = None if res is None else torch.empty_like(z)
+    vec = bwd_vec(c, z.element_size(),
+                  all(t.data_ptr() % 16 == 0 for t in (z, res, dout, dz, dpre) if t is not None))
     dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=z.device)
                      for _ in range(2))
-    scratch = torch.empty(2 * nrb * c + 4 * c, dtype=torch.float32, device=z.device)
+    dtype, act_code = _DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()]
     fn = _kernel("bn_act_bwd", _BWD_ARGS)
     with torch.cuda.device(z.device):
+        need = _kernel("bn_act_bwd", _BWD_SCRATCH_ARGS, "scratch", ctypes.c_longlong)(
+            dtype, act_code, int(res is not None), n, c, vec)
+        if need < 0:
+            raise RuntimeError(f"bn_act_bwd grid query failed with CUDA error {-need}")
+        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()], z.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), _ptr(res), mean.data_ptr(),
-                 inv.data_ptr(), dout.data_ptr(), n, c, dz.data_ptr(),
-                 dgamma.data_ptr(), dbeta.data_ptr(), _ptr(dpre),
-                 scratch.data_ptr(), nrb, rpb, stream)
+        err = fn(dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
+                 mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, dz.data_ptr(),
+                 dgamma.data_ptr(), dbeta.data_ptr(), _ptr(dpre), scratch.data_ptr(), need,
+                 vec, stream)
     if err != 0:
         raise RuntimeError(f"bn_act_bwd launch failed with CUDA error {err}")
     with _count_lock:

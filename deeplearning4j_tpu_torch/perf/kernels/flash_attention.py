@@ -28,7 +28,7 @@ Sums are float32; outputs are rounded once. L and D are float32
   and computes no L.
 - :func:`flash_fwd`, :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` are the
   wrappers of ``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd_dkv.cu`` and
-  ``csrc/flash_attn_bwd.cu``. A CPU tensor takes the plain version. On a
+  ``csrc/flash_attn_bwd_dq.cu``. A CPU tensor takes the plain version. On a
   CUDA tensor each launches its kernel on the current stream, or raises,
   and adds one to its counter: :data:`launches` (forward),
   :data:`launches_bwd_dkv`, :data:`launches_bwd_dq`.
@@ -235,7 +235,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     _on_cuda(q)
     dq = torch.empty_like(q)
     if dq.numel():
-        _launch("flash_attn_bwd", "flash_attn_bwd_dq_launch",
+        _launch("flash_attn_bwd_dq", "flash_attn_bwd_dq_launch",
                 (q, k, v, do, lse, delta, dq), (q, k, v, do, dq), q, causal,
                 "flash_attn_bwd_dq")
     return dq

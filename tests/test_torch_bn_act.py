@@ -151,6 +151,19 @@ def test_row_blocks_cover_every_row_once():
         assert 1 <= nrb <= 132 * 8
 
 
+@pytest.mark.parametrize("c,esize,aligned,want", [
+    (1, 4, True, 1), (130, 4, True, 1), (130, 2, True, 1), (64, 2, True, 8), (64, 4, True, 4),
+    (64, 2, False, 1), (2048, 2, True, 8), (4096, 4, True, 4), (24, 2, True, 8),
+    (8, 2, True, 8), (8, 4, False, 1)])
+def test_bwd_vec_moves_16_bytes_where_rows_and_operands_allow(c, esize, aligned, want):
+    """The backward kernel's threads move 16-byte vectors of channels where
+    every row starts 16-byte aligned, else single channels; the kernel plans
+    its grid itself (csrc/bn_act_bwd.cu, plan)."""
+    vec = bn_act.bwd_vec(c, esize, aligned)
+    assert vec == want and c % vec == 0
+    assert vec == 1 or vec * esize == 16
+
+
 # ------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
@@ -205,3 +218,126 @@ def test_other_activation_raises_on_card(cuda_device):
     g, b = torch.ones(4, device=cuda_device), torch.zeros(4, device=cuda_device)
     with pytest.raises(NotImplementedError, match="tanh"):
         bn_act.bn_act_fwd("tanh", EPS, z, g, b)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_plans_its_grid_and_refuses_short_scratch(cuda_device):
+    import ctypes
+    n, c = 4096, 64
+    z, gamma, beta, res, dout = _operands(n, c, "bfloat16", False, seed=3)
+    tz, tg, tb, td = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                      for a in (z, gamma, beta, dout))
+    _, mean, _, inv = bn_act.bn_act_fwd("relu", EPS, tz, tg, tb)
+    query = bn_act._kernel("bn_act_bwd", bn_act._BWD_SCRATCH_ARGS, "scratch", ctypes.c_longlong)
+    need = query(1, 1, 0, n, c, 8)
+    # partials of at least one row block, and the four per-channel rows
+    assert need >= 2 * c + 4 * c and (need - 4 * c) % (2 * c) == 0
+    assert query(1, 1, 0, n, c, 3) < 0  # no such vector width
+    short = torch.empty(need - 1, dtype=torch.float32, device=cuda_device)
+    out = [torch.empty_like(tz), torch.empty(c, device=cuda_device),
+           torch.empty(c, device=cuda_device)]
+    err = bn_act._kernel("bn_act_bwd", bn_act._BWD_ARGS)(
+        1, 1, tz.data_ptr(), tg.data_ptr(), tb.data_ptr(), None, mean.data_ptr(),
+        inv.data_ptr(), td.data_ptr(), n, c, out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), None, short.data_ptr(), need - 1, 8,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,dtype,offset", [
+    (1, 1, "float32", 0), (7, 130, "float32", 0), (1001, 130, "bfloat16", 0),
+    (2000, 64, "bfloat16", 0), (2000, 64, "float32", 0), (2000, 64, "bfloat16", 1),
+    (300, 2048, "bfloat16", 0), (40, 4096, "float32", 0), (97, 24, "bfloat16", 0),
+    (5, 8, "bfloat16", 0), (333, 8, "float32", 1)])
+def test_bwd_kernel_grid_covers_every_row_and_channel_once(cuda_device, n, c, dtype, offset):
+    """The grid the kernel plans for itself: with the identity, a residual
+    and dout = 1, dbeta counts the rows pass 1 read (exact in float32) and
+    dpre = 1 where it wrote; dz and dpre start as NaN, so a (row, channel)
+    a pass skipped stays NaN. offset 1 starts every operand one element
+    past an aligned base (the scalar path)."""
+    import ctypes
+    dt = getattr(torch, dtype)
+
+    def operand(fill):
+        flat = torch.full((n * c + offset,), fill, dtype=dt, device=cuda_device)
+        return flat[offset:].view(n, c)
+
+    gen = torch.Generator().manual_seed(n * 7 + c)
+    z, res, dout = operand(0.0), operand(0.0), operand(1.0)
+    z.copy_(torch.randn(n, c, generator=gen))
+    res.copy_(torch.randn(n, c, generator=gen))
+    dz, dpre = operand(float("nan")), operand(float("nan"))
+    gamma, beta = torch.ones(c, dtype=dt, device=cuda_device), torch.zeros(c, dtype=dt,
+                                                                             device=cuda_device)
+    mean, inv = torch.zeros(c, device=cuda_device), torch.ones(c, device=cuda_device)
+    dg, db = torch.empty(c, device=cuda_device), torch.empty(c, device=cuda_device)
+    vec = bn_act.bwd_vec(c, dz.element_size(), offset == 0)
+    code, act = bn_act._DTYPES[dt], bn_act.KERNEL_ACTS["identity"]
+    need = bn_act._kernel("bn_act_bwd", bn_act._BWD_SCRATCH_ARGS, "scratch",
+                          ctypes.c_longlong)(code, act, 1, n, c, vec)
+    assert need > 0
+    scratch = torch.empty(need, device=cuda_device)
+    err = bn_act._kernel("bn_act_bwd", bn_act._BWD_ARGS)(
+        code, act, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), res.data_ptr(),
+        mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, dz.data_ptr(), dg.data_ptr(),
+        db.data_ptr(), dpre.data_ptr(), scratch.data_ptr(), need, vec,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(db, torch.full((c,), float(n), device=cuda_device))
+    assert torch.equal(dpre, torch.ones_like(dpre))
+    assert not bool(dz.isnan().any())
+
+
+def _ulp(x, dtype):
+    """One ulp of ``dtype`` at |x| (a power of two), at least the smallest
+    normal's."""
+    fi = torch.finfo(dtype)
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(fi.tiny)))) * fi.eps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,with_res", [("relu", True), ("identity", False)])
+@pytest.mark.parametrize("n,c,offset", [(20000, 64, 0), (5000, 256, 0), (700, 2048, 0),
+                                        (1001, 130, 0), (3001, 64, 1)])
+def test_bwd_kernel_vector_and_scalar_paths(cuda_device, n, c, offset, dtype, act, with_res):
+    """C = 64, 256, 2048 take 16-byte vectors; C = 130 and a view that
+    starts one element past an aligned base take the scalar path."""
+    z, gamma, beta, res, dout = _operands(n, c, str(dtype), with_res, seed=c + offset)
+
+    def on_card(a):
+        if a is None:
+            return None
+        flat = torch.empty(a.size + offset, dtype=dtype, device=cuda_device)
+        view = flat[offset:].view(a.shape)  # offset 1: not 16-byte aligned
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    tz, tr, td = on_card(z), on_card(res), on_card(dout)
+    tg, tb = (torch.from_numpy(a).to(cuda_device, dtype) for a in (gamma, beta))
+    vec = bn_act.bwd_vec(c, tz.element_size(), offset == 0)
+    assert (vec > 1) == (offset == 0 and c != 130)
+    _, mean, _, inv = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
+    b0 = bn_act.bwd_launches
+    got = bn_act.bn_act_bwd(act, EPS, tz, tg, tb, tr, mean, inv, td)
+    again = bn_act.bn_act_bwd(act, EPS, tz, tg, tb, tr, mean, inv, td)
+    dz, dg, db, dpre = got
+    pdz, pdg, pdb, pdpre = bn_act.bn_act_bwd_plain(act, EPS, tz, tg, tb, tr, mean, inv, td)
+    torch.cuda.synchronize()
+    assert bn_act.bwd_launches == b0 + 2
+    if with_res:
+        assert torch.equal(dpre, pdpre)
+    for got_s, want_s in ((dg, pdg), (db, pdb)):
+        torch.testing.assert_close(got_s, want_s, rtol=1e-4,
+                                   atol=1e-6 * float(want_s.abs().max()))
+    floor = 1e-5 * float(pdz.float().abs().max())
+    err = (dz.float() - pdz.float()).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-4 * pdz.abs() + floor).all())
+    else:
+        mag = torch.maximum(dz.float().abs(), pdz.float().abs())
+        assert bool((err <= 2 * _ulp(mag, dtype) + floor).all())
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)

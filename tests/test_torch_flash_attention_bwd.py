@@ -13,12 +13,12 @@ tensors, D, strides, dtypes) is tested here:
   another order; the gradients are O(1));
 - no L under ``torch.inference_mode``, and the serving output unchanged.
 
-The bf16 dK/dV kernel runs its products on tensor cores from bf16
-operands with float32 sums, P and dS split into hi = bf16(x) and lo =
-bf16(x - hi). A float emulation of that arithmetic runs here: within the
-card's limit of 2 bf16 ulps of the plain float32 version's magnitude plus
-1/8 ulp of its largest (chip_smoke.py's ``_bwd_limit``), and closer than the
-same emulation without the split.
+The bf16 dK/dV and dQ kernels run their products on tensor cores from bf16
+operands with float32 sums, P and dS (dK/dV) or dS (dQ) split into hi =
+bf16(x) and lo = bf16(x - hi). A float emulation of that arithmetic runs
+here: within the card's limit of 2 bf16 ulps of the plain version's
+magnitude plus 1/8 ulp of its largest (chip_smoke.py's ``_bwd_limit``), and
+closer than the same emulation without the split.
 
 The kernels run only on a CUDA card: those tests carry the ``cuda`` marker
 and skip here. There each kernel is held against its plain version:
@@ -219,6 +219,45 @@ def test_bf16_kernel_arithmetic_emulated_is_within_the_card_limit(shape, causal)
         assert _bf16_over_limit(bare, want) > over
 
 
+def _emulate_bf16_dq(q, k, v, do, lse, delta, causal, split=True):
+    """The bf16 dQ kernel's arithmetic in float32 on bf16-valued inputs:
+    S = Q K^T and dP = dO V^T as float32 sums of exact products;
+    P = exp2(S c - L log2 e), c = log2(e)/sqrt(d); dS = P (dP - D);
+    dQ = dS K / sqrt(d), dS entering the product as hi + lo (or as hi
+    alone); rounded once to bf16."""
+    d = q.shape[-1]
+    c = np.float32(np.log2(np.e) / np.sqrt(d))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    p = torch.exp2(s * c - (lse * np.float32(np.log2(np.e)))[..., None])
+    if causal:
+        t = q.shape[2]
+        p = p.masked_fill(~torch.ones((t, t), dtype=torch.bool).tril(), 0.0)
+    ds = p * (dp - delta[..., None])
+    hi = _bf16(ds)
+    dq = torch.einsum("bhqk,bhkd->bhqd", hi, k)
+    if split:
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", _bf16(ds - hi), k)
+    return (dq / np.float32(np.sqrt(d))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 2, 130, 64), True), ((1, 2, 130, 64), False),
+                                          ((2, 1, 97, 40), True), ((1, 1, 64, 128), False)])
+def test_bf16_dq_arithmetic_emulated_is_within_the_card_limit(shape, causal):
+    q, k, v, do = (_bf16(a) for a in _qkv_do(shape, 85 + sum(shape)))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do * o).sum(-1)
+    # the plain dQ in float64 from the same L and D
+    want = fa.flash_bwd_dq_plain(q.double(), k.double(), v.double(), do.double(),
+                                 lse.double(), delta.double(), causal).float()
+    split = _emulate_bf16_dq(q, k, v, do, lse, delta, causal)
+    over = _bf16_over_limit(split, want)
+    assert over <= 1.0
+    # dS rounded to bf16 alone comes nearer the limit (or past it)
+    assert _bf16_over_limit(_emulate_bf16_dq(q, k, v, do, lse, delta, causal, split=False),
+                            want) > over
+
+
 # ------------------------------------------------------------------ on a card
 @pytest.fixture
 def cuda_device():
@@ -329,3 +368,46 @@ def test_dkv_kernel_takes_a_dO_whose_last_axis_is_not_contiguous(cuda_device, dt
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     for g, w in zip(got, want):
         assert torch.equal(g.view(bits), w.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1000, 129])
+@pytest.mark.parametrize("d,layout", [(40, "bhtd"), (64, "bthd"), (128, "bthd"),
+                                      (256, "bhtd")])
+def test_dq_kernel_within_limit_and_repeats_bitwise(cuda_device, d, layout, t, causal, dtype):
+    b, h = 2, 3
+    shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
+    q, k, v, do = (a.to(cuda_device, dtype) for a in _qkv_do(shape, d + t + causal + 3))
+    if layout == "bthd":  # head-split views, dO as _unheads' backward gives it
+        q, k, v, do = (a.transpose(1, 2) for a in (q, k, v, do))
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    count = fa.launches_bwd_dq
+    got = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    again = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    f32 = [a.float() for a in (q, k, v, do)]
+    plain = fa.flash_bwd_dq_plain(*f32, lse, delta, causal)
+    ref = fa.flash_bwd_dq_plain(*(a.double() for a in f32), lse.double(), delta.double(),
+                                causal)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_dq == count + 2
+    assert got.dtype == dtype and got.shape == q.shape and got.stride() == q.stride()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), again.view(bits))
+    assert _dkv_over_limit(got, plain, ref, dtype) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_kernel_takes_a_dO_whose_last_axis_is_not_contiguous(cuda_device, dtype):
+    q, k, v, do = (a.to(cuda_device, dtype) for a in _qkv_do((1, 2, 300, 64), 95))
+    strided = do.transpose(2, 3).contiguous().transpose(2, 3)
+    assert strided.stride(-1) != 1
+    o, lse = fa.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    got = fa.flash_bwd_dq(q, k, v, strided, lse, delta, True)
+    want = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))

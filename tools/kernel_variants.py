@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's redesigned kernels on one card: int4_dot,
-flash_attn_fwd, scatter_add and flash_attn_bwd_dkv.
+flash_attn_fwd, scatter_add, flash_attn_bwd_dkv, flash_attn_bwd_dq and
+bn_act_bwd.
 
     python3 tools/kernel_variants.py
 
@@ -10,11 +11,12 @@ kernel switched off). All variants are built at once by nvcc for sm_90a
 into deeplearning4j_tpu_torch/build/variants/, loaded with ctypes and
 timed as chip_smoke.py times kernels (CUDA events, median of 25 launches,
 L2 flushed before each). A variant that keeps the function is checked
-against the plain version (int4_dot and scatter_add bitwise,
-flash_attn_fwd and flash_attn_bwd_dkv within chip_smoke.py's limits); one
-that switches a stage off computes garbage and is timed only, to show what
-that stage costs. Prints the card line and one JSON line per (variant,
-shape).
+against the plain version (int4_dot and scatter_add bitwise, the flash
+kernels and bn_act_bwd within chip_smoke.py's limits); one that switches a
+stage off computes garbage and is timed only, to show what that stage
+costs. Prints the card line and one JSON line per (variant, shape); the
+bn_act_bwd lines also time its first design (bn_act_bwd_v1.cu) on the same
+operands.
 
     python3 tools/kernel_variants.py scatter_add dkv_f32_double_buffer
 
@@ -49,6 +51,48 @@ SCATTER_SHAPES = [("zipf", 8192), ("zipf", 81920), ("hot_row", 8192), ("half_one
 DKV_SHAPES = [(8, 12, 1024, 64, True, "bfloat16"), (8, 12, 1024, 64, True, "float32"),
               (4, 8, 4096, 128, True, "bfloat16"), (4, 8, 4096, 128, True, "float32"),
               (2, 3, 129, 256, True, "float32")]
+# flash_attn_bwd_dq: the same shapes
+DQ_SHAPES = DKV_SHAPES
+# bn_act_bwd: chip_smoke.py's BN_CASES (ResNet50's batch norms at batch 128
+# and the ragged C = 130, which takes the scalar path)
+BN_SHAPES = cs.BN_CASES
+# bn_act_bwd's other design: the three passes as three launches, pass 3
+# walking the work items in the reverse of pass 1's order. _bn_launches
+# substitutes them for the cooperative launch, with the named passes
+# launched (one pass alone computes garbage and is timed only).
+_BN_COOP = ("  void *args[] = {(void *)&a};\n"
+            "  return (int)cudaLaunchCooperativeKernel("
+            "(const void *)bn_bwd_fused<T, V, ACT, RES>,\n"
+            "                                          a.tiles * a.nrb, kThreads, args, 0, st);\n")
+_BN_GRID = "// The grid for V-element channel groups"
+_BN_KERNELS = """template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_partials(const Args a) {
+  __shared__ float red[2 * kThreads * kMaxV];
+  partials<T, V, ACT, RES>(a, blockIdx.x, red);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bn_bwd_finalize(const Args a) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c < a.C) finalize<T>(a, c);
+}
+template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_dz(const Args a) {
+  dz_pass<T, V, ACT, RES>(a, a.tiles * a.nrb - 1 - blockIdx.x);
+}
+
+"""
+_BN_LAUNCH = {
+    "partials": "  bn_bwd_partials<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);\n",
+    "finalize": "  bn_bwd_finalize<T><<<(a.C + kThreads - 1) / kThreads, kThreads, 0, st>>>(a);\n",
+    "dz": "  bn_bwd_dz<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);\n"}
+
+
+def _bn_launches(*passes):
+    return [(_BN_GRID, _BN_KERNELS + _BN_GRID),
+            (_BN_COOP, "".join(_BN_LAUNCH[k] for k in passes)
+             + "  return (int)cudaGetLastError();\n")]
+
+
 # (name, source, [(old, new)], keeps the function)
 VARIANTS = [
     ("int4_as_built", "int4_dot", [], True),
@@ -139,6 +183,57 @@ VARIANTS = [
     ("dkv_f32_double_buffer", "flash_attn_bwd_dkv",
      [("    if (d <= 64) return run_f32<64, 64, 64, 1>(p, s);",
        "    if (d <= 64) return run_f32<64, 64, 64, 2>(p, s);")], True),
+    ("dq_as_built", "flash_attn_bwd_dq", [], True),
+    # dS rounded to bf16 alone: what the lo products cost
+    ("dq_no_lo_products", "flash_attn_bwd_dq",
+     [("        mma_bf16(dq[2 * c2], sl, kb[0], kb[1]);\n", ""),
+      ("        mma_bf16(dq[2 * c2 + 1], sl, kb[2], kb[3]);\n", "")], False),
+    # without dQ += dS K (bf16: the S and dP products stay, being asm
+    # volatile, but the P and dS arithmetic falls away with it)
+    ("dq_no_dsk_product", "flash_attn_bwd_dq",
+     [("        ldsm_x4_t(kb, Kb + off);\n"
+       "        mma_bf16(dq[2 * c2], sh, kb[0], kb[1]);\n"
+       "        mma_bf16(dq[2 * c2], sl, kb[0], kb[1]);\n"
+       "        mma_bf16(dq[2 * c2 + 1], sh, kb[2], kb[3]);\n"
+       "        mma_bf16(dq[2 * c2 + 1], sl, kb[2], kb[3]);\n", ""),
+      ("            acc[i][g][0] = fmaf(sv, k4[g].x, acc[i][g][0]);\n"
+       "            acc[i][g][1] = fmaf(sv, k4[g].y, acc[i][g][1]);\n"
+       "            acc[i][g][2] = fmaf(sv, k4[g].z, acc[i][g][2]);\n"
+       "            acc[i][g][3] = fmaf(sv, k4[g].w, acc[i][g][3]);\n", "")], False),
+    ("dq_qo_fragments_from_smem", "flash_attn_bwd_dq",
+     [("  constexpr bool kQORegs = DP <= 64;", "  constexpr bool kQORegs = false;")], True),
+    # the key tile at d <= 64 in bf16: 64 rows (this PR's first build) or 16
+    ("dq_bf16_key_tile_64", "flash_attn_bwd_dq",
+     [("  if (d <= 64) return run_bf16<64, 64, 32>(p, s);",
+       "  if (d <= 64) return run_bf16<64, 64, 64>(p, s);")], True),
+    ("dq_bf16_key_tile_16", "flash_attn_bwd_dq",
+     [("  if (d <= 64) return run_bf16<64, 64, 32>(p, s);",
+       "  if (d <= 64) return run_bf16<64, 64, 16>(p, s);")], True),
+    ("dq_f32_key_tile_32", "flash_attn_bwd_dq",
+     [("    if (d <= 64) return run_f32<64, 64, 64, 1>(p, s);",
+       "    if (d <= 64) return run_f32<64, 64, 32, 1>(p, s);")], True),
+    # two key-tile buffers at d <= 64: 121 KB of shared memory, one block an SM
+    ("dq_f32_double_buffer", "flash_attn_bwd_dq",
+     [("    if (d <= 64) return run_f32<64, 64, 64, 1>(p, s);",
+       "    if (d <= 64) return run_f32<64, 64, 64, 2>(p, s);")], True),
+    ("bn_as_built", "bn_act_bwd", [], True),
+    ("bn_three_launches", "bn_act_bwd", _bn_launches("partials", "finalize", "dz"), True),
+    ("bn_pass_1_only", "bn_act_bwd", _bn_launches("partials"), False),
+    ("bn_pass_3_only", "bn_act_bwd", _bn_launches("dz"), False),
+    # pass 3 in pass 1's order: what rereading the last-read rows first buys
+    ("bn_reread_in_order", "bn_act_bwd",
+     [("  for (long long r = it.r1 - 1 - it.lane; r >= it.r0; r -= kRows * a.RL) {",
+       "  for (long long r = it.r0 + it.lane; r < it.r1; r += kRows * a.RL) {"),
+      ("      const long long rk = r - k * a.RL;\n      ok[k] = rk >= it.r0;",
+       "      const long long rk = r + k * a.RL;\n      ok[k] = rk < it.r1;")], True),
+    ("bn_rows_in_flight_1", "bn_act_bwd",
+     [("constexpr int kRows = 2; ", "constexpr int kRows = 1; ")], True),
+    ("bn_rows_in_flight_4", "bn_act_bwd",
+     [("constexpr int kRows = 2; ", "constexpr int kRows = 4; ")], True),
+    # three blocks an SM (registers capped at 85); the kernel's plan sizes
+    # the grid to match
+    ("bn_3_blocks_per_sm", "bn_act_bwd",
+     [("constexpr int kMinBlocks = 2; ", "constexpr int kMinBlocks = 3; ")], True),
 ]
 
 
@@ -155,7 +250,8 @@ def build(out_dir: Path, variants):
         src = out_dir / f"{name}.cu"
         src.write_text(text)
         lib = out_dir / f"lib{name}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+               str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
@@ -241,13 +337,54 @@ def dkv_call(torch, lib, q, k, v, do, lse, delta, causal):
     return dk, dv
 
 
+def dq_call(torch, lib, q, k, v, do, lse, delta, causal):
+    fn = lib.flash_attn_bwd_dq_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dq = torch.empty_like(q)
+    b, h, t, d = q.shape
+    strides = (ctypes.c_longlong * 15)(*(x for a in (q, k, v, do, dq) for x in a.stride()[:3]))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dq.data_ptr(), ctypes.addressof(strides), b, h, t, d,
+             int(q.dtype == torch.bfloat16), int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attn_bwd_dq variant launch failed with CUDA error {err}")
+    return dq
+
+
+def bn_call(torch, lib, act, z, gamma, beta, res, mean, inv, dout):
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    fn, query = lib.bn_act_bwd_launch, lib.bn_act_bwd_scratch
+    fn.argtypes, fn.restype = bn_act._BWD_ARGS, ctypes.c_int
+    query.argtypes, query.restype = bn_act._BWD_SCRATCH_ARGS, ctypes.c_longlong
+    c = z.shape[-1]
+    n = z.numel() // c
+    dtype, act_code = bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act]
+    vec = bn_act.bwd_vec(c, z.element_size())
+    need = query(dtype, act_code, int(res is not None), n, c, vec)
+    if need < 0:
+        raise RuntimeError(f"bn_act_bwd variant grid query failed with CUDA error {-need}")
+    dz = torch.empty_like(z)
+    dpre = None if res is None else torch.empty_like(z)
+    dg, db = (torch.empty(c, dtype=torch.float32, device=z.device) for _ in range(2))
+    scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+    ptr = (lambda a: None if a is None else a.data_ptr())
+    err = fn(dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(res),
+             mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, dz.data_ptr(), dg.data_ptr(),
+             db.data_ptr(), ptr(dpre), scratch.data_ptr(), need, vec,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"bn_act_bwd variant launch failed with CUDA error {err}")
+    return dz, dg, db, dpre
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; this script runs on a card", file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch.parallel.ring_attention import reference_attention
-    from deeplearning4j_tpu_torch.perf.kernels import _build, int4_dot
+    from deeplearning4j_tpu_torch.perf.kernels import _build, bn_act, int4_dot
     from deeplearning4j_tpu_torch.perf.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.perf.kernels import scatter_add as sa
 
@@ -275,8 +412,36 @@ def main() -> int:
                                                                     grads), flush)
                 print(json.dumps(row), flush=True)
             continue
-        if source == "flash_attn_bwd_dkv":
-            for b, h, t, d, causal, dtype_name in DKV_SHAPES:
+        if source == "bn_act_bwd":
+            for case, n, c, dtype_name, act, residual in BN_SHAPES:
+                (z, gamma, beta, res), (_, mean, _, inv), dout = cs.bn_operands(
+                    torch, dev, n, c, dtype_name, act, residual)
+                ops = (act, z, gamma, beta, res, mean, inv, dout)
+                row = {"variant": name, "shape": [case, n, c, dtype_name, act, residual]}
+                if keeps:
+                    got = bn_call(torch, lib, *ops)
+                    want = bn_act.bn_act_bwd_plain(act, cs.BN_EPS, z, gamma, beta, res, mean,
+                                                   inv, dout)
+                    try:
+                        row["max_abs_err"] = cs.hold_bn_bwd(torch, " ".join(map(str, row["shape"])),
+                                                            got, want)
+                    except AssertionError as e:
+                        row["out_of_limits"] = str(e)
+                    row["bitwise_repeat"] = all(
+                        torch.equal(a, b) for a, b in zip(got[:3], bn_call(torch, lib, *ops)))
+                    del got, want
+                row["ms"] = cs.time_ms(torch, lambda: bn_call(torch, lib, *ops), flush)
+                row["first_design_ms"] = cs.time_ms(torch, lambda: cs.first_design_bn_bwd(
+                    torch, *ops), flush)
+                print(json.dumps(row), flush=True)
+                del z, gamma, beta, res, mean, inv, dout, ops
+                torch.cuda.empty_cache()
+            continue
+        if source in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+            dq = source.endswith("dq")
+            plain = fa.flash_bwd_dq_plain if dq else fa.flash_bwd_dkv_plain
+            call = dq_call if dq else dkv_call
+            for b, h, t, d, causal, dtype_name in (DQ_SHAPES if dq else DKV_SHAPES):
                 dt = getattr(torch, dtype_name)
                 gen = torch.Generator(device=dev)
                 gen.manual_seed(b * 1000003 + h * 1009 + t * 31 + d)
@@ -287,16 +452,18 @@ def main() -> int:
                 row = {"variant": name, "shape": [b, h, t, d, causal, dtype_name]}
                 if keeps:
                     f32 = [a.float() for a in (q, k, v, do)]
-                    want = fa.flash_bwd_dkv_plain(*f32, lse, delta, causal)
-                    ref = (fa.flash_bwd_dkv_plain(*(a.double() for a in f32), lse.double(),
-                                                  delta.double(), causal)
-                           if dt == torch.float32 else [None, None])
-                    got = dkv_call(torch, lib, q, k, v, do, lse, delta, causal)
+                    want = plain(*f32, lse, delta, causal)
+                    ref = (plain(*(a.double() for a in f32), lse.double(), delta.double(),
+                                 causal) if dt == torch.float32 else None)
+                    got = call(torch, lib, q, k, v, do, lse, delta, causal)
+                    if dq:
+                        got, want, ref = (got,), (want,), (ref,)
+                    ref = ref if ref is not None else [None] * len(got)
                     row["max_err_over_limit"] = max(cs._bwd_limit(torch, g, w, r, dt)[1]
                                                     for g, w, r in zip(got, want, ref))
                     del want, ref, got
-                row["ms"] = cs.time_ms(torch, lambda: dkv_call(torch, lib, q, k, v, do, lse,
-                                                                delta, causal), flush)
+                row["ms"] = cs.time_ms(torch, lambda: call(torch, lib, q, k, v, do, lse,
+                                                            delta, causal), flush)
                 print(json.dumps(row), flush=True)
                 del q, k, v, do, o, lse, delta
                 torch.cuda.empty_cache()
