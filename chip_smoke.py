@@ -9,10 +9,10 @@
    -Xptxas -v report (registers, shared memory, spills), and counts the
    bf16 tensor-core instructions (HMMA.16816.F32.BF16, cuobjdump -sass) in
    the three flash libraries, each of which must hold some. The first
-   designs of int4_dot, bn_act_bwd, flash_attn_fwd, scatter_add,
-   flash_attn_bwd_dkv (flash_attn_bwd_v1.cu) and flash_attn_bwd_dq
-   (csrc/*_v1.cu) are built beside them and timed on the same operands as
-   "previous_ms".
+   designs of int4_dot, bn_act_fwd, bn_act_bwd, adc_pq, flash_attn_fwd,
+   scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1.cu) and
+   flash_attn_bwd_dq (csrc/*_v1.cu) are built beside them and timed on the
+   same operands as "previous_ms".
 3. Kernel phases: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, and times both (CUDA events, median
    of 25 launches after warm-up, L2 flushed before each launch and a device
@@ -25,7 +25,7 @@
    - int4_dot, bitwise against its plain version and against itself, at
      VGG16's fc shapes.
    - bn_act_fwd / bn_act_bwd at ResNet50's batch-norm shapes at batch 128
-     (stem, res2, res4, res5) and a ragged one, in bf16 and float32. Stats
+     (stem, res2, res3, res4, res5) and a ragged one, in bf16 and float32. Stats
      (mean, var, inv) within rtol 1e-5 / atol 1e-6 of the plain version.
      out: at the kernel's own stats, bitwise the plain elementwise math;
      against the whole plain version, float32 within rtol 1e-5 / atol 1e-6
@@ -35,7 +35,7 @@
      bitwise; dgamma/dbeta within rtol 1e-4 of the plain float32 sums (1.6 M
      rows summed in another order); dz within rtol 1e-4 (float32) or 2 bf16
      ulps, plus 1e-5 of its largest magnitude (it inherits the sums'
-     rounding). Two runs of each kernel agree bitwise. bn_act_bwd's first
+     rounding). Two runs of each kernel agree bitwise. Each kernel's first
      design is timed beside it.
 4. Serving phase: VGG16 at full width (224x224x3, 1000 classes, random
    weights from a seeded torch.Generator) is calibrated on two seeded
@@ -62,12 +62,13 @@
    exact BruteForceIndex, BruteForceIndex(int4=True), PQIndex(M=8,
    ksub=256, rerank=16) and IVFPQIndex(M=8, ksub=256, rerank=8) on the card.
    - adc_pq and adc_ivf_pq, bitwise against their plain versions and
-     against themselves, at b = 1, 8, 64, 256 on the built indexes (the IVF
+     against themselves, at b = 1, 8, 32, 64, 256 on the built indexes (the IVF
      kernel on the index's real probe slots, p = 8) and at ragged shapes
      (the p = 32 one takes the global-LUT path); timed beside the bound,
      the plain version and F.embedding_bag(mode="sum"), whose max |diff|
-     is printed (its sum order may differ). int4_dot at (b, 1M, 64) for the
-     same b, bitwise against its plain version and itself.
+     is printed (its sum order may differ); adc_pq's first design too.
+     int4_dot at (b, 1M, 64) for the same b, bitwise against its plain
+     version and itself.
    - Serving: each of int4, PQ and IVF-PQ behind IndexEndpoint(k_max=128)
      after warmup(), four client threads of 64 requests (1-8 rows, k of 1,
      10 or 32). Every answer checked (shape, ids in range, distances
@@ -200,6 +201,8 @@ BN_CASES = [
     ("res2", 401408, 64, "bfloat16", "relu", False),
     ("res2", 401408, 256, "bfloat16", "relu", True),
     ("res2", 401408, 256, "float32", "identity", False),
+    ("res3", 100352, 128, "bfloat16", "relu", False),
+    ("res3", 100352, 512, "bfloat16", "relu", True),
     ("res4", 25088, 1024, "bfloat16", "relu", True),
     ("res4", 25088, 1024, "float32", "leakyrelu", True),
     ("res5", 6272, 2048, "bfloat16", "identity", False),
@@ -218,7 +221,9 @@ RESNET50_FUSED_BLOCKS = 53
 # 1024 queries; PQ M=8 ksub=256 rerank=16, IVF-PQ M=8 ksub=256 rerank=8
 # (1000 cells, nprobe 8)
 RETR_N, RETR_D, RETR_QUERIES = 1_000_000, 64, 1024
-ADC_BATCHES = [1, 8, 64, 256]
+# the served pow2 buckets: 1-8 rows (one request), 32 (1-4 coalesced ones),
+# 64, and 256 (the warm-up's largest)
+ADC_BATCHES = [1, 8, 32, 64, 256]
 # ragged shapes: flat (b, n, M, ksub), IVF (b, C, p, M, ksub); p = 32 at
 # M = 8, ksub = 256 is a 256 KB LUT, past shared memory: the global-LUT path
 ADC_RAGGED = [(3, 1001, 1, 2), (3, 1001, 3, 17), (3, 1001, 16, 17)]
@@ -591,6 +596,39 @@ def _bf16_ulp(torch, mag):
     return torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
 
 
+def first_design_rows(n: int, c: int):
+    """(row blocks, rows per block) of the bn kernels' first designs: blocks
+    of 32 channels by 8 row lanes, about 8 blocks an SM of an H100 (132
+    SMs), each with at least 8 rows."""
+    tiles = -(-c // 32)
+    nrb = max(1, min(-(-(132 * 8) // tiles), -(-n // 8)))
+    rpb = -(-n // nrb)
+    return -(-n // rpb), rpb
+
+
+def first_design_bn_fwd(torch, act, z, gamma, beta, res):
+    """bn_act_fwd's first design (scalar loads, threads along C, three
+    launches; five in float32) on the same operands."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    fn = _first_design("bn_act_fwd", [I, I, P, P, P, P, L, I, F, P, P, P, P, P, I, L])
+    c = z.shape[-1]
+    n = z.numel() // c
+    nrb, rpb = first_design_rows(n, c)
+    out = torch.empty_like(z)
+    mean, var, inv = (torch.empty(c, dtype=torch.float32, device=z.device) for _ in range(3))
+    scratch = torch.empty(2 * nrb * c + 2 * c, dtype=torch.float32, device=z.device)
+    err = fn(bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act], z.data_ptr(), gamma.data_ptr(),
+             beta.data_ptr(), None if res is None else res.data_ptr(), n, c, BN_EPS,
+             out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(),
+             scratch.data_ptr(), nrb, rpb, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"bn_act_fwd_v1 launch failed with CUDA error {err}")
+    return out, mean, var, inv
+
+
 def first_design_bn_bwd(torch, act, z, gamma, beta, res, mean, inv, dout):
     """bn_act_bwd's first design (scalar loads, threads along C) on the same
     operands."""
@@ -601,7 +639,7 @@ def first_design_bn_bwd(torch, act, z, gamma, beta, res, mean, inv, dout):
     fn = _first_design("bn_act_bwd", [I, I, P, P, P, P, P, P, P, L, I, P, P, P, P, P, I, L])
     c = z.shape[-1]
     n = z.numel() // c
-    nrb, rpb = bn_act.row_blocks(n, c)
+    nrb, rpb = first_design_rows(n, c)
     dz = torch.empty_like(z)
     dpre = None if res is None else torch.empty_like(z)
     dg, db = (torch.empty(c, dtype=torch.float32, device=z.device) for _ in range(2))
@@ -656,6 +694,46 @@ def hold_bn_bwd(torch, label, got, want) -> float:
     return err
 
 
+def hold_bn_fwd(torch, label, operands, act, got, want) -> dict:
+    """Hold bn_act_fwd's (out, mean, var, inv) against the plain version's:
+    stats within rtol 1e-5 / atol 1e-6; out bitwise the plain elementwise
+    math at the kernel's own stats, and against the whole plain version
+    within rtol 1e-5 / atol 1e-6 (float32) or 2 ulps of z's type of the
+    largest addend of the pre-activation. Returns max |out - plain|
+    ("max_abs_err") and, below float32, the channels whose scale or shift
+    in z's type differ from the plain version's ("flipped_channels") and
+    the largest |out - plain| in those ulps ("max_err_addend_ulps")."""
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    (z, gamma, beta, res), (out, mean, var, inv), (p_out, p_mean, p_var, p_inv) = \
+        operands, got, want
+    for what, g, w in (("mean", mean, p_mean), ("var", var, p_var), ("inv", inv, p_inv)):
+        _close(f"bn_act_fwd {what} {label}", g, w, 1e-5, 1e-6)
+    scale = gamma.float() * inv
+    shift = beta.float() - mean * scale
+    if not torch.equal(out, bn_act.bn_act_apply_plain(act, z, scale, shift, res)):
+        raise AssertionError(f"bn_act_fwd {label}: out differs from the plain "
+                             "elementwise math at the kernel's own stats")
+    err = _max_err(out, p_out)
+    if z.dtype == torch.float32:
+        _close(f"bn_act_fwd out {label}", out, p_out, 1e-5, 1e-6)
+        return {"max_abs_err": err}
+    dt = z.dtype
+    p_scale = gamma.float() * p_inv
+    p_shift = beta.float() - p_mean * p_scale
+    mag = torch.maximum((z.float() * p_scale.to(dt).float()).abs(), p_shift.to(dt).float().abs())
+    if res is not None:
+        mag = torch.maximum(mag, res.float().abs())
+    mag = torch.maximum(mag, p_out.float().abs())
+    ulps = (out.float() - p_out.float()).abs() / (
+        torch.exp2(torch.floor(torch.log2(mag.clamp_min(torch.finfo(dt).tiny))))
+        * torch.finfo(dt).eps)
+    _hold(f"bn_act_fwd out {label} (2 ulps)", ulps <= 2, err)
+    flipped = (scale.to(dt) != p_scale.to(dt)) | (shift.to(dt) != p_shift.to(dt))
+    return {"max_abs_err": err, "flipped_channels": int(flipped.sum()),
+            "max_err_addend_ulps": float(ulps.max())}
+
+
 def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
     """Hold bn_act_fwd and bn_act_bwd against their plain versions at one
     shape and time the kernels, the plain versions and the library
@@ -665,7 +743,6 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
     from deeplearning4j_tpu_torch.nn.activations import get_activation
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
-    dt = getattr(torch, dtype_name)
     (z, gamma, beta, res), (out, mean, var, inv), dout = bn_operands(
         torch, dev, n, c, dtype_name, act, residual)
     args = (act, BN_EPS, z, gamma, beta, res)
@@ -676,28 +753,8 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
     torch.cuda.synchronize()
     label = f"{case} {n}x{c} {dtype_name} {act}{' +res' if residual else ''}"
 
-    for what, got, want in (("mean", mean, p_mean), ("var", var, p_var),
-                            ("inv", inv, p_inv)):
-        _close(f"bn_act_fwd {what} {label}", got, want, 1e-5, 1e-6)
-    scale = gamma.float() * inv
-    shift = beta.float() - mean * scale
-    if not torch.equal(out, bn_act.bn_act_apply_plain(act, z, scale, shift, res)):
-        raise AssertionError(f"bn_act_fwd {label}: out differs from the plain "
-                             "elementwise math at the kernel's own stats")
-    fwd_err = _max_err(out, p_out)
-    if dt == torch.float32:
-        _close(f"bn_act_fwd out {label}", out, p_out, 1e-5, 1e-6)
-    else:
-        p_scale = gamma.float() * p_inv
-        p_shift = beta.float() - p_mean * p_scale
-        mag = torch.maximum((z.float() * p_scale.to(dt).float()).abs(),
-                            p_shift.to(dt).float().abs())
-        if res is not None:
-            mag = torch.maximum(mag, res.float().abs())
-        mag = torch.maximum(mag, p_out.float().abs())
-        _hold(f"bn_act_fwd out {label} (2 bf16 ulps)",
-              (out.float() - p_out.float()).abs() <= 2 * _bf16_ulp(torch, mag), fwd_err)
-        del mag
+    fwd_held = hold_bn_fwd(torch, label, (z, gamma, beta, res), act, (out, mean, var, inv),
+                           (p_out, p_mean, p_var, p_inv))
     bwd_err = hold_bn_bwd(torch, label, (dz, dg, db, dpre), plain_bwd)
     for what, first, again in (("bn_act_fwd", (out, mean, var, inv), bn_act.bn_act_fwd(*args)),
                                ("bn_act_bwd", (dz, dg, db), bn_act.bn_act_bwd(*bargs)[:3])):
@@ -732,17 +789,17 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
     base = {"case": case, "rows": n, "channels": c, "dtype": dtype_name, "act": act,
             "residual": residual, "library": lib_note}
     row = dict(base)
-    for kind, kernel, plain, tensors, err in (
+    for kind, kernel, first, plain, tensors, held in (
             ("fwd", lambda: bn_act.bn_act_fwd(*args),
-             lambda: bn_act.bn_act_fwd_plain(*args), 3 if residual else 2, fwd_err),
+             lambda: first_design_bn_fwd(torch, act, z, gamma, beta, res),
+             lambda: bn_act.bn_act_fwd_plain(*args), 3 if residual else 2, fwd_held),
             ("bwd", lambda: bn_act.bn_act_bwd(*bargs),
-             lambda: bn_act.bn_act_bwd_plain(*bargs), 5 if residual else 3, bwd_err)):
+             lambda: first_design_bn_bwd(torch, act, z, gamma, beta, res, mean, inv, dout),
+             lambda: bn_act.bn_act_bwd_plain(*bargs), 5 if residual else 3,
+             {"max_abs_err": bwd_err})):
         bound_ms, bound_by = bn_bound(n, c, esize, tensors, BN_OPS_PER_ELT[kind])
-        r = dict(base, max_abs_err=err, ms=time_ms(torch, kernel, flush),
-                 host_ms=host_ms(torch, kernel))
-        if kind == "bwd":  # redesigned: its first design on the same operands
-            r["previous_ms"] = time_ms(torch, lambda: first_design_bn_bwd(
-                torch, act, z, gamma, beta, res, mean, inv, dout), flush)
+        r = dict(base, **held, ms=time_ms(torch, kernel, flush),
+                 host_ms=host_ms(torch, kernel), previous_ms=time_ms(torch, first, flush))
         r.update(plain_ms=time_ms(torch, plain, flush), bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=lib_ms[kind])
         print(f"bn_act_{kind} " + json.dumps(r), flush=True)
@@ -965,16 +1022,15 @@ def card_vs_cpu_phase(torch, dev):
 
 def _bn_kernel_entry(name, rows, launches):
     """The kernels-line entry of bn_act_fwd or bn_act_bwd: numbers at the
-    stem shape in bf16, max error over every case; bn_act_bwd (redesigned)
-    also its first design's time and every other case's."""
+    stem shape in bf16, max error over every case, its first design's time
+    (both were redesigned) and every other case's."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
-    timed = ("ms", "host_ms", "previous_ms") if kind == "bwd" else ("ms", "host_ms")
-    extra = {} if kind == "fwd" else {
+    extra = {
         "previous_ms": stem["previous_ms"],
         "other_shapes": [{k: r[kind][k] for k in ("case", "rows", "channels", "dtype", "act",
-                                                  "residual") + timed
-                          + ("plain_ms", "bound_ms", "library_ms")}
+                                                  "residual", "ms", "host_ms", "previous_ms",
+                                                  "plain_ms", "bound_ms", "library_ms")}
                          for r in rows if r[kind] is not stem]}
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -1027,6 +1083,23 @@ def _hold_bitwise(torch, what, got, want, again):
     return err
 
 
+def first_design_adc_pq(torch, lut, codes):
+    """adc_pq's first design (about 2,048 blocks, each staging its query
+    group's LUT) on the same operands."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = _first_design("adc_pq", [P, P, P, I, L, I, I, I])
+    b, m_count, ksub = lut.shape
+    d2 = torch.empty((b, codes.shape[0]), dtype=torch.float32, device=lut.device)
+    err = fn(lut.data_ptr(), codes.data_ptr(), d2.data_ptr(), b, codes.shape[0], m_count, ksub,
+             adc._vec8(codes), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"adc_pq_v1 launch failed with CUDA error {err}")
+    return d2
+
+
 def adc_pq_case(torch, flush, lut, codes, label) -> dict:
     import torch.nn.functional as F
 
@@ -1042,6 +1115,7 @@ def adc_pq_case(torch, flush, lut, codes, label) -> dict:
     del want, again
     ms = time_ms(torch, lambda: adc.adc_pq(lut, codes), flush)
     wrapper_host_ms = host_ms(torch, lambda: adc.adc_pq(lut, codes))
+    previous_ms = time_ms(torch, lambda: first_design_adc_pq(torch, lut, codes), flush)
     plain_ms = time_ms(torch, lambda: adc.adc_pq_plain(lut, codes), flush)
     # yardstick: bags of the M offsets m*ksub + code into the transposed LUT
     weight = lut.permute(1, 2, 0).reshape(m_count * ksub, b).contiguous()
@@ -1052,8 +1126,8 @@ def adc_pq_case(torch, flush, lut, codes, label) -> dict:
     bound_ms, bound_by = bytes_ops_bound(n * m_count + 4 * b * m_count * ksub + 4 * b * n,
                                          b * n * m_count, PEAK_F32_OPS_PER_S)
     row = {"case": label, "b": b, "n": n, "M": m_count, "ksub": ksub,
-           "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms,
+           "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms, "previous_ms": previous_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library": "F.embedding_bag(mode='sum')", "library_max_abs_diff": lib_diff,
            "lut_gathers": b * n * m_count}
@@ -2575,17 +2649,22 @@ def _build_dir():
 
 def _adc_kernel_entry(name, rows, launches, replaces_line):
     """The kernels-line entry of adc_pq or adc_ivf_pq: numbers at b = 256 on
-    the 1M-vector index, max error over every case."""
+    the 1M-vector index, max error over every case, the other served
+    batches beside; adc_pq (redesigned) also its first design's times."""
     head = next(r for r in rows if r["b"] == max(ADC_BATCHES) and r["case"] != "ragged")
+    timed = ("ms", "host_ms") + (("previous_ms",) if "previous_ms" in head else ())
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             "replaces": f"deeplearning4j_tpu/perf/pallas/adc.py:{replaces_line}",
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": head["ms"], "host_ms": head["host_ms"], "plain_ms": head["plain_ms"],
+            **{k: head[k] for k in timed}, "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "shape": {k: head[k] for k in ("b", "n", "C", "p", "M", "ksub") if k in head}}
+            "shape": {k: head[k] for k in ("b", "n", "C", "p", "M", "ksub") if k in head},
+            "other_batches": [{k: r[k] for k in ("b",) + timed + ("plain_ms", "bound_ms",
+                                                                 "library_ms")}
+                              for r in rows if r["case"] != "ragged" and r is not head]}
 
 
 def main() -> int:
@@ -2604,12 +2683,14 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     dev = resolve_device("cuda")
     # the *_v1 sources are the first designs of int4_dot, flash_attn_fwd,
-    # scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1), flash_attn_bwd_dq
-    # and bn_act_bwd, timed beside their redesigns (previous_ms)
+    # scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1), flash_attn_bwd_dq,
+    # bn_act_bwd, bn_act_fwd and adc_pq, timed beside their redesigns
+    # (previous_ms)
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
              "scatter_add", "flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
-             "int4_dot_v1", "bn_act_bwd_v1", "flash_attn_fwd_v1", "scatter_add_v1",
-             "flash_attn_bwd_v1", "flash_attn_bwd_dq_v1"]
+             "int4_dot_v1", "bn_act_fwd_v1", "bn_act_bwd_v1", "adc_pq_v1",
+             "flash_attn_fwd_v1", "scatter_add_v1", "flash_attn_bwd_v1",
+             "flash_attn_bwd_dq_v1"]
     t0 = time.perf_counter()
     _build.build(names)
     print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s", flush=True)

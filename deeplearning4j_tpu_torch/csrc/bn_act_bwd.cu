@@ -55,64 +55,22 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
-#include <algorithm>
-#include <atomic>
-
 #include "bn_act_common.cuh"
 
 namespace {
 
 using namespace bn_act;
 
-constexpr int kThreads = 256;
 constexpr int kMinBlocks = 2;  // blocks an SM the grid is sized for
 constexpr int kMaxV = 8;
 constexpr int kRows = 2;  // rows a thread has in flight
-constexpr int kMaxDevices = 64;
 
-struct Args {
+struct Args : Grid {
   const void *z, *res, *dout, *gamma, *beta;
   const float *mean, *inv;
   void *dz, *dpre;
   float *dgamma, *dbeta, *pg, *pb, *coef;
-  long long n, rpb;
-  int C, G, GC, RL, tiles, nrb;
 };
-
-// V elements of T at p, one load or store (16 bytes when V > 1: p is then
-// 16-byte aligned)
-template <typename T, int V>
-struct alignas(V * sizeof(T) == 16 ? 16 : alignof(T)) Pack {
-  T e[V];
-};
-template <typename T, int V>
-__device__ __forceinline__ Pack<T, V> ld(const T *p) {
-  return *reinterpret_cast<const Pack<T, V> *>(p);
-}
-template <typename T, int V>
-__device__ __forceinline__ void st(T *p, const Pack<T, V> &x) {
-  *reinterpret_cast<Pack<T, V> *>(p) = x;
-}
-
-// The block's work item: channel tile, row block, and the thread's place.
-struct Item {
-  int c0;         // the thread's first channel (c0 .. c0+V-1)
-  bool active;    // c0 < C
-  int lane;       // row lane
-  long long r0, r1;  // the row block
-};
-template <int V>
-__device__ __forceinline__ Item item_of(const Args &a, int item) {
-  const int tile = item % a.tiles, rb = item / a.tiles;
-  const int gl = threadIdx.x % a.GC;
-  Item it;
-  it.c0 = (tile * a.GC + gl) * V;
-  it.active = tile * a.GC + gl < a.G;
-  it.lane = threadIdx.x / a.GC;
-  it.r0 = (long long)rb * a.rpb;
-  it.r1 = min(a.n, it.r0 + a.rpb);
-  return it;
-}
 
 // pre, then dpre, of V elements
 template <typename T, int V, int ACT, bool RES>
@@ -282,37 +240,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_fused(const Args 
   dz_pass<T, V, ACT, RES>(a, blockIdx.x);
 }
 
-// The grid for V-element channel groups: fills GC, RL, tiles, nrb and rpb.
-// Its blocks number at most min(kMinBlocks, the blocks of this kernel the
-// occupancy calculator finds resident on an SM) times the SMs.
+// The grid for V-element channel groups (bn_act_common.cuh's plan_grid).
 template <typename T, int V, int ACT, bool RES>
 int plan(Args &a) {
   static std::atomic<int> resident[kMaxDevices];  // blocks, by device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
-  if (blocks == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_bwd_fused<T, V, ACT, RES>,
-                                                        kThreads, 0);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    blocks = std::min(per_sm, kMinBlocks) * sms;
-    if (dev < kMaxDevices) resident[dev].store(blocks, std::memory_order_relaxed);
-  }
-  a.G = a.C / V;
-  a.GC = 1;
-  while (a.GC < a.G && a.GC < kThreads) a.GC *= 2;
-  a.RL = kThreads / a.GC;
-  a.tiles = (a.G + a.GC - 1) / a.GC;
-  if (a.tiles > blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long nrb =
-      std::max(1LL, std::min((long long)(blocks / a.tiles), (a.n + a.RL - 1) / a.RL));
-  a.rpb = (a.n + nrb - 1) / nrb;
-  a.nrb = (int)((a.n + a.rpb - 1) / a.rpb);
-  return 0;
+  return plan_grid(a, V, (const void *)bn_bwd_fused<T, V, ACT, RES>, kMinBlocks, resident);
 }
 
 // Plans the grid and sets *need to the scratch it takes (floats); then,
@@ -346,7 +278,7 @@ int run_act(Args &a, bool res, int vec, float *scratch, long long cap, long long
 template <typename T>
 int run(int act, Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
         cudaStream_t st) {
-  if (vec != 1 && vec != 16 / (int)sizeof(T)) return (int)cudaErrorInvalidValue;
+  if (!vec_ok<T>(vec)) return (int)cudaErrorInvalidValue;
   if (act == kRelu) return run_act<T, kRelu>(a, res, vec, scratch, cap, need, st);
   if (act == kLeakyRelu) return run_act<T, kLeakyRelu>(a, res, vec, scratch, cap, need, st);
   return run_act<T, kIdentity>(a, res, vec, scratch, cap, need, st);

@@ -1,5 +1,8 @@
 // What the bn_act_fwd and bn_act_bwd kernels share: element types, the
-// activations they take, and the recomputed pre-activation.
+// activations they take, the recomputed pre-activation, and the cooperative
+// grid of their redesigns (16-byte vectors of channels, work items of a
+// channel tile by a row block, at most as many blocks as the card holds at
+// once).
 //
 // Every elementwise step rounds where the plain PyTorch version rounds
 // (perf/kernels/bn_act.py): products and sums are __fmul_rn/__fadd_rn, never
@@ -13,8 +16,13 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <atomic>
+
 namespace bn_act {
 
+// The first designs' grids (bn_act_{fwd,bwd}_v1.cu, the yardsticks): see
+// elt_blocks and lane_sum below.
 constexpr int kTC = 32;           // channels per block of a reduction kernel
 constexpr int kTR = 8;            // row lanes per block of a reduction kernel
 constexpr int kEltThreads = 256;  // threads per block of an elementwise kernel
@@ -93,6 +101,94 @@ __device__ __forceinline__ float lane_sum(float (*buf)[kTC + 1], float v) {
   if (threadIdx.y == 0)
     for (int i = 1; i < kTR; ++i) v = __fadd_rn(v, buf[i][threadIdx.x]);
   return v;
+}
+
+// ------------------------------------------------ the redesigns' grid
+constexpr int kThreads = 256;    // threads a block of a cooperative kernel
+constexpr int kMaxDevices = 64;  // devices whose resident-block count is cached
+
+// V elements of T at p, one load or store (16 bytes when V > 1: p is then
+// 16-byte aligned)
+template <typename T, int V>
+struct alignas(V * sizeof(T) == 16 ? 16 : alignof(T)) Pack {
+  T e[V];
+};
+template <typename T, int V>
+__device__ __forceinline__ Pack<T, V> ld(const T *p) {
+  return *reinterpret_cast<const Pack<T, V> *>(p);
+}
+template <typename T, int V>
+__device__ __forceinline__ void st(T *p, const Pack<T, V> &x) {
+  *reinterpret_cast<Pack<T, V> *>(p) = x;
+}
+
+// The work of a cooperative launch over (n, C): V-element channel groups,
+// G of them; a block holds GC groups (a power of two, at most kThreads) by
+// RL = kThreads / GC row lanes; tiles channel tiles by nrb row blocks of
+// rpb rows, one work item a block.
+struct Grid {
+  long long n, rpb;
+  int C, G, GC, RL, tiles, nrb;
+};
+
+// A block's work item: channel tile, row block, and the thread's place.
+struct Item {
+  int c0;            // the thread's first channel (c0 .. c0+V-1)
+  bool active;       // c0 < C
+  int lane;          // row lane
+  long long r0, r1;  // the row block
+};
+template <int V>
+__device__ __forceinline__ Item item_of(const Grid &g, int item) {
+  const int tile = item % g.tiles, rb = item / g.tiles;
+  const int gl = threadIdx.x % g.GC;
+  Item it;
+  it.c0 = (tile * g.GC + gl) * V;
+  it.active = tile * g.GC + gl < g.G;
+  it.lane = threadIdx.x / g.GC;
+  it.r0 = (long long)rb * g.rpb;
+  it.r1 = min(g.n, it.r0 + g.rpb);
+  return it;
+}
+
+// Plans g (n and C set) for V-element channel groups over as many blocks of
+// `kernel` (kThreads threads) as the card holds at once: at most min_blocks
+// an SM, fewer if the occupancy calculator finds fewer resident. The count
+// is cached per device in `resident`, one array per kernel.
+inline int plan_grid(Grid &g, int V, const void *kernel, int min_blocks,
+                     std::atomic<int> *resident) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    blocks = std::min(per_sm, min_blocks) * sms;
+    if (dev < kMaxDevices) resident[dev].store(blocks, std::memory_order_relaxed);
+  }
+  g.G = g.C / V;
+  g.GC = 1;
+  while (g.GC < g.G && g.GC < kThreads) g.GC *= 2;
+  g.RL = kThreads / g.GC;
+  g.tiles = (g.G + g.GC - 1) / g.GC;
+  if (g.tiles > blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const long long nrb =
+      std::max(1LL, std::min((long long)(blocks / g.tiles), (g.n + g.RL - 1) / g.RL));
+  g.rpb = (g.n + nrb - 1) / nrb;
+  g.nrb = (int)((g.n + g.rpb - 1) / g.rpb);
+  return 0;
+}
+
+// The vector width a launch may take: 1, or 16 bytes' worth of T (the
+// caller found C * sizeof(T) a multiple of 16 and every (n, C) operand
+// 16-byte aligned).
+template <typename T>
+constexpr bool vec_ok(int vec) {
+  return vec == 1 || vec == 16 / (int)sizeof(T);
 }
 
 }  // namespace bn_act

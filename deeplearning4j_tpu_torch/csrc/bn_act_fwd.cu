@@ -6,9 +6,12 @@
 // in float32.
 //
 //   bf16/f16 z: mean = S/n, var = max(Q/n - mean^2, 0) from float32 sums
-//               S = sum z, Q = sum z^2 (one pass over z);
-//   f32 z:      mean = S/n, then var = sum (z - mean)^2 / n (centred, a
-//               second pass; never E[z^2] - mean^2 in float32);
+//               S = sum z, Q = sum z^2 (the JAX kernel's single pass);
+//   f32 z:      shifted sums S' = sum (z - K), Q' = sum (z - K)^2 with
+//               K = z[0, c], in double, from the same single read of z:
+//               mean = K + S'/n, var = max(Q'/n - (S'/n)^2, 0), both in
+//               double and rounded once to float32 (never E[z^2] - mean^2
+//               in float32);
 //   inv = rsqrt(var + eps), scale = gamma*inv, shift = beta - mean*scale;
 //   out = act(T(T(z*T(scale)) + T(shift)) [+ res]).
 //
@@ -16,24 +19,47 @@
 // once and writes out once, a few operations per element. ResNet50's stem
 // at batch 128 is 1,605,632 x 64: 411 MB of bf16 in and out, about 123 us.
 //
-// Design. The Pallas kernel keeps one channel tile of all n rows in VMEM;
-// at 1.6 M rows that tile is 205 MB, against 227 KB of shared memory on a
-// Hopper SM. So the rows are blocked and the work runs in phases:
-//   1. bn_fwd_moments, a (channel tiles x row blocks) grid of (32 x 8)
-//      threads: threads run along C, so each row's channels are coalesced;
-//      each thread sums its rows in float32, the 8 row lanes are added in
-//      lane order, and each block writes its per-channel partials to a
-//      scratch tensor the wrapper allocates. No atomics.
-//   2. bn_fwd_finalize, one thread per channel, adds the partials of all
-//      row blocks in block order (in double), and writes mean/var/inv and
-//      the float32 scale and shift. The f32 path runs 1-2 twice (S, then the
-//      centred Q).
-//   3. bn_fwd_apply, elementwise, grid-stride: out = act(pre).
-// The order of every sum is fixed by the shape, so two runs agree bitwise.
-// Phase 3 reads z again: the kernel moves 1.5x (bf16) or 2x (f32, 3 reads)
-// the bytes of its bound. A single-pass design that keeps row blocks on
-// chip across a grid-wide barrier is later work.
+// Design (the first design, bn_act_fwd_v1.cu, ran threads along C with one
+// 2-byte load per bf16 element in three launches, five in float32 where it
+// read z three times, and an elementwise pass that took a 64-bit modulo and
+// two coefficient loads per element). bn_act_bwd.cu's design, on the same
+// grid (bn_act_common.cuh):
+// - Each thread owns a fixed group of V channels, V = 16 bytes / element
+//   size (8 bf16/f16 or 4 float32), and walks rows: z, res and out move as
+//   16-byte vectors, and its scale and shift sit in registers. Where
+//   C * element size is not a multiple of 16 or an operand is not 16-byte
+//   aligned (ragged C, offset views), V = 1: the same code and arithmetic on
+//   scalars.
+// - One cooperative launch (bn_fwd_fused), as many blocks as the card holds
+//   at once (plan_grid: at most kMinBlocks an SM, fewer if the occupancy
+//   calculator says so), one work item (channel tile x row block) a block,
+//   three passes with a grid-wide sync between them:
+//   1. per block, the per-channel partial sums of its rows (each lane's
+//      rows in order, kStatRows in flight, then the lanes in order): float32
+//      S and Q for bf16/f16, double S' and Q' for float32;
+//   2. one warp per channel adds the partials (in double, in a fixed order:
+//      each lane a strided run of blocks in order, then the lanes in a
+//      tree) and writes mean, var, inv and the float32 scale and shift;
+//   3. out = act(pre), each block walking its own rows in the reverse of
+//      pass 1's order, so that the rows it read last, still in the 50 MB L2,
+//      are read again first.
+// No atomics: the order of every sum is fixed by the shape, so two runs
+// agree bitwise. z is read once for the statistics in every type; pass 3
+// reads it again (past the L2, the stem's z is 205 MB in bf16), so the
+// kernel moves about 1.5x the bytes of its bound.
+//
+// The choices, timed by tools/kernel_variants.py on an H100 SXM at 700 W
+// (stem 1,605,632 x 64 bf16 relu, as built about 244 us): one thread a
+// channel in pass 2 instead of a warp 265 us (and +10-20 us on every
+// other shape); 2 blocks an SM (96 registers) instead of 3 (80) 259 us,
+// 4 (64, spilling with 4 rows in flight in pass 3) no faster; 2 rows in
+// flight in pass 3 instead of 4 1-3% slower; float32 statistics summed
+// in float32 within a thread instead of double 486 against 448 us at the
+// stem in float32 (the doubles cost nothing: pass 1 is bound by loads);
+// three launches within 2% (slower at the stem and the ragged shapes,
+// faster at the residual ones); rereading in pass 1's order 1-4% slower.
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 #include "bn_act_common.cuh"
@@ -42,158 +68,280 @@ namespace {
 
 using namespace bn_act;
 
-enum Finalize { kSinglePass = 0, kMean = 1, kCentred = 2 };
+constexpr int kMinBlocks = 3;  // blocks an SM the grid is sized for
+constexpr int kStatRows = 4;   // rows a thread has in flight in pass 1
+constexpr int kApplyRows = 4;  // and in pass 3
 
-// Per row block and channel: S = sum (z - center), Q = sum (z - center)^2.
-template <typename T>
-__global__ void __launch_bounds__(kTC *kTR)
-bn_fwd_moments(const T *__restrict__ z, long long n, int C, long long rpb,
-               const float *__restrict__ center, float *__restrict__ ps,
-               float *__restrict__ pq) {
-  __shared__ float bs[kTR][kTC + 1], bq[kTR][kTC + 1];
-  const int c = blockIdx.x * kTC + threadIdx.x;
-  const long long r0 = (long long)blockIdx.y * rpb;
-  const long long r1 = min(n, r0 + rpb);
-  float s = 0.f, q = 0.f;
-  if (c < C) {
-    const float m = center ? center[c] : 0.f;
-#pragma unroll 4
-    for (long long r = r0 + threadIdx.y; r < r1; r += kTR) {
-      const float v = __fsub_rn(Cvt<T>::f(z[r * C + c]), m);
-      s = __fadd_rn(s, v);
-      q = __fmaf_rn(v, v, q);
+struct Args : Grid {
+  const void *z, *res, *gamma, *beta;
+  void *out;
+  float *mean, *var, *inv;
+  double *ps, *pq;  // per row block and channel: the partial sums
+  float *coef;      // per channel: scale, then shift
+  float eps;
+};
+
+// What pass 1 sums in: float32 for bf16/f16 (the JAX kernel's float32 sums),
+// double for float32, whose sums are shifted by K = z[0, c].
+template <typename T> struct Stat { using type = float; };
+template <> struct Stat<float> { using type = double; };
+
+// Pass 1 for one work item: the per-channel partial sums over the item's rows.
+template <typename T, int V>
+__device__ __forceinline__ void partials(const Args &a, int item,
+                                         typename Stat<T>::type *red) {
+  using S = typename Stat<T>::type;
+  constexpr bool kShift = sizeof(T) == 4;
+  const Item it = item_of<V>(a, item);
+  const T *const z = (const T *)a.z;
+  S s[V], q[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = q[e] = 0;
+  if (it.active) {
+    double k[V];
+    if (kShift) {
+      const Pack<T, V> k0 = ld<T, V>(z + it.c0);
+#pragma unroll
+      for (int e = 0; e < V; ++e) k[e] = (double)Cvt<T>::f(k0.e[e]);
+    }
+    for (long long r = it.r0 + it.lane; r < it.r1; r += kStatRows * a.RL) {
+      bool ok[kStatRows];
+      Pack<T, V> zv[kStatRows];
+#pragma unroll
+      for (int j = 0; j < kStatRows; ++j) {  // every row's load first
+        const long long rj = r + j * a.RL;
+        ok[j] = rj < it.r1;
+        zv[j] = ld<T, V>(z + (ok[j] ? rj : r) * a.C + it.c0);
+      }
+#pragma unroll
+      for (int j = 0; j < kStatRows; ++j) {
+        if (!ok[j]) break;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float v = Cvt<T>::f(zv[j].e[e]);
+          if constexpr (kShift) {
+            const double d = __dsub_rn((double)v, k[e]);
+            s[e] = __dadd_rn(s[e], d);
+            q[e] = __fma_rn(d, d, q[e]);
+          } else {
+            s[e] = __fadd_rn(s[e], v);
+            q[e] = __fmaf_rn(v, v, q[e]);
+          }
+        }
+      }
     }
   }
-  s = lane_sum(bs, s);
-  q = lane_sum(bq, q);
-  if (threadIdx.y == 0 && c < C) {
-    ps[(long long)blockIdx.y * C + c] = s;
-    pq[(long long)blockIdx.y * C + c] = q;
+  // the row lanes in order
+  const int gl = threadIdx.x % a.GC, width = a.GC * V;
+  S *const rs = red, *const rq = red + kThreads * V;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    rs[it.lane * width + gl * V + e] = s[e];
+    rq[it.lane * width + gl * V + e] = q[e];
+  }
+  __syncthreads();
+  const int tile = item % a.tiles, rbk = item / a.tiles;
+  for (int j = threadIdx.x; j < width; j += kThreads) {
+    const int c = tile * width + j;
+    if (c >= a.C) continue;
+    S ss = rs[j], sq = rq[j];
+    for (int l = 1; l < a.RL; ++l) {
+      if constexpr (kShift) {
+        ss = __dadd_rn(ss, rs[l * width + j]);
+        sq = __dadd_rn(sq, rq[l * width + j]);
+      } else {
+        ss = __fadd_rn(ss, rs[l * width + j]);
+        sq = __fadd_rn(sq, rq[l * width + j]);
+      }
+    }
+    a.ps[(long long)rbk * a.C + c] = ss;
+    a.pq[(long long)rbk * a.C + c] = sq;
   }
 }
 
+// Pass 2 for channel c, by one warp: lane l adds the partials of row blocks
+// l, l + 32, ... in order, then the lanes are added in a fixed tree.
 template <typename T>
-__global__ void bn_fwd_finalize(int mode, const float *__restrict__ ps,
-                                const float *__restrict__ pq, int nrb, int C,
-                                long long n, float eps, const T *__restrict__ gamma,
-                                const T *__restrict__ beta, float *mean, float *var,
-                                float *inv, float *sc, float *sh) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+__device__ __forceinline__ void finalize(const Args &a, int c, int lane) {
   double S = 0.0, Q = 0.0;
-  for (int b = 0; b < nrb; ++b) {
-    S += ps[(long long)b * C + c];
-    Q += pq[(long long)b * C + c];
+  for (int k = lane; k < a.nrb; k += 32) {
+    S = __dadd_rn(S, a.ps[(long long)k * a.C + c]);
+    Q = __dadd_rn(Q, a.pq[(long long)k * a.C + c]);
   }
-  const float nf = (float)n;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    S = __dadd_rn(S, __shfl_down_sync(0xffffffffu, S, off));
+    Q = __dadd_rn(Q, __shfl_down_sync(0xffffffffu, Q, off));
+  }
+  if (lane != 0) return;
   float m, v;
-  if (mode == kMean) {
-    mean[c] = __fdiv_rn((float)S, nf);
-    return;
-  }
-  if (mode == kCentred) {
-    m = mean[c];
-    v = __fdiv_rn((float)Q, nf);
+  if constexpr (sizeof(T) == 4) {
+    const double nd = (double)a.n, d = __ddiv_rn(S, nd);
+    const double K = (double)Cvt<T>::f(((const T *)a.z)[c]);
+    m = (float)__dadd_rn(K, d);
+    v = (float)fmax(__dsub_rn(__ddiv_rn(Q, nd), __dmul_rn(d, d)), 0.0);
   } else {
+    const float nf = (float)a.n;
     m = __fdiv_rn((float)S, nf);
     v = fmaxf(__fsub_rn(__fdiv_rn((float)Q, nf), __fmul_rn(m, m)), 0.f);
-    mean[c] = m;
   }
-  var[c] = v;
-  const float iv = __frsqrt_rn(__fadd_rn(v, eps));
-  inv[c] = iv;
-  const float s = __fmul_rn(Cvt<T>::f(gamma[c]), iv);
-  sc[c] = s;
-  sh[c] = __fsub_rn(Cvt<T>::f(beta[c]), __fmul_rn(m, s));
+  a.mean[c] = m;
+  a.var[c] = v;
+  const float iv = __frsqrt_rn(__fadd_rn(v, a.eps));
+  a.inv[c] = iv;
+  const float sc = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv);
+  a.coef[c] = sc;
+  a.coef[a.C + c] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m, sc));
 }
 
-template <typename T, int ACT, bool RES>
-__global__ void bn_fwd_apply(const T *__restrict__ z, const T *__restrict__ res,
-                             const float *__restrict__ sc, const float *__restrict__ sh,
-                             T *__restrict__ out, long long total, int C) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % C);
-    out[i] = Cvt<T>::t(act_fwd<T, ACT>(pre_act<T, RES>(z, res, i, sc[c], sh[c])));
+// Pass 3 for one work item: out over the item's rows, walked from the last.
+template <typename T, int V, int ACT, bool RES>
+__device__ __forceinline__ void apply(const Args &a, int item) {
+  const Item it = item_of<V>(a, item);
+  if (!it.active) return;
+  const T *const z = (const T *)a.z, *const res = (const T *)a.res;
+  float sc[V], sh[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    sc[e] = a.coef[it.c0 + e];
+    sh[e] = a.coef[a.C + it.c0 + e];
   }
+  for (long long r = it.r1 - 1 - it.lane; r >= it.r0; r -= kApplyRows * a.RL) {
+    long long i[kApplyRows];
+    bool ok[kApplyRows];
+    Pack<T, V> zv[kApplyRows], rv[kApplyRows];
+#pragma unroll
+    for (int j = 0; j < kApplyRows; ++j) {  // every row's loads first
+      const long long rj = r - j * a.RL;
+      ok[j] = rj >= it.r0;
+      i[j] = (ok[j] ? rj : r) * a.C + it.c0;
+      zv[j] = ld<T, V>(z + i[j]);
+      if (RES) rv[j] = ld<T, V>(res + i[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kApplyRows; ++j) {
+      if (!ok[j]) break;
+      Pack<T, V> o;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o.e[e] = Cvt<T>::t(act_fwd<T, ACT>(pre_act_of<T, RES>(
+            Cvt<T>::f(zv[j].e[e]), RES ? Cvt<T>::f(rv[j].e[e]) : 0.f, sc[e], sh[e])));
+      st<T, V>((T *)a.out + i[j], o);
+    }
+  }
+}
+
+// The three passes in one cooperative launch: every block is resident (see
+// plan_grid), so the grid-wide syncs cannot deadlock.
+template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_fused(const Args a) {
+  __shared__ typename Stat<T>::type red[2 * kThreads * V];
+  partials<T, V>(a, blockIdx.x, red);
+  cooperative_groups::this_grid().sync();
+  const int warps = gridDim.x * (kThreads / 32);
+  for (int c = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; c < a.C; c += warps)
+    finalize<T>(a, c, threadIdx.x % 32);
+  cooperative_groups::this_grid().sync();
+  apply<T, V, ACT, RES>(a, blockIdx.x);
+}
+
+template <typename T, int V, int ACT, bool RES>
+int plan(Args &a) {
+  static std::atomic<int> resident[kMaxDevices];  // blocks, by device
+  return plan_grid(a, V, (const void *)bn_fwd_fused<T, V, ACT, RES>, kMinBlocks, resident);
+}
+
+// Plans the grid and sets *need to the scratch it takes (floats); then,
+// given scratch of at least that, launches. The partial sums are doubles,
+// first in the scratch (which is 16-byte aligned), then scale and shift.
+template <typename T, int V, int ACT, bool RES>
+int run_v(Args &a, float *scratch, long long cap, long long *need, cudaStream_t st) {
+  const int err = plan<T, V, ACT, RES>(a);
+  if (err != 0) return err;
+  *need = 4LL * a.nrb * a.C + 2LL * a.C;
+  if (scratch == nullptr) return 0;
+  if (cap < *need) return (int)cudaErrorInvalidValue;
+  a.ps = (double *)scratch;
+  a.pq = a.ps + (long long)a.nrb * a.C;
+  a.coef = (float *)(a.pq + (long long)a.nrb * a.C);
+  void *args[] = {(void *)&a};
+  return (int)cudaLaunchCooperativeKernel((const void *)bn_fwd_fused<T, V, ACT, RES>,
+                                          a.tiles * a.nrb, kThreads, args, 0, st);
 }
 
 template <typename T, int ACT>
-void launch_apply(const T *z, const T *res, const float *sc, const float *sh, T *out,
-                  long long total, int C, cudaStream_t st) {
-  const unsigned g = elt_blocks(total);
+int run_act(Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
+            cudaStream_t st) {
+  constexpr int kV = 16 / (int)sizeof(T);
   if (res)
-    bn_fwd_apply<T, ACT, true><<<g, kEltThreads, 0, st>>>(z, res, sc, sh, out, total, C);
-  else
-    bn_fwd_apply<T, ACT, false><<<g, kEltThreads, 0, st>>>(z, res, sc, sh, out, total, C);
+    return vec == 1 ? run_v<T, 1, ACT, true>(a, scratch, cap, need, st)
+                    : run_v<T, kV, ACT, true>(a, scratch, cap, need, st);
+  return vec == 1 ? run_v<T, 1, ACT, false>(a, scratch, cap, need, st)
+                  : run_v<T, kV, ACT, false>(a, scratch, cap, need, st);
 }
 
 template <typename T>
-int run(int act, const void *zv, const void *gv, const void *bv, const void *rv,
-        long long n, int C, float eps, void *outv, float *mean, float *var,
-        float *inv, float *scratch, int nrb, long long rpb, cudaStream_t st) {
-  const T *z = (const T *)zv, *gamma = (const T *)gv, *beta = (const T *)bv;
-  const T *res = (const T *)rv;
-  float *ps = scratch, *pq = scratch + (long long)nrb * C;
-  float *sc = pq + (long long)nrb * C, *sh = sc + C;
-  const dim3 rgrid((C + kTC - 1) / kTC, nrb), rblock(kTC, kTR);
-  const unsigned fgrid = (C + 127) / 128;
-  cudaError_t err;
-#define BN_CHECK() \
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
-  if (sizeof(T) == 2) {
-    bn_fwd_moments<T><<<rgrid, rblock, 0, st>>>(z, n, C, rpb, nullptr, ps, pq);
-    BN_CHECK();
-    bn_fwd_finalize<T><<<fgrid, 128, 0, st>>>(kSinglePass, ps, pq, nrb, C, n, eps,
-                                              gamma, beta, mean, var, inv, sc, sh);
-    BN_CHECK();
-  } else {
-    bn_fwd_moments<T><<<rgrid, rblock, 0, st>>>(z, n, C, rpb, nullptr, ps, pq);
-    BN_CHECK();
-    bn_fwd_finalize<T><<<fgrid, 128, 0, st>>>(kMean, ps, pq, nrb, C, n, eps, gamma,
-                                              beta, mean, var, inv, sc, sh);
-    BN_CHECK();
-    bn_fwd_moments<T><<<rgrid, rblock, 0, st>>>(z, n, C, rpb, mean, ps, pq);
-    BN_CHECK();
-    bn_fwd_finalize<T><<<fgrid, 128, 0, st>>>(kCentred, ps, pq, nrb, C, n, eps, gamma,
-                                              beta, mean, var, inv, sc, sh);
-    BN_CHECK();
+int run(int act, Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
+        cudaStream_t st) {
+  if (!vec_ok<T>(vec)) return (int)cudaErrorInvalidValue;
+  if (act == kRelu) return run_act<T, kRelu>(a, res, vec, scratch, cap, need, st);
+  if (act == kLeakyRelu) return run_act<T, kLeakyRelu>(a, res, vec, scratch, cap, need, st);
+  return run_act<T, kIdentity>(a, res, vec, scratch, cap, need, st);
+}
+
+int dispatch(int dtype, int act, Args &a, bool res, int vec, float *scratch, long long cap,
+             long long *need, cudaStream_t st) {
+  if (a.n <= 0 || a.C <= 0 || act < kIdentity || act > kLeakyRelu || vec < 1 ||
+      a.C % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case kF32:
+      return run<float>(act, a, res, vec, scratch, cap, need, st);
+    case kBF16:
+      return run<__nv_bfloat16>(act, a, res, vec, scratch, cap, need, st);
+    case kF16:
+      return run<__half>(act, a, res, vec, scratch, cap, need, st);
   }
-  const long long total = n * (long long)C;
-  T *out = (T *)outv;
-  if (act == kRelu)
-    launch_apply<T, kRelu>(z, res, sc, sh, out, total, C, st);
-  else if (act == kLeakyRelu)
-    launch_apply<T, kLeakyRelu>(z, res, sc, sh, out, total, C, st);
-  else
-    launch_apply<T, kIdentity>(z, res, sc, sh, out, total, C, st);
-  BN_CHECK();
-#undef BN_CHECK
-  return 0;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Scratch: 2 * nrb * C + 2 * C floats. Rows [b * rpb, min(n, (b+1) * rpb))
-// form row block b; nrb * rpb >= n. res may be null. Returns a cudaError_t.
+// vec: V, the elements each thread moves at a time (1, or 16 bytes' worth:
+// C * element size a multiple of 16 and z, res and out 16-byte aligned).
+// The scratch floats a launch over (n, C) takes, or minus a cudaError_t.
+extern "C" long long bn_act_fwd_scratch(int dtype, int act, int has_res, long long n, int C,
+                                        int vec) {
+  Args a{};
+  a.n = n;
+  a.C = C;
+  long long need = 0;
+  const int err = dispatch(dtype, act, a, has_res != 0, vec, nullptr, 0, &need, nullptr);
+  return err != 0 ? -(long long)err : need;
+}
+
+// scratch: scratch_floats floats, at least bn_act_fwd_scratch's count, 16-byte
+// aligned. res may be null. Returns a cudaError_t.
 extern "C" int bn_act_fwd_launch(int dtype, int act, const void *z, const void *gamma,
                                  const void *beta, const void *res, long long n, int C,
-                                 float eps, void *out, float *mean, float *var,
-                                 float *inv, float *scratch, int nrb, long long rpb,
+                                 float eps, void *out, float *mean, float *var, float *inv,
+                                 float *scratch, long long scratch_floats, int vec,
                                  void *stream) {
   if (n <= 0 || C <= 0) return 0;
-  if (act < kIdentity || act > kLeakyRelu) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (dtype) {
-    case kF32:
-      return run<float>(act, z, gamma, beta, res, n, C, eps, out, mean, var, inv,
-                        scratch, nrb, rpb, st);
-    case kBF16:
-      return run<__nv_bfloat16>(act, z, gamma, beta, res, n, C, eps, out, mean, var,
-                                inv, scratch, nrb, rpb, st);
-    case kF16:
-      return run<__half>(act, z, gamma, beta, res, n, C, eps, out, mean, var, inv,
-                         scratch, nrb, rpb, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr || ((uintptr_t)scratch & 15) != 0) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.z = z;
+  a.res = res;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.out = out;
+  a.mean = mean;
+  a.var = var;
+  a.inv = inv;
+  a.eps = eps;
+  a.n = n;
+  a.C = C;
+  long long need = 0;
+  return dispatch(dtype, act, a, res != nullptr, vec, scratch, scratch_floats, &need,
+                  (cudaStream_t)stream);
 }

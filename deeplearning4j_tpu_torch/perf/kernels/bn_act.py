@@ -8,8 +8,10 @@ channels-last ``z`` (rows × C, any leading shape) and per-channel
 ``gamma``/``beta``:
 
 - ``bn_act_fwd(act, eps, z, gamma, beta, res) -> (out, mean, var, inv)``:
-  batch stats (single-pass float32 for bf16/f16 z, centred two-pass
-  otherwise), ``inv = rsqrt(var + eps)``, ``pre = z*scale + shift`` with
+  batch stats (single-pass float32 for bf16/f16 z; for float32 z the
+  centred variance, which the kernel takes from sums shifted by each
+  channel's first value, in double, in the same single read),
+  ``inv = rsqrt(var + eps)``, ``pre = z*scale + shift`` with
   scale/shift cast to z's dtype, ``+ res``, ``out = act(pre)``. The stats
   are in the stats dtype: float32 for bf16/f16 z, z's dtype otherwise.
 - ``bn_act_bwd(act, eps, z, gamma, beta, res, mean, inv, dout) -> (dz,
@@ -23,11 +25,13 @@ reference's jnp math (``convolutional.py`` ``_bn_act_fwd_math`` and
 ``_fused_bn_act_bwd``) written in torch, for any activation. The wrappers
 take them for CPU tensors only. On a CUDA tensor they launch
 ``csrc/bn_act_fwd.cu`` / ``csrc/bn_act_bwd.cu`` on the current stream or
-raise: the kernels take float32, bf16 and f16 with ``identity``, ``relu``
-and ``leakyrelu`` (α = 0.01), the activations ``fuse`` produces in the zoo;
-any other raises ``NotImplementedError``. Each wrapper call that launches
-adds one to :data:`fwd_launches` / :data:`bwd_launches`, whatever the
-number of CUDA launches inside.
+raise. Each kernel is one cooperative launch that plans its own grid; the
+wrapper passes what it observes, the vector width (:func:`vec_width`), and
+scratch of the size the kernel asks for. The kernels take float32, bf16
+and f16 with ``identity``, ``relu`` and ``leakyrelu`` (α = 0.01), the
+activations ``fuse`` produces in the zoo; any other raises
+``NotImplementedError``. Each wrapper call that launches adds one to
+:data:`fwd_launches` / :data:`bwd_launches`.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from deeplearning4j_tpu_torch.nn.conf.normalization import (batch_stats, normali
                                                             scale_shift)
 
 __all__ = ["bn_act_fwd", "bn_act_bwd", "bn_act_fwd_plain", "bn_act_bwd_plain",
-           "bn_act_apply_plain", "bwd_vec", "fwd_launches", "bwd_launches",
+           "bn_act_apply_plain", "vec_width", "fwd_launches", "bwd_launches",
            "KERNEL_ACTS"]
 
 #: wrapper calls that launched the forward kernel (a caller may reset it)
@@ -53,9 +57,6 @@ bwd_launches = 0
 #: activation name -> the kernels' activation code
 KERNEL_ACTS = {"identity": 0, "linear": 0, "relu": 1, "leakyrelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the forward's reduction block holds 32 channels x 8 row lanes; about 8
-# blocks per SM of an H100 (132 SMs) are asked for, each with at least 8 rows
-_TILE_C, _LANES, _BLOCKS = 32, 8, 132 * 8
 
 _count_lock = threading.Lock()
 _fns = {}
@@ -105,20 +106,18 @@ def bn_act_bwd_plain(act: str, eps: float, z, gamma, beta, res, mean, inv, dout)
 
 
 # ------------------------------------------------------------------ wrappers
-def row_blocks(n: int, c: int):
-    """(row blocks, rows per block) of the forward kernel's reduction grid."""
-    tiles = -(-c // _TILE_C)
-    nrb = max(1, min(-(-_BLOCKS // tiles), -(-n // _LANES)))
-    rpb = -(-n // nrb)
-    return -(-n // rpb), rpb
-
-
-def bwd_vec(c: int, esize: int, aligned: bool = True) -> int:
-    """The channels each thread of the backward kernel moves at a time over
-    rows of ``c`` elements of ``esize`` bytes: 16 bytes' worth when
-    ``c * esize`` is a multiple of 16 and the operands are 16-byte
-    ``aligned``, else 1. The kernel plans its grid itself."""
+def vec_width(c: int, esize: int, aligned: bool = True) -> int:
+    """The channels each thread of the kernels moves at a time over rows of
+    ``c`` elements of ``esize`` bytes: 16 bytes' worth when ``c * esize`` is
+    a multiple of 16 and the operands are 16-byte ``aligned``, else 1. The
+    kernels plan their grids themselves."""
     return 16 // esize if aligned and (c * esize) % 16 == 0 else 1
+
+
+def _vec(z, *tensors) -> int:
+    """vec_width for z's rows and every (n, C) operand given (None skipped)."""
+    return vec_width(z.shape[-1], z.element_size(),
+                     all(t.data_ptr() % 16 == 0 for t in (z,) + tensors if t is not None))
 
 
 def _check(name, z, gamma, beta, res):
@@ -174,9 +173,9 @@ def _kernel(name: str, argtypes, entry: str = "launch", restype=ctypes.c_int):
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_FWD_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _I, _L, _P]
+_FWD_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _L, _I, _P]
 _BWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _L, _I, _P]
-_BWD_SCRATCH_ARGS = [_I, _I, _I, _L, _I, _I]
+_SCRATCH_ARGS = [_I, _I, _I, _L, _I, _I]
 
 
 def _ptr(t):
@@ -194,18 +193,21 @@ def bn_act_fwd(act: str, eps: float, z, gamma, beta, res=None):
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res)), ())
     c = z.shape[-1]
     n = z.numel() // c
-    nrb, rpb = row_blocks(n, c)
     out = torch.empty_like(z)
-    mean, var, inv = (torch.empty(c, dtype=torch.float32, device=z.device)
-                      for _ in range(3))
-    scratch = torch.empty(2 * nrb * c + 2 * c, dtype=torch.float32, device=z.device)
+    vec = _vec(z, res, out)
+    mean, var, inv = torch.empty((3, c), dtype=torch.float32, device=z.device)
+    dtype, act_code = _DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()]
     fn = _kernel("bn_act_fwd", _FWD_ARGS)
     with torch.cuda.device(z.device):
+        need = _kernel("bn_act_fwd", _SCRATCH_ARGS, "scratch", ctypes.c_longlong)(
+            dtype, act_code, int(res is not None), n, c, vec)
+        if need < 0:
+            raise RuntimeError(f"bn_act_fwd grid query failed with CUDA error {-need}")
+        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()], z.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), _ptr(res), n, c, float(eps),
-                 out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(),
-                 scratch.data_ptr(), nrb, rpb, stream)
+        err = fn(dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
+                 n, c, float(eps), out.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                 inv.data_ptr(), scratch.data_ptr(), need, vec, stream)
     if err != 0:
         raise RuntimeError(f"bn_act_fwd launch failed with CUDA error {err}")
     with _count_lock:
@@ -231,14 +233,13 @@ def bn_act_bwd(act: str, eps: float, z, gamma, beta, res, mean, inv, dout):
     n = z.numel() // c
     dz = torch.empty_like(z)
     dpre = None if res is None else torch.empty_like(z)
-    vec = bwd_vec(c, z.element_size(),
-                  all(t.data_ptr() % 16 == 0 for t in (z, res, dout, dz, dpre) if t is not None))
+    vec = _vec(z, res, dout, dz, dpre)
     dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=z.device)
                      for _ in range(2))
     dtype, act_code = _DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()]
     fn = _kernel("bn_act_bwd", _BWD_ARGS)
     with torch.cuda.device(z.device):
-        need = _kernel("bn_act_bwd", _BWD_SCRATCH_ARGS, "scratch", ctypes.c_longlong)(
+        need = _kernel("bn_act_bwd", _SCRATCH_ARGS, "scratch", ctypes.c_longlong)(
             dtype, act_code, int(res is not None), n, c, vec)
         if need < 0:
             raise RuntimeError(f"bn_act_bwd grid query failed with CUDA error {-need}")

@@ -240,6 +240,33 @@ def test_adc_pq_kernel_bitwise_on_card(cuda_device, b, n, M, ksub):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,M,ksub,offset", [
+    (1, 100003, 8, 256, 0), (3, 1001, 1, 2, 0), (3, 4099, 8, 256, 8), (16, 4099, 3, 17, 0),
+    (16, 65536, 8, 256, 0), (16, 2001, 16, 256, 0), (33, 20001, 8, 256, 0),
+    (33, 1001, 8, 256, 3), (256, 65537, 8, 256, 0), (3, 777, 300, 256, 0),
+    (33, 513, 300, 256, 0)])
+def test_adc_pq_redesign_bitwise_at_group_and_row_edges(cuda_device, b, n, M, ksub, offset):
+    """The kernel's query groups (1, 4 and 16 queries; 33 leaves a group of
+    one), ragged n (scalar stores, a short last row tile), M = 1 / 3 / 16
+    (codes byte by byte), codes 8 bytes past an aligned base (8-byte
+    aligned, not 16) or 3 past it, and the global-LUT shape (M * ksub over
+    shared memory): bitwise against the plain version and against itself."""
+    rng = np.random.default_rng(b * 7 + n + M + offset)
+    lut = torch.from_numpy(rng.standard_normal((b, M, ksub)).astype(np.float32)).to(cuda_device)
+    flat = torch.empty(n * M + offset, dtype=torch.uint8, device=cuda_device)
+    codes = flat[offset:].view(n, M)
+    codes.copy_(torch.from_numpy(rng.integers(0, ksub, (n, M)).astype(np.uint8)))
+    before = adc.pq_launches
+    got = adc.adc_pq(lut, codes)
+    again = adc.adc_pq(lut, codes)
+    want = adc.adc_pq_plain(lut, codes)
+    torch.cuda.synchronize()
+    assert adc.pq_launches == before + 2
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,C,p,M,ksub", [(3, 1001, 3, 1, 2), (3, 1001, 5, 3, 17),
                                           (3, 1001, 32, 8, 256), (4, 777, 8, 8, 256),
                                           (2, 513, 4, 16, 17)])

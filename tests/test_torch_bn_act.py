@@ -144,11 +144,25 @@ def test_wrappers_check_their_operands():
                           torch.zeros(3), torch.ones(3), torch.zeros(3, 4))
 
 
-def test_row_blocks_cover_every_row_once():
-    for n, c in [(1, 1), (7, 130), (1001, 130), (25088, 1024), (1605632, 64)]:
-        nrb, rpb = bn_act.row_blocks(n, c)
-        assert nrb * rpb >= n > (nrb - 1) * rpb
-        assert 1 <= nrb <= 132 * 8
+@pytest.mark.parametrize("c,dtype,offsets,want", [
+    (64, torch.bfloat16, (0, 0, 0), 8), (64, torch.float32, (0, 0, 0), 4),
+    (2048, torch.float16, (0, 0, 0), 8), (130, torch.float32, (0, 0, 0), 1),
+    (64, torch.bfloat16, (1, 0, 0), 1), (64, torch.bfloat16, (0, 8, 0), 8),
+    (64, torch.bfloat16, (0, 3, 0), 1), (64, torch.float32, (0, 0, 2), 1)])
+def test_vec_of_operands_takes_scalars_for_offset_views_and_ragged_rows(c, dtype, offsets,
+                                                                       want):
+    """Both wrappers pick the kernels' vector width from the operands they
+    hand over (z, res, the output; offsets in elements into a fresh
+    allocation): 16-byte vectors need whole 16-byte rows and every operand
+    16-byte aligned; an absent residual does not count."""
+    def view(offset, n=5):
+        return torch.empty(n * c + offset, dtype=dtype)[offset:].view(n, c)
+
+    z, res, out = (view(o) for o in offsets)
+    assert bn_act._vec(z, res, out) == want
+    assert c % want == 0
+    z_aligned = offsets[0] * z.element_size() % 16 == 0
+    assert bn_act._vec(z, None) == bn_act.vec_width(c, z.element_size(), z_aligned)
 
 
 @pytest.mark.parametrize("c,esize,aligned,want", [
@@ -156,10 +170,10 @@ def test_row_blocks_cover_every_row_once():
     (64, 2, False, 1), (2048, 2, True, 8), (4096, 4, True, 4), (24, 2, True, 8),
     (8, 2, True, 8), (8, 4, False, 1)])
 def test_bwd_vec_moves_16_bytes_where_rows_and_operands_allow(c, esize, aligned, want):
-    """The backward kernel's threads move 16-byte vectors of channels where
-    every row starts 16-byte aligned, else single channels; the kernel plans
-    its grid itself (csrc/bn_act_bwd.cu, plan)."""
-    vec = bn_act.bwd_vec(c, esize, aligned)
+    """Both kernels' threads move 16-byte vectors of channels where every
+    row starts 16-byte aligned, else single channels; the kernels plan their
+    grids themselves (csrc/bn_act_common.cuh, plan_grid)."""
+    vec = bn_act.vec_width(c, esize, aligned)
     assert vec == want and c % vec == 0
     assert vec == 1 or vec * esize == 16
 
@@ -228,7 +242,7 @@ def test_bwd_kernel_plans_its_grid_and_refuses_short_scratch(cuda_device):
     tz, tg, tb, td = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
                       for a in (z, gamma, beta, dout))
     _, mean, _, inv = bn_act.bn_act_fwd("relu", EPS, tz, tg, tb)
-    query = bn_act._kernel("bn_act_bwd", bn_act._BWD_SCRATCH_ARGS, "scratch", ctypes.c_longlong)
+    query = bn_act._kernel("bn_act_bwd", bn_act._SCRATCH_ARGS, "scratch", ctypes.c_longlong)
     need = query(1, 1, 0, n, c, 8)
     # partials of at least one row block, and the four per-channel rows
     assert need >= 2 * c + 4 * c and (need - 4 * c) % (2 * c) == 0
@@ -272,9 +286,9 @@ def test_bwd_kernel_grid_covers_every_row_and_channel_once(cuda_device, n, c, dt
                                                                              device=cuda_device)
     mean, inv = torch.zeros(c, device=cuda_device), torch.ones(c, device=cuda_device)
     dg, db = torch.empty(c, device=cuda_device), torch.empty(c, device=cuda_device)
-    vec = bn_act.bwd_vec(c, dz.element_size(), offset == 0)
+    vec = bn_act.vec_width(c, dz.element_size(), offset == 0)
     code, act = bn_act._DTYPES[dt], bn_act.KERNEL_ACTS["identity"]
-    need = bn_act._kernel("bn_act_bwd", bn_act._BWD_SCRATCH_ARGS, "scratch",
+    need = bn_act._kernel("bn_act_bwd", bn_act._SCRATCH_ARGS, "scratch",
                           ctypes.c_longlong)(code, act, 1, n, c, vec)
     assert need > 0
     scratch = torch.empty(need, device=cuda_device)
@@ -317,7 +331,7 @@ def test_bwd_kernel_vector_and_scalar_paths(cuda_device, n, c, offset, dtype, ac
 
     tz, tr, td = on_card(z), on_card(res), on_card(dout)
     tg, tb = (torch.from_numpy(a).to(cuda_device, dtype) for a in (gamma, beta))
-    vec = bn_act.bwd_vec(c, tz.element_size(), offset == 0)
+    vec = bn_act.vec_width(c, tz.element_size(), offset == 0)
     assert (vec > 1) == (offset == 0 and c != 130)
     _, mean, _, inv = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
     b0 = bn_act.bwd_launches
@@ -341,3 +355,152 @@ def test_bwd_kernel_vector_and_scalar_paths(cuda_device, n, c, offset, dtype, ac
         assert bool((err <= 2 * _ulp(mag, dtype) + floor).all())
     for a, b in zip(got, again):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _fwd_launch(cuda_device, z, gamma, beta, res, out, act="identity", scratch_floats=None):
+    """bn_act_fwd's C entry on given operands (out preallocated): (err,
+    mean, var, inv)."""
+    import ctypes
+    c = z.shape[-1]
+    n = z.numel() // c
+    vec = bn_act._vec(z, res, out)
+    code, act_code = bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act]
+    need = bn_act._kernel("bn_act_fwd", bn_act._SCRATCH_ARGS, "scratch", ctypes.c_longlong)(
+        code, act_code, int(res is not None), n, c, vec)
+    assert need > 0
+    scratch = torch.empty(need if scratch_floats is None else scratch_floats,
+                          device=cuda_device)
+    mean, var, inv = torch.empty((3, c), device=cuda_device)
+    err = bn_act._kernel("bn_act_fwd", bn_act._FWD_ARGS)(
+        code, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if res is None else res.data_ptr(), n, c, EPS, out.data_ptr(), mean.data_ptr(),
+        var.data_ptr(), inv.data_ptr(), scratch.data_ptr(), scratch.numel(), vec,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err, mean, var, inv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,with_res", [("relu", True), ("identity", False)])
+@pytest.mark.parametrize("n,c,offset", [(20000, 64, 0), (5000, 256, 0), (700, 2048, 0),
+                                        (1001, 130, 0), (3001, 64, 1)])
+def test_fwd_kernel_vector_and_scalar_paths(cuda_device, n, c, offset, dtype, act, with_res):
+    """C = 64, 256, 2048 take 16-byte vectors; C = 130 and a view that
+    starts one element past an aligned base take the scalar path. Stats
+    within rtol 1e-5 / atol 1e-6 of the plain version, out bitwise the
+    plain elementwise math at the kernel's own stats and within the plain
+    version's limits (float32 rtol 1e-5 / atol 1e-6, else 2 ulps of the
+    largest addend), two runs bitwise equal."""
+    z, gamma, beta, res, _ = _operands(n, c, str(dtype), with_res, seed=c + offset)
+
+    def on_card(a):
+        if a is None:
+            return None
+        flat = torch.empty(a.size + offset, dtype=dtype, device=cuda_device)
+        view = flat[offset:].view(a.shape)  # offset 1: not 16-byte aligned
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    tz, tr = on_card(z), on_card(res)
+    tg, tb = (torch.from_numpy(a).to(cuda_device, dtype) for a in (gamma, beta))
+    assert (bn_act._vec(tz, tr) > 1) == (offset == 0 and c != 130)
+    f0 = bn_act.fwd_launches
+    out, mean, var, inv = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
+    again = bn_act.bn_act_fwd(act, EPS, tz, tg, tb, tr)
+    pout, pmean, pvar, pinv = bn_act.bn_act_fwd_plain(act, EPS, tz, tg, tb, tr)
+    torch.cuda.synchronize()
+    assert bn_act.fwd_launches == f0 + 2
+    for got, want in ((mean, pmean), (var, pvar), (inv, pinv)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    scale = tg.float() * inv
+    shift = tb.float() - mean * scale
+    assert torch.equal(out, bn_act.bn_act_apply_plain(act, tz, scale, shift, tr))
+    err = (out.float() - pout.float()).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-5 * pout.abs() + 1e-6).all())
+    else:
+        mag = torch.maximum((tz.float() * (tg.float() * pinv).to(dtype).float()).abs(),
+                            (tb.float() - pmean * tg.float() * pinv).to(dtype).float().abs())
+        if tr is not None:
+            mag = torch.maximum(mag, tr.float().abs())
+        mag = torch.maximum(mag, pout.float().abs())
+        assert bool((err <= 2 * _ulp(mag, dtype)).all())
+    for a, b in zip((out, mean, var, inv), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,dtype,offset", [
+    (1, 1, "float32", 0), (7, 130, "float32", 0), (1001, 130, "bfloat16", 0),
+    (100003, 64, "bfloat16", 0), (100003, 64, "float32", 0), (2000, 64, "bfloat16", 1),
+    (300, 2048, "bfloat16", 0), (40, 4096, "float32", 0), (97, 24, "bfloat16", 0),
+    (5, 8, "bfloat16", 0), (333, 8, "float32", 1)])
+def test_fwd_kernel_grid_covers_every_row_and_channel_once(cuda_device, n, c, dtype, offset):
+    """The grid the kernel plans for itself: small-integer z makes every
+    float32 sum exact, so the mean is the correctly rounded S / n and the
+    variance the exact one (float32: in double) exactly when pass 1 read
+    every row once; out starts as NaN, so a (row, channel) pass 3 skipped
+    stays NaN. offset 1 starts every operand one element past an aligned
+    base (the scalar path)."""
+    dt = getattr(torch, dtype)
+
+    def operand(fill):
+        flat = torch.full((n * c + offset,), fill, dtype=dt, device=cuda_device)
+        return flat[offset:].view(n, c)
+
+    rows = torch.arange(n, dtype=torch.float64)[:, None]
+    zd = (rows * 3 + torch.arange(c, dtype=torch.float64)) % 9 - 4  # integers in [-4, 4]
+    z, res, out = operand(0.0), operand(0.0), operand(float("nan"))
+    z.copy_(zd)
+    res.copy_(torch.ones(n, c, dtype=torch.float64))
+    gamma = torch.ones(c, dtype=dt, device=cuda_device)
+    beta = torch.zeros(c, dtype=dt, device=cuda_device)
+    err, mean, var, inv = _fwd_launch(cuda_device, z, gamma, beta, res, out)
+    assert err == 0
+    s = zd.sum(0)
+    want_mean = (s.float() / torch.tensor(float(n))).to(cuda_device)
+    assert torch.equal(mean, want_mean)
+    want_var = (zd * zd).sum(0) / n - (s / n) ** 2
+    torch.testing.assert_close(var.double().cpu(), want_var, rtol=1e-6, atol=1e-7)
+    assert not bool(out.isnan().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(1 << 20, 64), ((1 << 20) + 7, 130)])
+def test_fwd_float32_large_mean_statistics_against_float64(cuda_device, n, c):
+    """z = 1000 + N(0, 1) in float32 over a million rows, where E[z^2] -
+    mean^2 in float32 loses every digit of the variance and a badly
+    shifted or merged sum loses some: the kernel's mean and variance are
+    held against the float64 ones and the plain version's within rtol 1e-5
+    / atol 1e-6, and out bitwise against the plain elementwise math at the
+    kernel's own stats (z * scale and shift are of order 1000 here, so one
+    float32 ulp of the mean, 6e-5, moves out by as much in either version)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + c)
+    z = 1000.0 + torch.randn((n, c), generator=gen, device=cuda_device)
+    gamma = torch.rand(c, generator=gen, device=cuda_device) + 0.5
+    beta = torch.rand(c, generator=gen, device=cuda_device) - 0.5
+    out, mean, var, inv = bn_act.bn_act_fwd("relu", EPS, z, gamma, beta)
+    _, pmean, pvar, pinv = bn_act.bn_act_fwd_plain("relu", EPS, z, gamma, beta)
+    zd = z.double()
+    for got, want in ((mean, zd.mean(0)), (var, zd.var(0, unbiased=False)),
+                      (mean, pmean), (var, pvar), (inv, pinv)):
+        torch.testing.assert_close(got.double(), want.double(), rtol=1e-5, atol=1e-6)
+    scale = gamma * inv
+    assert torch.equal(out, bn_act.bn_act_apply_plain("relu", z, scale, beta - mean * scale))
+
+
+@pytest.mark.cuda
+def test_fwd_kernel_plans_its_grid_and_refuses_short_scratch(cuda_device):
+    import ctypes
+    n, c = 4096, 64
+    z, gamma, beta, _, _ = _operands(n, c, "bfloat16", False, seed=3)
+    tz, tg, tb = (torch.from_numpy(a).to(cuda_device, torch.bfloat16) for a in (z, gamma, beta))
+    query = bn_act._kernel("bn_act_fwd", bn_act._SCRATCH_ARGS, "scratch", ctypes.c_longlong)
+    need = query(1, 1, 0, n, c, 8)
+    # double partials (S, Q) of at least one row block, then scale and shift
+    assert need >= 4 * c + 2 * c and (need - 2 * c) % (4 * c) == 0
+    assert query(1, 1, 0, n, c, 3) < 0  # no such vector width
+    err, _, _, _ = _fwd_launch(cuda_device, tz, tg, tb, None, torch.empty_like(tz), "relu",
+                               scratch_floats=need - 1)
+    assert err != 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's redesigned kernels on one card: int4_dot,
-flash_attn_fwd, scatter_add, flash_attn_bwd_dkv, flash_attn_bwd_dq and
-bn_act_bwd.
+flash_attn_fwd, scatter_add, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+bn_act_bwd, bn_act_fwd and adc_pq.
 
     python3 tools/kernel_variants.py
 
@@ -11,12 +11,12 @@ kernel switched off). All variants are built at once by nvcc for sm_90a
 into deeplearning4j_tpu_torch/build/variants/, loaded with ctypes and
 timed as chip_smoke.py times kernels (CUDA events, median of 25 launches,
 L2 flushed before each). A variant that keeps the function is checked
-against the plain version (int4_dot and scatter_add bitwise, the flash
-kernels and bn_act_bwd within chip_smoke.py's limits); one that switches a
-stage off computes garbage and is timed only, to show what that stage
-costs. Prints the card line and one JSON line per (variant, shape); the
-bn_act_bwd lines also time its first design (bn_act_bwd_v1.cu) on the same
-operands.
+against the plain version (int4_dot, scatter_add and adc_pq bitwise, the
+flash kernels and the bn kernels within chip_smoke.py's limits); one that
+switches a stage off computes garbage and is timed only, to show what that
+stage costs. Prints the card line and one JSON line per (variant, shape);
+the bn_act_bwd, bn_act_fwd and adc_pq lines also time the kernel's first
+design (csrc/*_v1.cu) on the same operands.
 
     python3 tools/kernel_variants.py scatter_add dkv_f32_double_buffer
 
@@ -92,6 +92,44 @@ def _bn_launches(*passes):
             (_BN_COOP, "".join(_BN_LAUNCH[k] for k in passes)
              + "  return (int)cudaGetLastError();\n")]
 
+# bn_act_fwd's other design, as bn_act_bwd's: three launches, pass 3
+# walking the work items in the reverse of pass 1's order
+_BNF_COOP = ("  void *args[] = {(void *)&a};\n"
+             "  return (int)cudaLaunchCooperativeKernel("
+             "(const void *)bn_fwd_fused<T, V, ACT, RES>,\n"
+             "                                          a.tiles * a.nrb, kThreads, args, 0, st);\n")
+_BNF_PLAN = "template <typename T, int V, int ACT, bool RES>\nint plan(Args &a) {"
+_BNF_KERNELS = """template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_partials(const Args a) {
+  __shared__ typename Stat<T>::type red[2 * kThreads * V];
+  partials<T, V>(a, blockIdx.x, red);
+}
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bn_fwd_finalize(const Args a) {
+  const int c = (blockIdx.x * kThreads + threadIdx.x) / 32;
+  if (c < a.C) finalize<T>(a, c, threadIdx.x % 32);
+}
+template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_apply(const Args a) {
+  apply<T, V, ACT, RES>(a, a.tiles * a.nrb - 1 - blockIdx.x);
+}
+
+"""
+_BNF_LAUNCH = {
+    "partials": "  bn_fwd_partials<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);\n",
+    "finalize": "  bn_fwd_finalize<T><<<(a.C * 32 + kThreads - 1) / kThreads, kThreads, 0, st>>>(a);\n",
+    "apply": "  bn_fwd_apply<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);\n"}
+
+
+def _bnf_launches(*passes):
+    return [(_BNF_PLAN, _BNF_KERNELS + _BNF_PLAN),
+            (_BNF_COOP, "".join(_BNF_LAUNCH[k] for k in passes)
+             + "  return (int)cudaGetLastError();\n")]
+
+
+# adc_pq: (b, n, M, ksub), the served batches on a (1M, 8) code table of 256
+# codes, and chip_smoke.py's ragged shapes
+ADC_SHAPES = [(b, 1_000_000, 8, 256) for b in (1, 8, 32, 64, 256)] + cs.ADC_RAGGED
 
 # (name, source, [(old, new)], keeps the function)
 VARIANTS = [
@@ -234,6 +272,95 @@ VARIANTS = [
     # the grid to match
     ("bn_3_blocks_per_sm", "bn_act_bwd",
      [("constexpr int kMinBlocks = 2; ", "constexpr int kMinBlocks = 3; ")], True),
+    ("bnf_as_built", "bn_act_fwd", [], True),
+    ("bnf_three_launches", "bn_act_fwd", _bnf_launches("partials", "finalize", "apply"), True),
+    ("bnf_pass_1_only", "bn_act_fwd", _bnf_launches("partials"), False),
+    ("bnf_pass_3_only", "bn_act_fwd", _bnf_launches("apply"), False),
+    # pass 3 in pass 1's order: what rereading the last-read rows first buys
+    ("bnf_reread_in_order", "bn_act_fwd",
+     [("  for (long long r = it.r1 - 1 - it.lane; r >= it.r0; r -= kApplyRows * a.RL) {",
+       "  for (long long r = it.r0 + it.lane; r < it.r1; r += kApplyRows * a.RL) {"),
+      ("      const long long rj = r - j * a.RL;\n      ok[j] = rj >= it.r0;",
+       "      const long long rj = r + j * a.RL;\n      ok[j] = rj < it.r1;")], True),
+    # blocks an SM (registers capped at 128 / 80 / 64 for 2 / 3 / 4; 4
+    # spills with 4 rows in flight in pass 3, so it takes 2 there)
+    ("bnf_2_blocks_per_sm", "bn_act_fwd",
+     [("constexpr int kMinBlocks = 3; ", "constexpr int kMinBlocks = 2; ")], True),
+    ("bnf_4_blocks_per_sm", "bn_act_fwd",
+     [("constexpr int kMinBlocks = 3; ", "constexpr int kMinBlocks = 4; "),
+      ("constexpr int kApplyRows = 4; ", "constexpr int kApplyRows = 2; ")], True),
+    # rows a thread has in flight
+    ("bnf_stat_rows_2", "bn_act_fwd",
+     [("constexpr int kStatRows = 4; ", "constexpr int kStatRows = 2; ")], True),
+    ("bnf_stat_rows_8", "bn_act_fwd",
+     [("constexpr int kStatRows = 4; ", "constexpr int kStatRows = 8; ")], True),
+    ("bnf_apply_rows_2", "bn_act_fwd",
+     [("constexpr int kApplyRows = 4; ", "constexpr int kApplyRows = 2; ")], True),
+    # float32 statistics: the shifted sums kept in float32 within a thread
+    # (double from the lanes on), against double throughout
+    ("bnf_f32_shifted_float_sums", "bn_act_fwd",
+     [("template <> struct Stat<float> { using type = double; };",
+       "template <> struct Stat<float> { using type = float; };")], True),
+    # pass 1's 16-byte loads cached in L2 only (ld.global.cg)
+    ("bnf_stat_loads_l2_only", "bn_act_fwd",
+     [("        zv[j] = ld<T, V>(z + (ok[j] ? rj : r) * a.C + it.c0);",
+       "        if constexpr (V * sizeof(T) == 16) {\n"
+       "          const int4 t = __ldcg(\n"
+       "              reinterpret_cast<const int4 *>(z + (ok[j] ? rj : r) * a.C + it.c0));\n"
+       "          zv[j] = *reinterpret_cast<const Pack<T, V> *>(&t);\n"
+       "        } else {\n"
+       "          zv[j] = ld<T, V>(z + (ok[j] ? rj : r) * a.C + it.c0);\n"
+       "        }")], True),
+    # pass 3 with cache hints on its 16-byte vectors: out stored
+    # evict-first (__stcs), so that it pushes less of z out of L2 before
+    # the reread; and the reread itself loaded evict-first too
+    ("bnf_streaming_stores_and_reread", "bn_act_fwd",
+     [("      st<T, V>((T *)a.out + i[j], o);",
+       "      if constexpr (V * sizeof(T) == 16)\n"
+       "        __stcs(reinterpret_cast<int4 *>((T *)a.out + i[j]),\n"
+       "               *reinterpret_cast<const int4 *>(&o));\n"
+       "      else\n"
+       "        st<T, V>((T *)a.out + i[j], o);"),
+      ("      zv[j] = ld<T, V>(z + i[j]);\n      if (RES) rv[j] = ld<T, V>(res + i[j]);",
+       "      if constexpr (V * sizeof(T) == 16) {\n"
+       "        const int4 t = __ldcs(reinterpret_cast<const int4 *>(z + i[j]));\n"
+       "        zv[j] = *reinterpret_cast<const Pack<T, V> *>(&t);\n"
+       "      } else {\n"
+       "        zv[j] = ld<T, V>(z + i[j]);\n"
+       "      }\n"
+       "      if (RES) rv[j] = ld<T, V>(res + i[j]);")], True),
+    ("adc_as_built", "adc_pq", [], True),
+    # queries a block: groups of 8 (3 blocks an SM at 64 KB) or 4 (5 at 32 KB)
+    ("adc_group_8", "adc_pq",
+     [("constexpr int kMaxGroup = 16; ", "constexpr int kMaxGroup = 8; ")], True),
+    ("adc_group_4", "adc_pq",
+     [("constexpr int kMaxGroup = 16; ", "constexpr int kMaxGroup = 4; ")], True),
+    # one query a lane: 4-byte gathers on the same [m][code][query] layout
+    ("adc_one_query_a_lane", "adc_pq",
+     [("  if (qg >= 4) return v8 ? launch<true, 8, 4>(p, s) : launch<true, 0, 4>(p, s);\n", "")],
+     True),
+    ("adc_rows_8", "adc_pq",
+     [("constexpr int kRows = 4; ", "constexpr int kRows = 8; ")], True),
+    # 256 threads a block (registers for four blocks an SM)
+    ("adc_256_threads", "adc_pq",
+     [("constexpr int kThreads = 512;", "constexpr int kThreads = 256;"),
+      ("constexpr int kMinBlocks = 1; ", "constexpr int kMinBlocks = 4; ")], True),
+    # registers capped at 64, for two blocks an SM
+    ("adc_two_block_registers", "adc_pq",
+     [("constexpr int kMinBlocks = 1; ", "constexpr int kMinBlocks = 2; ")], True),
+    # the items split with the first items % grid blocks taking one more,
+    # instead of block i starting at i * items / grid
+    ("adc_extra_first_ranges", "adc_pq",
+     [("  const int begin = span_edge(blockIdx.x, p.items, gridDim.x);\n"
+       "  const int count = span_edge(blockIdx.x + 1, p.items, gridDim.x) - begin;",
+       "  const int per = p.items / gridDim.x, extra = p.items % gridDim.x, bx = blockIdx.x;\n"
+       "  const int begin = bx * per + min(bx, extra);\n"
+       "  const int count = per + (bx < extra ? 1 : 0);")], True),
+    # every store without the streaming hint
+    ("adc_plain_stores", "adc_pq",
+     [("__stcs(reinterpret_cast<float4 *>(o + r),", "__stwb(reinterpret_cast<float4 *>(o + r),"),
+      ("if (j0 + k < p.n) __stcs(o + k, acc[k][i]);", "if (j0 + k < p.n) __stwb(o + k, acc[k][i]);")],
+     True),
 ]
 
 
@@ -356,11 +483,11 @@ def bn_call(torch, lib, act, z, gamma, beta, res, mean, inv, dout):
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
     fn, query = lib.bn_act_bwd_launch, lib.bn_act_bwd_scratch
     fn.argtypes, fn.restype = bn_act._BWD_ARGS, ctypes.c_int
-    query.argtypes, query.restype = bn_act._BWD_SCRATCH_ARGS, ctypes.c_longlong
+    query.argtypes, query.restype = bn_act._SCRATCH_ARGS, ctypes.c_longlong
     c = z.shape[-1]
     n = z.numel() // c
     dtype, act_code = bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act]
-    vec = bn_act.bwd_vec(c, z.element_size())
+    vec = bn_act.vec_width(c, z.element_size())
     need = query(dtype, act_code, int(res is not None), n, c, vec)
     if need < 0:
         raise RuntimeError(f"bn_act_bwd variant grid query failed with CUDA error {-need}")
@@ -378,13 +505,50 @@ def bn_call(torch, lib, act, z, gamma, beta, res, mean, inv, dout):
     return dz, dg, db, dpre
 
 
+def bnf_call(torch, lib, act, z, gamma, beta, res):
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    fn, query = lib.bn_act_fwd_launch, lib.bn_act_fwd_scratch
+    fn.argtypes, fn.restype = bn_act._FWD_ARGS, ctypes.c_int
+    query.argtypes, query.restype = bn_act._SCRATCH_ARGS, ctypes.c_longlong
+    c = z.shape[-1]
+    n = z.numel() // c
+    dtype, act_code = bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act]
+    vec = bn_act.vec_width(c, z.element_size())
+    need = query(dtype, act_code, int(res is not None), n, c, vec)
+    if need < 0:
+        raise RuntimeError(f"bn_act_fwd variant grid query failed with CUDA error {-need}")
+    out = torch.empty_like(z)
+    mean, var, inv = torch.empty((3, c), dtype=torch.float32, device=z.device)
+    scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+    err = fn(dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+             None if res is None else res.data_ptr(), n, c, cs.BN_EPS, out.data_ptr(),
+             mean.data_ptr(), var.data_ptr(), inv.data_ptr(), scratch.data_ptr(), need, vec,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"bn_act_fwd variant launch failed with CUDA error {err}")
+    return out, mean, var, inv
+
+
+def adc_call(torch, lib, lut, codes):
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+    fn = lib.adc_pq_launch
+    fn.argtypes, fn.restype = adc._ARGTYPES["adc_pq"], ctypes.c_int
+    b, m_count, ksub = lut.shape
+    d2 = torch.empty((b, codes.shape[0]), dtype=torch.float32, device=lut.device)
+    err = fn(lut.data_ptr(), codes.data_ptr(), d2.data_ptr(), b, codes.shape[0], m_count, ksub,
+             adc._vec8(codes), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"adc_pq variant launch failed with CUDA error {err}")
+    return d2
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device; this script runs on a card", file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch.parallel.ring_attention import reference_attention
-    from deeplearning4j_tpu_torch.perf.kernels import _build, bn_act, int4_dot
+    from deeplearning4j_tpu_torch.perf.kernels import _build, adc, bn_act, int4_dot
     from deeplearning4j_tpu_torch.perf.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.perf.kernels import scatter_add as sa
 
@@ -435,6 +599,59 @@ def main() -> int:
                     torch, *ops), flush)
                 print(json.dumps(row), flush=True)
                 del z, gamma, beta, res, mean, inv, dout, ops
+                torch.cuda.empty_cache()
+            continue
+        if source == "bn_act_fwd":
+            for case, n, c, dtype_name, act, residual in BN_SHAPES:
+                (z, gamma, beta, res), _, _ = cs.bn_operands(torch, dev, n, c, dtype_name, act,
+                                                             residual)
+                ops = (act, z, gamma, beta, res)
+                row = {"variant": name, "shape": [case, n, c, dtype_name, act, residual]}
+                if keeps:
+                    got = bnf_call(torch, lib, *ops)
+                    want = bn_act.bn_act_fwd_plain(act, cs.BN_EPS, z, gamma, beta, res)
+                    label = " ".join(map(str, row["shape"]))
+                    try:
+                        row.update(cs.hold_bn_fwd(torch, label, (z, gamma, beta, res), act,
+                                                  got, want))
+                    except AssertionError as e:
+                        row["out_of_limits"] = str(e)
+                    if name == "bnf_as_built":  # the first design held alike
+                        first = cs.first_design_bn_fwd(torch, *ops)
+                        try:
+                            row["first_design"] = cs.hold_bn_fwd(
+                                torch, label, (z, gamma, beta, res), act, first, want)
+                        except AssertionError as e:
+                            row["first_design"] = {"out_of_limits": str(e)}
+                        del first
+                    row["bitwise_repeat"] = all(
+                        torch.equal(a, b) for a, b in zip(got, bnf_call(torch, lib, *ops)))
+                    del got, want
+                row["ms"] = cs.time_ms(torch, lambda: bnf_call(torch, lib, *ops), flush)
+                row["first_design_ms"] = cs.time_ms(torch, lambda: cs.first_design_bn_fwd(
+                    torch, *ops), flush)
+                print(json.dumps(row), flush=True)
+                del z, gamma, beta, res, ops
+                torch.cuda.empty_cache()
+            continue
+        if source == "adc_pq":
+            for b, n, m_count, ksub in ADC_SHAPES:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(b + n)
+                lut = torch.randn((b, m_count, ksub), generator=gen, device=dev)
+                codes = torch.randint(0, ksub, (n, m_count), generator=gen, device=dev,
+                                      dtype=torch.uint8)
+                row = {"variant": name, "shape": [b, n, m_count, ksub]}
+                if keeps:
+                    got = adc_call(torch, lib, lut, codes)
+                    row["bitwise"] = bool(torch.equal(got, adc.adc_pq_plain(lut, codes))
+                                          and torch.equal(got, adc_call(torch, lib, lut, codes)))
+                    del got
+                row["ms"] = cs.time_ms(torch, lambda: adc_call(torch, lib, lut, codes), flush)
+                row["first_design_ms"] = cs.time_ms(torch, lambda: cs.first_design_adc_pq(
+                    torch, lut, codes), flush)
+                print(json.dumps(row), flush=True)
+                del lut, codes
                 torch.cuda.empty_cache()
             continue
         if source in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
