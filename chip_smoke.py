@@ -9,10 +9,10 @@
    -Xptxas -v report (registers, shared memory, spills), and counts the
    bf16 tensor-core instructions (HMMA.16816.F32.BF16, cuobjdump -sass) in
    the three flash libraries, each of which must hold some. The first
-   designs of int4_dot, bn_act_fwd, bn_act_bwd, adc_pq, flash_attn_fwd,
-   scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1.cu) and
-   flash_attn_bwd_dq (csrc/*_v1.cu) are built beside them and timed on the
-   same operands as "previous_ms".
+   designs of int4_dot, bn_act_fwd, bn_act_bwd, adc_pq, adc_ivf_pq,
+   flash_attn_fwd, scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1.cu)
+   and flash_attn_bwd_dq (csrc/*_v1.cu) are built beside them and timed on
+   the same operands as "previous_ms".
 3. Kernel phases: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, and times both (CUDA events, median
    of 25 launches after warm-up, L2 flushed before each launch and a device
@@ -66,7 +66,8 @@
      kernel on the index's real probe slots, p = 8) and at ragged shapes
      (the p = 32 one takes the global-LUT path); timed beside the bound,
      the plain version and F.embedding_bag(mode="sum"), whose max |diff|
-     is printed (its sum order may differ); adc_pq's first design too.
+     is printed (its sum order may differ); each kernel's first design
+     too, adc_ivf_pq's held bitwise against the redesign.
      int4_dot at (b, 1M, 64) for the same b, bitwise against its plain
      version and itself.
    - Serving: each of int4, PQ and IVF-PQ behind IndexEndpoint(k_max=128)
@@ -167,7 +168,21 @@
    with the dK/dV kernel's outputs zeroed must miss the W_k and W_v limits.
 14. LeNet (BASELINE configs[0]) through fit at batch 64: losses finite and
    falling.
-15. Prints the kernels JSON line (nine kernels), the card line, and last
+15. Char-RNN phase (BASELINE configs[2], bench.py bench_graveslstm at full
+   width): TextGenerationLSTM (two GravesLSTM(256), a 47-way softmax,
+   RmsProp 1e-2) trained through MultiLayerNetwork.fit with tBPTT 50 on
+   one-hot characters and labels from numpy.random.default_rng(0), batch
+   64: 3 warm-up windows, then one timed sequence of 30 windows (1,500
+   characters). chars/s, median window ms, the losses (finite, the last
+   below the first), no kernel of the port launched, one window profiled
+   (host launch calls, idle share), and 10 rnn_time_step calls against the
+   stateless forward of the same prefix within 1e-5. Then card against
+   CPU: a 2-window fit in float32 on the card and on the CPU and in
+   float64 on the CPU (the referee): window losses and every updated
+   parameter within 4x the CPU float32 run's distance to the referee or
+   1e-5 of its largest magnitude; the same fit with the peepholes zeroed,
+   and with the carries dropped between the windows, must miss.
+16. Prints the kernels JSON line (nine kernels), the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -303,6 +318,17 @@ LM_TRAIN_WARM, LM_TRAIN_STEPS = 3, 10
 LM_CHECK_BLOCKS, LM_CHECK_MULT, LM_CHECK_FRAC = 2, 4.0, 1e-4
 LM_CHECK_LOSS_FRAC = {"float32": 1e-6, "bfloat16": LM_CHECK_FRAC}
 LENET_BATCH, LENET_STEPS = 64, 10
+# the char-RNN (BASELINE configs[2], bench.py bench_graveslstm): vocabulary,
+# batch, tBPTT window, windows in the timed sequence, warm-up windows; 10
+# single rnn_time_step calls against the stateless forward of that prefix
+# (float32; the stateless forward projects the 10 steps' inputs in one
+# product, the steps one row block each, which cuBLAS may sum otherwise)
+CHAR_VOCAB, CHAR_BATCH, CHAR_T, CHAR_WINDOWS, CHAR_WARM = 47, 64, 50, 30, 3
+CHAR_STEPS, CHAR_STEP_ATOL = 10, 1e-5
+# card against CPU: a 2-window fit; the card's distance to the float64
+# referee within CHAR_CHECK_MULT times the CPU float32 run's, or
+# CHAR_CHECK_FRAC of the referee's largest magnitude
+CHAR_CHECK_WINDOWS, CHAR_CHECK_MULT, CHAR_CHECK_FRAC = 2, 4.0, 1e-5
 
 
 def card_line() -> str:
@@ -456,7 +482,7 @@ def layer_times(torch, net, x):
             e = torch.cuda.Event(enable_timing=True)
             s.record()
             if i in net._pre:
-                x = net._pre[i].apply(x)
+                x, _ = net._pre[i].apply(x, None)
             x, _ = layer.apply(net.params[i], net.state[i], x)
             e.record()
             marks.append((f"{i}:{type(layer).__name__}", s, e))
@@ -1135,6 +1161,30 @@ def adc_pq_case(torch, flush, lut, codes, label) -> dict:
     return row
 
 
+def first_design_adc_ivf_pq(torch, lut, codes, seg, pos):
+    """adc_ivf_pq's first design (one block per query and slot tile, each
+    staging its query's whole LUT) on the same operands."""
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+    fn = _first_design("adc_ivf_pq", adc._ARGTYPES["adc_ivf_pq"][:-1])
+    lut, codes, seg, pos = (v.contiguous() for v in (lut, codes, seg, pos))  # as the wrapper
+    b, p, m_count, ksub = lut.shape
+    d2 = torch.empty(seg.shape, dtype=torch.float32, device=lut.device)
+    err = fn(lut.data_ptr(), codes.data_ptr(), seg.data_ptr(), pos.data_ptr(), d2.data_ptr(),
+             b, seg.shape[1], p, m_count, ksub, codes.shape[0], adc._vec8(codes),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"adc_ivf_pq_v1 launch failed with CUDA error {err}")
+    return d2
+
+
+def adc_ivf_bound(b, c, p, m_count, ksub, n_valid):
+    """(ms, "bytes"|"operations"): each slot reads seg and pos and writes d2
+    (12 B), each valid slot reads its M code bytes, each query's LUT is read
+    once; n_valid * M float32 adds."""
+    return bytes_ops_bound(12 * b * c + n_valid * m_count + 4 * b * p * m_count * ksub,
+                           n_valid * m_count, PEAK_F32_OPS_PER_S)
+
+
 def adc_ivf_case(torch, flush, lut, codes, seg, pos, n_valid, label) -> dict:
     import torch.nn.functional as F
 
@@ -1149,8 +1199,14 @@ def adc_ivf_case(torch, flush, lut, codes, seg, pos, n_valid, label) -> dict:
     err = _hold_bitwise(torch, f"adc_ivf_pq {label} b={b} C={c} p={p} M={m_count} "
                         f"ksub={ksub}", got, want, again)
     del want, again
+    first = first_design_adc_ivf_pq(torch, *args)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), first.view(torch.int32)):
+        raise AssertionError(f"adc_ivf_pq {label} b={b}: differs from its first design")
+    del first
     ms = time_ms(torch, lambda: adc.adc_ivf_pq(*args), flush)
     wrapper_host_ms = host_ms(torch, lambda: adc.adc_ivf_pq(*args))
+    previous_ms = time_ms(torch, lambda: first_design_adc_ivf_pq(torch, *args), flush)
     plain_ms = time_ms(torch, lambda: adc.adc_ivf_pq_plain(*args), flush)
     # yardstick: a (b*p*M*ksub, 1) weight, bags ((i*p + seg)*M + m)*ksub + code
     dev = lut.device
@@ -1162,13 +1218,11 @@ def adc_ivf_case(torch, flush, lut, codes, seg, pos, n_valid, label) -> dict:
                       - got).abs().max())
     library_ms = time_ms(torch, lambda: F.embedding_bag(bags, weight, mode="sum"), flush)
     del bags, cell, got
-    # each slot reads seg, pos and writes d2; valid slots read M code bytes
-    bound_ms, bound_by = bytes_ops_bound(12 * b * c + n_valid * m_count
-                                         + 4 * b * p * m_count * ksub,
-                                         n_valid * m_count, PEAK_F32_OPS_PER_S)
+    bound_ms, bound_by = adc_ivf_bound(b, c, p, m_count, ksub, n_valid)
     row = {"case": label, "b": b, "C": c, "p": p, "M": m_count, "ksub": ksub,
            "valid_slots": n_valid, "global_lut": 4 * p * m_count * ksub > 232448,
-           "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "ms": ms, "host_ms": wrapper_host_ms,
+           "previous_ms": previous_ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": library_ms,
            "library": "F.embedding_bag(mode='sum')", "library_max_abs_diff": lib_diff,
@@ -2597,6 +2651,216 @@ def lenet_phase(torch, dev) -> dict:
     return summary
 
 
+def char_rnn_data(torch, dev, windows: int, seed: int):
+    """bench.py bench_graveslstm's data: one-hot characters and one-hot
+    labels of CHAR_BATCH sequences of CHAR_T * windows steps, drawn by
+    numpy.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(CHAR_VOCAB, dtype=np.float32)
+    shape = (CHAR_BATCH, CHAR_T * windows)
+    x = eye[rng.integers(0, CHAR_VOCAB, shape)]
+    y = eye[rng.integers(0, CHAR_VOCAB, shape)]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def char_window_profile(torch, net, x, y, window_ms) -> dict:
+    """One tBPTT window (forward, backward, RmsProp) under torch.profiler,
+    from zero carries; the second of two runs, the first paying the
+    tracer's start-up: device busy time (the union of the device spans),
+    the traced wall, the idle share against it and against the median
+    unprofiled window, the host's kernel launch calls, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        carries = net._zero_carries(int(x.shape[0]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net._train_step(x, y, None, None, carries=carries)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = _device_spans(prof)
+    if not spans:
+        raise AssertionError("char_rnn: the profile recorded no device activity")
+    busy = _union_ms(spans)
+    return {"device_busy_ms": busy, "wall_ms": wall_ms, "idle_share": 1.0 - busy / wall_ms,
+            "median_window_ms_unprofiled": window_ms,
+            "idle_share_vs_unprofiled_window": 1.0 - busy / window_ms,
+            "device_events": len(spans),
+            "host_kernel_launch_calls": sum(1 for evt in prof.events()
+                                            if "LaunchKernel" in evt.name),
+            "top_kernels_ms": [[name[:70], ms] for name, ms in _kernel_times(prof)[:8]]}
+
+
+def char_rnn_phase(torch, dev, card) -> dict:
+    """The char-RNN of bench.py bench_graveslstm at full width
+    (TextGenerationLSTM: two GravesLSTM(256) and a 47-way softmax, RmsProp
+    1e-2, weights from its seed) trained through MultiLayerNetwork.fit with
+    tBPTT 50: a CHAR_WARM-window sequence to warm up, then one timed
+    sequence of CHAR_WINDOWS windows (batch 64 x 1,500 characters). Each
+    window's device-clock start is marked by a CUDA event; chars/s is
+    bench.py's (batch x sequence length over the fit's wall time). Held:
+    CHAR_WINDOWS updater steps, every loss finite, the last below the first,
+    no kernel of the port launched (the recurrent path runs no TPU
+    kernel). Then one window profiled, and CHAR_STEPS single rnn_time_step
+    calls after rnn_clear_previous_state against the stateless forward of
+    the same prefix, within CHAR_STEP_ATOL."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+
+    t_phase = time.perf_counter()
+    net = TextGenerationLSTM(total_unique_characters=CHAR_VOCAB,
+                             tbptt_length=CHAR_T).init(dev)
+    xw, yw = char_rnn_data(torch, dev, CHAR_WARM, seed=1)
+    x, y = char_rnn_data(torch, dev, CHAR_WINDOWS, seed=0)
+    _zero_launch_counts()
+    net.fit(DataSet(xw, yw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, first_iteration = [], net.iteration
+    t0 = time.perf_counter()
+    losses = _fit_windows(torch, net, x, y, marks)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    windows = net.iteration - first_iteration
+    window_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [float(v) for v in losses]
+    if windows != CHAR_WINDOWS or len(losses) != CHAR_WINDOWS:
+        raise AssertionError(f"char_rnn: {windows} updater steps, want {CHAR_WINDOWS}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"char_rnn: losses {losses}")
+    if any(_launch_counts().values()):
+        raise AssertionError(f"char_rnn launched a kernel of the port: {_launch_counts()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    median_ms = float(np.median(window_ms))
+    prof = char_window_profile(torch, net, x[:, :CHAR_T], y[:, :CHAR_T], median_ms)
+    net.rnn_clear_previous_state()
+    steps = torch.stack([net.rnn_time_step(x[:, i]) for i in range(CHAR_STEPS)], dim=1)
+    full = net.output(x[:, :CHAR_STEPS])
+    step_err = float((steps - full).abs().max())
+    if not step_err <= CHAR_STEP_ATOL or steps.shape != (CHAR_BATCH, CHAR_STEPS, CHAR_VOCAB):
+        raise AssertionError(f"char_rnn: rnn_time_step {tuple(steps.shape)} differs from "
+                             f"the stateless forward by {step_err} > {CHAR_STEP_ATOL}")
+    summary = {"card": card, "batch": CHAR_BATCH, "tbptt": CHAR_T, "windows": windows,
+               "sequence_length": CHAR_T * CHAR_WINDOWS, "params": net.num_params(),
+               "chars_per_s": CHAR_BATCH * CHAR_T * CHAR_WINDOWS / wall, "fit_s": wall,
+               "median_window_ms": median_ms, "window_ms_min_max": [min(window_ms),
+                                                                   max(window_ms)],
+               "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+               "peak_gb": peak_gb, "window_profile": prof,
+               "rnn_time_step": {"steps": CHAR_STEPS, "max_abs_err": step_err,
+                                 "limit": CHAR_STEP_ATOL}}
+    print("char_rnn " + json.dumps(summary), flush=True)
+    print(f"char_rnn phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return summary
+
+
+def _fit_windows(torch, net, x, y, marks=None) -> list:
+    """``net.fit`` on one sequence batch: each tBPTT window's loss (a
+    tensor, read without a synchronise), and with ``marks`` a CUDA event
+    recorded at each window's start."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    losses, step = [], net._train_step
+
+    def noting(*args, **kw):
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        out = step(*args, **kw)
+        losses.append(net._score)
+        return out
+
+    net._train_step = noting
+    try:
+        net.fit(DataSet(x.to(net.device), y.to(net.device)))
+    finally:
+        del net._train_step
+    return losses
+
+
+def char_rnn_card_vs_cpu(torch, dev) -> dict:
+    """One CHAR_CHECK_WINDOWS-window tBPTT fit of the char-RNN at full width
+    (batch 64, two windows of 50, RmsProp) from the same float32 weights,
+    float32 on the card and on the CPU, and float64 on the CPU as the
+    referee; TF32 off. Held: each window's loss, and every updated
+    parameter tensor, within CHAR_CHECK_MULT times the CPU float32 run's
+    distance to the referee, or CHAR_CHECK_FRAC of the referee's largest
+    magnitude. Two controls on the card must miss a limit: the peepholes
+    zeroed, and the carries dropped between the windows (each window fit
+    as its own sequence from zero state)."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    conf = TextGenerationLSTM(total_unique_characters=CHAR_VOCAB, tbptt_length=CHAR_T).conf()
+    start = [tree_map(lambda v: v.cpu(), p) for p in MultiLayerNetwork(conf, dev).init().params]
+    x, y = char_rnn_data(torch, "cpu", CHAR_CHECK_WINDOWS, seed=11)
+
+    def fit(device, dtype=torch.float32, params=start, xs=x, ys=y):
+        c = conf if dtype == torch.float32 else dataclasses.replace(conf, dtype="float64")
+        net = MultiLayerNetwork(c, device).set_params(
+            tree_map(lambda v: v.to(device, dtype, copy=True), params))
+        return net, [float(v) for v in _fit_windows(torch, net, xs.to(dtype), ys.to(dtype))]
+
+    ref, l64 = fit("cpu", torch.float64)
+    cpu, l32 = fit("cpu")
+    card, lg = fit(dev)
+
+    def distances(net, losses):
+        loss_d = [abs(a - b) for a, b in zip(losses, l64)]
+        par_d = {f"{i}/{k}": float((v.cpu().double() - ref.params[i][k]).abs().max())
+                 for i, p in enumerate(net.params) for k, v in p.items()}
+        return loss_d, par_d
+
+    cpu_loss_d, cpu_par_d = distances(cpu, l32)
+    loss_limit = [max(CHAR_CHECK_MULT * d, CHAR_CHECK_FRAC * abs(v))
+                  for d, v in zip(cpu_loss_d, l64)]
+    par_limit = {key: max(CHAR_CHECK_MULT * d, CHAR_CHECK_FRAC * float(
+        ref.params[int(key.split("/")[0])][key.split("/")[1]].abs().max()))
+        for key, d in cpu_par_d.items()}
+
+    def over(net, losses):
+        """The largest distance over its limit, losses and parameters."""
+        loss_d, par_d = distances(net, losses)
+        return max([d / lim for d, lim in zip(loss_d, loss_limit)]
+                   + [par_d[k] / par_limit[k] for k in par_d])
+
+    card_over = over(card, lg)
+    if not card_over <= 1.0:
+        raise AssertionError(f"char_rnn card vs cpu: {card_over} times its limit "
+                             f"(losses card {lg}, cpu {l32}, float64 {l64})")
+    no_peep = [dict(p) for p in start]
+    for p in no_peep[:2]:
+        for k in ("p_i", "p_f", "p_o"):
+            p[k] = torch.zeros_like(p[k])
+    peep_over = over(*fit(dev, params=no_peep))
+    dropped = MultiLayerNetwork(conf, dev).set_params(
+        tree_map(lambda v: v.to(dev, copy=True), start))
+    drop_losses = [float(v) for s in range(0, CHAR_T * CHAR_CHECK_WINDOWS, CHAR_T)
+                   for v in _fit_windows(torch, dropped, x[:, s:s + CHAR_T], y[:, s:s + CHAR_T])]
+    drop_over = over(dropped, drop_losses)
+    if not (peep_over > 1.0 and drop_over > 1.0):
+        raise AssertionError(f"char_rnn card vs cpu: a control meets the limits (zeroed "
+                             f"peepholes {peep_over}, carries dropped {drop_over})")
+    summary = {"windows": CHAR_CHECK_WINDOWS, "batch": CHAR_BATCH, "losses_card": lg,
+               "losses_cpu": l32, "losses_f64": l64, "loss_limit": loss_limit,
+               "card_over_limit": card_over,
+               "worst_params": sorted(((distances(card, lg)[1][k] / par_limit[k], k)
+                                       for k in par_limit), reverse=True)[:4],
+               "zeroed_peepholes_control_over_limit": peep_over,
+               "dropped_carries_control_over_limit": drop_over,
+               "seconds": time.perf_counter() - t0}
+    print("char_rnn_card_vs_cpu " + json.dumps(summary), flush=True)
+    return summary
+
+
 def _flash_bwd_kernel_entry(name, rows, train):
     """The kernels-line entry of flash_attn_bwd_dkv or flash_attn_bwd_dq:
     numbers at the training path's shape and layout, (8, 12, 1024, 64)
@@ -2650,7 +2914,7 @@ def _build_dir():
 def _adc_kernel_entry(name, rows, launches, replaces_line):
     """The kernels-line entry of adc_pq or adc_ivf_pq: numbers at b = 256 on
     the 1M-vector index, max error over every case, the other served
-    batches beside; adc_pq (redesigned) also its first design's times."""
+    batches beside, each with its first design's time (previous_ms)."""
     head = next(r for r in rows if r["b"] == max(ADC_BATCHES) and r["case"] != "ragged")
     timed = ("ms", "host_ms") + (("previous_ms",) if "previous_ms" in head else ())
     return {"name": name, "route": "cuda",
@@ -2684,11 +2948,11 @@ def main() -> int:
     dev = resolve_device("cuda")
     # the *_v1 sources are the first designs of int4_dot, flash_attn_fwd,
     # scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1), flash_attn_bwd_dq,
-    # bn_act_bwd, bn_act_fwd and adc_pq, timed beside their redesigns
-    # (previous_ms)
+    # bn_act_bwd, bn_act_fwd, adc_pq and adc_ivf_pq, timed beside their
+    # redesigns (previous_ms)
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
              "scatter_add", "flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
-             "int4_dot_v1", "bn_act_fwd_v1", "bn_act_bwd_v1", "adc_pq_v1",
+             "int4_dot_v1", "bn_act_fwd_v1", "bn_act_bwd_v1", "adc_pq_v1", "adc_ivf_pq_v1",
              "flash_attn_fwd_v1", "scatter_add_v1", "flash_attn_bwd_v1",
              "flash_attn_bwd_dq_v1"]
     t0 = time.perf_counter()
@@ -2716,6 +2980,8 @@ def main() -> int:
     train = lm_training_phase(torch, dev, card)
     lm_training_card_vs_cpu(torch, dev)
     lenet_phase(torch, dev)
+    char_rnn_phase(torch, dev, card)
+    char_rnn_card_vs_cpu(torch, dev)
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
     # most often, timed above or here

@@ -1,9 +1,12 @@
 // Shared pieces of the ADC (asymmetric distance computation) kernels,
-// adc_pq.cu and adc_ivf_pq.cu.
+// adc_pq.cu and adc_ivf_pq.cu: LUT staging and code loads, and the sizing
+// and splitting of a persistent grid.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace adc {
 
@@ -11,6 +14,7 @@ constexpr int kThreads = 256;
 // Dynamic shared memory a block of an H100 may take (227 KB). A LUT larger
 // than this is read from global memory in the same kernel.
 constexpr long long kMaxSmem = 232448;
+constexpr int kMaxDevices = 64;
 
 // Copy nfloat floats from global to shared memory with the whole block:
 // 16-byte loads when the source is 16-byte aligned and nfloat % 4 == 0.
@@ -57,6 +61,57 @@ __device__ __forceinline__ void load_codes(const uint8_t *__restrict__ row, int 
     for (int u = 0; u < 8; ++u)
       c[u] = u < cnt ? min((int)__ldg(row + m0 + u), ksub - 1) : 0;
   }
+}
+
+// Where block i's contiguous range of items starts: i * items / grid, by a
+// 32-bit division while the product fits (a 64-bit one costs about 0.5 us
+// at a small n, where a block takes one item).
+__device__ __forceinline__ int span_edge(unsigned i, unsigned items, unsigned grid) {
+  const unsigned long long prod = (unsigned long long)i * items;
+  return (int)(prod >> 32 ? prod / grid : (unsigned)prod / grid);
+}
+
+// Blocks of one kernel an SM at `threads` threads and `smem` bytes of
+// dynamic shared memory, from the occupancy calculator, cached per device
+// (the last smem asked for); raises the kernel's dynamic shared-memory limit
+// to what its static shared memory leaves, once per device.
+inline int blocks_per_sm(const void *kern, int threads, int smem,
+                         std::atomic<long long> *cache, int *per_sm) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) {
+    const long long hit = cache[dev].load(std::memory_order_relaxed);
+    if (hit != 0 && (hit >> 32) == smem) {
+      *per_sm = (int)(hit & 0xFFFFFFFF);
+      return 0;
+    }
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(kMaxSmem - (long long)attr.sharedSizeBytes));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (dev < kMaxDevices) cache[dev].store(((long long)smem << 32) | *per_sm);
+  return 0;
+}
+
+// The current device's SM count, cached per device.
+inline int sm_count(int *sms) {
+  static std::atomic<int> cache[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  *sms = dev < kMaxDevices ? cache[dev].load(std::memory_order_relaxed) : 0;
+  if (*sms > 0) return 0;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kMaxDevices) cache[dev].store(*sms, std::memory_order_relaxed);
+  return 0;
 }
 
 }  // namespace adc

@@ -72,7 +72,6 @@ constexpr int kThreads = 512;   // threads a block at most
 constexpr int kMinBlocks = 1;   // registers: no cap below 128
 constexpr int kRows = 4;        // consecutive code rows a thread scores (a multiple of 4)
 constexpr int kMaxGroup = 16;   // queries a block holds at most
-constexpr int kMaxDevices = 64;
 
 struct Params {
   const float *lut;
@@ -112,14 +111,6 @@ __device__ __forceinline__ void load_codes8(const Params &p, long long j0,
   }
 }
 
-// Where block i's contiguous range of items starts: i * items / grid, by a
-// 32-bit division while the product fits (a 64-bit one costs about 0.5 us
-// at a small n, where a block takes one item).
-__device__ __forceinline__ int span_edge(unsigned i, unsigned items, unsigned grid) {
-  const unsigned long long prod = (unsigned long long)i * items;
-  return (int)(prod >> 32 ? prod / grid : (unsigned)prod / grid);
-}
-
 template <bool kSmem, int kM, int QV>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) adc_pq_kernel(const Params p) {
   extern __shared__ float4 smem4[];
@@ -128,8 +119,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adc_pq_kernel(const Para
   const int chunk = threadIdx.x % nch, rg = threadIdx.x / nch;
   const long long tile_rows = (long long)kRows * (blockDim.x / nch);
   const long long mk = (long long)p.M * p.ksub;  // floats a query's LUT
-  const int begin = span_edge(blockIdx.x, p.items, gridDim.x);
-  const int count = span_edge(blockIdx.x + 1, p.items, gridDim.x) - begin;
+  const int begin = adc::span_edge(blockIdx.x, p.items, gridDim.x);
+  const int count = adc::span_edge(blockIdx.x + 1, p.items, gridDim.x) - begin;
   const bool vec_out = (p.n & 3) == 0;
   // the item's query group and row tile, advanced without a division
   int g = begin / p.ntiles, staged = -1;
@@ -236,51 +227,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) adc_pq_kernel(const Para
   }
 }
 
-// Blocks of one kernel an SM at `smem` bytes of shared memory, from the
-// occupancy calculator, cached per device (the last smem asked for);
-// raises the kernel's shared-memory limit once per device.
-int blocks_per_sm(const void *kern, int smem, std::atomic<long long> *cache, int *per_sm) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices) {
-    const long long hit = cache[dev].load(std::memory_order_relaxed);
-    if (hit != 0 && (hit >> 32) == smem) {
-      *per_sm = (int)(hit & 0xFFFFFFFF);
-      return 0;
-    }
-  }
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)adc::kMaxSmem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (*per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  if (dev < kMaxDevices) cache[dev].store(((long long)smem << 32) | *per_sm);
-  return 0;
-}
-
-int sm_count(int *sms) {
-  static std::atomic<int> cache[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  *sms = dev < kMaxDevices ? cache[dev].load(std::memory_order_relaxed) : 0;
-  if (*sms > 0) return 0;
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < kMaxDevices) cache[dev].store(*sms, std::memory_order_relaxed);
-  return 0;
-}
-
 template <bool kSmem, int kM, int QV>
 int launch(Params p, cudaStream_t stream) {
-  static std::atomic<long long> cache[kMaxDevices];
+  static std::atomic<long long> cache[adc::kMaxDevices];
   const void *kern = (const void *)adc_pq_kernel<kSmem, kM, QV>;
   const int smem = kSmem ? (int)(4LL * p.qg * p.M * p.ksub) : 0;
   int per_sm = 0, sms = 0;
-  int err = blocks_per_sm(kern, smem, cache, &per_sm);
-  if (err == 0) err = sm_count(&sms);
+  int err = adc::blocks_per_sm(kern, kThreads, smem, cache, &per_sm);
+  if (err == 0) err = adc::sm_count(&sms);
   if (err != 0) return err;
   // kThreads a block, fewer (down to a warp's worth of row groups) while
   // that leaves SMs without an item: a small n spreads over the card

@@ -4,9 +4,10 @@ The port never imports the JAX package. What crosses is data: the JSON that
 ``to_json()`` writes there, and the network's parameters and running stats
 as numpy arrays (``np.asarray`` of each leaf). Both packages keep the same
 layouts (NHWC/HWIO, dense ``(n_in, n_out)``, packed int4
-``(n_out, ceil(fan_in/2))``), so the arrays are taken as they are. Nested
-parameter groups (the attention layers' ``{"q": {"W", "b"}, ...}``) keep
-their nesting.
+``(n_out, ceil(fan_in/2))``, fused recurrent gates ``(n_in, k*n)`` in the
+order (i, f, g, o) or (z, r, h)), so the arrays are taken as they are.
+Nested parameter groups (the attention layers' ``{"q": {"W", "b"}, ...}``,
+``Bidirectional``'s ``{"fwd": {...}, "bwd": {...}}``) keep their nesting.
 
     conf = conf_from_jax_json(jax_net.conf.to_json())
     net = MultiLayerNetwork(conf, device="cpu")
@@ -18,7 +19,8 @@ their nesting.
         state_from_jax(host(jax_graph.state), device="cpu"))
 
 An updater's state crosses per layer, taken apart on the JAX side (optax's
-``ScaleByAdamState`` is ``count``, ``mu``, ``nu``):
+``ScaleByAdamState`` is ``count``, ``mu``, ``nu``; ``ScaleByRmsState``,
+RmsProp's, is ``nu`` alone):
 
     adam = jax_net.opt_state[i][0]
     net.opt_state[i] = updater_state_from_jax(

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
@@ -114,6 +114,12 @@ class SelfAttentionLayer(BaseLayer):
     def input_kind(self):
         return "rnn"
 
+    def is_recurrent(self):
+        return True
+
+    #: a full-sequence layer: no carry for rnn_time_step or tBPTT
+    supports_stateful: ClassVar[bool] = False
+
     def regularizable(self):
         return ("q/W", "k/W", "v/W", "o/W")
 
@@ -149,6 +155,11 @@ class TransformerEncoderBlock(BaseLayer):
 
     def input_kind(self):
         return "rnn"
+
+    def is_recurrent(self):
+        return True
+
+    supports_stateful: ClassVar[bool] = False
 
     def regularizable(self):
         return ("q/W", "k/W", "v/W", "o/W", "ff1/W", "ff2/W")

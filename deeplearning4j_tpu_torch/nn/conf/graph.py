@@ -229,7 +229,7 @@ class PreprocessorVertex(GraphVertex):
         return self.preprocessor.output_type(its[0])
 
     def apply(self, *inputs):
-        return self.preprocessor.apply(inputs[0])
+        return self.preprocessor.apply(inputs[0], None)[0]
 
     def to_dict(self):
         from deeplearning4j_tpu_torch.nn.conf.preprocessors import preprocessor_to_dict

@@ -167,18 +167,23 @@ def dropout_input(x, dropout, train: bool, rng: Optional[torch.Generator]):
                                                 device=x.device)).to(x.dtype)
 
 
+def refuse_training_knobs(layer):
+    """Rematerialization, constraints and weight noise are not ported: a
+    layer that sets one raises when it trains."""
+    for knob in ("remat", "constraints", "weight_noise"):
+        if getattr(layer, knob, None):
+            raise NotImplementedError(
+                f"{type(layer).__name__} '{layer.name}' sets {knob}=; "
+                f"training with {knob} is not in the PyTorch port yet")
+
+
 def apply_layer(layer, params, state, x, *, train, rng, mask=None, extra=None):
-    """The networks' single entry into ``layer.apply``. ``mask`` is the
-    (batch, time) features mask the recurrent and attention layers take;
-    ``extra`` carries additional inputs (the fused residual-add operand).
-    Rematerialization, constraints and weight noise are not ported: a layer
-    that sets one raises when it trains."""
+    """The networks' single entry into ``layer.apply`` (recurrent layers
+    with carries go through ``apply_seq``). ``mask`` is the (batch, time)
+    features mask the recurrent and attention layers take; ``extra``
+    carries additional inputs (the fused residual-add operand)."""
     if train:
-        for knob in ("remat", "constraints", "weight_noise"):
-            if getattr(layer, knob, None):
-                raise NotImplementedError(
-                    f"{type(layer).__name__} '{layer.name}' sets {knob}=; "
-                    f"training with {knob} is not in the PyTorch port yet")
+        refuse_training_knobs(layer)
     return layer.apply(params, state, x, train=train, rng=rng, mask=mask,
                        **(extra or {}))
 
@@ -207,6 +212,9 @@ class Layer:
         return ()
 
     def is_output_layer(self) -> bool:
+        return False
+
+    def is_recurrent(self) -> bool:
         return False
 
     def input_kind(self) -> str:

@@ -205,6 +205,9 @@ class ListBuilder:
         self._layers: List[Layer] = []
         self._input_type: Optional[InputType] = None
         self._preprocessors: Dict[int, object] = {}
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, conf: Layer) -> "ListBuilder":
         self._layers.append(_apply_layer_defaults(conf, self._parent._defaults))
@@ -218,6 +221,15 @@ class ListBuilder:
         self._preprocessors[idx] = pre
         return self
 
+    def backprop_type(self, t: str, fwd_length: int = 20,
+                      back_length: int = 20) -> "ListBuilder":
+        """"standard" or "tbptt" with its window lengths (equal lengths are
+        checked by MultiLayerConfiguration)."""
+        self._backprop_type = t
+        self._tbptt_fwd = fwd_length
+        self._tbptt_back = back_length
+        return self
+
     def build(self) -> MultiLayerConfiguration:
         return MultiLayerConfiguration(
             layers=tuple(self._layers),
@@ -225,5 +237,8 @@ class ListBuilder:
             seed=self._parent._seed,
             dtype=self._parent._dtype,
             updater=self._parent._updater,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
             input_preprocessors=self._preprocessors or None,
         )

@@ -104,7 +104,7 @@ class ComputationGraph(TrainStep):
             new_state[name] = state[name]
             if isinstance(obj, Layer):
                 if name in self._vpre:
-                    xs[0] = self._vpre[name].apply(xs[0])
+                    xs[0], _ = self._vpre[name].apply(xs[0], None)
                 if obj.is_output_layer():
                     x_in = dropout_input(xs[0], obj.dropout, train, rng)
                     z = obj.pre_output(params[name], x_in)
@@ -156,7 +156,8 @@ class ComputationGraph(TrainStep):
         """Train on MultiDataSets, DataSets (single input and output) or a
         list of them, ``num_epochs`` times over."""
         self._refuse(bucket_policy=bucket_policy, prefetch=prefetch,
-                     checkpoint_manager=checkpoint_manager)
+                     checkpoint_manager=checkpoint_manager,
+                     tbptt=self.conf.backprop_type == "tbptt")
         if self.params is None:
             self.init()
         if isinstance(data, (DataSet, MultiDataSet)):

@@ -1,8 +1,9 @@
 """MultiLayerNetwork — the sequential-stack network (counterpart of
 ``deeplearning4j_tpu/nn/multilayer.py``: ``init``, ``_forward`` with its
-features mask, ``fit``, ``fit_fused``, ``_fit_batch``, ``_loss_fn``,
+features mask and recurrent carries, ``fit``, ``fit_fused``, truncated BPTT
+(``_fit_tbptt``, ``fit_tbptt_fused``), ``_fit_batch``, ``_loss_fn``,
 ``_regularization``, ``score``, ``score_dataset``, ``output``, ``predict``,
-``feed_forward``).
+``feed_forward``, ``rnn_time_step`` and its stored state).
 
 Parameters are a list of per-layer dicts of tensors in the JAX package's
 layouts (nested, for the attention layers' ``q``/``k``/``v``/``o``
@@ -27,10 +28,20 @@ in place; running stats updated in place; dropout drawn from a
 + 1).
 
 ``fit_fused`` (an XLA scan over K stacked batches there) is the same step
-in a Python loop. Not ported (they raise ``NotImplementedError``):
-``bucket_policy``, ``prefetch``, ``checkpoint_manager``, gradient
-compression, augmentation, listeners, truncated BPTT and the solver
-optimization algorithms.
+in a Python loop.
+
+Truncated BPTT (``backprop_type="tbptt"``, reference doTruncatedBPTT):
+``fit`` cuts a batch whose input has a time axis longer than
+``tbptt_fwd_length`` into windows of that length (the last one ragged) and
+takes one updater step a window. Each recurrent layer's carry (h, c) goes
+from one window into the next detached, so gradients stop at the window
+boundary, as the JAX package's carries enter each window's jitted step as
+constants. ``fit_tbptt_fused`` (one scan over the windows there) is the
+same loop. ``rnn_time_step`` carries the same state across calls.
+
+Not ported (they raise ``NotImplementedError``): ``bucket_policy``,
+``prefetch``, ``checkpoint_manager``, gradient compression, augmentation,
+listeners and the solver optimization algorithms.
 """
 
 from __future__ import annotations
@@ -43,11 +54,12 @@ import torch
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.layers import (apply_layer, dropout_input,
+                                                     refuse_training_knobs,
                                                      regularization_penalty)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.normalization import LOW_PRECISION
 from deeplearning4j_tpu_torch.nn.training import TrainStep
-from deeplearning4j_tpu_torch.nn.tree import tree_map
+from deeplearning4j_tpu_torch.nn.tree import tree_leaves, tree_map
 
 
 def _copy_tree(tree, device):
@@ -75,6 +87,7 @@ class MultiLayerNetwork(TrainStep):
         self._init_training(self.layers)
         self.params: Optional[List[dict]] = None
         self.state: List[dict] = [{} for _ in self.layers]
+        self._rnn_carries: Optional[list] = None  # rnn_time_step's stored state
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
@@ -125,25 +138,38 @@ class MultiLayerNetwork(TrainStep):
                 y = y.astype(np.float32)
         return torch.as_tensor(y, device=self.device)
 
-    def _forward(self, params, state, x, train: bool, rng=None, mask=None):
+    def _forward(self, params, state, x, train: bool, rng=None, mask=None, carries=None):
         """The forward pass: (every layer's activation, the output layer's
         pre-activation in float32 or None, new state, the features mask that
-        survives to the output). ``mask`` (batch, time) reaches each layer
-        while its input has a time axis."""
+        survives to the output, new carries). ``mask`` (batch, time) reaches
+        each layer while its input has a time axis. With ``carries`` (one
+        per layer, ``{}`` where a layer has none) each recurrent layer that
+        supports stateful use starts from its carry and returns its new one
+        (tBPTT, ``rnn_time_step``); without, every layer starts from zero
+        state and the new carries are all ``{}``."""
         params = self._cast(params)
         if self._dtype != torch.float32 and not self._takes_ids:
             x = x.to(self._dtype)
-        acts, new_state, preout = [], [], None
+        acts, new_state, new_carries, preout = [], [], [], None
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             if i in self._pre:
-                x = self._pre[i].apply(x)
+                x, mask = self._pre[i].apply(x, mask)
+            carry = {}
             if i == last and layer.is_output_layer():
                 preout = layer.pre_output(params[i], dropout_input(x, layer.dropout,
                                                                    train, rng))
                 if preout.dtype in LOW_PRECISION:  # loss math in float32
                     preout = preout.float()
                 x = layer.output_activations(preout)
+                new_state.append(state[i])
+            elif (carries is not None and hasattr(layer, "apply_seq")
+                  and getattr(layer, "supports_stateful", True)):
+                if train:
+                    refuse_training_knobs(layer)
+                x, carry = layer.apply_seq(params[i], carries[i],
+                                           dropout_input(x, layer.dropout, train, rng),
+                                           train=train, rng=None, mask=mask)
                 new_state.append(state[i])
             else:
                 x, st = apply_layer(layer, params[i], state[i], x, train=train, rng=rng,
@@ -152,7 +178,8 @@ class MultiLayerNetwork(TrainStep):
             if not self._mask_survives[i]:
                 mask = None
             acts.append(x)
-        return acts, preout, new_state, mask
+            new_carries.append(carry)
+        return acts, preout, new_state, mask, new_carries
 
     @torch.inference_mode()
     def output(self, x, features_mask=None) -> torch.Tensor:
@@ -183,17 +210,22 @@ class MultiLayerNetwork(TrainStep):
         return total
 
     def _loss_fn(self, params, state, x, y, rng=None, fmask=None, lmask=None,
-                 train: bool = True):
+                 train: bool = True, carries=None):
         """(loss, new state): the output layer's score over the labels mask,
-        or the surviving features mask, plus l1/l2."""
+        or the surviving features mask, plus l1/l2. With ``carries`` (a tBPTT
+        window), (loss, new state, new carries detached)."""
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer():
             raise ValueError("Last layer must be an output/loss layer to fit()")
-        _, preout, new_state, cur_mask = self._forward(params, state, x, train, rng, fmask)
+        _, preout, new_state, cur_mask, new_carries = self._forward(params, state, x, train,
+                                                                    rng, fmask, carries)
         lm = lmask if lmask is not None else cur_mask
         if y.dtype in LOW_PRECISION:
             y = y.float()
-        return out_layer.compute_score(y, preout, lm) + self._regularization(params), new_state
+        loss = out_layer.compute_score(y, preout, lm) + self._regularization(params)
+        if carries is None:
+            return loss, new_state
+        return loss, new_state, tree_map(torch.Tensor.detach, new_carries)
 
     def _batch(self, ds: DataSet):
         fm, lm = ds.features_mask, ds.labels_mask
@@ -203,8 +235,98 @@ class MultiLayerNetwork(TrainStep):
 
     def _fit_batch(self, ds: DataSet):
         x, y, fm, lm = self._batch(ds)
-        self._train_step(x, y, fm, lm)
+        if (self.conf.backprop_type == "tbptt" and self._has_time_axis(x)
+                and x.shape[1] > self.conf.tbptt_fwd_length):
+            self._fit_tbptt(x, y, fm, lm)
+        else:
+            self._train_step(x, y, fm, lm)
         self.last_batch_size = int(x.shape[0])
+
+    # ------------------------------------------------- truncated BPTT / state
+    def _has_time_axis(self, x) -> bool:
+        """3-D sequences, or 2-D id sequences under an RNN input type."""
+        it = self.conf.input_type
+        return x.dim() == 3 or (x.dim() == 2 and it is not None and it.kind == "rnn"
+                                and self.layers[0].input_kind() != "ff")
+
+    def _zero_carries(self, batch: int) -> list:
+        return [layer.init_carry(batch, self._dtype, self.device)
+                if hasattr(layer, "init_carry") else {} for layer in self.layers]
+
+    def _fit_tbptt(self, x, y, fm, lm):
+        """One updater step a window of ``tbptt_fwd_length`` timesteps (the
+        last window ragged), the carries going on detached."""
+        length = self.conf.tbptt_fwd_length
+        carries = self._zero_carries(int(x.shape[0]))
+        for s in range(0, int(x.shape[1]), length):
+            w = slice(s, s + length)
+            carries = self._train_step(x[:, w], y[:, w] if y.dim() == 3 else y,
+                                       None if fm is None else fm[:, w],
+                                       None if lm is None else lm[:, w], carries=carries)
+
+    def fit_tbptt_fused(self, x, y) -> "MultiLayerNetwork":
+        """Train one (batch, T, ...) sequence batch window by window, T a
+        multiple of ``tbptt_fwd_length``, no masks: the JAX package's one
+        scan over the windows, here the loop ``fit`` runs, so the two give
+        the same parameters bitwise. ``iteration`` advances by the window
+        count."""
+        if self.params is None:
+            self.init()
+        if self.conf.backprop_type != "tbptt":
+            raise ValueError("fit_tbptt_fused requires backprop_type='tbptt' "
+                             "(this network is 'standard'; use fit/fit_fused)")
+        x, y = self._as_input(x), self._as_labels(y)
+        length, steps = self.conf.tbptt_fwd_length, int(x.shape[1])
+        if steps % length != 0:
+            raise ValueError(f"sequence length {steps} must be a multiple of "
+                             f"tbptt_fwd_length {length} for the fused path")
+        self._fit_tbptt(x, y, None, None)
+        self.last_batch_size = int(x.shape[0])
+        return self
+
+    def _check_stateful(self):
+        for layer in self.layers:
+            if not getattr(layer, "supports_stateful", True):
+                raise NotImplementedError(
+                    f"rnn_time_step is not supported with {type(layer).__name__}: "
+                    "the backward direction needs the full sequence (reference "
+                    "GravesBidirectionalLSTM.rnnTimeStep throws the same)")
+
+    @torch.inference_mode()
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Stateful step-by-step inference (reference rnnTimeStep): each call
+        starts from the carries the last one left. ``x`` is one timestep,
+        (batch, features) (or (batch,) ids for an id-sequence network), or a
+        (batch, time, ...) sequence; the output has the same time axis or
+        none. Returns a tensor on the network's device."""
+        self._check_stateful()
+        if self.params is None:
+            self.init()
+        index_seq = getattr(self.layers[0], "takes_index_sequence", False)
+        x = self._as_input(x)
+        squeeze = x.dim() == 1 or (x.dim() == 2 and (not index_seq or x.shape[1] == 1))
+        if squeeze:
+            x = x.reshape(x.shape[0], 1) if index_seq else x[:, None, :]
+        batch = int(x.shape[0])
+        if self._rnn_carries is None:
+            self._rnn_carries = self._zero_carries(batch)
+        else:
+            held = [v.shape[0] for c in self._rnn_carries for v in tree_leaves(c)]
+            if held and held[0] != batch:
+                raise ValueError(
+                    f"rnn_time_step batch size {batch} does not match stored state "
+                    f"batch {held[0]}; call rnn_clear_previous_state() first")
+        acts, _, _, _, self._rnn_carries = self._forward(self.params, self.state, x, False,
+                                                         carries=self._rnn_carries)
+        return acts[-1][:, 0] if squeeze else acts[-1]
+
+    def rnn_clear_previous_state(self):
+        """Forget the stored carries (reference rnnClearPreviousState)."""
+        self._rnn_carries = None
+
+    def rnn_get_previous_state(self):
+        """The stored carries: one dict a layer, ``{}`` for a layer with none."""
+        return self._rnn_carries
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, num_epochs: int = 1, bucket_policy=None,
@@ -235,6 +357,9 @@ class MultiLayerNetwork(TrainStep):
         self._refuse(bucket_policy=bucket_policy)
         if self.params is None:
             self.init()
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError("fit_fused does not window tBPTT sequences; "
+                             "use fit() for tbptt-configured networks")
         if isinstance(datasets, tuple) and len(datasets) == 2:
             xs, ys = datasets
             if not (hasattr(xs, "shape") and hasattr(ys, "shape")):

@@ -5,7 +5,10 @@ graph, a list indexed by layer in the sequential network.
 A network class mixes in :class:`TrainStep`, calls ``_init_training`` from
 its constructor with its layers (in the same dict or list form), and gives
 ``_loss_fn(params, state, inputs, labels, rng, *masks) -> (loss, new
-state)``. The step does what the JAX package's jitted step does, eagerly:
+state)``; a truncated-BPTT window passes ``carries=`` through the step and
+gets ``(loss, new state, new carries)`` back, the new carries returned by
+``_train_step``. The step does what the JAX package's jitted step does,
+eagerly:
 
 - ``_cast`` casts the float32 master parameters to the compute dtype
   (``conf.dtype``) inside autograd, so gradients land on the masters in
@@ -91,8 +94,6 @@ class TrainStep:
         for knob, val in knobs.items():
             if val:
                 raise NotImplementedError(f"fit with {knob} is not in the PyTorch port yet")
-        if self.conf.backprop_type == "tbptt":
-            raise NotImplementedError("truncated BPTT is not in the PyTorch port yet")
         algo = str(getattr(self.conf, "optimization_algo", "sgd")).strip().lower()
         if algo.replace(" ", "_").replace("-", "_") not in _SGD_FAMILY:
             raise NotImplementedError(f"optimization_algo '{self.conf.optimization_algo}' "
@@ -105,13 +106,13 @@ class TrainStep:
             return params
         return tree_map(lambda v: v.to(cdt) if v.is_floating_point() else v, params)
 
-    def _loss_and_grads(self, *batch):
-        """(loss, gradient tree, new state) at the current parameters;
-        ``batch`` is what ``_loss_fn`` takes after the parameters and
-        state."""
+    def _loss_and_grads(self, *batch, **kw):
+        """(loss, gradient tree, new state[, new carries]) at the current
+        parameters; ``batch`` and ``kw`` are what ``_loss_fn`` takes after
+        the parameters and state."""
         leaves = tree_map(lambda v: v.detach().requires_grad_(True), self.params)
-        loss, new_state = self._loss_fn(leaves, self.state, *batch)
-        return loss.detach(), leaf_grads(loss, leaves), new_state
+        loss, *aux = self._loss_fn(leaves, self.state, *batch, **kw)
+        return (loss.detach(), leaf_grads(loss, leaves), *aux)
 
     def _apply_updates(self, grads):
         with torch.no_grad():
@@ -130,12 +131,16 @@ class TrainStep:
                     if v is not cur[name]:
                         cur[name].copy_(v)
 
-    def _train_step(self, inputs, labels, *masks):
-        """One step on one batch: gradients, updates, state, score."""
+    def _train_step(self, inputs, labels, *masks, **kw):
+        """One step on one batch: gradients, updates, state, score. Returns
+        the new carries of a tBPTT window (``kw`` holds ``carries``), else
+        None."""
         if self.opt_state is None:  # parameters assigned directly
             self._reset_updaters()
-        loss, grads, new_state = self._loss_and_grads(inputs, labels, self._gen, *masks)
+        loss, grads, new_state, *carries = self._loss_and_grads(inputs, labels, self._gen,
+                                                                *masks, **kw)
         self._apply_updates(grads)
         self._commit_state(new_state)
         self._score = loss
         self.iteration += 1
+        return carries[0] if carries else None

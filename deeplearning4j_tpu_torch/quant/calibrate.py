@@ -149,7 +149,7 @@ def calibrate(net, data, observer: str = "minmax",
         for i in idxs:
             xin = x if i == 0 else acts[i - 1]
             if i in net._pre:
-                xin = net._pre[i].apply(xin)
+                xin, _ = net._pre[i].apply(xin, None)
             vecs.append(_stat_vec(xin, p))
         # one host transfer per batch, 3 floats per slot
         stats = torch.stack(vecs).cpu().tolist()

@@ -307,3 +307,114 @@ def test_indexes_on_card_match_cpu(cuda_device, tmp_path):
         np.testing.assert_allclose(gd, cd, rtol=1e-5)
         diff = gi != ci
         assert np.allclose(gd[diff], cd[diff], rtol=1e-5)
+
+
+def _ivf_pq_v1(lut, codes, seg, pos):
+    """adc_ivf_pq's first design (csrc/adc_ivf_pq_v1.cu), the yardstick of
+    the redesign, on the same operands."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.perf.kernels import _build
+    fn = _build.load("adc_ivf_pq_v1").adc_ivf_pq_v1_launch
+    fn.argtypes, fn.restype = adc._ARGTYPES["adc_ivf_pq"], ctypes.c_int
+    lut, codes, seg, pos = (v.contiguous() for v in (lut, codes, seg, pos))
+    b, p, M, ksub = lut.shape
+    d2 = torch.empty(seg.shape, dtype=torch.float32, device=lut.device)
+    err = fn(lut.data_ptr(), codes.data_ptr(), seg.data_ptr(),
+             pos.data_ptr(), d2.data_ptr(), b, seg.shape[1], p, M, ksub,
+             codes.shape[0], adc._vec8(codes), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return d2
+
+
+def _real_slots(rng, b, counts, nprobe, cand_pad):
+    """CSR slots as the IVF-PQ index makes them: cells of the given sizes,
+    each query probing nprobe distinct cells."""
+    offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    probe = torch.from_numpy(np.stack([rng.choice(len(counts), nprobe, replace=False)
+                                       for _ in range(b)]).astype(np.int64))
+    seg, pos, valid = pt_index._csr_slots(offsets, probe, cand_pad)
+    return seg, pos, int(offsets[-1])
+
+
+def _ivf_case(rng, case):
+    """(lut, codes, seg, pos) on the CPU for one named redesign case."""
+    C, p, M, ksub = 65536, 8, 8, 256
+    if case.startswith("real_b"):
+        b = int(case[len("real_b"):])
+        seg, pos, n = _real_slots(rng, b, rng.integers(200, 3000, 1000), p, C)
+    elif case == "three_cells_a_tile":        # cells of 1000, 10, 10, 2000, ...
+        b = 3
+        counts = np.full(40, 1500)
+        counts[:4] = (1000, 10, 10, 2000)
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+        probe = torch.arange(p, dtype=torch.int64)[None].repeat(b, 1)
+        seg, pos, _ = pt_index._csr_slots(offsets, probe, C)
+        n = int(offsets[-1])
+        assert int(seg[0, :1024].max()) - int(seg[0, :1024].min()) >= 2
+    elif case.startswith("planted_last"):     # one out-of-order seg at a tile's end
+        b = 3
+        ksub = 16 if case.endswith("small_lut") else 256
+        seg, pos, n = _real_slots(rng, b, rng.integers(200, 3000, 1000), p, C)
+        for t_end in (1023, 4095, 8191, 65535):
+            seg[:, t_end] = 0 if int(seg[0, t_end]) > 0 else p - 1
+    elif case == "random_seg_all_cells":      # 4 cells of 8 KB: every tile stages them all
+        b, p = 5, 4
+        n = 5000
+        seg = torch.from_numpy(rng.integers(0, p, (b, C)).astype(np.int32))
+        pos = torch.from_numpy(rng.integers(0, n, (b, C)).astype(np.int32))
+    elif case == "global_lut_p32":            # 256 KB a query: over shared memory
+        b, p, C = 3, 32, 1001
+        n = 2000
+        seg = torch.from_numpy(rng.integers(0, p, (b, C)).astype(np.int32))
+        pos = torch.from_numpy(rng.integers(0, n, (b, C)).astype(np.int32))
+    elif case == "scalar_edge_c1001":
+        b, C = 3, 1001
+        seg, pos, n = _real_slots(rng, b, rng.integers(20, 300, 100), p, C)
+    elif case == "all_invalid_query":
+        b = 4
+        counts = rng.integers(200, 3000, 1000)
+        counts[:p] = 0                        # query 0 probes only empty cells
+        offsets = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+        probe = torch.from_numpy(np.stack([np.arange(p)] + [
+            rng.choice(np.arange(p, 1000), p, replace=False) for _ in range(b - 1)]))
+        seg, pos, valid = pt_index._csr_slots(offsets, probe, C)
+        assert not bool(valid[0].any())
+        n = int(offsets[-1])
+    else:
+        raise KeyError(case)
+    lut = torch.from_numpy(rng.standard_normal((b, p, M, ksub)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, M)).astype(np.uint8))
+    return lut, codes, seg, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,offset", [
+    ("real_b1", 0), ("real_b3", 0), ("real_b256", 0), ("three_cells_a_tile", 0),
+    ("planted_last", 0), ("planted_last_small_lut", 0), ("random_seg_all_cells", 0),
+    ("global_lut_p32", 0), ("scalar_edge_c1001", 0), ("real_b3", 1), ("all_invalid_query", 0)])
+def test_adc_ivf_pq_redesign_bitwise_at_tile_and_cell_edges(cuda_device, case, offset):
+    """The redesign's per-tile cell staging (a tile spanning three cells, one
+    out-of-order seg at a tile's last slot, random seg over every cell), its
+    global-LUT path (p = 32), the scalar edge (C = 1001; seg and pos as
+    views 4 bytes past an aligned base) and a query whose slots are all
+    invalid: bitwise against the plain version, the first design and
+    itself."""
+    rng = np.random.default_rng(sum(map(ord, case)) + offset)
+    lut, codes, seg, pos = (t.to(cuda_device) for t in _ivf_case(rng, case))
+    if offset:
+        b, c = seg.shape
+        seg = torch.cat([seg.new_zeros(offset), seg.flatten()])[offset:].view(b, c)
+        pos = torch.cat([pos.new_zeros(offset), pos.flatten()])[offset:].view(b, c)
+        assert seg.data_ptr() % 16 == 4
+    before = adc.ivf_pq_launches
+    got = adc.adc_ivf_pq(lut, codes, seg, pos)
+    again = adc.adc_ivf_pq(lut, codes, seg, pos)
+    want = adc.adc_ivf_pq_plain(lut, codes, seg, pos)
+    first = _ivf_pq_v1(lut, codes, seg, pos)
+    torch.cuda.synchronize()
+    assert adc.ivf_pq_launches == before + 2
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, want.view(torch.int32))
+    assert torch.equal(bits, first.view(torch.int32))
+    assert torch.equal(bits, again.view(torch.int32))

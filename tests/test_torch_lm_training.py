@@ -324,11 +324,9 @@ def test_score_dataset_matches_jax():
 
 @pytest.mark.parametrize("knob", ["bucket_policy", "prefetch", "checkpoint_manager",
                                   "grad_compression", "augmentation", "listeners",
-                                  "tbptt", "solver"])
+                                  "solver"])
 def test_refused_knobs_raise(knob):
     jconf = _jax_lm(12, jupd.Sgd(0.1))
-    if knob == "tbptt":
-        jconf = dataclasses.replace(jconf, backprop_type="tbptt")
     if knob == "solver":
         jconf = dataclasses.replace(jconf, optimization_algo="lbfgs")
     net = MultiLayerNetwork(conf_from_jax_json(jconf.to_json()), device="cpu").init()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's redesigned kernels on one card: int4_dot,
 flash_attn_fwd, scatter_add, flash_attn_bwd_dkv, flash_attn_bwd_dq,
-bn_act_bwd, bn_act_fwd and adc_pq.
+bn_act_bwd, bn_act_fwd, adc_pq and adc_ivf_pq.
 
     python3 tools/kernel_variants.py
 
@@ -11,12 +11,12 @@ kernel switched off). All variants are built at once by nvcc for sm_90a
 into deeplearning4j_tpu_torch/build/variants/, loaded with ctypes and
 timed as chip_smoke.py times kernels (CUDA events, median of 25 launches,
 L2 flushed before each). A variant that keeps the function is checked
-against the plain version (int4_dot, scatter_add and adc_pq bitwise, the
-flash kernels and the bn kernels within chip_smoke.py's limits); one that
-switches a stage off computes garbage and is timed only, to show what that
-stage costs. Prints the card line and one JSON line per (variant, shape);
-the bn_act_bwd, bn_act_fwd and adc_pq lines also time the kernel's first
-design (csrc/*_v1.cu) on the same operands.
+against the plain version (int4_dot, scatter_add, adc_pq and adc_ivf_pq
+bitwise, the flash kernels and the bn kernels within chip_smoke.py's
+limits); one that switches a stage off computes garbage and is timed only,
+to show what that stage costs. Prints the card line and one JSON line per
+(variant, shape); the bn_act_bwd, bn_act_fwd, adc_pq and adc_ivf_pq lines
+also time the kernel's first design (csrc/*_v1.cu) on the same operands.
 
     python3 tools/kernel_variants.py scatter_add dkv_f32_double_buffer
 
@@ -132,6 +132,11 @@ def _bnf_launches(*passes):
 ADC_SHAPES = [(b, 1_000_000, 8, 256) for b in (1, 8, 32, 64, 256)] + cs.ADC_RAGGED
 
 # (name, source, [(old, new)], keeps the function)
+# adc_ivf_pq: (b, C, p, M, ksub) on CSR slots laid out as the IVF-PQ
+# index lays them out (_csr_slots over 1000 cells of 200-3800 rows, 8
+# probed cells a query, C = 65,536: about a quarter of the slots valid),
+# and the ragged shapes of chip_smoke.py (random seg)
+IVF_SHAPES = [(b, 65536, 8, 8, 256) for b in (1, 8, 256)] + cs.IVF_RAGGED
 VARIANTS = [
     ("int4_as_built", "int4_dot", [], True),
     ("int4_no_table_loads", "int4_dot",
@@ -351,8 +356,8 @@ VARIANTS = [
     # the items split with the first items % grid blocks taking one more,
     # instead of block i starting at i * items / grid
     ("adc_extra_first_ranges", "adc_pq",
-     [("  const int begin = span_edge(blockIdx.x, p.items, gridDim.x);\n"
-       "  const int count = span_edge(blockIdx.x + 1, p.items, gridDim.x) - begin;",
+     [("  const int begin = adc::span_edge(blockIdx.x, p.items, gridDim.x);\n"
+       "  const int count = adc::span_edge(blockIdx.x + 1, p.items, gridDim.x) - begin;",
        "  const int per = p.items / gridDim.x, extra = p.items % gridDim.x, bx = blockIdx.x;\n"
        "  const int begin = bx * per + min(bx, extra);\n"
        "  const int count = per + (bx < extra ? 1 : 0);")], True),
@@ -361,6 +366,35 @@ VARIANTS = [
      [("__stcs(reinterpret_cast<float4 *>(o + r),", "__stwb(reinterpret_cast<float4 *>(o + r),"),
       ("if (j0 + k < p.n) __stcs(o + k, acc[k][i]);", "if (j0 + k < p.n) __stwb(o + k, acc[k][i]);")],
      True),
+    ("ivf_as_built", "adc_ivf_pq", [], True),
+    # the query's whole LUT staged (64 KB at p = 8) instead of the tile's cells
+    ("ivf_full_lut", "adc_ivf_pq",
+     [("constexpr int kStageBytes = 32768;", "constexpr int kStageBytes = 65536;"),
+      ("    const bool in_smem = hi - lo < p.cap;",
+       "    lo = 0, hi = p.p - 1;\n    const bool in_smem = hi - lo < p.cap;")], True),
+    # one slot a thread (scalar seg / pos / d2, one code row) instead of four
+    ("ivf_one_slot", "adc_ivf_pq",
+     [("constexpr int kSlots = 4; ", "constexpr int kSlots = 1; ")], True),
+    # one block a (query, tile) item instead of the persistent walk
+    ("ivf_one_tile_a_block", "adc_ivf_pq",
+     [("  const int grid = (int)std::min<long long>(p.items, (long long)per_sm * sms);",
+       "  const int grid = p.items;")], True),
+    # d2 without the streaming hint
+    ("ivf_plain_stores", "adc_ivf_pq",
+     [("__stcs(reinterpret_cast<float4 *>(o),", "__stwb(reinterpret_cast<float4 *>(o),"),
+      ("if (r < left) __stcs(o + r, acc[r]);", "if (r < left) __stwb(o + r, acc[r]);")], True),
+    # 64 KB of cells a block (8 cells at M = 8, ksub = 256)
+    ("ivf_stage_64k", "adc_ivf_pq",
+     [("constexpr int kStageBytes = 32768;", "constexpr int kStageBytes = 65536;")], True),
+    # each tile's own cells only, never the next tiles' ahead of them
+    ("ivf_exact_range", "adc_ivf_pq",
+     [("      if (k + 1 < count && tile + 1 < p.ntiles) hi = max(hi, min(lo + p.cap - 1, p.p - 1));\n",
+       "")], True),
+    # registers for two / three blocks an SM
+    ("ivf_two_block_registers", "adc_ivf_pq",
+     [("constexpr int kMinBlocks = 4; ", "constexpr int kMinBlocks = 2; ")], True),
+    ("ivf_three_block_registers", "adc_ivf_pq",
+     [("constexpr int kMinBlocks = 4; ", "constexpr int kMinBlocks = 3; ")], True),
 ]
 
 
@@ -542,6 +576,41 @@ def adc_call(torch, lib, lut, codes):
     return d2
 
 
+def adc_ivf_call(torch, lib, lut, codes, seg, pos):
+    from deeplearning4j_tpu_torch.perf.kernels import adc
+    fn = lib.adc_ivf_pq_launch
+    fn.argtypes, fn.restype = adc._ARGTYPES["adc_ivf_pq"], ctypes.c_int
+    b, p, m_count, ksub = lut.shape
+    d2 = torch.empty(seg.shape, dtype=torch.float32, device=lut.device)
+    err = fn(lut.data_ptr(), codes.data_ptr(), seg.data_ptr(), pos.data_ptr(), d2.data_ptr(),
+             b, seg.shape[1], p, m_count, ksub, codes.shape[0], adc._vec8(codes),
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"adc_ivf_pq variant launch failed with CUDA error {err}")
+    return d2
+
+
+def ivf_operands(torch, dev, b, c, p, m_count, ksub):
+    """(lut, codes, seg, pos, valid slots): CSR slots as IVF_SHAPES says at
+    C = 65,536, random seg and pos at the ragged shapes."""
+    from deeplearning4j_tpu_torch.retrieval.index import _csr_slots
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * 7 + c + p)
+    if c == 65536:
+        counts = torch.randint(200, 3800, (1000,), generator=gen, device=dev)
+        offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+        probe = torch.argsort(torch.rand((b, 1000), generator=gen, device=dev), dim=1)[:, :p]
+        seg, pos, valid = _csr_slots(offsets, probe, c)
+        n, n_valid = int(offsets[-1]), int(valid.sum())
+    else:
+        n, n_valid = 2000, b * c
+        seg = torch.randint(0, p, (b, c), generator=gen, device=dev, dtype=torch.int32)
+        pos = torch.randint(0, n, (b, c), generator=gen, device=dev, dtype=torch.int32)
+    lut = torch.randn((b, p, m_count, ksub), generator=gen, device=dev)
+    codes = torch.randint(0, ksub, (n, m_count), generator=gen, device=dev, dtype=torch.uint8)
+    return lut, codes, seg, pos, n_valid
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -652,6 +721,25 @@ def main() -> int:
                     torch, lut, codes), flush)
                 print(json.dumps(row), flush=True)
                 del lut, codes
+                torch.cuda.empty_cache()
+            continue
+        if source == "adc_ivf_pq":
+            for b, c, p, m_count, ksub in IVF_SHAPES:
+                lut, codes, seg, pos, n_valid = ivf_operands(torch, dev, b, c, p, m_count, ksub)
+                ops = (lut, codes, seg, pos)
+                row = {"variant": name, "shape": [b, c, p, m_count, ksub],
+                       "valid_slots": n_valid}
+                if keeps:
+                    got = adc_ivf_call(torch, lib, *ops)
+                    row["bitwise"] = bool(torch.equal(got, adc.adc_ivf_pq_plain(*ops))
+                                          and torch.equal(got, adc_ivf_call(torch, lib, *ops)))
+                    del got
+                row["ms"] = cs.time_ms(torch, lambda: adc_ivf_call(torch, lib, *ops), flush)
+                row["first_design_ms"] = cs.time_ms(
+                    torch, lambda: cs.first_design_adc_ivf_pq(torch, *ops), flush)
+                row["bound_ms"] = cs.adc_ivf_bound(b, c, p, m_count, ksub, n_valid)[0]
+                print(json.dumps(row), flush=True)
+                del lut, codes, seg, pos, ops
                 torch.cuda.empty_cache()
             continue
         if source in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
