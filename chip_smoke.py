@@ -182,8 +182,38 @@
    parameter within 4x the CPU float32 run's distance to the referee or
    1e-5 of its largest magnitude; the same fit with the peepholes zeroed,
    and with the carries dropped between the windows, must miss.
-16. Prints the kernels JSON line (nine kernels), the card line, and last
-   {"ok": true, "device": {...}}.
+16. Graph char-RNN phase: the char-RNN of 15 built with GraphBuilder, trained
+   through ComputationGraph.fit with tBPTT 50 on text of uneven length
+   (features and labels masks, row lengths from numpy.random.default_rng(1)
+   in 750-1500): the same window losses and every parameter bitwise equal
+   to the MultiLayerNetwork of 15 on the same weights and masked data;
+   chars/s over the unmasked characters, median window ms, one masked
+   window profiled (idle share); 10 rnn_time_step calls on the graph
+   against its stateless forward within 1e-5; then the masked 2-window
+   card-against-CPU fit with the float64 referee and both controls, under
+   15's limits.
+17. Checkpoint phase: the training network of 5 (ResNet50 bf16, Adam 1e-3)
+   on 5 distinct batches of 128 drawn on the card, 2 epochs through
+   ComputationGraph.fit under cudnn.deterministic: two uninterrupted runs
+   agree bitwise (the determinism control); a run with
+   CheckpointManager(save_every_n_steps=3) and FaultInjector(kill_at_step=7)
+   crashes, restore_latest comes back at (step 6, epoch 1, batch 1), and the
+   resumed fit ends bitwise equal to the uninterrupted run (masters, BN
+   running stats, Adam state, counters, dropout generator); resuming
+   without the updater state, or without skipping the consumed batches,
+   must not; tear_file on the newest checkpoint falls back to the one
+   before it. 53 + 53 bn launches a step. Bytes a checkpoint printed.
+18. Serialization phase: the resumed network written by write_model,
+   restored on the CPU and on the card, bitwise; one seeded image's float32
+   forward on both against a float64 referee under 6's limit.
+19. Checkpoint overhead (bench.py bench_checkpoint at ResNet50 width): step
+   ms with checkpointing off, async every 10 and sync every 10 steps (30
+   steps each, off again at the end), overhead_async_pct, snapshot ms on
+   the training thread beside a pageable .cpu() copy of the same tensors,
+   commit ms on the writer, and backpressure; the JAX bench's < 10% bar
+   printed, not gated.
+20. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+   path), the card line, and last {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device the script exits 2 and prints no result.
@@ -192,9 +222,12 @@ device the script exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -329,6 +362,17 @@ CHAR_STEPS, CHAR_STEP_ATOL = 10, 1e-5
 # referee within CHAR_CHECK_MULT times the CPU float32 run's, or
 # CHAR_CHECK_FRAC of the referee's largest magnitude
 CHAR_CHECK_WINDOWS, CHAR_CHECK_MULT, CHAR_CHECK_FRAC = 2, 4.0, 1e-5
+# the checkpoint phase (tests/test_checkpoint.py:80-111's schedule at ResNet50
+# width): batches an epoch, epochs, the step trigger, the injected crash, and
+# where restore_latest must come back, (step, epoch, batch_in_epoch)
+CKPT_BATCHES, CKPT_EPOCHS, CKPT_EVERY, CKPT_KILL = 5, 2, 3, 7
+CKPT_RESTORED = (6, 1, 1)
+# checkpoint_overhead (bench.py bench_checkpoint at ResNet50 width): warm-up
+# steps, timed steps a mode, the save interval; the JAX bench's bar, printed
+OVERHEAD_WARM, OVERHEAD_STEPS, OVERHEAD_EVERY, OVERHEAD_BAR_PCT = 3, 30, 10, 10.0
+# graph_char_rnn: each row's length in characters, numpy.random.default_rng(1)
+# in [GRAPH_CHAR_MIN, CHAR_T * CHAR_WINDOWS]
+GRAPH_CHAR_MIN = 750
 
 
 def card_line() -> str:
@@ -866,12 +910,13 @@ def _profile_step(torch, net, ds, step_ms):
 
     from deeplearning4j_tpu_torch.datasets import MultiDataSet
 
-    inputs, labels, lmasks = net._batch(MultiDataSet.from_dataset(ds))
+    inputs, labels, fmasks, lmasks = net._batch(MultiDataSet.from_dataset(ds))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(2):
         torch.cuda.synchronize()
         with profile(activities=acts) as fb:
-            loss, grads, state = net._loss_and_grads(inputs, labels, net._gen, lmasks)
+            loss, grads, state = net._loss_and_grads(inputs, labels, net._gen, fmasks,
+                                                     lmasks)
             torch.cuda.synchronize()
         with profile(activities=acts) as up:
             net._apply_updates(grads)
@@ -1011,7 +1056,7 @@ def card_vs_cpu_phase(torch, dev):
     results = {}
     for name, net in nets.items():
         f0 = bn_act.fwd_launches
-        inputs, labels, _ = net._batch(MultiDataSet([x], [y]))
+        inputs, labels, _, _ = net._batch(MultiDataSet([x], [y]))
         loss, grads, state = net._loss_and_grads(inputs, labels)
         net._apply_updates(grads)
         net._commit_state(state)
@@ -1049,7 +1094,8 @@ def card_vs_cpu_phase(torch, dev):
 def _bn_kernel_entry(name, rows, launches):
     """The kernels-line entry of bn_act_fwd or bn_act_bwd: numbers at the
     stem shape in bf16, max error over every case, its first design's time
-    (both were redesigned) and every other case's."""
+    (both were redesigned) and every other case's; ``launches`` by path
+    (the training, checkpoint and checkpoint_overhead phases)."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
     extra = {
@@ -1062,7 +1108,8 @@ def _bn_kernel_entry(name, rows, launches):
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             "replaces": "deeplearning4j_tpu/perf/pallas/bn.py:"
                         + ("88" if kind == "fwd" else "169"),
-            "launches": launches, "max_abs_err": stem["max_abs_err"],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": stem["max_abs_err"],
             "max_abs_err_all_cases": max(r[kind]["max_abs_err"] for r in rows),
             "ms": stem["ms"], "host_ms": stem["host_ms"], "plain_ms": stem["plain_ms"],
             "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"],
@@ -2663,20 +2710,23 @@ def char_rnn_data(torch, dev, windows: int, seed: int):
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
-def char_window_profile(torch, net, x, y, window_ms) -> dict:
+def char_window_profile(torch, net, batch, window_ms) -> dict:
     """One tBPTT window (forward, backward, RmsProp) under torch.profiler,
-    from zero carries; the second of two runs, the first paying the
-    tracer's start-up: device busy time (the union of the device spans),
-    the traced wall, the idle share against it and against the median
-    unprofiled window, the host's kernel launch calls, the top kernels."""
+    from zero carries; ``batch`` is what ``net._train_step`` takes before
+    the carries (inputs, labels, masks). The second of two runs, the first
+    paying the tracer's start-up: device busy time (the union of the device
+    spans), the traced wall, the idle share against it and against the
+    median unprofiled window, the host's kernel launch calls, the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    x = batch[0][0] if isinstance(batch[0], list) else batch[0]
     for _ in range(2):
         carries = net._zero_carries(int(x.shape[0]))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            net._train_step(x, y, None, None, carries=carries)
+            net._train_step(*batch, carries=carries)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     spans = _device_spans(prof)
@@ -2735,7 +2785,8 @@ def char_rnn_phase(torch, dev, card) -> dict:
         raise AssertionError(f"char_rnn launched a kernel of the port: {_launch_counts()}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     median_ms = float(np.median(window_ms))
-    prof = char_window_profile(torch, net, x[:, :CHAR_T], y[:, :CHAR_T], median_ms)
+    prof = char_window_profile(torch, net, (x[:, :CHAR_T], y[:, :CHAR_T], None, None),
+                               median_ms)
     net.rnn_clear_previous_state()
     steps = torch.stack([net.rnn_time_step(x[:, i]) for i in range(CHAR_STEPS)], dim=1)
     full = net.output(x[:, :CHAR_STEPS])
@@ -2757,10 +2808,10 @@ def char_rnn_phase(torch, dev, card) -> dict:
     return summary
 
 
-def _fit_windows(torch, net, x, y, marks=None) -> list:
-    """``net.fit`` on one sequence batch: each tBPTT window's loss (a
-    tensor, read without a synchronise), and with ``marks`` a CUDA event
-    recorded at each window's start."""
+def _fit_windows(torch, net, x, y, marks=None, mask=None) -> list:
+    """``net.fit`` on one sequence batch (``mask`` its features and labels
+    mask): each tBPTT window's loss (a tensor, read without a synchronise),
+    and with ``marks`` a CUDA event recorded at each window's start."""
     from deeplearning4j_tpu_torch.datasets import DataSet
 
     losses, step = [], net._train_step
@@ -2775,56 +2826,533 @@ def _fit_windows(torch, net, x, y, marks=None) -> list:
 
     net._train_step = noting
     try:
-        net.fit(DataSet(x.to(net.device), y.to(net.device)))
+        m = None if mask is None else mask.to(net.device, x.dtype)
+        net.fit(DataSet(x.to(net.device), y.to(net.device), m, m))
     finally:
         del net._train_step
     return losses
 
 
-def char_rnn_card_vs_cpu(torch, dev) -> dict:
+def char_graph_conf():
+    """The char-RNN of phase 15 built with GraphBuilder: input -> GravesLSTM
+    l1 -> GravesLSTM l2 -> 47-way RnnOutputLayer out, the same seed,
+    updater, init and tBPTT as TextGenerationLSTM's."""
+    from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import GravesLSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import RmsProp
+
+    parent = (NeuralNetConfiguration.builder().seed(12345)
+              .updater(RmsProp(learning_rate=1e-2)).weight_init("xavier"))
+    return (GraphBuilder(parent).add_inputs("in")
+            .add_layer("l1", GravesLSTM(n_out=256, activation="tanh"), "in")
+            .add_layer("l2", GravesLSTM(n_out=256, activation="tanh"), "l1")
+            .add_layer("out", RnnOutputLayer(n_out=CHAR_VOCAB, activation="softmax",
+                                             loss="mcxent"), "l2")
+            .set_outputs("out").set_input_types(InputType.recurrent(CHAR_VOCAB))
+            .backprop_type("tbptt", fwd_length=CHAR_T, back_length=CHAR_T).build())
+
+
+def char_mask(torch, dev, rng, low: int, steps: int):
+    """(CHAR_BATCH, steps) float32 prefix mask, each row's length drawn by
+    ``rng`` in [low, steps]."""
+    lengths = torch.from_numpy(rng.integers(low, steps + 1, CHAR_BATCH))
+    return (torch.arange(steps)[None, :] < lengths[:, None]).float().to(dev)
+
+
+def graph_char_rnn_phase(torch, dev, card) -> dict:
+    """The char-RNN as a ComputationGraph at full width, trained on text of
+    uneven length: features and labels masks give each of the 64 rows a
+    length from numpy.random.default_rng(1) in [750, 1500]. Both the graph
+    and the MultiLayerNetwork of phase 15 start from the same weights, take
+    CHAR_WARM unmasked warm-up windows, then fit the same masked 30-window
+    sequence. Held: the same window losses and every parameter bitwise (the
+    two networks run the same operations on the same tensors in the same
+    order), every loss finite, no kernel of the port launched. chars/s
+    counts the unmasked characters over the graph's fit; the window ms come
+    from CUDA events; one masked graph window is profiled. Then 10
+    rnn_time_step calls on the graph against its stateless forward of the
+    prefix within CHAR_STEP_ATOL, and the masked 2-window card-against-CPU
+    fit (char_rnn_card_vs_cpu with graph=True)."""
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    t_phase = time.perf_counter()
+    mln = MultiLayerNetwork(TextGenerationLSTM(total_unique_characters=CHAR_VOCAB,
+                                               tbptt_length=CHAR_T).conf(), dev).init()
+    net = ComputationGraph(char_graph_conf(), dev)
+    net.set_params({n: {k: v.clone() for k, v in p.items()}
+                    for n, p in zip(("l1", "l2", "out"), mln.params)},
+                   {n: {} for n in net.order})
+    xw, yw = char_rnn_data(torch, dev, CHAR_WARM, seed=1)
+    x, y = char_rnn_data(torch, dev, CHAR_WINDOWS, seed=0)
+    steps = CHAR_T * CHAR_WINDOWS
+    mask = char_mask(torch, dev, np.random.default_rng(1), GRAPH_CHAR_MIN, steps)
+    _zero_launch_counts()
+    for n in (net, mln):
+        _fit_windows(torch, n, xw, yw)
+    torch.cuda.synchronize()
+    marks = []
+    t0 = time.perf_counter()
+    losses = _fit_windows(torch, net, x, y, marks, mask=mask)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mln_losses = _fit_windows(torch, mln, x, y, mask=mask)
+    torch.cuda.synchronize()
+    if any(_launch_counts().values()):
+        raise AssertionError(f"graph_char_rnn launched a kernel of the port: "
+                             f"{_launch_counts()}")
+    losses, mln_losses = [float(v) for v in losses], [float(v) for v in mln_losses]
+    if len(losses) != CHAR_WINDOWS or not all(np.isfinite(losses)):
+        raise AssertionError(f"graph_char_rnn: losses {losses}")
+    if losses != mln_losses:
+        raise AssertionError(f"graph_char_rnn: window losses differ from the "
+                             f"MultiLayerNetwork's: {losses} vs {mln_losses}")
+    differ = [f"{n}/{k}" for n, p in zip(("l1", "l2", "out"), mln.params)
+              for k, v in p.items() if not torch.equal(v, net.params[n][k])]
+    if differ:
+        raise AssertionError(f"graph_char_rnn: parameters differ from the "
+                             f"MultiLayerNetwork's: {differ}")
+    del mln
+    window_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    median_ms = float(np.median(window_ms))
+    prof = char_window_profile(torch, net, ([x[:, :CHAR_T]], [y[:, :CHAR_T]],
+                                            [mask[:, :CHAR_T]], [mask[:, :CHAR_T]]),
+                               median_ms)
+    net.rnn_clear_previous_state()
+    stepped = np.stack([net.rnn_time_step(x[:, i])[0] for i in range(CHAR_STEPS)], axis=1)
+    full = net.output_single(x[:, :CHAR_STEPS])
+    step_err = float(np.abs(stepped - full).max())
+    if not step_err <= CHAR_STEP_ATOL or stepped.shape != (CHAR_BATCH, CHAR_STEPS,
+                                                           CHAR_VOCAB):
+        raise AssertionError(f"graph_char_rnn: rnn_time_step {stepped.shape} differs from "
+                             f"the stateless forward by {step_err} > {CHAR_STEP_ATOL}")
+    chars = int(mask.sum())
+    summary = {"card": card, "batch": CHAR_BATCH, "tbptt": CHAR_T, "windows": len(losses),
+               "sequence_length": steps, "unmasked_chars": chars,
+               "row_lengths_min_max": [int(mask.sum(1).min()), int(mask.sum(1).max())],
+               "chars_per_s": chars / wall, "fit_s": wall,
+               "median_window_ms": median_ms,
+               "window_ms_min_max": [min(window_ms), max(window_ms)],
+               "first_loss": losses[0], "last_loss": losses[-1],
+               "equals_multilayer_bitwise": True, "window_profile": prof,
+               "rnn_time_step": {"steps": CHAR_STEPS, "max_abs_err": step_err,
+                                 "limit": CHAR_STEP_ATOL}}
+    print("graph_char_rnn " + json.dumps(summary), flush=True)
+    del net
+    char_rnn_card_vs_cpu(torch, dev, graph=True)
+    print(f"graph_char_rnn phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return summary
+
+
+# ------------------------------------------------------------ checkpoints
+def resnet50_train_conf(updater=None):
+    """The training phase's network: ResNet50 at 224x224x3, 1000 classes,
+    bf16 compute on float32 masters, conf.fused(); Adam 1e-3 by default."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import ResNet50
+
+    conf = ResNet50(num_classes=1000, input_shape=(TRAIN_SIDE, TRAIN_SIDE, 3),
+                    updater=updater).conf()
+    return dataclasses.replace(conf, dtype="bfloat16").fused()
+
+
+def ckpt_batches(torch, dev):
+    """CKPT_BATCHES distinct batches of TRAIN_BATCH images and one-hot labels,
+    drawn on the card from a seeded torch.Generator."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    eye = torch.eye(1000, device=dev)
+    return [DataSet(torch.randn((TRAIN_BATCH, TRAIN_SIDE, TRAIN_SIDE, 3), generator=gen,
+                                device=dev),
+                    eye[torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)])
+            for _ in range(CKPT_BATCHES)]
+
+
+def _run_record(net) -> dict:
+    """A finished host copy of what a run ends with: masters, running
+    stats, updater state, the dropout generator, iteration and epoch."""
+    from deeplearning4j_tpu_torch.utils.serialization import snapshot_training_state
+
+    snap = snapshot_training_state(net)
+    arrays = {f"coefficients:{k}": v for k, v in snap["coefficients"].items()}
+    arrays.update({f"updater:{k}": np.asarray(v) for k, v in snap["updater_state"].items()})
+    return {"arrays": arrays, "generator": snap["generator"]["state"],
+            "counters": [snap["iteration"], snap["epoch"]]}
+
+
+def _differences(a, b) -> list:
+    """What differs between two run records, bit for bit: (name, max |diff|)."""
+    out = []
+    for k, v in a["arrays"].items():
+        w = b["arrays"][k]
+        if v.shape != w.shape or v.tobytes() != w.tobytes():
+            out.append((k, float(np.abs(v.astype(np.float64) - w.astype(np.float64)).max())))
+    if a["generator"].tobytes() != b["generator"].tobytes():
+        out.append(("generator", None))
+    if a["counters"] != b["counters"]:
+        out.append(("counters", [a["counters"], b["counters"]]))
+    return out
+
+
+def checkpoint_phase(torch, dev, card, workdir) -> dict:
+    """Crash-exact resume of ResNet50 training at full width (the training
+    phase's network and updater), tests/test_checkpoint.py:80-111's schedule:
+    5 distinct batches of 128 drawn on the card, 2 epochs through
+    ComputationGraph.fit, under cudnn.deterministic (benchmark off; both
+    put back after). Held, bit for bit (masters, BN running stats, Adam
+    state, iteration, epoch, the dropout generator):
+    1. two uninterrupted runs from one seed agree (the determinism control);
+    2. CheckpointManager(save_every_n_steps=3) with FaultInjector(kill_at_step=7)
+       raises SimulatedCrash;
+    3. a fresh manager's restore_latest() comes back at (6, 1, 1);
+    4. the resumed fit (checkpointing on) ends equal to the uninterrupted run;
+    controls that must miss: the same resume with load_updater=False, and
+    one whose skip of the consumed batches is bypassed. Then the resumed
+    network is written with write_model (for the serialization phase), and
+    tear_file on the newest checkpoint (step 9, from the resumed run) makes
+    restore_latest fall back to step 6. bn_act_fwd and bn_act_bwd launch 53
+    times a step. One ResNet50 lives on the card at a time."""
+    from deeplearning4j_tpu_torch.checkpoint import (CheckpointManager, FaultInjector,
+                                                     SimulatedCrash, tear_file)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    from deeplearning4j_tpu_torch.utils.serialization import write_model
+
+    t_phase = time.perf_counter()
+    conf = resnet50_train_conf()
+    batches = ckpt_batches(torch, dev)
+    ck = os.path.join(workdir, "ckpt")
+    steps = 0
+
+    def fit(net, cm=None):
+        nonlocal steps
+        i0 = net.iteration
+        try:
+            net.fit(batches, num_epochs=CKPT_EPOCHS, checkpoint_manager=cm)
+        except SimulatedCrash:
+            steps += net.iteration - i0 + 1  # the crash step updated, uncounted
+            raise
+        steps += net.iteration - i0
+        return net
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    bn_act.fwd_launches = bn_act.bwd_launches = 0
+    try:
+        runs = []
+        for _ in range(2):
+            net = fit(ComputationGraph(conf, dev).init())
+            runs.append(_run_record(net))
+            del net
+            torch.cuda.empty_cache()
+        diff = _differences(*runs)
+        if diff:
+            raise AssertionError(f"checkpoint: two uninterrupted runs from one seed differ in "
+                                 f"{len(diff)} arrays (determinism control): {diff[:12]}")
+        ref = runs.pop()
+        cm = CheckpointManager(ck, save_every_n_steps=CKPT_EVERY, device=dev)
+        net = ComputationGraph(conf, dev).init().set_listeners(
+            FaultInjector(kill_at_step=CKPT_KILL))
+        try:
+            fit(net, cm)
+            raise AssertionError("checkpoint: the injected crash did not fire")
+        except SimulatedCrash:
+            pass
+        cm.close()
+        del net
+        torch.cuda.empty_cache()
+        saved = [(e["step"], e["size"]) for e in CheckpointManager(ck, device=dev).checkpoints()]
+        controls = {}
+        for name in ("without_updater_state", "without_skip"):
+            net = CheckpointManager(ck, device=dev).restore_latest(
+                load_updater=name != "without_updater_state")
+            if name == "without_skip":
+                net._resume_state.batch_in_epoch = 0
+            diff = _differences(ref, _run_record(fit(net)))
+            del net
+            torch.cuda.empty_cache()
+            if not diff:
+                raise AssertionError(f"checkpoint: the control {name} matches the "
+                                     "uninterrupted run")
+            controls[name] = {"arrays_differing": len(diff), "first": diff[:3]}
+        cm2 = CheckpointManager(ck, save_every_n_steps=CKPT_EVERY, device=dev)
+        t0 = time.perf_counter()
+        resumed = cm2.restore_latest()
+        restore_s = time.perf_counter() - t0
+        rs = resumed._resume_state
+        if (rs.step, rs.epoch, rs.batch_in_epoch) != CKPT_RESTORED:
+            raise AssertionError(f"checkpoint: restore_latest came back at "
+                                 f"{(rs.step, rs.epoch, rs.batch_in_epoch)}, want "
+                                 f"{CKPT_RESTORED}")
+        fit(resumed, cm2)
+        cm2.close()
+        diff = _differences(ref, _run_record(resumed))
+        if diff:
+            raise AssertionError(f"checkpoint: the resumed run differs from the "
+                                 f"uninterrupted one in {len(diff)} arrays: {diff[:12]}")
+        model_zip = os.path.join(workdir, "resnet50.zip")
+        t0 = time.perf_counter()
+        write_model(resumed, model_zip)
+        write_s = time.perf_counter() - t0
+        del resumed
+        torch.cuda.empty_cache()
+        cm3 = CheckpointManager(ck, device=dev)
+        newest = cm3.checkpoints()[-1]
+        tear_file(os.path.join(ck, newest["file"]))
+        back = cm3.restore_latest()
+        fallback = (newest["step"], back._resume_state.step)
+        del back
+        if fallback != (CKPT_RESTORED[0] + CKPT_EVERY, CKPT_RESTORED[0]):
+            raise AssertionError(f"checkpoint: torn step {fallback[0]} fell back to "
+                                 f"{fallback[1]}")
+        fwd, bwd = bn_act.fwd_launches, bn_act.bwd_launches
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        torch.cuda.empty_cache()
+    if not fwd == bwd == RESNET50_FUSED_BLOCKS * steps:
+        raise AssertionError(f"checkpoint: bn_act launched {fwd} forward / {bwd} backward "
+                             f"in {steps} steps; want {RESNET50_FUSED_BLOCKS * steps} each")
+    summary = {"card": card, "batches": CKPT_BATCHES, "batch": TRAIN_BATCH,
+               "epochs": CKPT_EPOCHS, "save_every_n_steps": CKPT_EVERY,
+               "kill_at_step": CKPT_KILL, "determinism_control": "bitwise",
+               "restored": list(CKPT_RESTORED), "resume": "bitwise",
+               "compared_arrays": len(ref["arrays"]), "controls_missed": controls,
+               "checkpoints": saved, "checkpoint_bytes": saved[-1][1],
+               "restore_latest_s": restore_s, "torn_newest_fell_back": list(fallback),
+               "write_model_s": write_s, "steps": steps,
+               "bn_act_fwd_launches": fwd, "bn_act_bwd_launches": bwd,
+               "seconds": time.perf_counter() - t_phase}
+    print("checkpoint " + json.dumps(summary), flush=True)
+    return {"fwd": fwd, "bwd": bwd, "model_zip": model_zip, "record": ref,
+            "write_s": write_s}
+
+
+def serialization_phase(torch, dev, card, ckpt) -> dict:
+    """The resumed ResNet50 of the checkpoint phase, written by
+    utils/serialization.write_model (ZIP_DEFLATED), restored with
+    device="cpu" and on the card: masters, running stats and updater state
+    bitwise equal to the trained network's on both. Then one seeded image
+    through both restored networks' float32 inference forward (the card
+    through the kernels, the CPU through the plain versions) and a float64
+    CPU referee, under the card_vs_cpu phase's float32 limit on the logits:
+    the card's distance to the referee within 3x the CPU float32 forward's,
+    or 1e-3 of the largest logit."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+    from deeplearning4j_tpu_torch.utils.serialization import restore
+
+    path = ckpt["model_zip"]
+    restored, seconds = {}, {}
+    for label, where in (("cpu", "cpu"), ("card", dev)):
+        t0 = time.perf_counter()
+        net = restore(path, device=where)
+        seconds[label] = time.perf_counter() - t0
+        diff = [d for d in _differences(ckpt["record"], _run_record(net))
+                if d[0] != "generator"]  # model zips carry no generator
+        if diff:
+            raise AssertionError(f"serialization: restored on {where} differs in "
+                                 f"{len(diff)} arrays: {diff[:8]}")
+        conf32 = dataclasses.replace(net.conf, dtype="float32")
+        restored[label] = ComputationGraph(conf32, net.device).set_params(
+            net.params, net.state)
+        del net
+    cpu = restored["cpu"]
+    ref = ComputationGraph(dataclasses.replace(cpu.conf, dtype="float64"), "cpu").set_params(
+        *(tree_map(lambda v: v.double(), t) for t in (cpu.params, cpu.state)))
+    x = np.random.default_rng(3).standard_normal((1, TRAIN_SIDE, TRAIN_SIDE, 3),
+                                                 dtype=np.float32)
+
+    def logits(net, xs):
+        """The output layer's pre-activation in inference mode (a trained
+        net's softmax saturates: its probabilities would hide the error)."""
+        with torch.no_grad():
+            z = net._forward(net.params, net.state, [net._as_tensor(xs)], False)[1]
+        return z[net.conf.network_outputs[0]].cpu().double().numpy()
+
+    outs = {k: logits(n, x) for k, n in restored.items()}
+    want = logits(ref, x.astype(np.float64))
+    cpu_err = float(np.abs(outs["cpu"] - want).max())
+    card_err = float(np.abs(outs["card"] - want).max())
+    limit = max(3.0 * cpu_err, 1e-3 * float(np.abs(want).max()))
+    if not card_err <= limit:
+        raise AssertionError(f"serialization: card forward vs float64 {card_err} > {limit} "
+                             f"(CPU float32 vs float64 {cpu_err})")
+    del restored, cpu, ref
+    torch.cuda.empty_cache()
+    summary = {"card": card, "zip_bytes": os.path.getsize(path),
+               "write_model_s": ckpt["write_s"], "restore_s": seconds,
+               "restored": "bitwise on the CPU and the card",
+               "logits": {"card_vs_f64": card_err, "cpu_vs_f64": cpu_err, "limit": limit,
+                          "max_abs": float(np.abs(want).max())}}
+    print("serialization " + json.dumps(summary), flush=True)
+    return summary
+
+
+def checkpoint_overhead_phase(torch, dev, card, workdir) -> dict:
+    """bench.py bench_checkpoint at ResNet50 width: the training phase's
+    network on one resident batch, OVERHEAD_STEPS steps through fit with
+    checkpointing off, asynchronous every OVERHEAD_EVERY steps, synchronous
+    every OVERHEAD_EVERY steps, and off again (the host's drift), each timed
+    from an idle card to a synchronised end; overhead_async_pct as bench.py
+    computes it, against the mean of the two off runs. Beside it: the
+    snapshot's ms on the training thread, a plain pageable .cpu() copy of
+    the same tensors timed once as the yardstick, the writer's commit ms
+    (zip, sha256, write, manifest), and whether the bounded queue pushed
+    back; the commit by part (zip bytes, sha256, storage write). The JAX
+    bench's bar (< 10%) is printed, not gated."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.tree import tree_leaves
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    net = ComputationGraph(resnet50_train_conf(), dev).init()
+    ds = ckpt_batches(torch, dev)[0]
+    bn_act.fwd_launches = bn_act.bwd_launches = 0
+    for _ in range(OVERHEAD_WARM):
+        net.fit(ds)
+    batches = [ds] * OVERHEAD_STEPS
+
+    def step_ms(cm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(batches, checkpoint_manager=cm)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / OVERHEAD_STEPS
+
+    modes = {}
+    off = [step_ms(None)]
+    for mode in ("async", "sync"):
+        d = os.path.join(workdir, f"overhead_{mode}")
+        cm = CheckpointManager(d, save_every_n_steps=OVERHEAD_EVERY, keep_last=3,
+                               async_write=mode == "async", device=dev)
+        ms = step_ms(cm)
+        t0 = time.perf_counter()
+        cm.flush()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        t = {k: list(v) for k, v in cm.timings.items()}
+        modes[mode] = {"step_ms": ms, "saves": cm.saves_committed,
+                       **{k: t[k] for k in ("snapshot_ms", "commit_ms", "zip_ms",
+                                            "sha256_ms", "write_ms", "queue_wait_ms")},
+                       "backpressure_waits": cm.backpressure_waits,
+                       "drain_after_fit_ms": drain_ms,
+                       "checkpoint_bytes": cm.checkpoints()[-1]["size"]}
+        cm.close()
+        shutil.rmtree(d, ignore_errors=True)
+    off.append(step_ms(None))
+    fwd, bwd = bn_act.fwd_launches, bn_act.bwd_launches
+    steps = OVERHEAD_WARM + 4 * OVERHEAD_STEPS
+    if not fwd == bwd == RESNET50_FUSED_BLOCKS * steps:
+        raise AssertionError(f"checkpoint_overhead: bn_act launched {fwd} / {bwd} in "
+                             f"{steps} steps")
+    tensors = [t for t in tree_leaves([net.params, net.state, net.opt_state])
+               if isinstance(t, torch.Tensor)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [t.cpu() for t in tensors]
+    pageable_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(t.numel() * t.element_size() for t in host)
+    del net, host
+    torch.cuda.empty_cache()
+    off_ms = float(np.mean(off))
+
+    def overhead(ms):  # bench.py: (sps_off - sps) / sps_off
+        return (1e3 / off_ms - 1e3 / ms) / (1e3 / off_ms) * 100
+
+    summary = {"card": card, "steps": OVERHEAD_STEPS,
+               "save_every_n_steps": OVERHEAD_EVERY, "off_step_ms": off,
+               "async_step_ms": modes["async"]["step_ms"],
+               "sync_step_ms": modes["sync"]["step_ms"],
+               "overhead_async_pct": overhead(modes["async"]["step_ms"]),
+               "overhead_sync_pct": overhead(modes["sync"]["step_ms"]),
+               "bar_pct_not_gated": OVERHEAD_BAR_PCT,
+               "snapshot_tensor_bytes": nbytes,
+               "pageable_cpu_copy_ms": pageable_ms, "modes": modes,
+               "bn_act_fwd_launches": fwd, "bn_act_bwd_launches": bwd}
+    print("checkpoint_overhead " + json.dumps(summary), flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _named(params) -> dict:
+    """``{"<layer or vertex>/<name>": tensor}`` of a network's parameters."""
+    items = params.items() if isinstance(params, dict) else enumerate(params)
+    return {f"{n}/{k}": v for n, p in items for k, v in p.items()}
+
+
+def char_rnn_card_vs_cpu(torch, dev, graph: bool = False) -> dict:
     """One CHAR_CHECK_WINDOWS-window tBPTT fit of the char-RNN at full width
     (batch 64, two windows of 50, RmsProp) from the same float32 weights,
     float32 on the card and on the CPU, and float64 on the CPU as the
-    referee; TF32 off. Held: each window's loss, and every updated
-    parameter tensor, within CHAR_CHECK_MULT times the CPU float32 run's
-    distance to the referee, or CHAR_CHECK_FRAC of the referee's largest
-    magnitude. Two controls on the card must miss a limit: the peepholes
-    zeroed, and the carries dropped between the windows (each window fit
-    as its own sequence from zero state)."""
+    referee; TF32 off. With ``graph`` the net is the ComputationGraph of the
+    same layers and the fit is masked (row lengths from
+    numpy.random.default_rng(2) in [25, 100]: rows end in either window).
+    Held: each window's loss, and every updated parameter tensor, within
+    CHAR_CHECK_MULT times the CPU float32 run's distance to the referee, or
+    CHAR_CHECK_FRAC of the referee's largest magnitude. Two controls on the
+    card must miss a limit: the peepholes zeroed, and the carries dropped
+    between the windows (each window fit as its own sequence from zero
+    state)."""
     import dataclasses
 
     from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.nn.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    conf = TextGenerationLSTM(total_unique_characters=CHAR_VOCAB, tbptt_length=CHAR_T).conf()
-    start = [tree_map(lambda v: v.cpu(), p) for p in MultiLayerNetwork(conf, dev).init().params]
+    if graph:
+        conf, cls = char_graph_conf(), ComputationGraph
+    else:
+        conf = TextGenerationLSTM(total_unique_characters=CHAR_VOCAB,
+                                  tbptt_length=CHAR_T).conf()
+        cls = MultiLayerNetwork
+    start = tree_map(lambda v: v.cpu(), cls(conf, dev).init().params)
     x, y = char_rnn_data(torch, "cpu", CHAR_CHECK_WINDOWS, seed=11)
+    steps = CHAR_T * CHAR_CHECK_WINDOWS
+    mask = (char_mask(torch, "cpu", np.random.default_rng(2), CHAR_T // 2, steps)
+            if graph else None)
 
-    def fit(device, dtype=torch.float32, params=start, xs=x, ys=y):
+    def build(device, dtype=torch.float32, params=start):
         c = conf if dtype == torch.float32 else dataclasses.replace(conf, dtype="float64")
-        net = MultiLayerNetwork(c, device).set_params(
-            tree_map(lambda v: v.to(device, dtype, copy=True), params))
-        return net, [float(v) for v in _fit_windows(torch, net, xs.to(dtype), ys.to(dtype))]
+        net = cls(c, device)
+        moved = tree_map(lambda v: v.to(device, dtype, copy=True), params)
+        # a graph's state is one (here empty) dict a vertex
+        return net.set_params(moved, {n: {} for n in net.order}) if graph else \
+            net.set_params(moved)
+
+    def fit(device, dtype=torch.float32, params=start):
+        net = build(device, dtype, params)
+        return net, [float(v) for v in _fit_windows(torch, net, x.to(dtype), y.to(dtype),
+                                                    mask=mask)]
 
     ref, l64 = fit("cpu", torch.float64)
+    ref_p = _named(ref.params)
     cpu, l32 = fit("cpu")
     card, lg = fit(dev)
 
     def distances(net, losses):
         loss_d = [abs(a - b) for a, b in zip(losses, l64)]
-        par_d = {f"{i}/{k}": float((v.cpu().double() - ref.params[i][k]).abs().max())
-                 for i, p in enumerate(net.params) for k, v in p.items()}
+        par_d = {k: float((v.cpu().double() - ref_p[k]).abs().max())
+                 for k, v in _named(net.params).items()}
         return loss_d, par_d
 
     cpu_loss_d, cpu_par_d = distances(cpu, l32)
     loss_limit = [max(CHAR_CHECK_MULT * d, CHAR_CHECK_FRAC * abs(v))
                   for d, v in zip(cpu_loss_d, l64)]
-    par_limit = {key: max(CHAR_CHECK_MULT * d, CHAR_CHECK_FRAC * float(
-        ref.params[int(key.split("/")[0])][key.split("/")[1]].abs().max()))
-        for key, d in cpu_par_d.items()}
+    par_limit = {k: max(CHAR_CHECK_MULT * d, CHAR_CHECK_FRAC * float(ref_p[k].abs().max()))
+                 for k, d in cpu_par_d.items()}
 
     def over(net, losses):
         """The largest distance over its limit, losses and parameters."""
@@ -2833,21 +3361,24 @@ def char_rnn_card_vs_cpu(torch, dev) -> dict:
                    + [par_d[k] / par_limit[k] for k in par_d])
 
     card_over = over(card, lg)
+    label = "graph_char_rnn_card_vs_cpu" if graph else "char_rnn_card_vs_cpu"
     if not card_over <= 1.0:
-        raise AssertionError(f"char_rnn card vs cpu: {card_over} times its limit "
+        raise AssertionError(f"{label}: {card_over} times its limit "
                              f"(losses card {lg}, cpu {l32}, float64 {l64})")
-    no_peep = [dict(p) for p in start]
-    for p in no_peep[:2]:
+    no_peep = tree_map(lambda v: v, start)
+    for p in (no_peep.values() if graph else no_peep):
         for k in ("p_i", "p_f", "p_o"):
-            p[k] = torch.zeros_like(p[k])
+            if k in p:
+                p[k] = torch.zeros_like(p[k])
     peep_over = over(*fit(dev, params=no_peep))
-    dropped = MultiLayerNetwork(conf, dev).set_params(
-        tree_map(lambda v: v.to(dev, copy=True), start))
-    drop_losses = [float(v) for s in range(0, CHAR_T * CHAR_CHECK_WINDOWS, CHAR_T)
-                   for v in _fit_windows(torch, dropped, x[:, s:s + CHAR_T], y[:, s:s + CHAR_T])]
+    dropped = build(dev)
+    drop_losses = [float(v) for s in range(0, steps, CHAR_T)
+                   for v in _fit_windows(torch, dropped, x[:, s:s + CHAR_T],
+                                         y[:, s:s + CHAR_T],
+                                         mask=None if mask is None else mask[:, s:s + CHAR_T])]
     drop_over = over(dropped, drop_losses)
     if not (peep_over > 1.0 and drop_over > 1.0):
-        raise AssertionError(f"char_rnn card vs cpu: a control meets the limits (zeroed "
+        raise AssertionError(f"{label}: a control meets the limits (zeroed "
                              f"peepholes {peep_over}, carries dropped {drop_over})")
     summary = {"windows": CHAR_CHECK_WINDOWS, "batch": CHAR_BATCH, "losses_card": lg,
                "losses_cpu": l32, "losses_f64": l64, "loss_limit": loss_limit,
@@ -2857,7 +3388,9 @@ def char_rnn_card_vs_cpu(torch, dev) -> dict:
                "zeroed_peepholes_control_over_limit": peep_over,
                "dropped_carries_control_over_limit": drop_over,
                "seconds": time.perf_counter() - t0}
-    print("char_rnn_card_vs_cpu " + json.dumps(summary), flush=True)
+    if graph:
+        summary["masked_chars"] = int(mask.sum())
+    print(f"{label} " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -2982,6 +3515,17 @@ def main() -> int:
     lenet_phase(torch, dev)
     char_rnn_phase(torch, dev, card)
     char_rnn_card_vs_cpu(torch, dev)
+    graph_char_rnn_phase(torch, dev, card)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ckpt = checkpoint_phase(torch, dev, card, workdir)
+        serialization_phase(torch, dev, card, ckpt)
+        overhead = checkpoint_overhead_phase(torch, dev, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
+                          "checkpoint_overhead": overhead[kind]}
+                   for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
     # most often, timed above or here
@@ -3007,8 +3551,8 @@ def main() -> int:
         "retrieval_shape": {k: int4_head[k] for k in INT4_KEYS},
         "retrieval_batches": [{k: r[k] for k in INT4_KEYS} for r in int4_retr
                               if r is not int4_head]},
-        _bn_kernel_entry("bn_act_fwd", bn_rows, bn_fwd),
-        _bn_kernel_entry("bn_act_bwd", bn_rows, bn_bwd),
+        _bn_kernel_entry("bn_act_fwd", bn_rows, bn_launches["fwd"]),
+        _bn_kernel_entry("bn_act_bwd", bn_rows, bn_launches["bwd"]),
         _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),
         _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103),
         _scatter_kernel_entry(scatter_rows, w2v),

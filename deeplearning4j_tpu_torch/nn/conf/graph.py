@@ -7,8 +7,11 @@ inference walk the DAG exactly as the JAX package does, so both packages
 build the same vertex order from the same JSON. A vertex is a plain
 function of its input tensors.
 
-Masks are not ported: ``LastTimeStepVertex`` takes the last step and
-``DuplicateToTimeSeriesVertex`` the reference input's time length.
+Features masks are threaded by the graph runtime (``nn/graph.py``):
+``LastTimeStepVertex`` takes the mask of its input (or of ``mask_input``)
+and returns each row's last unmasked step; ``DuplicateToTimeSeriesVertex``
+takes the reference input's time length, and its output carries the
+reference input's mask.
 """
 
 from __future__ import annotations
@@ -240,15 +243,23 @@ class PreprocessorVertex(GraphVertex):
 @register_vertex
 @dataclasses.dataclass(frozen=True)
 class LastTimeStepVertex(GraphVertex):
-    """(b, t, s) -> (b, s), the last step."""
+    """(b, t, s) -> (b, s): each row's last unmasked step, given the
+    (b, t) features mask, else the last step. The graph passes the mask of
+    the vertex's input, or of ``mask_input`` when it names one."""
 
     mask_input: Optional[str] = None
 
     def output_type(self, *its):
         return InputType.feed_forward(its[0].size)
 
-    def apply(self, *inputs):
-        return inputs[0][:, -1, :]
+    def apply(self, *inputs, mask=None):
+        x = inputs[0]
+        if mask is None:
+            return x[:, -1, :]
+        # the JAX package sums the mask and truncates to int32: a row with
+        # no step kept reads step 0
+        idx = torch.clamp(mask.sum(dim=1).to(torch.int32) - 1, min=0).long()
+        return torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[2]))[:, 0, :]
 
 
 @register_vertex

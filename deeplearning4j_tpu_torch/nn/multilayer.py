@@ -39,9 +39,18 @@ boundary, as the JAX package's carries enter each window's jitted step as
 constants. ``fit_tbptt_fused`` (one scan over the windows there) is the
 same loop. ``rnn_time_step`` carries the same state across calls.
 
+``fit`` runs the epoch loop of ``nn/training.py::TrainStep._fit_epochs``:
+listeners (duck-typed: ``iteration_done`` after each updater step, each
+tBPTT window included, and ``on_epoch_start`` / ``on_epoch_end``) and a
+``checkpoint_manager`` (``checkpoint/manager.py``), whose resume marker on a
+restored network makes ``num_epochs`` the run's total and skips the
+batches already consumed. ``fit_fused`` and ``fit_tbptt_fused`` call the
+listeners once a step as well, where the JAX package's one scan calls them
+once.
+
 Not ported (they raise ``NotImplementedError``): ``bucket_policy``,
-``prefetch``, ``checkpoint_manager``, gradient compression, augmentation,
-listeners and the solver optimization algorithms.
+``prefetch``, gradient compression, augmentation and the solver
+optimization algorithms.
 """
 
 from __future__ import annotations
@@ -119,11 +128,6 @@ class MultiLayerNetwork(TrainStep):
         return out
 
     # ---------------------------------------------------------- not ported
-    def set_listeners(self, *listeners):
-        raise NotImplementedError("training listeners are not in the PyTorch port yet")
-
-    add_listener = set_listeners
-
     def set_augmentation(self, augmentation):
         raise NotImplementedError("on-device augmentation is not in the PyTorch port yet")
 
@@ -280,6 +284,7 @@ class MultiLayerNetwork(TrainStep):
         if steps % length != 0:
             raise ValueError(f"sequence length {steps} must be a multiple of "
                              f"tbptt_fwd_length {length} for the fused path")
+        self._resume_state = None
         self._fit_tbptt(x, y, None, None)
         self.last_batch_size = int(x.shape[0])
         return self
@@ -334,20 +339,18 @@ class MultiLayerNetwork(TrainStep):
         """Train (reference MultiLayerNetwork.fit): ``data`` is a DataSet, an
         iterable of DataSets, or features with ``labels``. Features, labels
         and masks may be numpy arrays or tensors; tensors already on the
-        network's device are used without a copy."""
-        self._refuse(bucket_policy=bucket_policy, prefetch=prefetch,
-                     checkpoint_manager=checkpoint_manager)
+        network's device are used without a copy. ``checkpoint_manager``
+        checkpoints per its triggers; a network ``restore_latest`` returned
+        resumes at the exact step (``num_epochs`` is then the run's total,
+        and ``data`` must replay the interrupted run's batches in order)."""
+        self._refuse(bucket_policy=bucket_policy, prefetch=prefetch)
         if self.params is None:
             self.init()
         if labels is not None:
             data = [DataSet(data, labels)]
         elif isinstance(data, DataSet):
             data = [data]
-        for _ in range(num_epochs):
-            for ds in data:
-                self._fit_batch(ds)
-            self.epoch += 1
-        return self
+        return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch)
 
     def fit_fused(self, datasets, bucket_policy=None) -> "MultiLayerNetwork":
         """K steps over a list of equally shaped DataSets, or a pre-stacked
@@ -360,6 +363,7 @@ class MultiLayerNetwork(TrainStep):
         if self.conf.backprop_type == "tbptt":
             raise ValueError("fit_fused does not window tBPTT sequences; "
                              "use fit() for tbptt-configured networks")
+        self._resume_state = None  # a fused fit is not a resumable run
         if isinstance(datasets, tuple) and len(datasets) == 2:
             xs, ys = datasets
             if not (hasattr(xs, "shape") and hasattr(ys, "shape")):

@@ -19,7 +19,22 @@ eagerly:
   normalization and its updater and adds the updates to the masters in
   place;
 - ``_commit_state`` writes the new running stats into the state in place;
-- dropout draws from a ``torch.Generator`` seeded with the init seed + 1.
+- dropout draws from a ``torch.Generator`` seeded with the init seed + 1;
+- each listener's ``iteration_done(net, iteration, epoch)`` runs after the
+  step's update, before ``iteration`` advances, as the JAX package calls
+  it.
+
+``_fit_epochs`` is the epoch loop both networks' ``fit`` share: the
+listeners' ``on_epoch_start`` / ``on_epoch_end``, and with a
+``checkpoint_manager`` its ``step_end`` after every batch and
+``epoch_end`` after every epoch. A network that ``restore_latest``
+returned carries a resume marker, which the next ``fit`` consumes:
+``num_epochs`` is then the run's total and the batches the checkpoint had
+already consumed are skipped (``checkpoint/manager.py::resume_plan``).
+
+Listeners are duck-typed, as in the JAX package: any object with
+``iteration_done``, ``on_epoch_start`` and ``on_epoch_end``
+(``checkpoint.FaultInjector`` is one).
 
 Every walk goes to every depth (``nn/tree.py``), so the attention layers'
 ``q``/``k``/``v``/``o`` groups train like flat parameters.
@@ -70,6 +85,11 @@ class TrainStep:
         self.grad_compression = None
         self._score = None
         self._gen: Optional[torch.Generator] = None  # dropout stream
+        self.listeners: list = []
+        # set by CheckpointManager.restore_latest and consumed by the next
+        # fit (exact-step resume); _restored_from is provenance only
+        self._resume_state = None
+        self._restored_from = None
 
     def _seed_dropout(self, seed: Optional[int] = None):
         self._gen = torch.Generator(device=self.device)
@@ -83,6 +103,14 @@ class TrainStep:
 
     def num_params(self) -> int:
         return 0 if self.params is None else sum(t.numel() for t in tree_leaves(self.params))
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
 
     def score(self) -> Optional[float]:
         """Most recent minibatch score (reference Model.score())."""
@@ -118,6 +146,10 @@ class TrainStep:
         with torch.no_grad():
             for k, updater in _items(self._updaters):
                 if not tree_leaves(self.params[k]):
+                    # a layer without parameters still counts the step, as
+                    # optax's state does, so every layer's count is the
+                    # network's
+                    self.opt_state[k]["count"] += 1
                     continue
                 updates, self.opt_state[k] = updater.update(self._gnorms[k](grads[k]),
                                                             self.opt_state[k])
@@ -142,5 +174,31 @@ class TrainStep:
         self._apply_updates(grads)
         self._commit_state(new_state)
         self._score = loss
+        for listener in self.listeners:
+            listener.iteration_done(self, self.iteration, self.epoch)
         self.iteration += 1
         return carries[0] if carries else None
+
+    def _fit_epochs(self, data, num_epochs: int, checkpoint_manager, fit_batch):
+        """The epoch loop of ``fit`` (the JAX package's, hooks included):
+        ``fit_batch(batch)`` for each batch of ``data``, which is iterated
+        anew every epoch."""
+        from deeplearning4j_tpu_torch.checkpoint.manager import (resume_plan,
+                                                                 skip_consumed_batches)
+        epochs_to_run, skip = resume_plan(self, num_epochs)
+        for _ in range(epochs_to_run):
+            for listener in self.listeners:
+                listener.on_epoch_start(self)
+            bi = skip
+            for batch in skip_consumed_batches(data, skip):
+                bi += 1
+                fit_batch(batch)
+                if checkpoint_manager is not None:
+                    checkpoint_manager.step_end(self, batch_in_epoch=bi)
+            skip = 0
+            for listener in self.listeners:
+                listener.on_epoch_end(self)
+            self.epoch += 1
+            if checkpoint_manager is not None:
+                checkpoint_manager.epoch_end(self)
+        return self
