@@ -212,7 +212,39 @@
    the training thread beside a pageable .cpu() copy of the same tensors,
    commit ms on the writer, and backpressure; the JAX bench's < 10% bar
    printed, not gated.
-20. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+20. bn_act shapes of slice 13, in step 3's form, limits and columns:
+   TinyYOLO's seven batch-norm shapes at batch 64 (11,075,584 x 16 to
+   10,816 x 1,024, bf16 leaky ReLU; the first also in float32), the fused
+   separable head's 200,704 x 128 and the fused 1-D head's 65,536 x 256.
+21. TinyYOLO detection training, the main path of this slice: the
+   detection configuration (416 x 416 x 3, 20 classes, the five VOC anchor
+   priors of tiny-yolo-voc.cfg) after conf.fused() (7 fused leaky-ReLU
+   blocks), bf16 with float32 masters, its own Nesterovs(1e-3, 0.9), batch
+   64 of synthetic images and boxes from numpy.random.default_rng(0),
+   through MultiLayerNetwork.fit, 20 steps with DL4J TinyYOLO.java's
+   RenormalizeL2PerLayer gradient normalization on every layer (without
+   it a width/height logit falls below exp's float32 range within 10-16
+   steps and the loss's sqrt turns the gradient NaN, in float32 as in
+   bf16: tools/yolo_divergence.py): losses finite, the last below the
+   first, 7 + 7 bn launches a step and no other kernel; step ms, images/s,
+   one step profiled by kernel family with its idle share.
+22. TinyYOLO card against CPU at 64 x 64 (a 2 x 2 grid), float32, batch 2,
+   one Sgd step: loss, three gradients against a float64 referee, the
+   running stats, and get_predicted_objects' boxes and classes, under the
+   limits yolo_card_vs_cpu_phase states; a ReLU control must miss.
+23. FaceNetNN4Small2 training with its defaults (96 x 96 x 3, CenterLoss,
+   Adam 1e-3, 1,000 classes), fused (37 blocks, no BatchNormalization
+   left), bf16, batch 64, 10 steps through ComputationGraph.fit: losses
+   finite and falling, the centers off zero, 37 + 37 bn launches a step.
+24. Zoo: AlexNet, Darknet19, GoogLeNet, InceptionResNetV1,
+   FaceNetNN4Small2, SimpleCNN and TinyYOLO's backbone at their published
+   input shapes: parameter count, a float32 forward at batch 2 against the
+   CPU, fold_bn against the unfolded network, one bf16 fit step fused.
+25. Layer families: the fused separable and 1-D chains, a VAE's
+   pretrain_layer, and a CenterLossOutputLayer, an LRN and an
+   Upsampling/Cropping/ZeroPadding network, one step each on the card
+   against the CPU, bn launches counted where the chains fused.
+26. Prints the kernels JSON line (nine kernels; the bn rows' launches by
    path), the card line, and last {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
@@ -901,16 +933,20 @@ CONV_MARKS = ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad", "dgrad",
 
 
 def _profile_step(torch, net, ds, step_ms):
-    """Device time of one training step by kernel family, from
-    torch.profiler: the forward and backward in one profile (convolutions,
-    bn_act_fwd, bn_act_bwd, other), the update in a second (optimizer).
-    Runs the step twice and keeps the second: the first profile pays the
-    tracer's start-up."""
+    """Device time of one training step of a ComputationGraph or a
+    MultiLayerNetwork on ``ds`` by kernel family, from torch.profiler: the
+    forward and backward in one profile (convolutions, pooling, bn_act_fwd,
+    bn_act_bwd, other), the update in a second (optimizer). Runs the step
+    twice and keeps the second: the first profile pays the tracer's
+    start-up."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
-    inputs, labels, fmasks, lmasks = net._batch(MultiDataSet.from_dataset(ds))
+    if isinstance(net, ComputationGraph):
+        ds = MultiDataSet.from_dataset(ds)
+    inputs, labels, fmasks, lmasks = net._batch(ds)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for _ in range(2):
         torch.cuda.synchronize()
@@ -922,7 +958,8 @@ def _profile_step(torch, net, ds, step_ms):
             net._apply_updates(grads)
             net._commit_state(state)
             torch.cuda.synchronize()
-    fam = {"convolutions": 0.0, "bn_act_fwd": 0.0, "bn_act_bwd": 0.0, "other": 0.0}
+    fam = {"convolutions": 0.0, "pooling": 0.0, "bn_act_fwd": 0.0, "bn_act_bwd": 0.0,
+           "other": 0.0}
     fb_kernels = _kernel_times(fb)
     for name, ms in fb_kernels:
         key = name.lower()
@@ -930,6 +967,8 @@ def _profile_step(torch, net, ds, step_ms):
             fam["bn_act_fwd"] += ms
         elif "bn_bwd_" in key:
             fam["bn_act_bwd"] += ms
+        elif "pool" in key:  # before CONV_MARKS: the pooling kernels' names hold "nhwc"
+            fam["pooling"] += ms
         elif any(m in key for m in CONV_MARKS):
             fam["convolutions"] += ms
         else:
@@ -1095,7 +1134,8 @@ def _bn_kernel_entry(name, rows, launches):
     """The kernels-line entry of bn_act_fwd or bn_act_bwd: numbers at the
     stem shape in bf16, max error over every case, its first design's time
     (both were redesigned) and every other case's; ``launches`` by path
-    (the training, checkpoint and checkpoint_overhead phases)."""
+    (the training, checkpoint, checkpoint_overhead, yolo_training,
+    facenet_training, zoo and layer_families phases)."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
     extra = {
@@ -3438,6 +3478,493 @@ def sass_counts(build, names, mark):
     return counts
 
 
+# ------------------------------------------------- slice 13: the zoo paths
+# TinyYOLO's detection configuration as the tiny-yolo-voc.cfg of Darknet and
+# DL4J's zoo/model/TinyYOLO.java publish it: the five VOC anchor priors in
+# grid units, 20 classes, 416 x 416 x 3 (a 13 x 13 grid)
+VOC_PRIORS = [(1.08, 1.19), (3.42, 4.41), (6.63, 11.38), (9.42, 5.11), (16.62, 10.52)]
+YOLO_BATCH, YOLO_SIDE, YOLO_CLASSES, YOLO_STEPS = 64, 416, 20, 20
+YOLO_FUSED_BLOCKS = 7
+FACENET_BATCH, FACENET_STEPS, FACENET_FUSED_BLOCKS = 64, 10, 37
+# TinyYOLO's seven bn shapes at batch 64 (rows = 64 * h * w), bf16 leaky
+# ReLU, the stem in float32 too; the layer_families phase's fused separable
+# head (64 x 56 x 56 -> 128) and 1-D head (64 x 1024 -> 256)
+YOLO_BN_CASES = [
+    ("yolo1", 11075584, 16, "bfloat16", "leakyrelu", False),
+    ("yolo1", 11075584, 16, "float32", "leakyrelu", False),
+    ("yolo2", 2768896, 32, "bfloat16", "leakyrelu", False),
+    ("yolo3", 692224, 64, "bfloat16", "leakyrelu", False),
+    ("yolo4", 173056, 128, "bfloat16", "leakyrelu", False),
+    ("yolo5", 43264, 256, "bfloat16", "leakyrelu", False),
+    ("yolo6", 10816, 512, "bfloat16", "leakyrelu", False),
+    ("yolo7", 10816, 1024, "bfloat16", "leakyrelu", False),
+    ("separable", 200704, 128, "bfloat16", "relu", False),
+    ("conv1d", 65536, 256, "bfloat16", "relu", False),
+]
+SEP_SHAPE, SEP_OUT = (64, 56, 56, 64), 128
+C1D_SHAPE, C1D_OUT = (64, 1024, 64), 256
+# zoo phase: the new zoo models at their published input shapes
+ZOO_MODELS = ["AlexNet", "Darknet19", "GoogLeNet", "InceptionResNetV1", "FaceNetNN4Small2",
+              "SimpleCNN", "TinyYOLO"]
+# card against CPU, float32 both: softmax outputs within 1e-4 absolute (the
+# same weights through 20-60 layers of cuDNN and CPU convolutions summing in
+# other orders); a folded network within tests/test_fusion.py's rtol 2e-4 /
+# atol 2e-5 of the unfolded one
+ZOO_OUT_ATOL = 1e-4
+FOLD_RTOL, FOLD_ATOL = 2e-4, 2e-5
+
+
+def yolo_batch(torch, dev, n, side, classes, seed=0):
+    """Synthetic detection data in tests/test_layer_families.py's fixture
+    form: images U[0, 1), 1-3 boxes an image, each in a random cell of the
+    side / 32 grid, 0.5-2 grid units wide and high, with a random class;
+    labels (n, grid, grid, 4 + classes), corners in grid units."""
+    grid = side // 32
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, side, side, 3), dtype=np.float32)
+    lab = np.zeros((n, grid, grid, 4 + classes), np.float32)
+    for e in range(n):
+        for _ in range(int(rng.integers(1, 4))):
+            cy, cx = rng.integers(0, grid), rng.integers(0, grid)
+            w, h = rng.uniform(0.5, 2.0, 2)
+            x1, y1 = cx + 0.5 - w / 2, cy + 0.5 - h / 2
+            lab[e, cy, cx, :] = 0.0
+            lab[e, cy, cx, :4] = [x1, y1, x1 + w, y1 + h]
+            lab[e, cy, cx, 4 + int(rng.integers(0, classes))] = 1.0
+    return torch.from_numpy(x).to(dev), torch.from_numpy(lab).to(dev)
+
+
+def yolo_conf(side, dtype="bfloat16", renormalize=True, updater=None):
+    """TinyYOLO's detection configuration over the VOC priors, fused. With
+    ``renormalize`` every layer takes DL4J's TinyYOLO.java gradient
+    normalization (RenormalizeL2PerLayer, threshold 1). The JAX package's
+    configuration leaves it out; with the model's Nesterovs(1e-3, 0.9) it
+    then turns NaN on these batches (tools/yolo_divergence.py shows
+    where)."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import TinyYOLO
+    conf = TinyYOLO(num_classes=YOLO_CLASSES, input_shape=(side, side, 3),
+                    updater=updater).detection_conf(VOC_PRIORS)
+    if renormalize:
+        conf = dataclasses.replace(conf, layers=tuple(
+            dataclasses.replace(layer, gradient_normalization="renormalizel2perlayer",
+                                gradient_normalization_threshold=1.0)
+            if hasattr(layer, "gradient_normalization") else layer for layer in conf.layers))
+    return dataclasses.replace(conf.fused(), dtype=dtype)
+
+
+def _fused_blocks(conf):
+    from deeplearning4j_tpu_torch.nn.conf.convolutional import FusedConvBNActivation
+    objs = (conf.layers if hasattr(conf, "layers") else [o for o, _ in conf.vertices.values()])
+    return sum(isinstance(o, FusedConvBNActivation) for o in objs)
+
+
+def yolo_training_phase(torch, dev, card) -> dict:
+    """TinyYOLO's detection network (416 x 416 x 3, 20 classes, the five VOC
+    priors) after conf.fused() (7 fused leaky-ReLU blocks of 16-1024
+    channels), bf16 compute with float32 masters, its own Nesterovs(1e-3,
+    0.9) with DL4J TinyYOLO.java's RenormalizeL2PerLayer gradient
+    normalization, trained YOLO_STEPS steps through MultiLayerNetwork.fit
+    on one fixed batch of 64: every loss finite, the last below the first,
+    bn_act_fwd and bn_act_bwd launched 7 times a step each and no other
+    kernel; step ms (median of the steps after the first two), images/s,
+    one step profiled by kernel family."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    x, y = yolo_batch(torch, dev, YOLO_BATCH, YOLO_SIDE, YOLO_CLASSES)
+    ds = DataSet(x, y)
+    conf = yolo_conf(YOLO_SIDE)
+    if _fused_blocks(conf) != YOLO_FUSED_BLOCKS:
+        raise AssertionError(f"{_fused_blocks(conf)} fused blocks, want {YOLO_FUSED_BLOCKS}")
+    net = MultiLayerNetwork(conf, dev).init()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    losses, times = _timed_steps(torch, net, ds, 0, YOLO_STEPS)
+    fwd, bwd = bn_act.fwd_launches, bn_act.bwd_launches
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"yolo_training: losses {losses}")
+    if not fwd == bwd == YOLO_FUSED_BLOCKS * YOLO_STEPS:
+        raise AssertionError(f"bn_act launched {fwd} forward / {bwd} backward in "
+                             f"{YOLO_STEPS} steps; want {YOLO_FUSED_BLOCKS * YOLO_STEPS} each")
+    others = {k: v for k, v in _launch_counts().items() if v and not k.startswith("bn_act")}
+    if others:
+        raise AssertionError(f"yolo_training launched other kernels: {others}")
+    step_ms = float(np.median(times[2:]))
+    profile = _profile_step(torch, net, ds, step_ms)
+    summary = {"card": card, "batch": YOLO_BATCH, "side": YOLO_SIDE, "dtype": "bfloat16",
+               "steps": YOLO_STEPS, "losses": losses, "first_loss": losses[0],
+               "last_loss": losses[-1], "last_over_first": losses[-1] / losses[0],
+               "median_step_ms": step_ms, "images_per_s": YOLO_BATCH / (step_ms / 1e3),
+               "bn_act_fwd_launches": fwd, "bn_act_bwd_launches": bwd,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "params": net.num_params()}
+    print("yolo_training " + json.dumps(summary), flush=True)
+    print("yolo_training_profile " + json.dumps(profile), flush=True)
+    del net, ds
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _copy_to(tree, device, dtype):
+    """A copy of a network's parameter or state tree on ``device`` in
+    ``dtype``."""
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+    return tree_map(lambda v: v.to(device, dtype, copy=True), tree)
+
+
+def yolo_card_vs_cpu_phase(torch, dev) -> dict:
+    """TinyYOLO's detection configuration at 64 x 64 (a 2 x 2 grid), float32,
+    batch 2: one Sgd(0.1) step on the card through the kernels and, with
+    copied weights, on the CPU through the plain versions, and in float64 on
+    the CPU as the referee. Loss within rtol 1e-4; the gradients of the
+    first block's W, the fourth's gamma and the head's W within 3x the CPU
+    float32 step's distance to float64 or 1e-3 of the tensor's max-abs;
+    the updated running stats of every block within rtol 1e-4 / atol 1e-6
+    of the CPU's; get_predicted_objects on both networks' outputs before the
+    step (threshold 0.5) the same boxes and classes, apart from confidences
+    within 1e-4 of the threshold and classes whose top two probabilities
+    are within 1e-4. Control: the same card step with the blocks' activation
+    ReLU in place of leaky ReLU must miss the gradient limit."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.nn.conf.convolutional import FusedConvBNActivation
+    from deeplearning4j_tpu_torch.nn.conf.objdetect import get_predicted_objects
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    side = 64
+    conf = yolo_conf(side, dtype="float32", renormalize=False, updater=Sgd(learning_rate=0.1))
+    card = MultiLayerNetwork(conf, dev).init()
+    f32, f64 = torch.float32, torch.float64
+    cpu = MultiLayerNetwork(conf, "cpu").set_params(_copy_to(card.params, "cpu", f32),
+                                                     _copy_to(card.state, "cpu", f32))
+    cpu64 = MultiLayerNetwork(dataclasses.replace(conf, dtype="float64"), "cpu").set_params(
+        _copy_to(card.params, "cpu", f64), _copy_to(card.state, "cpu", f64))
+    relu_conf = dataclasses.replace(conf, layers=tuple(
+        dataclasses.replace(l, activation="relu") if isinstance(l, FusedConvBNActivation) else l
+        for l in conf.layers))
+    control = MultiLayerNetwork(relu_conf, dev).set_params(_copy_to(card.params, dev, f32),
+                                                            _copy_to(card.state, dev, f32))
+    x, y = yolo_batch(torch, "cpu", 2, side, YOLO_CLASSES, seed=1)
+    blocks = [i for i, l in enumerate(conf.layers) if isinstance(l, FusedConvBNActivation)]
+    head = len(conf.layers) - 2
+    out_card, out_cpu = card.output(x.to(dev)).cpu(), cpu.output(x)  # the initial weights
+    results = {}
+    for name, net in (("card", card), ("cpu", cpu), ("cpu64", cpu64), ("control", control)):
+        f0 = bn_act.fwd_launches
+        xx, yy = x.to(net.device), y.to(net.device)
+        loss, grads, state = net._loss_and_grads(xx, yy, None, None, None)
+        net._apply_updates(grads)
+        net._commit_state(state)
+        if net.device.type == "cuda" and bn_act.fwd_launches - f0 != YOLO_FUSED_BLOCKS:
+            raise AssertionError(f"{name}: the step did not run every block's kernel")
+        results[name] = (float(loss), grads)
+    (lg, gg), (lc, gc), (_, g64), (_, gctl) = (results[k] for k in ("card", "cpu", "cpu64",
+                                                                     "control"))
+    if abs(lg - lc) > 1e-4 * abs(lc):
+        raise AssertionError(f"card loss {lg} vs CPU loss {lc}")
+    report, control_missed = {}, []
+    for i, k in ((blocks[0], "W"), (blocks[3], "gamma"), (head, "W")):
+        ref = g64[i][k]
+        scale = float(ref.abs().max())
+        cpu_err = float((gc[i][k].double() - ref).abs().max())
+        limit = max(3.0 * cpu_err, 1e-3 * scale)
+        card_err = float((gg[i][k].cpu().double() - ref).abs().max())
+        ctl_err = float((gctl[i][k].cpu().double() - ref).abs().max())
+        if card_err > limit:
+            raise AssertionError(f"gradient {i}/{k}: card vs float64 {card_err} > {limit}")
+        control_missed.append(ctl_err > limit)
+        report[f"{i}/{k}"] = {"card_vs_f64": card_err / scale, "cpu_vs_f64": cpu_err / scale,
+                              "control_vs_f64": ctl_err / scale, "limit": limit / scale}
+    if not any(control_missed):
+        raise AssertionError(f"the ReLU control met every gradient limit: {report}")
+    stats_err = 0.0
+    for i in blocks:
+        for k in ("mean", "var"):
+            got, want = card.state[i][k].cpu(), cpu.state[i][k]
+            err = (got - want).abs()
+            if not bool((err <= 1e-6 + 1e-4 * want.abs()).all()):
+                raise AssertionError(f"running {k} of layer {i}: max |diff| {float(err.max())}")
+            stats_err = max(stats_err, float(err.max()))
+    th, n_boxes = 0.5, len(VOC_PRIORS)
+    a5c, a5p = (o.reshape(o.shape[:3] + (n_boxes, -1)) for o in (out_card, out_cpu))
+    near = ((a5c[..., 4] - th).abs() <= 1e-4) | ((a5p[..., 4] - th).abs() <= 1e-4)
+    flipped = (a5c[..., 4] >= th) != (a5p[..., 4] >= th)
+    if bool((flipped & ~near).any()):
+        raise AssertionError("detections differ between the card and the CPU")
+    top2 = a5p[..., 5:].topk(2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 1e-4
+    both = (a5c[..., 4] >= th) & (a5p[..., 4] >= th) & ~tie
+    if not torch.equal(a5c[..., 5:].argmax(-1)[both], a5p[..., 5:].argmax(-1)[both]):
+        raise AssertionError("detected classes differ between the card and the CPU")
+    dc, dp = (get_predicted_objects(o, n_boxes, th) for o in (out_card, out_cpu))
+    if not bool(near.any()) and len(dc) != len(dp):
+        raise AssertionError(f"{len(dc)} detections on the card, {len(dp)} on the CPU")
+    summary = {"side": side, "batch": 2, "card_loss": lg, "cpu_loss": lc,
+               "loss_rel_diff": abs(lg - lc) / abs(lc), "grad_err_over_max_abs": report,
+               "running_stats_max_abs_diff": stats_err, "detections": [len(dc), len(dp)],
+               "output_max_abs_diff": float((out_card - out_cpu).abs().max())}
+    print("yolo_card_vs_cpu " + json.dumps(summary), flush=True)
+    del card, control
+    torch.cuda.empty_cache()
+    return summary
+
+
+def facenet_training_phase(torch, dev, card) -> dict:
+    """FaceNetNN4Small2 with its own defaults (96 x 96 x 3, 128-d embedding,
+    CenterLoss alpha 0.9 and lambda 1e-4, Adam(1e-3), 1,000 classes) after
+    conf.fused() (37 fused blocks, no BatchNormalization left), bf16 with
+    float32 masters, through ComputationGraph.fit on one fixed batch of 64
+    (images U[0, 1), classes from numpy.random.default_rng(0)) for
+    FACENET_STEPS steps: losses finite and falling, the centers cL off
+    zero, 37 + 37 bn launches a step; step ms, images/s."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.models import FaceNetNN4Small2
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    model = FaceNetNN4Small2()
+    conf = dataclasses.replace(model.conf().fused(), dtype="bfloat16")
+    if _fused_blocks(conf) != FACENET_FUSED_BLOCKS or any(
+            type(o).__name__ == "BatchNormalization" for o, _ in conf.vertices.values()):
+        raise AssertionError(f"{_fused_blocks(conf)} fused blocks; want "
+                             f"{FACENET_FUSED_BLOCKS} and no BatchNormalization")
+    net = ComputationGraph(conf, dev).init()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((FACENET_BATCH,) + model.input_shape, dtype=np.float32))
+    y = torch.from_numpy(np.eye(model.num_classes, dtype=np.float32)[
+        rng.integers(0, model.num_classes, FACENET_BATCH)])
+    ds = DataSet(x.to(dev), y.to(dev))
+    _zero_launch_counts()
+    losses, times = _timed_steps(torch, net, ds, 0, FACENET_STEPS)
+    fwd, bwd = bn_act.fwd_launches, bn_act.bwd_launches
+    centers = float(net.params["lossLayer"]["cL"].abs().max())
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"facenet_training: losses {losses}")
+    if not centers > 0:
+        raise AssertionError("facenet_training: the centers did not move")
+    if not fwd == bwd == FACENET_FUSED_BLOCKS * FACENET_STEPS:
+        raise AssertionError(f"bn_act launched {fwd} / {bwd} in {FACENET_STEPS} steps")
+    step_ms = float(np.median(times[2:]))
+    summary = {"card": card, "batch": FACENET_BATCH, "side": model.input_shape[0],
+               "dtype": "bfloat16", "steps": FACENET_STEPS, "losses": losses,
+               "median_step_ms": step_ms, "images_per_s": FACENET_BATCH / (step_ms / 1e3),
+               "centers_max_abs": centers, "bn_act_fwd_launches": fwd,
+               "bn_act_bwd_launches": bwd, "params": net.num_params()}
+    print("facenet_training " + json.dumps(summary), flush=True)
+    del net, ds
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def yolo_bn_kernel_phase(torch, dev, flush):
+    rows = [bn_case(torch, dev, flush, *case) for case in YOLO_BN_CASES]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _randomize_bn_stats(torch, net, seed=0):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    items = net.state.items() if isinstance(net.state, dict) else enumerate(net.state)
+    for _, s in items:
+        if "mean" in s:
+            s["mean"].copy_(0.1 * torch.randn(s["mean"].shape, generator=gen))
+            s["var"].copy_(0.5 + torch.rand(s["var"].shape, generator=gen))
+
+
+def _output(torch, net, x):
+    """A network's inference output as a CPU tensor."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    out = net.output_single(x) if isinstance(net, ComputationGraph) else net.output(x)
+    return out.cpu() if isinstance(out, torch.Tensor) else torch.from_numpy(np.asarray(out))
+
+
+def zoo_phase(torch, dev) -> dict:
+    """Each new zoo model (TinyYOLO as its backbone with the classification
+    head) at its published input shape: parameter count; a float32 forward
+    at batch 2 on the card against the port on the CPU with the same
+    weights and randomised running stats (within ZOO_OUT_ATOL); fold_bn's
+    network against the unfolded one on the card where it folds (rtol 2e-4
+    / atol 2e-5); one bf16 fit step of the fused network (finite loss),
+    with its bn launches."""
+    import dataclasses
+
+    import deeplearning4j_tpu_torch.models as zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.perf.fusion import fold_bn
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    rows, launches = [], {"fwd": 0, "bwd": 0}
+    for name in ZOO_MODELS:
+        t0 = time.perf_counter()
+        model = getattr(zoo, name)()
+        conf = model.conf()
+        cls = ComputationGraph if hasattr(conf, "vertices") else MultiLayerNetwork
+        cpu = cls(conf, "cpu").init()
+        _randomize_bn_stats(torch, cpu)
+        card = cls(conf, dev).set_params(_copy_to(cpu.params, dev, torch.float32),
+                                        _copy_to(cpu.state, dev, torch.float32))
+        x = np.random.default_rng(1).random((2,) + tuple(model.input_shape), dtype=np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        want, got = _output(torch, cpu, x), _output(torch, card, xd)
+        err = float((got - want).abs().max())
+        if err > ZOO_OUT_ATOL:
+            raise AssertionError(f"zoo {name}: card vs CPU output {err} > {ZOO_OUT_ATOL}")
+        diff = (_output(torch, fold_bn(card), xd) - got).abs()
+        fold_err = float(diff.max())
+        if not bool((diff <= FOLD_ATOL + FOLD_RTOL * got.abs()).all()):
+            raise AssertionError(f"zoo {name}: folded vs unfolded {fold_err}")
+        n_params = cpu.num_params()
+        del cpu, card
+        fused = dataclasses.replace(conf.fused(), dtype="bfloat16")
+        net = cls(fused, dev).init()
+        yy = np.eye(model.num_classes, dtype=np.float32)[[0, 1]]
+        f0, b0 = bn_act.fwd_launches, bn_act.bwd_launches
+        net.fit(DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(yy).to(dev)))
+        torch.cuda.synchronize()
+        step = {"fwd": bn_act.fwd_launches - f0, "bwd": bn_act.bwd_launches - b0}
+        if step["fwd"] != _fused_blocks(fused) or step["bwd"] != _fused_blocks(fused):
+            raise AssertionError(f"zoo {name}: bn launches {step}, "
+                                 f"{_fused_blocks(fused)} fused blocks")
+        for k in launches:
+            launches[k] += step[k]
+        if not np.isfinite(net.score()):
+            raise AssertionError(f"zoo {name}: bf16 step loss {net.score()}")
+        row = {"model": name, "input_shape": list(model.input_shape), "params": n_params,
+               "out_max_abs_diff_card_cpu": err, "fold_max_abs_diff": fold_err,
+               "fused_blocks": _fused_blocks(fused), "bf16_step_loss": net.score(),
+               "seconds": time.perf_counter() - t0}
+        print("zoo " + json.dumps(row), flush=True)
+        rows.append(row)
+        del net
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _family_nets():
+    """The layer_families phase's networks as (name, conf, x, y): the fused
+    separable and 1-D chains at SEP_SHAPE / C1D_SHAPE, a VAE pretrained, and
+    one CenterLossOutputLayer, LocalResponseNormalization, Upsampling and
+    Cropping network each."""
+    from deeplearning4j_tpu_torch.nn.conf import convolutional as cv
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer, CenterLossOutputLayer,
+                                                         DenseLayer, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.conf.network import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.normalization import (BatchNormalization,
+                                                                LocalResponseNormalization)
+    from deeplearning4j_tpu_torch.nn.conf.pooling import GlobalPoolingLayer
+    from deeplearning4j_tpu_torch.nn.conf.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.variational import VariationalAutoencoder
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+
+    def conf(layers, it):
+        b = NeuralNetConfiguration.builder().seed(5).updater(Sgd(learning_rate=0.1)).list()
+        for layer in layers:
+            b = b.layer(layer)
+        return b.set_input_type(it).build()
+
+    rng = np.random.default_rng(3)
+
+    def onehot(n, k, shape=None):
+        return np.eye(k, dtype=np.float32)[rng.integers(0, k, shape or n)]
+
+    nb, h, w, c = SEP_SHAPE
+    nt, t, ct = C1D_SHAPE
+    return [
+        ("fused_separable", conf([cv.SeparableConvolution2D(n_out=SEP_OUT, has_bias=False,
+                                                            convolution_mode="same"),
+                                  BatchNormalization(), ActivationLayer(activation="relu"),
+                                  GlobalPoolingLayer(pooling_type="avg"),
+                                  OutputLayer(n_out=10)], InputType.convolutional(h, w, c)).fused(),
+         rng.random(SEP_SHAPE, dtype=np.float32), onehot(nb, 10)),
+        ("fused_conv1d", conf([cv.Convolution1DLayer(n_out=C1D_OUT, has_bias=False,
+                                                     convolution_mode="same"),
+                               BatchNormalization(), ActivationLayer(activation="relu"),
+                               RnnOutputLayer(n_out=5)], InputType.recurrent(ct, t)).fused(),
+         rng.standard_normal(C1D_SHAPE).astype(np.float32), onehot(nt, 5, (nt, t))),
+        ("vae_pretrain", conf([VariationalAutoencoder(n_out=16, encoder_layer_sizes=(256,),
+                                                      decoder_layer_sizes=(256,)),
+                               OutputLayer(n_out=10)], InputType.feed_forward(784)),
+         rng.random((64, 784), dtype=np.float32), onehot(64, 10)),
+        ("center_loss", conf([DenseLayer(n_out=128, activation="relu"),
+                              CenterLossOutputLayer(n_out=100, alpha=0.9, lamda=1e-4)],
+                             InputType.feed_forward(256)),
+         rng.standard_normal((64, 256)).astype(np.float32), onehot(64, 100)),
+        ("lrn", conf([cv.ConvolutionLayer(n_out=96, kernel_size=(5, 5), activation="relu"),
+                      LocalResponseNormalization(), GlobalPoolingLayer(pooling_type="avg"),
+                      OutputLayer(n_out=10)], InputType.convolutional(64, 64, 3)),
+         rng.random((16, 64, 64, 3), dtype=np.float32), onehot(16, 10)),
+        ("upsampling_cropping", conf([cv.ConvolutionLayer(n_out=32, kernel_size=(3, 3),
+                                                          activation="relu"),
+                                      cv.Upsampling2D(size=(2, 2)),
+                                      cv.Cropping2D(cropping=(1, 2, 2, 1)),
+                                      cv.ZeroPaddingLayer(padding=(1, 1)),
+                                      GlobalPoolingLayer(pooling_type="max"),
+                                      OutputLayer(n_out=10)], InputType.convolutional(32, 32, 3)),
+         rng.random((16, 32, 32, 3), dtype=np.float32), onehot(16, 10)),
+    ]
+
+
+def layer_families_phase(torch, dev) -> dict:
+    """Each _family_nets network takes one Sgd(0.1) step in float32 on the
+    card and, with copied weights, on the CPU (the VAE one pretrain_layer
+    step, its draws taken on the CPU and fed to both): loss within rtol
+    1e-4 and every updated parameter within 1e-5 + 1e-4 of its max-abs of
+    the CPU's; bn launches counted where the chain fused (one each)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.tree import tree_leaves
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    launches = {"fwd": 0, "bwd": 0}
+    for name, conf, x, y in _family_nets():
+        cpu = MultiLayerNetwork(conf, "cpu").init()
+        card = MultiLayerNetwork(conf, dev).set_params(_copy_to(cpu.params, dev, torch.float32),
+                                                        _copy_to(cpu.state, dev, torch.float32))
+        card_ds = DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        if name == "vae_pretrain":
+            draws = cpu.layers[0].draw_pretrain(torch.from_numpy(x),
+                                                torch.Generator().manual_seed(7))
+            cpu.pretrain_layer(0, [DataSet(x, y)], draws=[draws])
+            f0, b0 = bn_act.fwd_launches, bn_act.bwd_launches
+            card.pretrain_layer(0, [card_ds], draws=[[d.to(dev) for d in draws]])
+        else:
+            cpu.fit(DataSet(x, y))
+            f0, b0 = bn_act.fwd_launches, bn_act.bwd_launches
+            card.fit(card_ds)
+        torch.cuda.synchronize()
+        step = {"fwd": bn_act.fwd_launches - f0, "bwd": bn_act.bwd_launches - b0}
+        want_bn = 1 if name.startswith("fused") else 0
+        if step["fwd"] != want_bn or step["bwd"] != want_bn:
+            raise AssertionError(f"layer_families {name}: bn launches {step}")
+        for k in launches:
+            launches[k] += step[k]
+        lc, lg = cpu.score(), card.score()
+        if abs(lg - lc) > 1e-4 * abs(lc):
+            raise AssertionError(f"layer_families {name}: card loss {lg} vs CPU {lc}")
+        worst = 0.0
+        for pc, pg in zip(tree_leaves(cpu.params), tree_leaves(card.params)):
+            err = float((pg.cpu() - pc).abs().max())
+            if err > 1e-5 + 1e-4 * float(pc.abs().max()):
+                raise AssertionError(f"layer_families {name}: updated parameter off by {err}")
+            worst = max(worst, err / max(float(pc.abs().max()), 1e-12))
+        row = {"net": name, "card_loss": lg, "cpu_loss": lc, "loss_rel_diff": abs(lg - lc) / abs(lc),
+               "param_err_over_max_abs": worst, "bn_launches": step}
+        print("layer_families " + json.dumps(row), flush=True)
+        del card
+        torch.cuda.empty_cache()
+    return launches
+
+
 def _build_dir():
     from deeplearning4j_tpu_torch.perf.kernels import _build
     _build.BUILD.mkdir(parents=True, exist_ok=True)
@@ -3500,7 +4027,7 @@ def main() -> int:
 
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     rows = kernel_phase(torch, dev, flush)
-    bn_rows = bn_kernel_phase(torch, dev, flush)
+    bn_rows = bn_kernel_phase(torch, dev, flush) + yolo_bn_kernel_phase(torch, dev, flush)
     launches, buckets = serving_phase(torch, dev, card)
     bn_fwd, bn_bwd = training_phase(torch, dev, card)
     card_vs_cpu_phase(torch, dev)
@@ -3523,8 +4050,15 @@ def main() -> int:
         overhead = checkpoint_overhead_phase(torch, dev, card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    yolo = yolo_training_phase(torch, dev, card)
+    yolo_card_vs_cpu_phase(torch, dev)
+    facenet = facenet_training_phase(torch, dev, card)
+    zoo = zoo_phase(torch, dev)
+    families = layer_families_phase(torch, dev)
     bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
-                          "checkpoint_overhead": overhead[kind]}
+                          "checkpoint_overhead": overhead[kind], "yolo_training": yolo[kind],
+                          "facenet_training": facenet[kind], "zoo": zoo[kind],
+                          "layer_families": families[kind]}
                    for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched

@@ -8,6 +8,11 @@ layouts (NHWC/HWIO, dense ``(n_in, n_out)``, packed int4
 order (i, f, g, o) or (z, r, h)), so the arrays are taken as they are.
 Nested parameter groups (the attention layers' ``{"q": {"W", "b"}, ...}``,
 ``Bidirectional``'s ``{"fwd": {...}, "bwd": {...}}``) keep their nesting.
+Every layer's parameter names are the JAX package's, so the rest cross by
+name as well: CenterLoss's centers ``cL``, PReLU's ``alpha``, the
+separable convolutions' ``W_dw`` / ``W_pw``, the AutoEncoder's and RBM's
+visible bias ``vb``, and the VAE's ``e{i}W``, ``d{i}W``, ``pzxMean*``,
+``pzxLogStd2*`` and ``pxz*`` stacks.
 
     conf = conf_from_jax_json(jax_net.conf.to_json())
     net = MultiLayerNetwork(conf, device="cpu")

@@ -1,8 +1,13 @@
-"""Convolution and pooling layers (counterpart of
-``deeplearning4j_tpu/nn/conf/convolutional.py``: ``ConvolutionLayer``,
-``SubsamplingLayer`` and the fused ``FusedConvBNActivation`` block).
+"""Convolution, pooling, padding and cropping layers, and the fused
+conv→BN→activation blocks (counterpart of
+``deeplearning4j_tpu/nn/conf/convolutional.py``).
 
-Public layouts are the JAX package's: NHWC activations and HWIO kernels.
+Public layouts are the JAX package's: NHWC activations and HWIO kernels;
+(batch, time, channels) sequences and WIO kernels for the 1-D layers; a
+separable convolution's depthwise kernel is (kh, kw, 1, C * multiplier),
+output channel ``c * multiplier + m`` reading input channel c (XLA's
+``feature_group_count`` order, which is ``F.conv2d(groups=C)``'s too), and
+its pointwise kernel (1, 1, C * multiplier, n_out).
 Inside, a layer views its NHWC input as a ``channels_last`` NCHW tensor
 (a permute, no copy), moves the kernel to OIHW and calls ``F.conv2d``; the
 result is permuted back to NHWC.
@@ -112,13 +117,7 @@ class ConvolutionLayer(BaseLayer):
         return "cnn"
 
     def output_type(self, it: InputType) -> InputType:
-        kh, kw = _pair(self.kernel_size)
-        sh, sw = _pair(self.stride)
-        ph, pw = _pair(self.padding)
-        dh, dw = _pair(self.dilation)
-        h = _conv_out(it.height, kh, sh, ph, self.convolution_mode, dh)
-        w = _conv_out(it.width, kw, sw, pw, self.convolution_mode, dw)
-        return InputType.convolutional(h, w, self.n_out)
+        return _conv_shape(self, it, self.dilation)
 
     def with_n_in(self, n_in):
         # n_in is channels: set from the input type's channel count in init
@@ -183,6 +182,327 @@ class SubsamplingLayer(Layer):
             sums = F.avg_pool2d(_pad_nchw(xc.abs() ** p, pads), k, s) * (k[0] * k[1])
             out = sums ** (1.0 / p)
         return out.permute(0, 2, 3, 1), state
+
+
+def separable_conv_nhwc(x, w_dw, w_pw, stride, padding, mode):
+    """Depthwise (``groups`` = input channels) then 1x1 pointwise
+    convolution, NHWC in and out."""
+    xc = x.permute(0, 3, 1, 2)
+    k, s = _pair(w_dw.shape[:2]), _pair(stride)
+    xc = _pad_nchw(xc, _padding_cfg(mode, padding, xc, k, s))
+    dw = w_dw.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    z = F.conv2d(xc, dw, stride=s, groups=xc.shape[1])
+    pw = w_pw.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(z, pw).permute(0, 2, 3, 1)
+
+
+def _pads_1d(mode, padding, size, k, s, dilation=1):
+    if mode == "same":
+        return _same_pads(size, k, s, dilation)
+    return int(padding), int(padding)
+
+
+def conv1d_nwc(x, w_wio, stride, padding, mode, dilation=1):
+    """(batch, time, channels) input × (k, C_in, C_out) kernel → (batch,
+    time', C_out), with the padding modes of :func:`conv2d_nhwc`."""
+    xc = x.permute(0, 2, 1)
+    k = int(w_wio.shape[0])
+    lo, hi = _pads_1d(mode, padding, xc.shape[2], k, int(stride), int(dilation))
+    if lo or hi:
+        xc = F.pad(xc, (lo, hi))
+    z = F.conv1d(xc, w_wio.permute(2, 1, 0), stride=int(stride), dilation=int(dilation))
+    return z.permute(0, 2, 1)
+
+
+def _conv_shape(layer, it: InputType, dilation=(1, 1)) -> InputType:
+    kh, kw = _pair(layer.kernel_size)
+    sh, sw = _pair(layer.stride)
+    ph, pw = _pair(layer.padding)
+    dh, dw = _pair(dilation)
+    h = _conv_out(it.height, kh, sh, ph, layer.convolution_mode, dh)
+    w = _conv_out(it.width, kw, sw, pw, layer.convolution_mode, dw)
+    return InputType.convolutional(h, w, layer.n_out)
+
+
+def _conv1d_shape(layer, it: InputType, n_out: int) -> InputType:
+    t = it.timeseries_length
+    if t is not None:
+        t = _conv_out(t, layer.kernel_size, layer.stride, layer.padding,
+                      layer.convolution_mode, getattr(layer, "dilation", 1))
+    return InputType.recurrent(n_out, t)
+
+
+def _separable_init(layer, gen, it: InputType, device) -> dict:
+    kh, kw = _pair(layer.kernel_size)
+    c_in = layer.n_in or it.channels
+    dw_out = c_in * layer.depth_multiplier
+    params = {
+        "W_dw": init_weights(gen, (kh, kw, 1, dw_out), kh * kw,
+                             kh * kw * layer.depth_multiplier, layer.weight_init,
+                             layer.dist, device),
+        "W_pw": init_weights(gen, (1, 1, dw_out, layer.n_out), dw_out, layer.n_out,
+                             layer.weight_init, layer.dist, device),
+    }
+    if layer.has_bias:
+        params["b"] = torch.full((layer.n_out,), float(layer.bias_init), device=device)
+    return params
+
+
+def _conv1d_init(layer, gen, it: InputType, device) -> dict:
+    c_in = layer.n_in or it.size
+    k = layer.kernel_size
+    params = {"W": init_weights(gen, (k, c_in, layer.n_out), c_in * k, layer.n_out * k,
+                                layer.weight_init, layer.dist, device)}
+    if layer.has_bias:
+        params["b"] = torch.full((layer.n_out,), float(layer.bias_init), device=device)
+    return params
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class SeparableConvolution2D(BaseLayer):
+    """Depthwise-separable convolution: depthwise (``depth_multiplier``
+    outputs an input channel), then 1x1 pointwise."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    kernel_size: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "truncate"
+    depth_multiplier: int = 1
+    has_bias: bool = True
+    activation: str = "identity"
+
+    def input_kind(self):
+        return "cnn"
+
+    def regularizable(self):
+        return ("W_dw", "W_pw")
+
+    def output_type(self, it: InputType) -> InputType:
+        return _conv_shape(self, it)
+
+    def with_n_in(self, n_in):
+        return self
+
+    def init(self, gen, it: InputType, device):
+        return _separable_init(self, gen, it, device), {}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = dropout_input(x, self.dropout, train, rng)
+        z = separable_conv_nhwc(x, params["W_dw"], params["W_pw"], self.stride,
+                                self.padding, self.convolution_mode)
+        if self.has_bias:
+            z = z + params["b"]
+        return get_activation(self.activation)(z), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Upsampling2D(Layer):
+    """Nearest-neighbour upsampling."""
+
+    size: Tuple[int, int] = (2, 2)
+
+    def input_kind(self):
+        return "cnn"
+
+    def output_type(self, it: InputType) -> InputType:
+        sh, sw = _pair(self.size)
+        return InputType.convolutional(it.height * sh, it.width * sw, it.channels)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        sh, sw = _pair(self.size)
+        return x.repeat_interleave(sh, dim=1).repeat_interleave(sw, dim=2), state
+
+
+def _four(v) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right) from four values or (h, w) symmetric."""
+    if len(v) == 2:
+        return (int(v[0]), int(v[0]), int(v[1]), int(v[1]))
+    return tuple(int(e) for e in v)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ZeroPaddingLayer(Layer):
+    """Spatial zero padding; ``padding`` = (top, bottom, left, right) or
+    (h, w) symmetric."""
+
+    padding: Tuple[int, ...] = (1, 1)
+
+    def input_kind(self):
+        return "cnn"
+
+    def output_type(self, it: InputType) -> InputType:
+        t, b, l, r = _four(self.padding)
+        return InputType.convolutional(it.height + t + b, it.width + l + r, it.channels)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        t, b, l, r = _four(self.padding)
+        return F.pad(x, (0, 0, l, r, t, b)), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Convolution1DLayer(BaseLayer):
+    """1-D convolution over (batch, time, channels), WIO kernel."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    kernel_size: int = 3
+    stride: int = 1
+    padding: int = 0
+    convolution_mode: str = "truncate"
+    dilation: int = 1
+    has_bias: bool = True
+    activation: str = "identity"
+
+    def input_kind(self):
+        return "rnn"
+
+    def is_recurrent(self):
+        return True
+
+    def output_type(self, it: InputType) -> InputType:
+        return _conv1d_shape(self, it, self.n_out)
+
+    def init(self, gen, it: InputType, device):
+        return _conv1d_init(self, gen, it, device), {}
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = dropout_input(x, self.dropout, train, rng)
+        z = conv1d_nwc(x, params["W"], self.stride, self.padding, self.convolution_mode,
+                       self.dilation)
+        if self.has_bias:
+            z = z + params["b"]
+        return get_activation(self.activation)(z), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Subsampling1DLayer(Layer):
+    """1-D pooling over (batch, time, channels): max | avg | pnorm."""
+
+    kernel_size: int = 2
+    stride: int = 2
+    padding: int = 0
+    pooling_type: str = "max"
+    pnorm: int = 2
+    convolution_mode: str = "truncate"
+
+    def input_kind(self):
+        return "rnn"
+
+    def is_recurrent(self):
+        return True
+
+    def output_type(self, it: InputType) -> InputType:
+        return _conv1d_shape(self, it, it.size)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        k, s = int(self.kernel_size), int(self.stride)
+        pt = self.pooling_type.lower()
+        if pt not in ("max", "avg", "pnorm"):
+            raise ValueError(f"Unknown pooling type '{self.pooling_type}'")
+        xc = x.permute(0, 2, 1)
+        pads = _pads_1d(self.convolution_mode, self.padding, xc.shape[2], k, s)
+        if pt == "max":
+            out = F.max_pool1d(F.pad(xc, pads, value=float("-inf")), k, s)
+        elif pt == "avg":
+            out = F.avg_pool1d(F.pad(xc, pads), k, s)
+        else:
+            p = float(self.pnorm)
+            out = (F.avg_pool1d(F.pad(xc.abs() ** p, pads), k, s) * k) ** (1.0 / p)
+        return out.permute(0, 2, 1), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Upsampling1D(Layer):
+    """Repeat each timestep ``size`` times."""
+
+    size: int = 2
+
+    def input_kind(self):
+        return "rnn"
+
+    def is_recurrent(self):
+        return True
+
+    def output_type(self, it: InputType) -> InputType:
+        t = it.timeseries_length
+        return InputType.recurrent(it.size, None if t is None else t * self.size)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return x.repeat_interleave(self.size, dim=1), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Cropping2D(Layer):
+    """Spatial cropping; ``cropping`` = (top, bottom, left, right) or (h, w)."""
+
+    cropping: Tuple[int, ...] = (0, 0)
+
+    def input_kind(self):
+        return "cnn"
+
+    def output_type(self, it: InputType) -> InputType:
+        t, b, l, r = _four(self.cropping)
+        h, w = it.height - t - b, it.width - l - r
+        if h <= 0 or w <= 0:
+            raise ValueError(f"Cropping {self.cropping} consumes the whole "
+                             f"{it.height}x{it.width} input")
+        return InputType.convolutional(h, w, it.channels)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        t, b, l, r = _four(self.cropping)
+        return x[:, t:x.shape[1] - b, l:x.shape[2] - r, :], state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class Cropping1D(Layer):
+    """Temporal cropping; ``cropping`` = (left, right)."""
+
+    cropping: Tuple[int, int] = (0, 0)
+
+    def input_kind(self):
+        return "cnn1d"
+
+    def output_type(self, it: InputType) -> InputType:
+        l, r = self.cropping
+        t = None if it.timeseries_length is None else it.timeseries_length - l - r
+        if t is not None and t <= 0:
+            raise ValueError(f"Cropping {self.cropping} consumes the whole "
+                             f"length-{it.timeseries_length} sequence")
+        return InputType.recurrent(it.size, t)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        l, r = self.cropping
+        return x[:, l:x.shape[1] - r, :], state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class ZeroPadding1DLayer(Layer):
+    """Temporal zero padding; ``padding`` = (left, right)."""
+
+    padding: Tuple[int, int] = (1, 1)
+
+    def input_kind(self):
+        return "cnn1d"
+
+    def output_type(self, it: InputType) -> InputType:
+        l, r = self.padding
+        t = None if it.timeseries_length is None else it.timeseries_length + l + r
+        return InputType.recurrent(it.size, t)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        l, r = self.padding
+        return F.pad(x, (0, 0, int(l), int(r))), state
 
 
 # ---------------------------------------------------------------------------
@@ -268,18 +588,13 @@ class FusedConvBNActivation(BaseLayer):
         return "cnn"
 
     def output_type(self, it: InputType) -> InputType:
-        return ConvolutionLayer.output_type(self, it)
+        return _conv_shape(self, it, self.dilation)
 
     def with_n_in(self, n_in):
         return self  # n_in is channels, set from the input type in init
 
     def init(self, gen, it: InputType, device):
-        params, _ = ConvolutionLayer.init(self, gen, it, device)
-        params["gamma"] = torch.full((self.n_out,), float(self.gamma), device=device)
-        params["beta"] = torch.full((self.n_out,), float(self.beta), device=device)
-        state = {"mean": torch.zeros((self.n_out,), device=device),
-                 "var": torch.ones((self.n_out,), device=device)}
-        return params, state
+        return _fused_bn_init(self, ConvolutionLayer.init(self, gen, it, device)[0], device)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None, res=None):
         x = dropout_input(x, self.dropout, train, rng)
@@ -288,3 +603,99 @@ class FusedConvBNActivation(BaseLayer):
         if self.has_bias:
             z = z + params["b"]
         return _fused_bn_tail(self, params, state, z, train, res)
+
+
+def _fused_bn_init(layer, params: dict, device):
+    params["gamma"] = torch.full((layer.n_out,), float(layer.gamma), device=device)
+    params["beta"] = torch.full((layer.n_out,), float(layer.beta), device=device)
+    state = {"mean": torch.zeros((layer.n_out,), device=device),
+             "var": torch.ones((layer.n_out,), device=device)}
+    return params, state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class FusedSeparableConvBNActivation(BaseLayer):
+    """SeparableConvolution2D → train-mode BatchNorm → activation as one
+    layer, the BN tail through the ``bn_act_fwd`` / ``bn_act_bwd`` kernels
+    (:func:`fused_bn_act_train`). Produced by ``perf.fusion.fuse``;
+    non-residual only."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    kernel_size: Tuple[int, int] = (3, 3)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    convolution_mode: str = "truncate"
+    depth_multiplier: int = 1
+    has_bias: bool = False
+    activation: str = "relu"
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+
+    def input_kind(self):
+        return "cnn"
+
+    def regularizable(self):
+        return ("W_dw", "W_pw")
+
+    def output_type(self, it: InputType) -> InputType:
+        return _conv_shape(self, it)
+
+    def with_n_in(self, n_in):
+        return self
+
+    def init(self, gen, it: InputType, device):
+        return _fused_bn_init(self, _separable_init(self, gen, it, device), device)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = dropout_input(x, self.dropout, train, rng)
+        z = separable_conv_nhwc(x, params["W_dw"], params["W_pw"], self.stride,
+                                self.padding, self.convolution_mode)
+        if self.has_bias:
+            z = z + params["b"]
+        return _fused_bn_tail(self, params, state, z, train)
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class FusedConv1DBNActivation(BaseLayer):
+    """Convolution1DLayer → train-mode BatchNorm → activation as one layer
+    over (batch, time, channels): the BN tail normalises over all but the
+    last axis, through the same kernels as the 2-D block."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    kernel_size: int = 3
+    stride: int = 1
+    padding: int = 0
+    convolution_mode: str = "truncate"
+    dilation: int = 1
+    has_bias: bool = False
+    activation: str = "relu"
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+
+    def input_kind(self):
+        return "rnn"
+
+    def is_recurrent(self):
+        return True
+
+    def output_type(self, it: InputType) -> InputType:
+        return _conv1d_shape(self, it, self.n_out)
+
+    def init(self, gen, it: InputType, device):
+        return _fused_bn_init(self, _conv1d_init(self, gen, it, device), device)
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        x = dropout_input(x, self.dropout, train, rng)
+        z = conv1d_nwc(x, params["W"], self.stride, self.padding, self.convolution_mode,
+                       self.dilation)
+        if self.has_bias:
+            z = z + params["b"]
+        return _fused_bn_tail(self, params, state, z, train)

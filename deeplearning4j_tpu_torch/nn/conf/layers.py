@@ -16,10 +16,13 @@ package's signatures:
   layers read and the others ignore. Gradients come from autograd.
 
 Dropout follows DL4J 0.9: ``dropout`` is the *retain* probability applied
-to the layer's input when training (0 disables). The training knobs
-``remat``, ``constraints`` and ``weight_noise`` are carried so the JSON
-round-trips; a layer that sets one raises ``NotImplementedError`` when it
-trains (:func:`apply_layer`).
+to the layer's input when training (0 disables), or an ``IDropout`` object
+(``nn/conf/regularization.py``). The training knobs every layer carries:
+``constraints`` map parameters after each updater step
+(:func:`apply_constraints`), ``weight_noise`` transforms weights in the
+training forward (:func:`noisy_params`), and ``remat`` recomputes the
+layer's forward in the backward (:func:`apply_layer`, through
+``perf/fusion.py``'s ``remat_apply``).
 """
 
 from __future__ import annotations
@@ -80,7 +83,6 @@ def layer_from_dict(d: dict):
         elif isinstance(v, list):  # JSON has no tuples
             v = tuple(layer_from_dict(e) if _names_layer(e) else e
                       for e in v)
-        # any other dict (constraints, weight noise) stays verbatim
         kwargs[k] = v
     return cls(**kwargs)
 
@@ -150,40 +152,96 @@ def regularization_penalty(layer, params: dict):
 
 
 def dropout_input(x, dropout, train: bool, rng: Optional[torch.Generator]):
-    """Inverted dropout on a layer's input; ``dropout`` is the retain
-    probability. The keep mask is drawn from ``rng`` (a generator on x's
-    device). Only the plain retain-probability form is ported; the JAX
-    package's IDropout objects are not."""
+    """Dropout on a layer's input: ``dropout`` is a retain probability or
+    an ``IDropout`` object; its draws come from ``rng`` (a generator on x's
+    device)."""
     if not dropout:  # None / 0.0: disabled
         return x
-    if not isinstance(dropout, (int, float)):
-        raise NotImplementedError(
-            f"dropout {dropout!r}: only a retain probability is ported")
-    p = float(dropout)
-    if not train or rng is None or p >= 1.0 or p <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=rng, device=x.device) < p
-    return torch.where(keep, x / p, torch.zeros((), dtype=x.dtype,
-                                                device=x.device)).to(x.dtype)
+    if not hasattr(dropout, "apply"):
+        from deeplearning4j_tpu_torch.nn.conf.regularization import Dropout
+        dropout = Dropout(float(dropout))
+    return dropout.apply(x, rng, train)
 
 
-def refuse_training_knobs(layer):
-    """Rematerialization, constraints and weight noise are not ported: a
-    layer that sets one raises when it trains."""
-    for knob in ("remat", "constraints", "weight_noise"):
-        if getattr(layer, knob, None):
-            raise NotImplementedError(
-                f"{type(layer).__name__} '{layer.name}' sets {knob}=; "
-                f"training with {knob} is not in the PyTorch port yet")
+def reg_object(layer, attr: str):
+    """``constraints`` / ``weight_noise`` of a layer, or of the layer a
+    wrapper config wraps when the wrapper sets none."""
+    v = getattr(layer, attr, None)
+    if v is None:
+        inner = getattr(layer, "layer", None)
+        if inner is not None:
+            return reg_object(inner, attr)
+    return v
+
+
+def _constraint_keys(layer, params: dict, c) -> list:
+    keys = []
+    if getattr(c, "apply_to_weights", True):
+        keys.extend(k for k in layer.regularizable()
+                    if resolve_param_path(params, k) is not None)
+    if getattr(c, "apply_to_biases", False):
+        keys.extend(_bias_keys(layer, params))
+    return keys
+
+
+def apply_constraints(layer, params: dict) -> dict:
+    """The layer's parameter constraints, applied in place after an update
+    (reference BaseConstraint.applyConstraint), in the order listed."""
+    cons = reg_object(layer, "constraints")
+    if not cons:
+        return params
+    with torch.no_grad():
+        for c in cons:
+            for key in _constraint_keys(layer, params, c):
+                w = resolve_param_path(params, key)
+                w.copy_(c.apply(w))
+    return params
+
+
+def weight_noise_keys(layer, params: dict) -> list:
+    """The parameter paths the layer's weight noise transforms, in the
+    order :func:`noisy_params` draws for them."""
+    wn = reg_object(layer, "weight_noise")
+    keys = [k for k in layer.regularizable() if resolve_param_path(params, k) is not None]
+    if wn.apply_to_bias:
+        keys.extend(_bias_keys(layer, params))
+    return keys
+
+
+def noisy_params(layer, params: dict, rng: Optional[torch.Generator], train: bool,
+                 draws: Optional[dict] = None) -> dict:
+    """The layer's parameters with its weight noise applied, for a training
+    forward (reference BaseLayer.getParamWithNoise). The noise is drawn
+    from ``rng``, one draw per path of :func:`weight_noise_keys` in order,
+    unless ``draws`` (path -> draw) gives them. Without weight noise, or
+    outside training, ``params`` itself."""
+    wn = reg_object(layer, "weight_noise")
+    if wn is None or not train or (rng is None and draws is None):
+        return params
+    out = dict(params)
+    for key in weight_noise_keys(layer, params):
+        w = resolve_param_path(params, key)
+        r = draws[key] if draws is not None else wn.draw(w.shape, rng, w.device, w.dtype)
+        noisy = wn.apply_drawn(w, r)
+        if "/" in key:  # nested (wrapper layers): rebuild the nested dicts
+            top, rest = key.split("/", 1)
+            out[top] = dict(out[top])
+            out[top][rest] = noisy
+        else:
+            out[key] = noisy
+    return out
 
 
 def apply_layer(layer, params, state, x, *, train, rng, mask=None, extra=None):
     """The networks' single entry into ``layer.apply`` (recurrent layers
     with carries go through ``apply_seq``). ``mask`` is the (batch, time)
     features mask the recurrent and attention layers take; ``extra``
-    carries additional inputs (the fused residual-add operand)."""
-    if train:
-        refuse_training_knobs(layer)
+    carries additional inputs (the fused residual-add operand). A layer
+    whose ``remat=`` knob is set runs under ``perf.fusion.remat_apply`` when
+    autograd records."""
+    if getattr(layer, "remat", None) and train and torch.is_grad_enabled():
+        from deeplearning4j_tpu_torch.perf.fusion import remat_apply
+        return remat_apply(layer, params, state, x, rng=rng, mask=mask, extra=extra)
     return layer.apply(params, state, x, train=train, rng=rng, mask=mask,
                        **(extra or {}))
 
@@ -194,8 +252,8 @@ class Layer:
 
     name: Optional[str] = None
     dropout: float = 0.0
-    # training-time rematerialization knob of the JAX package; carried so
-    # the JSON round-trips, refused in training (apply_layer)
+    # recompute this layer's forward in the backward (perf/fusion.py
+    # REMAT_POLICIES; apply_layer)
     remat: Optional[str] = None
 
     def output_type(self, input_type: InputType) -> InputType:
@@ -235,9 +293,9 @@ class Layer:
 @dataclasses.dataclass(frozen=True)
 class BaseLayer(Layer):
     """Layers with weights (reference nn/conf/layers/BaseLayer.java): carry
-    activation, weight init, regularization and per-layer updater override.
-    ``constraints`` and ``weight_noise`` are kept verbatim as the JSON
-    values the JAX package writes."""
+    activation, weight init, regularization, per-layer updater override,
+    post-update ``constraints`` (a tuple of ``BaseConstraint``) and
+    training-forward ``weight_noise`` (an ``IWeightNoise``)."""
 
     activation: str = "identity"
     weight_init: str = "xavier"
@@ -312,6 +370,48 @@ class ActivationLayer(Layer):
         return fn(x), state
 
 
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class PReLULayer(BaseLayer):
+    """Parametric ReLU with a learnt negative slope ``alpha`` (reference
+    PReLULayer, Keras PReLU). ``shared_axes`` lists 1-based input axes that
+    share one alpha (``[1, 2]`` gives one alpha a channel on NHWC)."""
+
+    shared_axes: Optional[Tuple[int, ...]] = None
+
+    def _alpha_shape(self, input_type):
+        if input_type.kind == "cnn":
+            shape = [input_type.height, input_type.width, input_type.channels]
+        elif input_type.kind in ("rnn", "cnn1d"):
+            shape = [input_type.timeseries_length or 1, input_type.size]
+        else:
+            shape = [input_type.flat_size()]
+        for ax in self.shared_axes or ():
+            shape[ax - 1] = 1
+        return tuple(shape)
+
+    def init(self, gen, input_type, device):
+        return {"alpha": torch.zeros(self._alpha_shape(input_type), device=device)}, {}
+
+    def regularizable(self):
+        return ()
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return torch.where(x >= 0, x, params["alpha"] * x), state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """Standalone dropout (reference DropoutLayer); ``dropout`` is the
+    retain probability or an ``IDropout``."""
+
+    dropout: float = 0.5
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return dropout_input(x, self.dropout, train, rng), state
+
+
 @dataclasses.dataclass(frozen=True)
 class BaseOutputLayer(BaseLayer):
     """Loss-bearing layers. ``pre_output`` returns the pre-activation z used
@@ -325,12 +425,15 @@ class BaseOutputLayer(BaseLayer):
         return True
 
     def pre_output(self, params, x):
+        """The pre-activation; a dict of tensors for a layer whose score
+        needs more than it (CenterLoss: features and centers)."""
         z = x @ params["W"]
         if "b" in params:
             z = z + params["b"]
         return z
 
     def output_activations(self, preout):
+        """The network's predictions from ``pre_output``'s result."""
         return get_activation(self.activation)(preout)
 
     def compute_score(self, labels, preout, mask=None):
@@ -365,3 +468,77 @@ class OutputLayer(BaseOutputLayer):
 
     def init(self, gen, input_type, device):
         return _dense_init(self, gen, input_type, device), {}
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax output plus center loss (reference CenterLossOutputLayer):
+    loss = interclass(labels, softmax) + lamda/2 * mean ||f - c_y||^2, f the
+    layer's input (the embedding), c_y its class's center (``cL``, one row
+    a class, zeros at init).
+
+    The centers follow the reference's rule, not the loss gradient: each
+    moves toward its class's features at rate ``alpha``, normalised by the
+    class's count + 1. That direction is the gradient of a value-neutral
+    pseudo-term (its value subtracted again), so any updater trains the
+    other parameters while the centers keep the reference's dynamics.
+    ``gradient_check=True`` gives the centers the true loss gradient."""
+
+    alpha: float = 0.05
+    lamda: float = 2e-4   # "lambda" is a Python keyword; the JSON key is "lamda"
+    gradient_check: bool = False
+
+    def init(self, gen, input_type, device):
+        params, state = super().init(gen, input_type, device)
+        n_in = self.n_in or input_type.flat_size()
+        params["cL"] = torch.zeros((self.n_out, n_in), device=device)
+        return params, state
+
+    def pre_output(self, params, x):
+        z = x @ params["W"]
+        if "b" in params:
+            z = z + params["b"]
+        return {"z": z, "f": x, "cL": params["cL"]}
+
+    def output_activations(self, preout):
+        return get_activation(self.activation)(preout["z"])
+
+    def compute_score(self, labels, preout, mask=None):
+        inter = lossfunctions.score(self.loss, labels, preout["z"], self.activation,
+                                    mask, self.loss_weights)
+        f, centers = preout["f"], preout["cL"]
+        if self.gradient_check:
+            diff = f - labels @ centers
+            return inter + 0.5 * self.lamda * torch.mean(torch.sum(diff * diff, -1))
+        diff = f - labels @ centers.detach()
+        intra = 0.5 * self.lamda * torch.mean(torch.sum(diff * diff, -1))
+        counts = torch.sum(labels, 0)
+        w_per_ex = labels @ (1.0 / (counts + 1.0))
+        cdiff = labels @ centers - f.detach()
+        pseudo = 0.5 * self.alpha * torch.sum(w_per_ex[:, None] * cdiff * cdiff)
+        pseudo = pseudo - pseudo.detach()  # gradient only, no value
+        return inter + intra + pseudo
+
+    def compute_score_array(self, labels, preout, mask=None):
+        inter = lossfunctions.score_array(self.loss, labels, preout["z"], self.activation,
+                                          mask, self.loss_weights)
+        intra = 0.5 * self.lamda * torch.sum((preout["f"] - labels @ preout["cL"]) ** 2, -1)
+        return inter + intra
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class LossLayer(BaseOutputLayer):
+    """A loss without weights (reference LossLayer)."""
+
+    activation: str = "identity"
+
+    def regularizable(self):
+        return ()
+
+    def pre_output(self, params, x):
+        return x
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        return get_activation(self.activation)(x), state

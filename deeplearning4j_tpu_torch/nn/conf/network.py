@@ -17,9 +17,11 @@ import dataclasses
 import json
 from typing import Dict, List, Optional, Tuple
 
-# the sequence and attention layers register their classes when imported:
-# from_json must find them wherever it is called from
-from deeplearning4j_tpu_torch.nn.conf import attention, recurrent  # noqa: F401
+# every layer family registers its classes when imported: from_json must
+# find them wherever it is called from
+from deeplearning4j_tpu_torch.nn.conf import (attention, convolutional,  # noqa: F401
+                                              normalization, objdetect, pooling, pretrain,
+                                              recurrent, regularization, variational)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (

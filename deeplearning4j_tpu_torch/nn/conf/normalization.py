@@ -1,4 +1,4 @@
-"""BatchNormalization (counterpart of
+"""BatchNormalization and LocalResponseNormalization (counterpart of
 ``deeplearning4j_tpu/nn/conf/normalization.py``), as plain tensor code.
 
 Numerics are the JAX package's, branch for branch:
@@ -21,9 +21,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, register_layer
+from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, Layer, register_layer
 
 LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -100,3 +101,32 @@ class BatchNormalization(BaseLayer):
             gamma, beta = params["gamma"], params["beta"]
         scale, shift, _ = scale_shift(self.eps, gamma, beta, mean, var)
         return normalize(x, scale, shift), new_state
+
+
+@register_layer
+@dataclasses.dataclass(frozen=True)
+class LocalResponseNormalization(Layer):
+    """Cross-channel LRN over NHWC (reference LocalResponseNormalization;
+    defaults k=2, n=5, alpha=1e-4, beta=0.75):
+    ``x / (k + alpha * S) ** beta``, S the sum of squares over a centred
+    window of ``2 * (n // 2) + 1`` channels (the reference loops n/2 either
+    side of the centre, so an even n covers n + 1), zero beyond the edges.
+    ``alpha`` multiplies the sum as it is: ``F.local_response_norm``
+    divides it by the window size, so it is not used."""
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def input_kind(self):
+        return "cnn"
+
+    def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        half = self.n // 2
+        c = x.shape[-1]
+        sq = F.pad(x * x, (half, half))
+        summed = sq[..., 0:c]
+        for i in range(1, 2 * half + 1):
+            summed = summed + sq[..., i:i + c]
+        return x / torch.pow(self.k + self.alpha * summed, self.beta), state

@@ -53,10 +53,9 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (ComputationGraphConfiguratio
                                                     DuplicateToTimeSeriesVertex,
                                                     LastTimeStepVertex)
 from deeplearning4j_tpu_torch.nn.conf.layers import (Layer, apply_layer, dropout_input,
-                                                     refuse_training_knobs,
-                                                     regularization_penalty)
+                                                     noisy_params, regularization_penalty)
 from deeplearning4j_tpu_torch.nn.conf.normalization import LOW_PRECISION
-from deeplearning4j_tpu_torch.nn.training import TrainStep
+from deeplearning4j_tpu_torch.nn.training import TrainStep, to_float32
 from deeplearning4j_tpu_torch.nn.tree import tree_leaves, tree_map
 
 
@@ -144,19 +143,16 @@ class ComputationGraph(TrainStep):
             if isinstance(obj, Layer):
                 if name in self._vpre:
                     xs[0], in_mask = self._vpre[name].apply(xs[0], in_mask)
+                p_v = noisy_params(obj, params[name], rng, train)
                 if obj.is_output_layer():
                     x_in = dropout_input(xs[0], obj.dropout, train, rng)
-                    z = obj.pre_output(params[name], x_in)
-                    if z.dtype in LOW_PRECISION:  # loss math in float32
-                        z = z.float()
+                    z = to_float32(obj.pre_output(p_v, x_in))
                     preouts[name] = z
                     out = obj.output_activations(z)
                 elif (carries is not None and hasattr(obj, "apply_seq")
                       and getattr(obj, "supports_stateful", True)):
-                    if train:
-                        refuse_training_knobs(obj)
                     out, new_carries[name] = obj.apply_seq(
-                        params[name], carries[name],
+                        p_v, carries[name],
                         dropout_input(xs[0], obj.dropout, train, rng),
                         train=train, rng=None, mask=in_mask)
                 else:
@@ -166,7 +162,7 @@ class ComputationGraph(TrainStep):
                              if getattr(obj, "residual", False) and len(xs) > 1
                              else None)
                     out, new_state[name] = apply_layer(
-                        obj, params[name], state[name], xs[0], train=train,
+                        obj, p_v, state[name], xs[0], train=train,
                         rng=rng, mask=in_mask, extra=extra)
                 mask_of[name] = in_mask if self._mask_survives[name] else None
             elif isinstance(obj, LastTimeStepVertex):

@@ -48,6 +48,12 @@ batches already consumed. ``fit_fused`` and ``fit_tbptt_fused`` call the
 listeners once a step as well, where the JAX package's one scan calls them
 once.
 
+``pretrain`` / ``pretrain_layer`` train the pretrainable layers
+(AutoEncoder, RBM, VariationalAutoencoder) greedily on their unsupervised
+losses. Layers' ``weight_noise`` applies in every training forward,
+``constraints`` after every updater step, ``remat`` through
+``torch.utils.checkpoint`` (``perf/fusion.py``).
+
 Not ported (they raise ``NotImplementedError``): ``bucket_policy``,
 ``prefetch``, gradient compression, augmentation and the solver
 optimization algorithms.
@@ -62,13 +68,13 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.nn.conf.layers import (apply_layer, dropout_input,
-                                                     refuse_training_knobs,
+from deeplearning4j_tpu_torch.nn.conf.layers import (apply_constraints, apply_layer,
+                                                     dropout_input, noisy_params,
                                                      regularization_penalty)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.normalization import LOW_PRECISION
-from deeplearning4j_tpu_torch.nn.training import TrainStep
-from deeplearning4j_tpu_torch.nn.tree import tree_leaves, tree_map
+from deeplearning4j_tpu_torch.nn.training import TrainStep, to_float32
+from deeplearning4j_tpu_torch.nn.tree import leaf_grads, tree_leaves, tree_map
 
 
 def _copy_tree(tree, device):
@@ -160,23 +166,20 @@ class MultiLayerNetwork(TrainStep):
             if i in self._pre:
                 x, mask = self._pre[i].apply(x, mask)
             carry = {}
+            p_i = noisy_params(layer, params[i], rng, train)
             if i == last and layer.is_output_layer():
-                preout = layer.pre_output(params[i], dropout_input(x, layer.dropout,
-                                                                   train, rng))
-                if preout.dtype in LOW_PRECISION:  # loss math in float32
-                    preout = preout.float()
+                preout = to_float32(layer.pre_output(p_i, dropout_input(x, layer.dropout,
+                                                                        train, rng)))
                 x = layer.output_activations(preout)
                 new_state.append(state[i])
             elif (carries is not None and hasattr(layer, "apply_seq")
                   and getattr(layer, "supports_stateful", True)):
-                if train:
-                    refuse_training_knobs(layer)
-                x, carry = layer.apply_seq(params[i], carries[i],
+                x, carry = layer.apply_seq(p_i, carries[i],
                                            dropout_input(x, layer.dropout, train, rng),
                                            train=train, rng=None, mask=mask)
                 new_state.append(state[i])
             else:
-                x, st = apply_layer(layer, params[i], state[i], x, train=train, rng=rng,
+                x, st = apply_layer(layer, p_i, state[i], x, train=train, rng=rng,
                                     mask=mask)
                 new_state.append(st)
             if not self._mask_survives[i]:
@@ -332,6 +335,69 @@ class MultiLayerNetwork(TrainStep):
     def rnn_get_previous_state(self):
         """The stored carries: one dict a layer, ``{}`` for a layer with none."""
         return self._rnn_carries
+
+    # -------------------------------------------------------------- pretrain
+    def _featurize(self, x, upto: int):
+        """The inference forward through layers[0:upto] and the
+        preprocessor in front of layer ``upto``: the pretraining input."""
+        mask = None
+        for j in range(upto):
+            if j in self._pre:
+                x, mask = self._pre[j].apply(x, mask)
+            x, _ = self.layers[j].apply(self.params[j], self.state[j], x, train=False,
+                                        rng=None, mask=mask)
+        if upto in self._pre:
+            x, _ = self._pre[upto].apply(x, mask)
+        return x
+
+    def pretrain(self, data, num_epochs: int = 1) -> "MultiLayerNetwork":
+        """Greedy layerwise pretraining of every pretrainable layer
+        (AutoEncoder, RBM, VariationalAutoencoder), in order (reference
+        MultiLayerNetwork.pretrain)."""
+        if self.params is None:
+            self.init()
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "is_pretrainable", lambda: False)():
+                self.pretrain_layer(i, data, num_epochs)
+        return self
+
+    def pretrain_layer(self, i: int, data, num_epochs: int = 1,
+                       draws=None) -> "MultiLayerNetwork":
+        """Pretrain layer ``i``: featurize each batch through the frozen
+        layers below, then one step of the layer's updater on its
+        unsupervised ``pretrain_loss`` (in float32, as the JAX package's
+        step), constraints after it. The loss draws from the dropout
+        generator, unless ``draws`` gives each step's draws in order.
+        Listeners see every step; ``iteration`` advances."""
+        layer = self.layers[i]
+        if not getattr(layer, "is_pretrainable", lambda: False)():
+            raise ValueError(f"layer {i} ({type(layer).__name__}) is not pretrainable")
+        if self.params is None:
+            self.init()
+        if self.opt_state is None:
+            self._reset_updaters()
+        if isinstance(data, DataSet):
+            data = [data]
+        draws = None if draws is None else iter(draws)
+        for _ in range(num_epochs):
+            for ds in data:
+                x = self._as_input(ds.features if isinstance(ds, DataSet) else ds)
+                with torch.no_grad():
+                    feats = self._featurize(x, i)
+                leaves = tree_map(lambda v: v.detach().requires_grad_(True), self.params[i])
+                loss = layer.pretrain_loss(leaves, self.state[i], feats, self._gen,
+                                           draws=None if draws is None else next(draws))
+                grads = leaf_grads(loss, leaves)
+                with torch.no_grad():
+                    updates, self.opt_state[i] = self._updaters[i].update(
+                        self._gnorms[i](grads), self.opt_state[i])
+                    tree_map(torch.Tensor.add_, self.params[i], updates)
+                apply_constraints(layer, self.params[i])
+                self._score = loss.detach()
+                for listener in self.listeners:
+                    listener.iteration_done(self, self.iteration, self.epoch)
+                self.iteration += 1
+        return self
 
     # ------------------------------------------------------------------- fit
     def fit(self, data, labels=None, num_epochs: int = 1, bucket_policy=None,

@@ -16,8 +16,8 @@ eagerly:
 - ``_loss_and_grads`` takes gradients of every leaf with
   ``torch.autograd.grad`` (zeros for a leaf the loss does not reach);
 - ``_apply_updates`` sends each layer's gradient tree through its gradient
-  normalization and its updater and adds the updates to the masters in
-  place;
+  normalization and its updater, adds the updates to the masters in place
+  and then applies the layer's ``constraints``;
 - ``_commit_state`` writes the new running stats into the state in place;
 - dropout draws from a ``torch.Generator`` seeded with the init seed + 1;
 - each listener's ``iteration_done(net, iteration, epoch)`` runs after the
@@ -46,12 +46,21 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.layers import apply_constraints
 from deeplearning4j_tpu_torch.nn.tree import leaf_grads, tree_leaves, tree_map
 from deeplearning4j_tpu_torch.optimize.updaters import gradient_normalization
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
 _SGD_FAMILY = ("sgd", "stochastic_gradient_descent")
+
+
+def to_float32(preout):
+    """An output layer's pre-activation, a tensor or a dict of them
+    (CenterLoss, YOLO), with every bf16/f16 leaf in float32: the loss math
+    runs in float32."""
+    return tree_map(lambda v: v.float() if v.dtype in (torch.bfloat16, torch.float16)
+                    else v, preout)
 
 
 def _items(tree):
@@ -73,6 +82,7 @@ class TrainStep:
         if conf.dtype not in DTYPES:
             raise ValueError(f"unknown dtype '{conf.dtype}' (known: {sorted(DTYPES)})")
         self._dtype = DTYPES[conf.dtype]
+        self._layer_confs = layers
         self._updaters = _keyed(layers, lambda _, layer: getattr(layer, "updater", None)
                                 or conf.updater)
         self._gnorms = _keyed(layers, lambda _, layer: gradient_normalization(
@@ -154,6 +164,7 @@ class TrainStep:
                 updates, self.opt_state[k] = updater.update(self._gnorms[k](grads[k]),
                                                             self.opt_state[k])
                 tree_map(torch.Tensor.add_, self.params[k], updates)
+                apply_constraints(self._layer_confs[k], self.params[k])
 
     def _commit_state(self, new_state):
         with torch.no_grad():

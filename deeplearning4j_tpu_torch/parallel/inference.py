@@ -13,8 +13,9 @@ once.
 
 Requests past their deadline are evicted at batch formation
 (:class:`DeadlineExpiredError`); a queue that stays full raises
-:class:`QueueFullError` at ``submit``. Mesh sharding, checkpoint hot-swap,
-tuning records and the metrics registry come in later slices.
+:class:`QueueFullError` at ``submit``. ``fold_bn=True`` serves the
+BN-folded network (``perf.fusion.fold_bn``). Mesh sharding, checkpoint
+hot-swap, tuning records and the metrics registry come in later slices.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ class ParallelInference:
     def __init__(self, model, batch_limit: int = 32,
                  queue_timeout_ms: float = 5, bucket_policy=_DEFAULT_POLICY,
                  queue_depth: int = 1024, queue_put_timeout_ms: float = 50.0,
-                 device=None):
+                 device=None, fold_bn: bool = False):
         if int(queue_depth) < 1:
             raise ValueError(f"queue_depth must be >= 1; got {queue_depth}")
         if queue_put_timeout_ms < 0:
@@ -97,6 +98,9 @@ class ParallelInference:
         from deeplearning4j_tpu_torch.quant.lowering import is_quantized
         if model.params is None:
             model.init()
+        if fold_bn:
+            from deeplearning4j_tpu_torch.perf.fusion import fold_bn as _fold_bn
+            model = _fold_bn(model)
         self.model = model
         self.quantized = is_quantized(model)
         self.batch_limit = batch_limit

@@ -1,16 +1,37 @@
-"""Conv→BN→Activation(→residual add) fusion (counterpart of
-``deeplearning4j_tpu/perf/fusion.py``: ``fuse``, ``fuse_network``).
+"""Fusion, BN folding and rematerialization (counterpart of
+``deeplearning4j_tpu/perf/fusion.py``: ``fuse``, ``fuse_network``,
+``fold_bn``, ``REMAT_POLICIES`` / ``remat_policy``).
 
-``fuse(conf)`` pattern-matches ConvolutionLayer → BatchNormalization →
-ActivationLayer (→ ElementWiseVertex add → ActivationLayer) chains in
-``MultiLayerConfiguration`` stacks and ``ComputationGraphConfiguration``
-DAGs and replaces each with a ``FusedConvBNActivation`` block. The rewrite
-is the JAX package's step for step, so both packages give the same fused
-configuration (vertex names, order, fields) and the same parameter mapping:
-the fused vertex keeps the last matched vertex's name, the conv's layer
-name, and takes the conv's params plus the BN's gamma/beta and running
-stats. Only 2-D convolution heads are ported; the separable and 1-D heads
-of the JAX package are not.
+- ``fuse(conf)`` pattern-matches a chain head (ConvolutionLayer,
+  SeparableConvolution2D or Convolution1DLayer, identity activation) →
+  BatchNormalization → ActivationLayer (→ ElementWiseVertex add →
+  ActivationLayer, 2-D heads in a graph only) in ``MultiLayerConfiguration``
+  stacks and ``ComputationGraphConfiguration`` DAGs, and replaces each with
+  a ``FusedConvBNActivation``, ``FusedSeparableConvBNActivation`` or
+  ``FusedConv1DBNActivation`` block, whose BN tail runs the ``bn_act``
+  kernels. The rewrite is the JAX package's step for step, so both packages
+  give the same fused configuration (vertex names, order, fields) and the
+  same parameter mapping: the fused vertex keeps the last matched vertex's
+  name and the head's layer name, and takes the head's params plus the
+  BN's gamma/beta and running stats.
+- ``fold_bn(net)`` folds every inference-mode BN behind an
+  identity-activation head into the head's weights and bias
+  (W' = W * scale, b' = b * scale + shift per output channel; into the
+  pointwise kernel for a separable head), and collapses every fused block
+  back into its head conv; a residual fused block in a graph expands into
+  the BN-free conv → add → activation triple, the activation keeping the
+  vertex's name. For serving: train-mode semantics are gone.
+- ``remat=`` on a layer recomputes its forward in the backward
+  (:func:`remat_apply`, ``torch.utils.checkpoint`` without reentrancy).
+  The port's layers draw dropout from an explicit ``torch.Generator``,
+  which ``checkpoint``'s ``preserve_rng_state`` does not restore, so
+  :func:`remat_apply` records that generator's state before the forward,
+  replays the recompute from it and gives the generator back its own state
+  after: the recompute draws the same masks, and the math is the same
+  bitwise.
+
+``training_activation_bytes`` reads a jaxpr there and waits for the port's
+planner (ROADMAP §A7).
 """
 
 from __future__ import annotations
@@ -18,15 +39,78 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-from deeplearning4j_tpu_torch.nn.conf.convolutional import (ConvolutionLayer,
-                                                            FusedConvBNActivation)
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from deeplearning4j_tpu_torch.nn.conf.convolutional import (Convolution1DLayer,
+                                                            ConvolutionLayer,
+                                                            FusedConv1DBNActivation,
+                                                            FusedConvBNActivation,
+                                                            FusedSeparableConvBNActivation,
+                                                            SeparableConvolution2D)
 from deeplearning4j_tpu_torch.nn.conf.graph import (ComputationGraphConfiguration,
                                                     ElementWiseVertex)
 from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.normalization import BatchNormalization
+from deeplearning4j_tpu_torch.nn.tree import tree_map
 
-__all__ = ["fuse", "fuse_network"]
+__all__ = ["REMAT_POLICIES", "remat_policy", "remat_apply", "fuse", "fuse_network",
+           "fold_bn"]
+
+
+# ----------------------------------------------------------------- remat
+#: the JAX package's policy names -> what the port saves for the backward.
+#: ``everything_saveable`` keeps autograd's own saves (no recompute). Every
+#: other name saves only the layer's inputs and recomputes its whole
+#: forward: torch has no counterpart of jax.checkpoint's policies that keep
+#: the matmul and conv outputs (``dots_saveable``,
+#: ``dots_with_no_batch_dims_saveable``), so those recompute them too.
+REMAT_POLICIES = {
+    "full": "recompute",
+    "nothing_saveable": "recompute",
+    "dots_saveable": "recompute",
+    "dots_with_no_batch_dims_saveable": "recompute",
+    "everything_saveable": "save",
+}
+
+
+def remat_policy(name: str) -> str:
+    """What a ``remat=`` value does ("recompute" or "save"); ValueError on
+    an unknown name."""
+    try:
+        return REMAT_POLICIES[str(name)]
+    except KeyError:
+        raise ValueError(f"Unknown remat policy '{name}' "
+                         f"(known: {sorted(REMAT_POLICIES)})") from None
+
+
+def remat_apply(layer, params, state, x, *, rng: Optional[torch.Generator], mask=None,
+                extra=None):
+    """A layer's training forward under its ``remat=`` policy: ``(out,
+    new_state)`` as ``layer.apply`` gives them."""
+    extra = extra or {}
+
+    def run(p, s, xx, mm, ee):
+        return layer.apply(p, s, xx, train=True, rng=rng, mask=mm, **ee)
+
+    if remat_policy(layer.remat) == "save":
+        return run(params, state, x, mask, extra)
+    start = None if rng is None else rng.get_state()
+    calls = []
+
+    def replayed(p, s, xx, mm, ee):
+        if not calls or rng is None:  # the forward itself
+            calls.append(1)
+            return run(p, s, xx, mm, ee)
+        own = rng.get_state()  # the recompute: the forward's draws again
+        rng.set_state(start)
+        try:
+            return run(p, s, xx, mm, ee)
+        finally:
+            rng.set_state(own)
+
+    return checkpoint(replayed, params, state, x, mask, extra, use_reentrant=False)
 
 
 def _updaters_compatible(conv, bn) -> bool:
@@ -45,8 +129,13 @@ def _updaters_compatible(conv, bn) -> bool:
     return True
 
 
+# chain heads the rewriter matches ahead of a BatchNormalization (the fused
+# classes subclass BaseLayer, so a fused block never matches again)
+_FUSABLE_HEADS = (ConvolutionLayer, SeparableConvolution2D, Convolution1DLayer)
+
+
 def _head_matchable(layer) -> bool:
-    return isinstance(layer, ConvolutionLayer) and layer.activation == "identity"
+    return isinstance(layer, _FUSABLE_HEADS) and layer.activation == "identity"
 
 
 def _bn_matchable(conv, bn) -> bool:
@@ -64,30 +153,32 @@ def _act_matchable(act) -> bool:
             and act.remat is None)
 
 
-def _make_fused(conv: ConvolutionLayer, bn: BatchNormalization,
-                activation: str, residual: bool = False,
-                name: Optional[str] = None) -> FusedConvBNActivation:
-    return FusedConvBNActivation(
+def _common_fused_kwargs(conv, bn, activation: str, name: Optional[str]) -> dict:
+    return dict(
         name=name if name is not None else conv.name,
-        dropout=conv.dropout,
-        remat=conv.remat,
-        activation=activation,
-        weight_init=conv.weight_init,
-        dist=conv.dist,
-        bias_init=conv.bias_init,
-        l1=conv.l1, l2=conv.l2,
-        l1_bias=conv.l1_bias, l2_bias=conv.l2_bias,
-        updater=conv.updater,
-        gradient_normalization=conv.gradient_normalization,
+        dropout=conv.dropout, remat=conv.remat, activation=activation,
+        weight_init=conv.weight_init, dist=conv.dist, bias_init=conv.bias_init,
+        l1=conv.l1, l2=conv.l2, l1_bias=conv.l1_bias, l2_bias=conv.l2_bias,
+        updater=conv.updater, gradient_normalization=conv.gradient_normalization,
         gradient_normalization_threshold=conv.gradient_normalization_threshold,
-        constraints=conv.constraints,
-        weight_noise=conv.weight_noise,
-        n_in=conv.n_in, n_out=conv.n_out,
-        kernel_size=conv.kernel_size, stride=conv.stride,
-        padding=conv.padding, convolution_mode=conv.convolution_mode,
-        dilation=conv.dilation, has_bias=conv.has_bias,
-        decay=bn.decay, eps=bn.eps, gamma=bn.gamma, beta=bn.beta,
-        residual=residual)
+        constraints=conv.constraints, weight_noise=conv.weight_noise,
+        n_in=conv.n_in, n_out=conv.n_out, kernel_size=conv.kernel_size,
+        stride=conv.stride, padding=conv.padding,
+        convolution_mode=conv.convolution_mode, has_bias=conv.has_bias,
+        decay=bn.decay, eps=bn.eps, gamma=bn.gamma, beta=bn.beta)
+
+
+def _make_fused(conv, bn: BatchNormalization, activation: str, residual: bool = False,
+                name: Optional[str] = None):
+    """The fused block for a matched chain head; residual adds only on the
+    2-D head."""
+    kw = _common_fused_kwargs(conv, bn, activation, name)
+    if isinstance(conv, ConvolutionLayer):
+        return FusedConvBNActivation(dilation=conv.dilation, residual=residual, **kw)
+    assert not residual, "residual fusion is 2-D-conv only"
+    if isinstance(conv, SeparableConvolution2D):
+        return FusedSeparableConvBNActivation(depth_multiplier=conv.depth_multiplier, **kw)
+    return FusedConv1DBNActivation(dilation=conv.dilation, **kw)
 
 
 def _fuse_multilayer(conf: MultiLayerConfiguration):
@@ -160,7 +251,8 @@ def _fuse_graph(conf: ComputationGraphConfiguration):
             act = "identity"
             if _act_matchable(nobj) and nins == (bname,):
                 act_name, act = nxt, nobj.activation
-            elif (isinstance(nobj, ElementWiseVertex)
+            elif (isinstance(cobj, ConvolutionLayer)  # residual: 2-D heads only
+                  and isinstance(nobj, ElementWiseVertex)
                   and nobj.op.lower() == "add" and len(nins) == 2
                   and nxt not in outputs
                   and len(consumers.get(nxt, ())) == 1):
@@ -195,7 +287,7 @@ def fuse(conf):
 
 
 def _copy(d: dict) -> dict:
-    return {k: v.detach().clone() for k, v in d.items()}
+    return tree_map(lambda v: v.detach().clone(), d)
 
 
 def _fused_params(conv_p: dict, bn_p: dict) -> dict:
@@ -244,3 +336,174 @@ def fuse_network(net):
             out.set_params(params, state)
         return out
     raise TypeError(f"fuse_network() expects a network, got {type(net).__name__}")
+
+
+# ---------------------------------------------------------------- fold_bn
+def _bn_scale_shift(bn, bn_params: dict, bn_state: dict):
+    """Inference-mode per-channel (scale, shift) of a BatchNormalization or
+    a fused block, from its running stats, in float32."""
+    mean, var = bn_state["mean"].float(), bn_state["var"].float()
+    if getattr(bn, "lock_gamma_beta", False):
+        gamma, beta = torch.full_like(mean, bn.gamma), torch.full_like(mean, bn.beta)
+    else:
+        gamma, beta = bn_params["gamma"].float(), bn_params["beta"].float()
+    scale = gamma * torch.rsqrt(var + bn.eps)
+    return scale, beta - mean * scale
+
+
+def _fold_head_params(layer, params: dict, scale, shift) -> dict:
+    """A per-channel (scale, shift) folded into the head's parameters: into
+    W's output-channel axis, or into the pointwise W_pw of a separable head
+    (the depthwise stage is untouched)."""
+    key = "W_pw" if isinstance(layer, (SeparableConvolution2D,
+                                       FusedSeparableConvBNActivation)) else "W"
+    w = params[key].detach().float()
+    b = (params["b"].detach().float() if layer.has_bias
+         else torch.zeros(w.shape[-1], dtype=torch.float32, device=w.device))
+    out = {key: w * scale, "b": b * scale + shift}
+    if key == "W_pw":
+        out = {"W_dw": params["W_dw"].detach().float().clone(), **out}
+    return out
+
+
+_FOLDABLE_FUSED = (FusedConvBNActivation, FusedSeparableConvBNActivation,
+                   FusedConv1DBNActivation)
+
+
+def _unfuse_head(fl):
+    """The BN-free head a folded fused block collapses into (with a bias:
+    it takes the BN's shift)."""
+    common = dict(
+        name=fl.name, dropout=fl.dropout, remat=fl.remat, activation=fl.activation,
+        weight_init=fl.weight_init, dist=fl.dist, bias_init=fl.bias_init, l1=fl.l1,
+        l2=fl.l2, l1_bias=fl.l1_bias, l2_bias=fl.l2_bias, updater=fl.updater,
+        gradient_normalization=fl.gradient_normalization,
+        gradient_normalization_threshold=fl.gradient_normalization_threshold,
+        constraints=fl.constraints, weight_noise=fl.weight_noise, n_in=fl.n_in,
+        n_out=fl.n_out, kernel_size=fl.kernel_size, stride=fl.stride, padding=fl.padding,
+        convolution_mode=fl.convolution_mode, has_bias=True)
+    if isinstance(fl, FusedConvBNActivation):
+        return ConvolutionLayer(dilation=fl.dilation, **common)
+    if isinstance(fl, FusedSeparableConvBNActivation):
+        return SeparableConvolution2D(depth_multiplier=fl.depth_multiplier, **common)
+    return Convolution1DLayer(dilation=fl.dilation, **common)
+
+
+def fold_bn(net):
+    """Serving-time BN folding (the JAX package's ``fold_bn``): a new
+    network of the same class, on the same device, whose inference output
+    matches the BN-inference output within float tolerance and whose
+    configuration holds no foldable BN. A BN not directly behind an
+    identity-activation head stays. Updater state starts anew."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    if net.params is None:
+        net.init()
+    with torch.no_grad():
+        if isinstance(net, MultiLayerNetwork):
+            return _fold_bn_multilayer(net)
+        if isinstance(net, ComputationGraph):
+            return _fold_bn_graph(net)
+    raise TypeError(f"fold_bn() expects a network, got {type(net).__name__}")
+
+
+def _fold_bn_multilayer(net):
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    pres = dict(net.conf.input_preprocessors or {})
+    layers = list(net.conf.layers)
+    new_layers, new_params, new_state = [], [], []
+    new_pres: Dict[int, object] = {}
+    i = 0
+    while i < len(layers):
+        l = layers[i]
+        if i in pres:
+            new_pres[len(new_layers)] = pres[i]
+        if (_head_matchable(l) and i + 1 < len(layers)
+                and isinstance(layers[i + 1], BatchNormalization) and (i + 1) not in pres):
+            scale, shift = _bn_scale_shift(layers[i + 1], net.params[i + 1], net.state[i + 1])
+            new_layers.append(dataclasses.replace(l, has_bias=True))
+            new_params.append(_fold_head_params(l, net.params[i], scale, shift))
+            new_state.append({})
+            i += 2
+            continue
+        if isinstance(l, _FOLDABLE_FUSED) and not getattr(l, "residual", False):
+            scale, shift = _bn_scale_shift(l, net.params[i], net.state[i])
+            new_layers.append(_unfuse_head(l))
+            new_params.append(_fold_head_params(l, net.params[i], scale, shift))
+            new_state.append({})
+        else:
+            new_layers.append(l)
+            new_params.append(_copy(net.params[i]))
+            new_state.append(_copy(net.state[i]))
+        i += 1
+    conf = dataclasses.replace(net.conf, layers=tuple(new_layers),
+                               input_preprocessors=new_pres or None)
+    return MultiLayerNetwork(conf, net.device).set_params(new_params, new_state)
+
+
+def _fold_bn_graph(net):
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    vertices = dict(net.conf.vertices)
+    outputs = list(net.conf.network_outputs)
+    params = {n: _copy(p) for n, p in net.params.items()}
+    state = {n: _copy(s) for n, s in net.state.items()}
+    # fused blocks first: non-residual ones fold in place, residual ones
+    # expand into conv -> add -> activation, the activation keeping the name
+    for name in list(vertices):
+        obj, ins = vertices[name]
+        if not isinstance(obj, _FOLDABLE_FUSED):
+            continue
+        scale, shift = _bn_scale_shift(obj, params[name], state[name])
+        if not getattr(obj, "residual", False):
+            vertices[name] = (_unfuse_head(obj), ins)
+            params[name] = _fold_head_params(obj, params[name], scale, shift)
+            state[name] = {}
+            continue
+        conv = dataclasses.replace(_unfuse_head(obj), activation="identity")
+        conv_name, add_name = f"{name}.fold_conv", f"{name}.fold_add"
+        while conv_name in vertices:
+            conv_name += "_"
+        while add_name in vertices:
+            add_name += "_"
+        vertices[conv_name] = (conv, (ins[0],))
+        vertices[add_name] = (ElementWiseVertex(op="add"), (conv_name, ins[1]))
+        vertices[name] = (ActivationLayer(activation=obj.activation), (add_name,))
+        params[conv_name] = _fold_head_params(obj, params[name], scale, shift)
+        state[conv_name] = {}
+        params[add_name], state[add_name] = {}, {}
+        params[name], state[name] = {}, {}
+
+    changed = True
+    while changed:
+        changed = False
+        consumers: Dict[str, List[str]] = {}
+        for n, (_, ins) in vertices.items():
+            for inp in ins:
+                consumers.setdefault(inp, []).append(n)
+        for cname in list(vertices):
+            cobj, cins = vertices[cname]
+            if not _head_matchable(cobj):
+                continue
+            if cname in outputs or len(consumers.get(cname, ())) != 1:
+                continue
+            bname = consumers[cname][0]
+            bobj, bins = vertices[bname]
+            if not isinstance(bobj, BatchNormalization) or bins != (cname,):
+                continue
+            if bname in outputs:
+                continue
+            scale, shift = _bn_scale_shift(bobj, params[bname], state[bname])
+            # the folded head takes the BN's name: downstream references hold
+            vertices[bname] = (dataclasses.replace(cobj, has_bias=True), cins)
+            params[bname] = _fold_head_params(cobj, params[cname], scale, shift)
+            state[bname] = {}
+            for d in (vertices, params, state):
+                d.pop(cname)
+            changed = True
+            break
+    out = ComputationGraph(dataclasses.replace(net.conf, vertices=vertices), net.device)
+    return out.set_params({n: params[n] for n in out.order},
+                          {n: state[n] for n in out.order})

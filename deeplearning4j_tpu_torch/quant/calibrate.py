@@ -124,8 +124,8 @@ def calibrate(net, data, observer: str = "minmax",
     ``net``: a MultiLayerNetwork (initialized or not); it runs on its own
     device. ``data``: an iterable of feature arrays (numpy or tensors) or
     objects with a ``features`` attribute. ``fold=True`` measures on the
-    BN-folded serving graph, which for a network without BatchNormalization
-    is the network itself."""
+    BN-folded serving graph (``perf.fusion.fold_bn``), the graph
+    ``quantize`` lowers."""
     from deeplearning4j_tpu_torch.quant.lowering import _fold_bn
 
     if net.params is None:

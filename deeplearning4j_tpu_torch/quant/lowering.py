@@ -305,14 +305,12 @@ def quantizable_kind(layer) -> Optional[str]:
 
 
 def _fold_bn(net, fold: bool):
-    """``fold=True`` targets the BN-folded serving graph. Without
-    BatchNormalization that graph is the network itself."""
-    if fold and any("BatchNormalization" in type(l).__name__
-                    for l in net.layers):
-        raise NotImplementedError(
-            "BN folding comes with the port's fusion slice (perf/fusion.py "
-            "fold_bn); quantize a network without BatchNormalization")
-    return net
+    """``fold=True`` targets the BN-folded serving graph
+    (``perf.fusion.fold_bn``), as the JAX package's ``quantize`` does."""
+    if not fold:
+        return net
+    from deeplearning4j_tpu_torch.perf.fusion import fold_bn
+    return fold_bn(net)
 
 
 def _lower_layer(layer, kind: str, params: dict, act_scale: float,

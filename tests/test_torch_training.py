@@ -288,11 +288,6 @@ def test_unported_training_options_raise():
         pnet.fit(DataSet(x, y), prefetch=True)
     with pytest.raises(NotImplementedError, match="augmentation"):
         pnet.set_augmentation(object())
-    remat = dataclasses.replace(pnet.vertices["stem_conv"][0], remat="full")
-    conf = dataclasses.replace(pnet.conf, vertices=dict(
-        pnet.conf.vertices, stem_conv=(remat, pnet.conf.vertices["stem_conv"][1])))
-    with pytest.raises(NotImplementedError, match="remat"):
-        ComputationGraph(conf, device="cpu").init().fit(DataSet(x, y))
 
 
 LOSS_CASES = [(name, act) for name in ("mse", "l1", "mcxent", "xent", "kld", "poisson",
