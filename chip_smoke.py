@@ -244,8 +244,67 @@
    pretrain_layer, and a CenterLossOutputLayer, an LRN and an
    Upsampling/Cropping/ZeroPadding network, one step each on the card
    against the CPU, bn launches counted where the chains fused.
-26. Prints the kernels JSON line (nine kernels; the bn rows' launches by
-   path), the card line, and last {"ok": true, "device": {...}}.
+26. Model server: one ModelServer on the card (port 0, loopback) serves
+   zoo VGG16 at 224 x 224 x 3, calibrated on two seeded batches and
+   quantized to int4 through add_model(quantize=, weight_bits=4,
+   warmup_example=), beside the PQ and IVF-PQ indexes of 7 as built there
+   (add_index, k_max 128). /readyz must answer 503 before warm-up and 200
+   after. Four client threads each send 8 predict requests of 1-4 rows
+   (binary float32 and binary int8 on the endpoint's calibrated scale,
+   alternating; one JSON float list in all) and 24 :query requests (1-8
+   rows, k of 1, 10 or 32, PQ and IVF-PQ alternating). Every 200 is checked:
+   predict outputs against the same rows through ep.pi.output within 1e-5
+   of the row's largest magnitude, top-1 equal wherever the top-2 are more
+   than 1e-4 apart; query ids and distances bitwise the index's own search
+   of those rows at the k its coalesced batch dispatched with. int4_dot
+   launches must equal 3 x the VGG16 dispatches (warm-up included), adc_pq
+   and adc_ivf_pq launches their index dispatches. Then the taxonomy on the
+   card: 400 malformed, 404, 413, a burst of four 429s with Retry-After
+   against queue_depth=2 behind a held dispatch, 504 on a 50 ms deadline
+   behind it, 503 and /readyz 503 while draining, and /metrics carrying the
+   serving_ instruments. Prints p50 / p99 ms, requests/s, batch occupancy
+   and bytes a request by encoding.
+27. Hot swap: VGG16 float32 committed as step 1 to a CheckpointManager in a
+   temporary directory (parameters only, about 553 MB; bytes and commit
+   seconds printed),
+   served int4 by add_model(checkpoint_manager=) with manual polling. Four
+   client threads keep sending while step 2 (every weight times 1 + 0.1
+   N(0, 1), seeded) is committed and poll_checkpoint() swaps it in. No
+   request may fail; every answer must be, as a whole, step 1's or step 2's
+   under 26's limits (the two differ by more), every request sent after the
+   swap returned step 2's; stats read 1 swap at step 2; int4_dot launches
+   3 x the dispatches after the swap too; a torn step 3 (tear_file) neither
+   re-swaps nor downgrades. Prints the swap's off-path restore + quantize
+   seconds and the longest request across it.
+28. Decode: TextGenerationLSTM at BASELINE configs[2] width (two
+   GravesLSTM(256), 47 characters, random weights from its seed) behind
+   add_generator with bench.py bench_decode's non-QUICK load: 32 sessions x
+   128 greedy tokens, prompts of 12 from numpy.random.default_rng(0),
+   prefill buckets (16, 64), 32 slots. Each session's tokens must equal
+   sequential greedy rnn_time_step on the card up to the first position
+   where the sequential step's top-2 log-probabilities are within 1e-4
+   (sessions without one must match whole; the count with one is printed).
+   Zero new dispatch shapes after warmup(), one host read per dispatch.
+   Engine and sequential tokens/s, TTFT and ITL p50 / p99. One :generate
+   over SSE and one as JSON must equal an engine session of the same
+   prompt. One "carry" hot swap while 8 sessions of 1024 tokens generate
+   loses none. No
+   kernel of the port launches in this phase.
+29. IVF: IVFIndex(V) and IVFIndex(V, int8=True) on 7's 1,000,000 x 64
+   corpus (1000 cells, nprobe 8), each dense and CSR, built on the card and
+   served over HTTP behind add_index with 26's query load (answers against
+   the index's own search of their rows under 7's near-tie rule: the
+   batched products round with the batch's shape). Build seconds, resident bytes, p50 / p99,
+   queries/s; recall@10 on the 1024 queries against 7's exact ids, gated
+   0.01 under the JAX package's own IVFIndex at this configuration (JAX_IVF_RECALL,
+   measured on the card host's CPU by tests/test_torch_ivf.py's __main__);
+   dense and CSR must answer identically; each index saved, loaded with
+   device="cpu" and asked 16 queries under 7's near-tie rule. No kernel
+   launches (the IVF scorers are plain torch).
+30. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+   path, and int4_dot's, adc_pq's and adc_ivf_pq's with the model_server,
+   hot_swap and ivf paths), the card line, and last {"ok": true, "device":
+   {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device the script exits 2 and prints no result.
@@ -1558,10 +1617,13 @@ def retrieval_phase(torch, dev, flush, card):
         checks = {name: card_vs_cpu_index(torch, name, ix[name], Q, tmpdir)
                   for name in served}
     print("retrieval_card_vs_cpu " + json.dumps(checks), flush=True)
-    del ix, V
+    # the corpus, queries, exact ids and the PQ and IVF-PQ indexes stay for
+    # the serving-tier phases (26 and 29), which serve them as built here
+    kept = {"V": V, "Q": Q, "exact_ids": exact, "pq": ix["pq"], "ivf_pq": ix["ivf_pq"]}
+    del ix
     torch.cuda.empty_cache()
     print(f"retrieval phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return pq_rows, ivf_rows, int4_rows, served
+    return pq_rows, ivf_rows, int4_rows, served, kept
 
 
 
@@ -3965,22 +4027,740 @@ def layer_families_phase(torch, dev) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the serving tier
+VGG_SIDE = 224            # VGG16's published input side
+MS_CLIENTS = 4            # client threads of the model_server, hot_swap and ivf loads
+MS_PREDICTS = 8           # predict requests a client (rows 1-4)
+MS_QUERIES = 24           # :query requests a client (rows 1-8, k of 1, 10 or 32)
+MS_BATCH_LIMIT = 16       # the VGG16 endpoint's coalesced requests a dispatch
+MS_DEADLINE_MS = 60_000   # every request of a load must answer 200; 504 is checked apart
+PREDICT_LIMIT = 1e-5      # of the row's largest magnitude
+TOP1_GAP = 1e-4
+SWAP_PERTURB = 0.1        # step 2: every weight times (1 + 0.1 N(0, 1)), seeded
+SWAP_LOAD_S = 1.5         # load before and after the swap
+# decode: bench.py bench_decode's non-QUICK load on BASELINE configs[2]'s
+# TextGenerationLSTM (two GravesLSTM(256), 47 characters)
+DECODE_SESSIONS, DECODE_TOKENS, DECODE_PROMPT = 32, 128, 12
+DECODE_BUCKETS = (16, 64)
+DECODE_TIE = 1e-4         # sequential top-2 log-probability gap of a near-tie
+DECODE_SWAP_SESSIONS, DECODE_SWAP_TOKENS = 8, 1024  # long enough to outlive the swap
+# IVF: bench.py bench_retrieval's IVFIndex(V) and IVFIndex(V, int8=True) on
+# the 1,000,000 x 64 corpus of 7 (1000 cells, nprobe 8); recall@10 of the
+# JAX package's own indexes, measured on the card host's CPU by
+# PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_ivf.py, and the gates
+# 0.01 under
+JAX_IVF_RECALL = {"fp32": 0.9998046875, "int8": 0.97314453125}
+IVF_RECALL_GATES = {codec: r - 0.01 for codec, r in JAX_IVF_RECALL.items()}
+IVF_VARIANTS = [("ivf", {}), ("ivf_csr", {"layout": "csr"}),
+                ("ivf_int8", {"int8": True}), ("ivf_int8_csr", {"int8": True, "layout": "csr"})]
+
+
+class GatedModel:
+    """A served model whose dispatches can be held at a gate: the lever of
+    the card's 429 and 504 checks. Everything else delegates."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.gate = threading.Event()
+        self.gate.set()
+        self.entered = threading.Event()
+
+    def output(self, x):
+        self.entered.set()
+        if not self.gate.wait(120):
+            raise AssertionError("gate held past 120 s")
+        return self._inner.output(x)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_inner"], name)
+
+
+def _http(base, method, path, body=None, timeout=600):
+    """(status, parsed body, headers, request bytes) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else (body if isinstance(body, bytes)
+                                      else json.dumps(body).encode())
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw, code, hdrs = r.read(), r.status, dict(r.headers)
+    except urllib.error.HTTPError as e:
+        raw, code, hdrs = e.read(), e.code, dict(e.headers)
+    try:
+        parsed = json.loads(raw)
+    except ValueError:
+        parsed = raw.decode(errors="replace")
+    return code, parsed, hdrs, len(data or b"")
+
+
+def _header_only_post(port, path, length):
+    """A POST announcing ``length`` body bytes and sending none: the server
+    must answer from the header alone."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.putrequest("POST", path)
+        conn.putheader("Content-Length", str(length))
+        conn.endheaders()
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def _wait_for(pred, what, timeout=120.0):
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def _run_clients(jobs_of, clients):
+    """Run each client's job list on its own thread; a job is (label, path,
+    body, meta). Returns [(cid, label, meta, status, body, ms, bytes)]."""
+    out, errors = [], []
+
+    def client(cid):
+        try:
+            for label, path, body, meta in jobs_of(cid):
+                t0 = time.perf_counter()
+                code, parsed, _, nbytes = _http(BASE[0], "POST", path, body)
+                out.append((cid, label, meta, code, parsed,
+                            (time.perf_counter() - t0) * 1e3, nbytes))
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish")
+    return out, wall
+
+
+BASE = [None]  # the address _run_clients posts to
+
+
+def _query_jobs(names, Q, seed):
+    from deeplearning4j_tpu_torch.serving.wire import encode_array
+
+    crng = np.random.default_rng(seed)
+    jobs = []
+    for i in range(MS_QUERIES):
+        name = names[i % len(names)]
+        rows = int(crng.integers(1, 9))
+        sel = crng.integers(0, len(Q), rows)
+        k = int(crng.choice([1, 10, 32], p=[0.15, 0.7, 0.15]))
+        body = dict(encode_array(Q[sel]), k=k, b64=True)
+        jobs.append((name, f"/v1/indexes/{name}:query", body, (sel, k)))
+    return jobs
+
+
+def _decode_b64(body, field, dtype):
+    import base64
+    return np.frombuffer(base64.b64decode(body[field]), dtype=dtype).reshape(body["shape"])
+
+
+def _hold_queries(results, indexes, Q, rtol=None):
+    """Every 200 of a :query against the index's own search of those rows,
+    at the k its coalesced batch dispatched with (k' >= k of the mix):
+    bitwise, or with ``rtol`` distances within rtol and ids equal apart
+    from near-ties (7's rule)."""
+    checked = 0
+    for _, name, meta, code, body, _, _ in results:
+        if name not in indexes:
+            continue
+        sel, k = meta
+        if code != 200:
+            raise AssertionError(f"{name}: query answered {code}: {body}")
+        ids = _decode_b64(body, "indices_b64", "<i4")
+        dist = _decode_b64(body, "distances_b64", "<f4")
+        ok = False
+        for kk in sorted({k, 10, 32} - {kk for kk in (10, 32) if kk < k}):
+            wi, wd = indexes[name].search(Q[sel], kk)
+            wi, wd = wi[:, :k], wd[:, :k]
+            if rtol is None:
+                ok = np.array_equal(ids, wi) and np.array_equal(dist, wd)
+            else:
+                # an id may differ only where the distances agree
+                ok = np.allclose(dist, wd, rtol=rtol, atol=0.0)
+            if ok:
+                break
+        if not ok:
+            raise AssertionError(f"{name}: a query answer differs from the index's own "
+                                 f"search of its rows (k={k})")
+        checked += 1
+    return checked
+
+
+def _lat(ms):
+    ms = np.asarray(ms, np.float64)
+    return {"p50_request_ms": float(np.percentile(ms, 50)),
+            "p99_request_ms": float(np.percentile(ms, 99)), "requests": int(ms.size)}
+
+
+def _predict_limit(got, want):
+    """(max |diff| / the row's largest magnitude, top-1 equal outside
+    near-ties) of two (rows, classes) answers."""
+    err = float((np.abs(got - want).max(axis=1) / np.abs(want).max(axis=1)).max())
+    top2 = np.sort(want, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > TOP1_GAP
+    same = np.array_equal(got.argmax(1)[clear], want.argmax(1)[clear])
+    return err, same
+
+
+def model_server_phase(torch, dev, card, kept):
+    """VGG16 int4 predict in three encodings and :query on the PQ and IVF-PQ
+    indexes of 7, behind one ModelServer, over HTTP; then the status-code
+    taxonomy on the card. Returns the phase's kernel launches, the float32
+    net and its calibration record (the hot_swap phase's)."""
+    from deeplearning4j_tpu_torch.models import VGG16
+    from deeplearning4j_tpu_torch.quant import calibrate
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.serving.wire import encode_array
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    net = VGG16(input_shape=(VGG_SIDE, VGG_SIDE, 3)).init(device=dev)
+    rec = calibrate(net, [rng.standard_normal((8, VGG_SIDE, VGG_SIDE, 3), dtype=np.float32)
+                          for _ in range(2)])
+    srv = ModelServer(port=0, batch_limit=MS_BATCH_LIMIT, default_deadline_ms=MS_DEADLINE_MS)
+    ep = srv.add_model("vgg16", net, quantize=rec, weight_bits=4,
+                       warmup_example=np.zeros((1, VGG_SIDE, VGG_SIDE, 3), np.float32))
+    ieps = {name: srv.add_index(name, kept[name], k_max=128) for name in ("pq", "ivf_pq")}
+    srv.start(warmup=False)
+    BASE[0] = base = srv.address
+    ready_cold = _http(base, "GET", "/readyz")[0]
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    ready_warm = _http(base, "GET", "/readyz")[0]
+    if (ready_cold, ready_warm) != (503, 200):
+        raise AssertionError(f"/readyz {ready_cold} before warm-up, {ready_warm} after")
+    scale = ep.input_scale
+
+    def jobs_of(cid):
+        crng = np.random.default_rng(3000 + cid)
+        jobs = []
+        for i in range(MS_PREDICTS):
+            rows = int(crng.integers(1, 5))
+            x = crng.standard_normal((rows, VGG_SIDE, VGG_SIDE, 3), dtype=np.float32)
+            if cid == 0 and i == 0:
+                x = x[:1]
+                jobs.append(("json", "/v1/models/vgg16:predict", {"inputs": x.tolist()}, x))
+            elif i % 2:
+                xq = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+                jobs.append(("int8", "/v1/models/vgg16:predict", encode_array(xq),
+                             xq.astype(np.float32) * np.float32(scale)))
+            else:
+                jobs.append(("float32", "/v1/models/vgg16:predict", encode_array(x), x))
+        queries = _query_jobs(("pq", "ivf_pq"), kept["Q"], 4000 + cid)
+        mixed = []
+        for i in range(max(len(jobs), len(queries))):
+            mixed += jobs[i:i + 1] + queries[3 * i:3 * i + 3]
+        return mixed
+
+    results, wall = _run_clients(jobs_of, MS_CLIENTS)
+    launches = _launch_counts()
+    st = ep.pi.stats()
+    vgg_dispatches = len(st["warmed_buckets"]) + st["batches_dispatched"]
+    if launches["int4_dot"] != 3 * vgg_dispatches:
+        raise AssertionError(f"int4_dot launched {launches['int4_dot']} times for "
+                             f"{vgg_dispatches} VGG16 dispatches (want 3 each)")
+    for name, kernel in (("pq", "adc_pq"), ("ivf_pq", "adc_ivf_pq")):
+        want = len(ieps[name].warmed_pairs) + ieps[name].stats()["batches_dispatched"]
+        if launches[kernel] != want:
+            raise AssertionError(f"{kernel} launched {launches[kernel]} times for {want} "
+                                 f"{name} dispatches")
+    if any(v for k, v in launches.items() if k not in ("int4_dot", "adc_pq", "adc_ivf_pq")):
+        raise AssertionError(f"unexpected launches {launches}")
+    # every 200 against the same rows through the endpoint's own net
+    worst, predicts = 0.0, 0
+    for _, label, x, code, body, _, _ in results:
+        if label not in ("json", "int8", "float32"):
+            continue
+        if code != 200:
+            raise AssertionError(f"predict ({label}) answered {code}: {body}")
+        got = np.asarray(body["outputs"], np.float32)
+        err, same = _predict_limit(got, ep.pi.output(x))
+        if err > PREDICT_LIMIT or not same:
+            raise AssertionError(f"predict ({label}): {err} of the row's largest magnitude, "
+                                 f"top-1 equal {same}")
+        worst, predicts = max(worst, err), predicts + 1
+    queries = _hold_queries(results, kept, kept["Q"])
+    by_kind = {}
+    for _, label, _, _, _, ms, nbytes in results:
+        by_kind.setdefault(label, []).append((ms, nbytes))
+    summary = {
+        "card": card, "warmup_s": warm_s, "requests": len(results),
+        "requests_per_s": len(results) / wall, "wall_s": wall,
+        "predict": _lat([ms for _, lab, _, _, _, ms, _ in results
+                         if lab in ("json", "int8", "float32")]),
+        "query": _lat([ms for _, lab, _, _, _, ms, _ in results if lab in ("pq", "ivf_pq")]),
+        "bytes_per_request": {k: float(np.mean([b for _, b in v])) for k, v in by_kind.items()},
+        "p50_ms_by_kind": {k: float(np.median([m for m, _ in v])) for k, v in by_kind.items()},
+        "batch_occupancy": st["batch_size"], "vgg16_dispatches": vgg_dispatches,
+        "bucket_dispatches": st["bucket_dispatches"],
+        "unwarmed_dispatches": st["unwarmed_dispatches"],
+        "launches": {k: launches[k] for k in ("int4_dot", "adc_pq", "adc_ivf_pq")},
+        "predicts_checked": predicts, "queries_checked": queries,
+        "predict_max_err_of_row_max": worst,
+    }
+    summary["taxonomy"] = _taxonomy_on_card(srv, ep, dev)
+    srv.stop(drain=True, drain_timeout_s=60)
+    print("model_server " + json.dumps(summary), flush=True)
+    print(f"model_server phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return summary["launches"], net, rec
+
+
+def _taxonomy_on_card(srv, ep, dev):
+    """400, 404, 413, a 429 burst behind a held dispatch, 504 on an expired
+    deadline, 503 while draining, and /metrics, against the served VGG16."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving.wire import encode_array
+
+    base = srv.address
+    x = np.zeros((1, VGG_SIDE, VGG_SIDE, 3), np.float32)
+    got = {}
+    got["malformed"] = _http(base, "POST", "/v1/models/vgg16:predict", b"not json")[:2]
+    got["unknown"] = _http(base, "POST", "/v1/models/nope:predict", encode_array(x))[:2]
+    got["too_large"] = _header_only_post(srv.port, "/v1/models/vgg16:predict",
+                                         srv.max_body_bytes + 1)
+    gated = GatedModel(ep.pi.model)
+    gpi = ParallelInference(gated, batch_limit=1, queue_depth=2, queue_put_timeout_ms=0.0,
+                            device=dev)
+    gep = srv.add_model("vgg16_gated", gpi, default_deadline_ms=600_000)
+    path = "/v1/models/vgg16_gated:predict"
+    held, threads = [], []
+
+    def bg(body):
+        t = threading.Thread(target=lambda: held.append(_http(base, "POST", path, body)[:3]))
+        t.start()
+        threads.append(t)
+
+    gated.gate.clear()
+    bg(encode_array(x))
+    _wait_for(gated.entered.is_set, "the held dispatch")
+    bg(encode_array(x))
+    bg(encode_array(x))
+    _wait_for(lambda: gpi.stats()["queue"]["size"] == 2, "a full queue")
+    burst = [_http(base, "POST", path, encode_array(x))[:3] for _ in range(4)]
+    got["burst"] = [(c, b.get("reason"), "Retry-After" in h) for c, b, h in burst]
+    gated.gate.set()
+    for t in threads:
+        t.join(600)
+    got["held_served"] = sorted(c for c, _, _ in held)
+    gated.gate.clear()
+    gated.entered.clear()
+    held.clear()
+    bg(encode_array(x))
+    _wait_for(gated.entered.is_set, "the held dispatch")
+    bg(dict(encode_array(x), deadline_ms=50))
+    _wait_for(lambda: gpi.stats()["queue"]["size"] == 1, "the queued request")
+    time.sleep(0.1)
+    gated.gate.set()
+    for t in threads:
+        t.join(600)
+    got["expired"] = sorted((c, b.get("reason")) for c, b, _ in held)
+    if not srv.drain(timeout_s=120):
+        raise AssertionError("drain did not finish")
+    got["draining"] = _http(base, "POST", "/v1/models/vgg16:predict", encode_array(x))[:2]
+    got["draining_readyz"] = _http(base, "GET", "/readyz")[0]
+    srv.undrain()
+    code, text = _http(base, "GET", "/metrics")[:2]
+    gpi.shutdown()
+    want = {"malformed": (400, "bad_request"), "unknown": (404, "unknown_model"),
+            "too_large": (413, "body_too_large"), "draining": (503, "draining")}
+    for key, (wcode, reason) in want.items():
+        if got[key][0] != wcode or got[key][1].get("reason") != reason:
+            raise AssertionError(f"{key}: {got[key]}, want {wcode} {reason}")
+    if got["burst"] != [(429, "shed", True)] * 4 or got["held_served"] != [200, 200, 200]:
+        raise AssertionError(f"429 burst: {got['burst']}, held {got['held_served']}")
+    if got["expired"] != [(200, None), (504, "deadline_expired")]:
+        raise AssertionError(f"expired deadline: {got['expired']}")
+    if got["draining_readyz"] != 503:
+        raise AssertionError("/readyz while draining answered "
+                             f"{got['draining_readyz']}")
+    names = ("serving_http_requests", "serving_requests_shed", "serving_requests_expired",
+             "serving_drain_rejected", "serving_request_ms", "serving_batch_occupancy",
+             "serving_queue_depth", "serving_inflight_requests", "serving_retrieval_requests")
+    missing = [n for n in names if n not in text]
+    if code != 200 or missing:
+        raise AssertionError(f"/metrics {code}, missing {missing}")
+    return {k: (v[0] if isinstance(v, tuple) else v) for k, v in got.items()}
+
+
+def _perturb(torch, net, seed):
+    """Every float weight times (1 + SWAP_PERTURB * N(0, 1)), in place, from
+    a seeded generator on the net's device."""
+    from deeplearning4j_tpu_torch.nn.tree import tree_leaves
+
+    gen = torch.Generator(device=net.device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for w in tree_leaves(net.params):
+            if w.is_floating_point():
+                w.mul_(1.0 + SWAP_PERTURB * torch.randn(w.shape, generator=gen,
+                                                        device=w.device, dtype=w.dtype))
+
+
+def hot_swap_phase(torch, dev, card, net, rec):
+    """VGG16 float32 step 1 in a CheckpointManager, served int4; step 2
+    committed and swapped in by hand under the load of MS_CLIENTS clients;
+    a torn step 3 neither re-swaps nor downgrades."""
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.checkpoint.faults import tear_file
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.serving.wire import encode_array
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_swap_")
+    try:
+        writer = CheckpointManager(workdir, device=dev, async_write=False,
+                                   save_updater=False)
+        net.iteration = 1
+        t0 = time.perf_counter()
+        writer.save(net)
+        commit_s = time.perf_counter() - t0
+        ckpt_bytes = writer.checkpoints()[-1]["size"]
+        reader = CheckpointManager(workdir, device=dev)
+        srv = ModelServer(port=0, batch_limit=MS_BATCH_LIMIT, default_deadline_ms=MS_DEADLINE_MS)
+        ep = srv.add_model("vgg16", reader.restore_latest(load_updater=False), quantize=rec,
+                           weight_bits=4, checkpoint_manager=reader,
+                           warmup_example=np.zeros((1, VGG_SIDE, VGG_SIDE, 3), np.float32))
+        srv.start(warmup=False)
+        BASE[0] = srv.address
+        _zero_launch_counts()
+        srv.warmup()
+        X = np.random.default_rng(7).standard_normal((MS_CLIENTS, VGG_SIDE, VGG_SIDE, 3),
+                                                     dtype=np.float32)
+        ref1 = ep.pi.output(X)
+        stop = threading.Event()
+        swap_done = [float("inf")]
+
+        def jobs_of(cid):
+            while not stop.is_set():
+                yield ("predict", "/v1/models/vgg16:predict", encode_array(X[cid:cid + 1]),
+                       time.perf_counter())
+
+        box = []
+        runner = threading.Thread(target=lambda: box.append(_run_clients(jobs_of, MS_CLIENTS)))
+        runner.start()
+        time.sleep(SWAP_LOAD_S)
+        _perturb(torch, net, seed=2)
+        net.iteration = 2
+        writer.save(net)
+        int4_before = _launch_counts()["int4_dot"]
+        t0 = time.perf_counter()
+        swapped = ep.pi.poll_checkpoint()
+        swap_s = time.perf_counter() - t0
+        swap_done[0] = time.perf_counter()
+        time.sleep(SWAP_LOAD_S)
+        stop.set()
+        runner.join(900)
+        results, wall = box[0]
+        launches = _launch_counts()
+        st = ep.pi.stats()
+        ref2 = ep.pi.output(X)
+        if not swapped or st["hot_swap"]["swaps"] != 1 \
+                or st["hot_swap"]["current_checkpoint_step"] != 2:
+            raise AssertionError(f"hot swap: {swapped}, {st['hot_swap']}")
+        dispatches = len(st["warmed_buckets"]) + sum(st["bucket_dispatches"].values())
+        if launches["int4_dot"] != 3 * dispatches or launches["int4_dot"] <= int4_before:
+            raise AssertionError(f"int4_dot launched {launches['int4_dot']} times for "
+                                 f"{dispatches} dispatches ({int4_before} before the swap)")
+        sep = [_predict_limit(ref2[i:i + 1], ref1[i:i + 1])[0] for i in range(MS_CLIENTS)]
+        if min(sep) <= PREDICT_LIMIT:
+            raise AssertionError(f"step 1 and step 2 answers too close: {sep}")
+        olds = news = 0
+        for cid, _, sent, code, body, ms, _ in results:
+            if code != 200:
+                raise AssertionError(f"a request failed across the swap: {code} {body}")
+            got = np.asarray(body["outputs"], np.float32)
+            e1 = _predict_limit(got, ref1[cid:cid + 1])
+            e2 = _predict_limit(got, ref2[cid:cid + 1])
+            is1, is2 = e1[0] <= PREDICT_LIMIT and e1[1], e2[0] <= PREDICT_LIMIT and e2[1]
+            if is1 == is2:
+                raise AssertionError(f"an answer is neither step 1's nor step 2's "
+                                     f"({e1[0]}, {e2[0]})")
+            if sent > swap_done[0] and not is2:
+                raise AssertionError("a request sent after the swap got step 1's answer")
+            olds, news = olds + is1, news + is2
+        if not olds or not news:
+            raise AssertionError(f"{olds} step-1 and {news} step-2 answers")
+        # a torn newest checkpoint neither re-swaps nor downgrades
+        _perturb(torch, net, seed=3)
+        net.iteration = 3
+        torn = writer.save(net)
+        tear_file(os.path.join(workdir, torn))
+        if ep.pi.poll_checkpoint() or ep.pi.stats()["hot_swap"]["current_checkpoint_step"] != 2:
+            raise AssertionError("the torn checkpoint re-swapped or downgraded")
+        if _predict_limit(ep.pi.output(X), ref2)[0] > PREDICT_LIMIT:
+            raise AssertionError("the served answers moved after the torn poll")
+        srv.stop(drain=True, drain_timeout_s=60)
+        writer.close()
+        reader.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    swap_window = [ms for _, _, sent, _, _, ms, _ in results
+                   if sent <= swap_done[0] and sent + ms / 1e3 >= swap_done[0] - swap_s]
+    summary = {"card": card, "checkpoint_bytes": ckpt_bytes, "commit_s": commit_s,
+               "swap_restore_quantize_s": swap_s, "requests": len(results),
+               "step1_answers": olds, "step2_answers": news, "requests_per_s": len(results) / wall,
+               **_lat([r[5] for r in results]),
+               "max_request_ms": float(max(r[5] for r in results)),
+               "max_request_ms_across_swap": float(max(swap_window, default=0.0)),
+               "int4_dot_launches": launches["int4_dot"], "vgg16_dispatches": dispatches,
+               "step_gap_of_row_max": min(sep)}
+    print("hot_swap " + json.dumps(summary), flush=True)
+    print(f"hot_swap phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: launches[k] for k in ("int4_dot", "adc_pq", "adc_ivf_pq")}
+
+
+def _sequential_decode(torch, net, prompt, n_tokens, vocab):
+    """Greedy decode through rnn_time_step on the card: the tokens and, per
+    token, the gap between the top two log-probabilities."""
+    eye = torch.eye(vocab, device=net.device)
+    net.rnn_clear_previous_state()
+    out = net.rnn_time_step(eye[torch.tensor(prompt, device=net.device)][None])[:, -1]
+    toks, gaps = [], []
+    for _ in range(n_tokens):
+        top = torch.topk(torch.log(out[0]), 2)
+        host = torch.cat([top.values, top.indices[:1].to(top.values.dtype)]).cpu().numpy()
+        idx = int(host[2])
+        toks.append(idx)
+        gaps.append(float(host[0] - host[1]))
+        if len(toks) < n_tokens:
+            out = net.rnn_time_step(eye[idx][None])
+    net.rnn_clear_previous_state()
+    return toks, gaps
+
+
+def _sse_tokens(raw: str):
+    events = []
+    for block in raw.strip().split("\n\n"):
+        lines = dict(ln.split(": ", 1) for ln in block.split("\n"))
+        events.append((lines["event"], json.loads(lines["data"])))
+    return [d["id"] for k, d in events if k == "token"], events[-1][0]
+
+
+def decode_phase(torch, dev, card):
+    """The char-RNN behind add_generator: 32 greedy sessions against the
+    sequential rnn_time_step loop, TTFT / ITL, dispatch shapes and host
+    reads, :generate over SSE and JSON, and a "carry" hot swap."""
+    import http.client
+
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.models import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.serving import ModelServer
+
+    t_phase = time.perf_counter()
+    _zero_launch_counts()
+    vocab = 47
+    net = TextGenerationLSTM(total_unique_characters=vocab).init(device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, vocab, DECODE_PROMPT)]
+               for _ in range(DECODE_SESSIONS)]
+    _sequential_decode(torch, net, prompts[0], 4, vocab)  # first touch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [_sequential_decode(torch, net, p, DECODE_TOKENS, vocab) for p in prompts]
+    seq_s = time.perf_counter() - t0
+
+    srv = ModelServer(port=0, default_deadline_ms=MS_DEADLINE_MS)
+    gep = srv.add_generator("char", net, max_sessions=DECODE_SESSIONS, min_slots=8,
+                            prefill_buckets=DECODE_BUCKETS, seed=1)
+    eng = gep.engine
+    srv.start(warmup=False)
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    st0 = eng.stats()
+    t0 = time.perf_counter()
+    sessions = [eng.open_session(p, max_tokens=DECODE_TOKENS, temperature=0.0)
+                for p in prompts]
+    got = []
+    for s in sessions:
+        evs = list(s.events(token_deadline_s=120.0))
+        if evs[-1] != {"type": "done", "reason": "max_tokens", "tokens": DECODE_TOKENS}:
+            raise AssertionError(f"decode session ended {evs[-1]}")
+        got.append([e["id"] for e in evs if e["type"] == "token"])
+    wave_s = time.perf_counter() - t0
+    st = eng.stats()
+    near_ties = 0
+    for toks, (want, gaps) in zip(got, seq):
+        # from the first near-tie on, the two may pick different tokens
+        tie = next((i for i, g in enumerate(gaps) if g <= DECODE_TIE), len(want))
+        near_ties += tie < len(want)
+        if toks[:tie] != want[:tie]:
+            raise AssertionError(f"engine tokens differ from sequential rnn_time_step "
+                                 f"before the first near-tie (position {tie})")
+    if st["new_shapes_after_warmup"] != 0:
+        raise AssertionError(f"{st['new_shapes_after_warmup']} new dispatch shapes after warm-up")
+    if st["host_reads"] != st["steps"] + st["admissions"]:
+        raise AssertionError(f"{st['host_reads']} host reads for {st['steps']} steps and "
+                             f"{st['admissions']} admissions")
+    ttft = [(s.first_token_at - s.opened_at) * 1e3 for s in sessions]
+    itl = [d * 1e3 for s in sessions for d in np.diff(s.token_times)]
+
+    # :generate over HTTP, SSE and JSON, against a session of the engine
+    direct = eng.open_session(prompts[0], max_tokens=16, temperature=0.0)
+    want16 = [e["id"] for e in direct.events(120.0) if e["type"] == "token"]
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+    conn.request("POST", "/v1/models/char:generate", body=json.dumps(
+        {"prompt_ids": prompts[0], "max_tokens": 16, "temperature": 0.0}).encode())
+    r = conn.getresponse()
+    sse_toks, last = _sse_tokens(r.read().decode())
+    conn.close()
+    code, body = _http(srv.address, "POST", "/v1/models/char:generate",
+                       {"prompt_ids": prompts[0], "max_tokens": 16, "temperature": 0.0,
+                        "stream": False})[:2]
+    if r.status != 200 or last != "done" or code != 200 \
+            or not (sse_toks == body["token_ids"] == want16):
+        raise AssertionError(f":generate SSE {r.status} {sse_toks} / JSON {code} "
+                             f"{body} / engine {want16}")
+
+    # one "carry" swap mid-generation, no session lost
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+    try:
+        cm = CheckpointManager(workdir, device=dev, async_write=False)
+        cm.save(net)
+        eng.start_hot_swap(cm, poll_secs=None, policy="carry")
+        live = [eng.open_session(p, max_tokens=DECODE_SWAP_TOKENS, temperature=0.0)
+                for p in prompts[:DECODE_SWAP_SESSIONS]]
+        _wait_for(lambda: min(len(s.generated) for s in live) >= 8, "tokens before the swap")
+        newer = net.to(dev)
+        _perturb(torch, newer, seed=5)
+        newer.iteration = 1
+        cm.save(newer)
+        t0 = time.perf_counter()
+        if not eng.poll_checkpoint():
+            raise AssertionError("the decode hot swap was not staged")
+        stage_s = time.perf_counter() - t0
+        at_swap = [len(s.generated) for s in live]
+        ends = [list(s.events(120.0))[-1] for s in live]
+        if any(e != {"type": "done", "reason": "max_tokens", "tokens": DECODE_SWAP_TOKENS}
+               for e in ends) or eng.stats()["hot_swaps"] != 1 \
+                or max(at_swap) >= DECODE_SWAP_TOKENS:
+            raise AssertionError(f"sessions across the swap ended {ends}, "
+                                 f"{eng.stats()['hot_swaps']} swaps")
+        cm.close()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    srv.stop(drain=True, drain_timeout_s=60)
+    launches = _launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel of the port launched in the decode phase: {launches}")
+    tokens = DECODE_SESSIONS * DECODE_TOKENS
+    summary = {
+        "card": card, "sessions": DECODE_SESSIONS, "tokens_each": DECODE_TOKENS,
+        "prompt": DECODE_PROMPT, "warmup_s": warm_s,
+        "engine_tokens_per_s": tokens / wave_s, "sequential_tokens_per_s": tokens / seq_s,
+        "engine_wave_s": wave_s, "sequential_s": seq_s,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "itl_p50_ms": float(np.percentile(itl, 50)), "itl_p99_ms": float(np.percentile(itl, 99)),
+        "sessions_with_near_tie": near_ties, "steps": st["steps"] - st0["steps"],
+        "host_reads": st["host_reads"], "dispatch_shapes": st["dispatch_shapes"],
+        "new_shapes_after_warmup": st["new_shapes_after_warmup"],
+        "http_tokens": len(sse_toks), "swap_stage_s": stage_s,
+        "tokens_at_swap": [min(at_swap), max(at_swap)], "launches": launches,
+    }
+    print("decode " + json.dumps(summary), flush=True)
+    print(f"decode phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def ivf_phase(torch, dev, card, kept):
+    """IVFIndex(V) and IVFIndex(V, int8=True) on the corpus of 7, dense and
+    CSR, each served over HTTP under the model_server load, recall@10
+    against the exact ids of 7, dense == CSR, and card against CPU."""
+    from deeplearning4j_tpu_torch.retrieval import IVFIndex
+    from deeplearning4j_tpu_torch.serving import ModelServer
+
+    t_phase = time.perf_counter()
+    V, Q, exact = kept["V"], kept["Q"], kept["exact_ids"]
+    answers, rows = {}, []
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmpdir:
+        for name, kw in IVF_VARIANTS:
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            ix = IVFIndex(V, device=dev, **kw)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            srv = ModelServer(port=0, default_deadline_ms=MS_DEADLINE_MS)
+            iep = srv.add_index(name, ix, k_max=128)
+            srv.start(warmup=False)
+            BASE[0] = srv.address
+            t0 = time.perf_counter()
+            srv.warmup()
+            warm_s = time.perf_counter() - t0
+            results, wall = _run_clients(
+                lambda cid: _query_jobs((name,), Q, 5000 + cid), MS_CLIENTS)
+            srv.stop(drain=True, drain_timeout_s=60)
+            # the batched scorers' products round with the batch's shape
+            # (cuBLAS picks its algorithm by shape): 7's near-tie rule
+            checked = _hold_queries(results, {name: ix}, Q, rtol=NEAR_TIE_RTOL)
+            got_i, got_d = _search_all(ix, Q, 10)
+            answers[name] = (got_i, got_d)
+            recall = float(np.mean([len(np.intersect1d(g, w)) / 10.0
+                                    for g, w in zip(got_i, exact)]))
+            codec = "int8" if kw.get("int8") else "fp32"
+            gate = IVF_RECALL_GATES[codec]
+            launches = _launch_counts()
+            st = ix.stats()
+            summary = {"card": card, "index": name, "build_s": build_s, "warmup_s": warm_s,
+                       "memory_bytes": st["memory_bytes"], "cap": st["cap"],
+                       "cand_pad": st.get("cand_pad"), "n_cells": st["n_cells"],
+                       "nprobe": st["nprobe"], **_lat([r[5] for r in results]),
+                       "queries_per_s": sum(len(r[2][0]) for r in results) / wall,
+                       "requests_checked": checked, "recall_at_10": recall,
+                       "recall_gate": gate, "jax_recall_at_10": JAX_IVF_RECALL[codec],
+                       "launches": launches,
+                       "card_vs_cpu": card_vs_cpu_index(torch, name, ix, Q, tmpdir)}
+            print("ivf " + json.dumps(summary), flush=True)
+            rows.append(summary)
+            if any(launches.values()):
+                raise AssertionError(f"{name}: a kernel launched: {launches}")
+            if recall < gate:
+                raise AssertionError(f"{name}: recall@10 {recall:.4f} under the gate {gate}")
+            del ix, iep, srv
+            torch.cuda.empty_cache()
+    for dense, csr in (("ivf", "ivf_csr"), ("ivf_int8", "ivf_int8_csr")):
+        if not (np.array_equal(answers[dense][0], answers[csr][0])
+                and np.array_equal(answers[dense][1], answers[csr][1])):
+            raise AssertionError(f"{dense} and {csr} answer differently")
+    print(f"ivf phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def _build_dir():
     from deeplearning4j_tpu_torch.perf.kernels import _build
     _build.BUILD.mkdir(parents=True, exist_ok=True)
     return _build.BUILD
 
 
-def _adc_kernel_entry(name, rows, launches, replaces_line):
+def _adc_kernel_entry(name, rows, by_path, replaces_line):
     """The kernels-line entry of adc_pq or adc_ivf_pq: numbers at b = 256 on
     the 1M-vector index, max error over every case, the other served
-    batches beside, each with its first design's time (previous_ms)."""
+    batches beside, each with its first design's time (previous_ms), and
+    the launches of each path."""
     head = next(r for r in rows if r["b"] == max(ADC_BATCHES) and r["case"] != "ragged")
     timed = ("ms", "host_ms") + (("previous_ms",) if "previous_ms" in head else ())
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
             "replaces": f"deeplearning4j_tpu/perf/pallas/adc.py:{replaces_line}",
-            "launches": launches,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: head[k] for k in timed}, "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4031,7 +4811,7 @@ def main() -> int:
     launches, buckets = serving_phase(torch, dev, card)
     bn_fwd, bn_bwd = training_phase(torch, dev, card)
     card_vs_cpu_phase(torch, dev)
-    pq_rows, ivf_rows, int4_retr, served = retrieval_phase(torch, dev, flush, card)
+    pq_rows, ivf_rows, int4_retr, served, kept = retrieval_phase(torch, dev, flush, card)
     int4_head = next(r for r in int4_retr if r["b"] == max(ADC_BATCHES))
     scatter_rows, w2v = word2vec_phase(torch, dev, flush, card)
     flash_rows = flash_kernel_phase(torch, dev, flush)
@@ -4055,6 +4835,15 @@ def main() -> int:
     facenet = facenet_training_phase(torch, dev, card)
     zoo = zoo_phase(torch, dev)
     families = layer_families_phase(torch, dev)
+    ms_launches, vgg_fp32, vgg_rec = model_server_phase(torch, dev, card, kept)
+    swap_launches = hot_swap_phase(torch, dev, card, vgg_fp32, vgg_rec)
+    del vgg_fp32
+    torch.cuda.empty_cache()
+    decode_phase(torch, dev, card)
+    ivf_rows_served = ivf_phase(torch, dev, card, kept)
+    ivf_launches = {k: sum(r["launches"][k] for r in ivf_rows_served)
+                    for k in ("int4_dot", "adc_pq", "adc_ivf_pq")}
+    del kept
     bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
                           "checkpoint_overhead": overhead[kind], "yolo_training": yolo[kind],
                           "facenet_training": facenet[kind], "zoo": zoo[kind],
@@ -4072,10 +4861,15 @@ def main() -> int:
         "name": "int4_dot", "route": "cuda",
         "source": "deeplearning4j_tpu_torch/csrc/int4_dot.cu",
         "replaces": "deeplearning4j_tpu/perf/pallas/adc.py:150",
-        # both of its paths: VGG16 serving and the int4 brute-force index
-        "launches": launches + served["int4"]["launches"],
+        # its paths: VGG16 serving, the int4 brute-force index, and VGG16
+        # behind ModelServer before and after a hot swap
+        "launches": (launches + served["int4"]["launches"] + ms_launches["int4_dot"]
+                     + swap_launches["int4_dot"]),
         "launches_by_path": {"vgg16_serving": launches,
-                             "retrieval_int4": served["int4"]["launches"]},
+                             "retrieval_int4": served["int4"]["launches"],
+                             "model_server": ms_launches["int4_dot"],
+                             "hot_swap": swap_launches["int4_dot"],
+                             "ivf": ivf_launches["int4_dot"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1] + int4_retr),
         "ms": fc1["ms"], "host_ms": fc1["host_ms"], "previous_ms": fc1["previous_ms"],
         "plain_ms": fc1["plain_ms"],
@@ -4087,8 +4881,13 @@ def main() -> int:
                               if r is not int4_head]},
         _bn_kernel_entry("bn_act_fwd", bn_rows, bn_launches["fwd"]),
         _bn_kernel_entry("bn_act_bwd", bn_rows, bn_launches["bwd"]),
-        _adc_kernel_entry("adc_pq", pq_rows, served["pq"]["launches"], 59),
-        _adc_kernel_entry("adc_ivf_pq", ivf_rows, served["ivf_pq"]["launches"], 103),
+        _adc_kernel_entry("adc_pq", pq_rows, {
+            "retrieval_pq": served["pq"]["launches"], "model_server": ms_launches["adc_pq"],
+            "hot_swap": swap_launches["adc_pq"], "ivf": ivf_launches["adc_pq"]}, 59),
+        _adc_kernel_entry("adc_ivf_pq", ivf_rows, {
+            "retrieval_ivf_pq": served["ivf_pq"]["launches"],
+            "model_server": ms_launches["adc_ivf_pq"],
+            "hot_swap": swap_launches["adc_ivf_pq"], "ivf": ivf_launches["adc_ivf_pq"]}, 103),
         _scatter_kernel_entry(scatter_rows, w2v),
         _flash_kernel_entry(flash_rows, lm, train),
         dict(_flash_bwd_kernel_entry("flash_attn_bwd_dkv", bwd_rows, train),

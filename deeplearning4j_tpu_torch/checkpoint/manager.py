@@ -171,6 +171,7 @@ class CheckpointManager:
             entries.sort(key=lambda e: (int(e.get("step", 0)), int(e.get("seq", 0))))
             mf.write_manifest(self._storage, entries)
         self._entries: List[dict] = entries or []
+        self.last_refresh_error: Optional[BaseException] = None
         self._seq = max((int(e.get("seq", 0)) for e in self._entries),
                         default=0)
         self._batch_in_epoch = 0
@@ -512,6 +513,36 @@ class CheckpointManager:
         """Committed entries, oldest first (copies)."""
         with self._lock:
             return [dict(e) for e in self._entries]
+
+    def refresh(self) -> int:
+        """Re-read the journal from storage and adopt it — for READ-side
+        managers watching a store another process writes to (the serving
+        hot-swap poller). Returns the number of entries now known. A torn
+        or unreadable manifest keeps the previously known entries, and the
+        fault is kept in ``last_refresh_error`` so a poller can back off."""
+        from deeplearning4j_tpu_torch.checkpoint.storage import StorageError
+        try:
+            entries = self._mf.load_manifest(self._storage)
+            self.last_refresh_error = None
+        except (self._mf.ManifestError, StorageError, OSError) as e:
+            log.warning("manifest refresh failed (%s: %s) — keeping the "
+                        "previously loaded journal", type(e).__name__, e)
+            entries = None
+            self.last_refresh_error = e
+        with self._lock:
+            if entries is not None:
+                self._entries = entries
+                self._seq = max((int(e.get("seq", 0)) for e in self._entries),
+                                default=self._seq)
+            return len(self._entries)
+
+    def latest_step(self) -> Optional[int]:
+        """Step of the newest committed checkpoint, ``None`` when empty —
+        the cheap "is there something newer?" probe hot-swap polls."""
+        with self._lock:
+            if not self._entries:
+                return None
+            return int(self._entries[-1].get("step", 0))
 
     # ---------------------------------------------------------------- restore
     def _restorable_entries(self) -> List[dict]:

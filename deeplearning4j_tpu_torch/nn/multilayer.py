@@ -3,7 +3,9 @@
 features mask and recurrent carries, ``fit``, ``fit_fused``, truncated BPTT
 (``_fit_tbptt``, ``fit_tbptt_fused``), ``_fit_batch``, ``_loss_fn``,
 ``_regularization``, ``score``, ``score_dataset``, ``output``, ``predict``,
-``feed_forward``, ``rnn_time_step`` and its stored state).
+``feed_forward``, ``rnn_time_step`` and its stored state, and the serving
+decode tier's ``decode_step_fn`` / ``decode_prefill_fn`` /
+``decode_vocab_size``).
 
 Parameters are a list of per-layer dicts of tensors in the JAX package's
 layouts (nested, for the attention layers' ``q``/``k``/``v``/``o``
@@ -327,6 +329,75 @@ class MultiLayerNetwork(TrainStep):
         acts, _, _, _, self._rnn_carries = self._forward(self.params, self.state, x, False,
                                                          carries=self._rnn_carries)
         return acts[-1][:, 0] if squeeze else acts[-1]
+
+    def _decode_input(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token ids (batch, t) in the network's input encoding: the ids
+        themselves for an id-sequence network, else one-hot rows."""
+        if getattr(self.layers[0], "takes_index_sequence", False):
+            return ids.to(torch.float32)
+        n_in = self.decode_vocab_size()
+        return torch.nn.functional.one_hot(ids.long(), n_in).to(torch.float32)
+
+    def _decode_preout(self, preout, what: str) -> torch.Tensor:
+        if not isinstance(preout, torch.Tensor):
+            raise ValueError(
+                f"{what} needs a plain-tensor output layer; "
+                f"{type(self.layers[-1]).__name__} produces a structured pre-output")
+        return preout
+
+    def decode_step_fn(self):
+        """Single-step decode for the serving tier (``serving/decode.py``):
+        returns ``f(params, state, carries, tokens)`` with ``tokens`` a
+        (batch,) integer id tensor on the network's device, producing
+        ``(logits, new_carries)``: the output layer's float32
+        PRE-activation (batch, n_out), the sampling input. Ids map to the
+        network's input encoding on the device (one-hot, or the ids for an
+        id-sequence network), so the caller never builds features on the
+        host. Call it under ``torch.inference_mode()``."""
+        self._check_stateful()
+        if not self.layers[-1].is_output_layer():
+            raise ValueError("decode_step_fn needs an output layer last "
+                             "(RnnOutputLayer) to expose sampling logits")
+
+        def step(params, state, carries, tokens):
+            x = self._decode_input(tokens[:, None])
+            _, preout, _, _, new_carries = self._forward(params, state, x, False,
+                                                         carries=carries)
+            preout = self._decode_preout(preout, "decode_step_fn")
+            return preout[:, 0, :].to(torch.float32), new_carries
+
+        return step
+
+    def decode_prefill_fn(self):
+        """Masked prefill for the serving tier: returns ``f(params, state,
+        ids, length, carries)`` with ``ids`` a right-padded (batch, t)
+        integer tensor whose first ``length`` steps are real; the features
+        mask holds each recurrent carry through the padded steps, so the
+        new carries are the carries after the real prompt. Returns
+        ``(logits at position length - 1 (batch, n_out) float32,
+        new_carries)``, the JAX engine's ``decode.prefill`` program."""
+        self._check_stateful()
+        if not self.layers[-1].is_output_layer():
+            raise ValueError("decode_prefill_fn needs an output layer last "
+                             "(RnnOutputLayer) to expose sampling logits")
+
+        def prefill(params, state, ids, length: int, carries):
+            t = ids.shape[1]
+            fmask = (torch.arange(t, device=ids.device)[None, :] < int(length)
+                     ).to(torch.float32).expand(ids.shape[0], t)
+            _, preout, _, _, new_carries = self._forward(
+                params, state, self._decode_input(ids), False, mask=fmask,
+                carries=carries)
+            preout = self._decode_preout(preout, "decode_prefill_fn")
+            return preout[:, int(length) - 1, :].to(torch.float32), new_carries
+
+        return prefill
+
+    def decode_vocab_size(self) -> int:
+        """Token-id space of the decode loop: the input size (one-hot
+        width / embedding vocabulary). The output layer's n_out must match
+        it for closed-loop generation; ``serving/decode.py`` checks it."""
+        return int(self.conf.layer_input_types()[0].size)
 
     def rnn_clear_previous_state(self):
         """Forget the stored carries (reference rnnClearPreviousState)."""

@@ -1,5 +1,6 @@
 """Batch-size bucketing (counterpart of ``deeplearning4j_tpu/perf/bucketing.py``:
-``BucketPolicy`` with ``buckets_up_to``, ``pad_to_bucket``, ``unpad``).
+``BucketPolicy`` with ``buckets_up_to`` and ``from_histogram``,
+``pad_to_bucket``, ``unpad``).
 
 On XLA every new batch shape is a compile; PyTorch runs eagerly, so the
 ladder's job here is to hand the kernels a small set of batch sizes (a
@@ -9,7 +10,8 @@ zeros and are sliced off after the forward.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from collections import Counter
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,6 +62,50 @@ class BucketPolicy:
         if not out or out[-1] < self.bucket(n):
             out.append(self.bucket(n))
         return out
+
+    @classmethod
+    def from_histogram(cls, batch_sizes: Iterable[int],
+                       max_compiles: int = 8) -> "BucketPolicy":
+        """Learn an explicit ladder from OBSERVED batch sizes (the pre-pad
+        row counts ``ParallelInference`` records): at most ``max_compiles``
+        buckets minimising ``sum_s count(s) * bucket(s)``, the padded rows
+        a dispatch pays for, by a contiguous-partition DP over the distinct
+        sizes — the JAX package's ladder for the same histogram."""
+        hist = Counter(int(s) for s in batch_sizes)
+        if any(s < 1 for s in hist):
+            raise ValueError("batch sizes must be >= 1")
+        if not hist:
+            raise ValueError("empty batch-size histogram")
+        if max_compiles < 1:
+            raise ValueError(f"max_compiles must be >= 1, got {max_compiles}")
+        vals = sorted(hist)
+        cnts = [hist[v] for v in vals]
+        n = len(vals)
+        K = min(int(max_compiles), n)
+        pref = [0] * (n + 1)
+        for i, c in enumerate(cnts):
+            pref[i + 1] = pref[i] + c
+        # best[k][j]: least cost covering sizes[0..j] with k buckets, the
+        # k-th sitting at vals[j]
+        inf = float("inf")
+        best = [[inf] * n for _ in range(K + 1)]
+        back = [[-1] * n for _ in range(K + 1)]
+        for j in range(n):
+            best[1][j] = vals[j] * pref[j + 1]
+        for k in range(2, K + 1):
+            for j in range(k - 1, n):
+                for i in range(k - 2, j):
+                    c = best[k - 1][i] + vals[j] * (pref[j + 1] - pref[i + 1])
+                    if c < best[k][j]:
+                        best[k][j] = c
+                        back[k][j] = i
+        k = min(range(1, K + 1), key=lambda kk: (best[kk][n - 1], kk))
+        buckets, j = [], n - 1
+        while k >= 1:
+            buckets.append(vals[j])
+            j = back[k][j]
+            k -= 1
+        return cls(buckets=sorted(buckets))
 
     def __repr__(self):
         if self._explicit is not None:

@@ -78,6 +78,15 @@ class CalibrationRecord:
     def from_json(cls, s: str) -> "CalibrationRecord":
         return cls.from_dict(json.loads(s))
 
+    def save(self, path: str):
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(self.to_json())
+
+    @classmethod
+    def load(cls, path: str) -> "CalibrationRecord":
+        with open(path, encoding="utf-8") as f:
+            return cls.from_json(f.read())
+
 
 def _quant_slots(net) -> List[Tuple[str, object]]:
     """(slot_key, layer) for every quantizable layer, in forward order."""

@@ -408,3 +408,14 @@ def quantized_layers(net):
 def is_quantized(net) -> bool:
     return bool(quantized_layers(net))
 
+
+
+def input_quant_scale(net) -> Optional[float]:
+    """The activation scale of the quantized layer that consumes the
+    NETWORK INPUT — the grid an int8 wire payload is encoded on (serving
+    accepts ``dtype: "int8"`` tensors only when this is defined). None when
+    the first layer is not quantized."""
+    layers = getattr(net, "layers", None)
+    if layers and isinstance(layers[0], _QUANTIZED_TYPES):
+        return float(layers[0].act_scale)
+    return None

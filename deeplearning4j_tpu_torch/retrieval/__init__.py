@@ -1,6 +1,8 @@
 """retrieval/ — vector retrieval on the card (counterpart of
 ``deeplearning4j_tpu/retrieval/``): brute-force top-k over a resident
-corpus (fp32, int8, packed int4 through ``int4_dot``), PQ codebooks scored
+corpus (fp32, int8, packed int4 through ``int4_dot``), the inverted-file
+``IVFIndex`` (dense or CSR cells, fp32 / int8 / int4 residual codes), PQ
+codebooks scored
 by ADC (flat ``PQIndex`` through ``adc_pq``, ``IVFPQIndex`` over residuals
 through ``adc_ivf_pq``, opt-in exact re-rank), recall gates, builders
 (arrays, networks, a streaming two-pass build) and a batched serving
@@ -14,11 +16,11 @@ endpoint.
     ids, dists = ep.query(queries[:4], k=10)
 
 ``device="cpu"`` on any constructor or ``load_index`` runs the plain
-versions of the kernels. ``IVFIndex`` (dense/CSR cells) is not ported yet.
+versions of the kernels.
 """
 
 from deeplearning4j_tpu_torch.retrieval.index import (  # noqa: F401
-    BruteForceIndex, load_index)
+    BruteForceIndex, IVFIndex, load_index)
 from deeplearning4j_tpu_torch.retrieval.pq import (  # noqa: F401
     IVFPQIndex, PQCodec, PQIndex)
 from deeplearning4j_tpu_torch.retrieval.gates import (  # noqa: F401
@@ -30,7 +32,7 @@ from deeplearning4j_tpu_torch.retrieval.service import (  # noqa: F401
     IndexDispatchError, IndexEndpoint)
 
 __all__ = [
-    "BruteForceIndex", "PQIndex", "IVFPQIndex", "PQCodec",
+    "BruteForceIndex", "IVFIndex", "PQIndex", "IVFPQIndex", "PQCodec",
     "load_index",
     "RecallGateError", "assert_recall_within", "recall_at_k",
     "recall_delta",

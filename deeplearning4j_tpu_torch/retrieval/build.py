@@ -24,7 +24,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.retrieval.index import (BruteForceIndex,
+from deeplearning4j_tpu_torch.retrieval.index import (BruteForceIndex, IVFIndex,
                                                       _assign_all, _train_cells)
 from deeplearning4j_tpu_torch.retrieval.pq import (IVFPQIndex, PQCodec, PQIndex,
                                                    assemble_ivf_pq_index,
@@ -103,13 +103,9 @@ def build_index(source, kind: str = "brute", *,
     """One constructor for every source: an ``(n, d)`` array, a
     Word2Vec-family model, a DeepWalk/Node2Vec model, or a network +
     ``inputs=`` corpus (penultimate activations). ``kind`` is ``"brute"``,
-    ``"pq"`` or ``"ivf_pq"``; everything else (``int8=``, ``int4=``,
+    ``"ivf"``, ``"pq"`` or ``"ivf_pq"``; everything else (``int8=``, ``int4=``,
     ``nprobe=``, ``M=``, ``rerank=``, ``metric=``, ``device=`` …) forwards
     to the index."""
-    if kind == "ivf":
-        raise NotImplementedError(
-            "IVFIndex (dense/CSR cells) is not in the port yet; build "
-            "'brute', 'pq' or 'ivf_pq'")
     cls = _INDEX_KINDS.get(kind)
     if cls is None:
         raise ValueError(f"unknown index kind {kind!r} "
@@ -128,7 +124,8 @@ def build_index(source, kind: str = "brute", *,
     return cls(mat, labels=labels, **index_kwargs)
 
 
-_INDEX_KINDS = {"brute": BruteForceIndex, "pq": PQIndex, "ivf_pq": IVFPQIndex}
+_INDEX_KINDS = {"brute": BruteForceIndex, "ivf": IVFIndex, "pq": PQIndex,
+                "ivf_pq": IVFPQIndex}
 
 
 # ======================================================== streaming build

@@ -12,13 +12,22 @@ query batch,
   ``int4=True`` packs two codes per byte and scores through the
   ``int4_dot`` kernel (``perf/kernels/int4_dot.py``), the counterpart of
   the JAX package's ``score_brute_int4``.
+- :class:`IVFIndex` — inverted-file coarse index: K-Means cells, the
+  ``nprobe`` nearest probed per query. ``layout="dense"`` keeps one padded
+  ``(n_cells, cap, d)`` block (every cell padded to the largest);
+  ``layout="csr"`` keeps the corpus flat in cell-major order plus a
+  ``(n_cells+1,)`` offsets array and gathers each query's probed ranges
+  into a candidate axis padded to one pow2 rung, with identical results.
+  ``int8=True`` / ``int4=True`` store RESIDUAL codes (``v − centroid``)
+  with per-vector scales and score a per-cell recentred int8 query against
+  them with exact integer dot products. Scoring is plain torch (gathers,
+  batched products, the tie-ordered top-k): the JAX package's IVF scorers
+  are XLA programs, not kernels.
 - Product quantization (``retrieval/pq.py``): :class:`PQIndex`,
   :class:`IVFPQIndex`.
 
 Arrays, layouts and the ``.npz`` written by ``save()`` are the JAX
-package's, so an index crosses between the packages as a file. The JAX
-``IVFIndex`` (dense and CSR cells) runs no TPU kernel and is not ported
-yet: ``load_index`` of kind ``"ivf"`` raises.
+package's, so an index crosses between the packages as a file.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (``device.resolve_device``). Host code pads each query
@@ -44,10 +53,10 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.perf.bucketing import BucketPolicy, pad_to_bucket
 from deeplearning4j_tpu_torch.perf.kernels import int4_dot
 from deeplearning4j_tpu_torch.quant.observers import QMAX, observe_stream
-from deeplearning4j_tpu_torch.quant.pack import (QMAX4, quantize_int4,
+from deeplearning4j_tpu_torch.quant.pack import (QMAX4, quantize_int4, unpack_nibbles,
                                                  unpack_nibbles_host)
 
-__all__ = ["BruteForceIndex", "load_index"]
+__all__ = ["BruteForceIndex", "IVFIndex", "load_index"]
 
 _METRICS = ("euclidean", "cosine")
 
@@ -163,6 +172,114 @@ def _csr_slots(offsets: torch.Tensor, probe: torch.Tensor, cand_pad: int):
     valid = slot < ends[:, -1:]
     pos = torch.where(valid, pos, torch.zeros((), dtype=pos.dtype, device=pos.device))
     return seg, pos.to(torch.int32), valid
+
+
+def _int_dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact int32 result of an einsum of int8 operands (integer
+    matrix products have no CUDA kernel in torch): in float32 while every
+    partial sum stays below 2**24, which holds for d * 127**2 < 2**24, else
+    in float64."""
+    d = a.shape[-1]
+    dt = torch.float32 if d * 127 * 127 < (1 << 24) else torch.float64
+    return torch.einsum(eq, a.to(dt), b.to(dt)).to(torch.int32)
+
+
+def _probe(q, centroids, nprobe: int):
+    """(cd2 (b, C), probe (b, nprobe)): the probed cells, nearest first,
+    ties lower cell first (``lax.top_k(-cd2, nprobe)``'s order)."""
+    cd2 = _centroid_d2(q, centroids)
+    return cd2, _topk_smallest(cd2, nprobe)[1]
+
+
+def _dist_topk(d2, cand_ids, k: int):
+    vals, pos = _topk_smallest(d2, k)
+    return torch.sqrt(torch.clamp_min(vals, 0.0)), cand_ids.gather(1, pos)
+
+
+def _score_ivf(q, centroids, cells, ids, vnorm2, k: int, nprobe: int):
+    b = q.shape[0]
+    qn2 = (q * q).sum(1, keepdim=True)
+    _, probe = _probe(q, centroids, nprobe)
+    cand = cells[probe]                                   # (b, p, cap, d)
+    cand_ids = ids[probe].reshape(b, -1)                  # (b, p·cap)
+    cand_n2 = vnorm2[probe].reshape(b, -1)                # +inf on pads
+    dots = torch.einsum("bd,bpcd->bpc", q, cand).reshape(b, -1)
+    return _dist_topk(cand_n2 - 2.0 * dots + qn2, cand_ids, k)
+
+
+def _recenter_queries(q, centroids, probe):
+    """RESIDUAL recentring (the FAISS IVF encoding): per probed cell,
+    quantize ``q − c`` onto its own int8 grid. Returns (codes (b, p, d)
+    int8, scales (b, p, 1))."""
+    qc = q[:, None, :] - centroids[probe]                 # (b, p, d)
+    amax = torch.clamp_min(qc.abs().amax(dim=2, keepdim=True), 1e-12)
+    s_qc = amax / QMAX
+    qcq = torch.clamp(torch.round(qc / s_qc), -QMAX, QMAX).to(torch.int8)
+    return qcq, s_qc
+
+
+def _ivf_residual_topk(q, cd2, probe, cand, cand_ids, cand_n2, cand_s,
+                       centroids, k: int):
+    """Shared tail of the dense residual-quantized scorers: ``cand`` is
+    int8 residual codes (b, p, cap, d). |q−v|² = |q−c|² − 2·(q−c)·r + |r|²,
+    with |q−c|² the probe distance already computed."""
+    b = q.shape[0]
+    qcq, s_qc = _recenter_queries(q, centroids, probe)
+    doti = _int_dot("bpd,bpcd->bpc", qcq, cand)
+    dots = (doti.to(torch.float32) * s_qc * cand_s).reshape(b, -1)
+    cqd2 = cd2.gather(1, probe)                           # |q−c|² (b, p)
+    d2 = (torch.repeat_interleave(cqd2, cand.shape[2], dim=1)
+          - 2.0 * dots + cand_n2)
+    return _dist_topk(d2, cand_ids, k)
+
+
+def _score_ivf_int8(q, centroids, cells_q, ids, rnorm2, scales, k: int, nprobe: int,
+                    int4: bool = False):
+    b = q.shape[0]
+    cd2, probe = _probe(q, centroids, nprobe)
+    cand = cells_q[probe]                                 # (b, p, cap, d|d/2)
+    if int4:
+        # gather first, then unpack only the probed cells
+        cand = unpack_nibbles(cand, q.shape[1])
+    return _ivf_residual_topk(q, cd2, probe, cand, ids[probe].reshape(b, -1),
+                              rnorm2[probe].reshape(b, -1), scales[probe],
+                              centroids, k)
+
+
+def _score_ivf_csr(q, centroids, flat, flat_ids, flat_n2, offsets,
+                   k: int, nprobe: int, cand_pad: int):
+    _, probe = _probe(q, centroids, nprobe)
+    seg, pos, valid = _csr_slots(offsets, probe, cand_pad)
+    pos = pos.long()
+    cand = flat[pos]                                      # (b, C, d)
+    cand_ids = torch.where(valid, flat_ids[pos], torch.full_like(flat_ids[pos], -1))
+    cand_n2 = torch.where(valid, flat_n2[pos], torch.full_like(flat_n2[pos], float("inf")))
+    dots = torch.einsum("bd,bcd->bc", q, cand)
+    d2 = cand_n2 - 2.0 * dots + (q * q).sum(1, keepdim=True)
+    return _dist_topk(d2, cand_ids, k)
+
+
+def _score_ivf_csr_int8(q, centroids, flat_q, flat_ids, flat_n2, flat_s, offsets,
+                        k: int, nprobe: int, cand_pad: int, int4: bool = False):
+    """The CSR residual-quantized scorers: each slot's integer dot is read
+    from the (b, p, C) products of every probed cell's recentred query
+    with every candidate, at the slot's own cell ``seg``."""
+    cd2, probe = _probe(q, centroids, nprobe)
+    seg, pos, valid = _csr_slots(offsets, probe, cand_pad)
+    pos, seg = pos.long(), seg.long()
+    cand = flat_q[pos]                                    # (b, C, d|d/2)
+    if int4:
+        cand = unpack_nibbles(cand, q.shape[1])
+    ids_at = flat_ids[pos]
+    cand_ids = torch.where(valid, ids_at, torch.full_like(ids_at, -1))
+    qcq, s_qc = _recenter_queries(q, centroids, probe)    # (b, p, d)
+    doti = _int_dot("bpd,bcd->bpc", qcq, cand).gather(1, seg[:, None, :])[:, 0]
+    sslot = s_qc[..., 0].gather(1, seg)                   # (b, C)
+    dots = doti.to(torch.float32) * sslot * flat_s[pos]
+    cslot = cd2.gather(1, probe).gather(1, seg)           # |q−c|² per slot
+    d2 = torch.where(valid, cslot - 2.0 * dots + flat_n2[pos],
+                     torch.full_like(dots, float("inf")))
+    return _dist_topk(d2, cand_ids, k)
 
 
 # ----------------------------------------------------------- quantization
@@ -523,6 +640,197 @@ class BruteForceIndex(_DeviceIndex):
         return _load_as(cls, path, device)
 
 
+# ------------------------------------------------------------------- IVF
+class IVFIndex(_DeviceIndex):
+    """Inverted-file index: K-Means cells, ``nprobe`` probed per query —
+    work scales with the probed candidates instead of ``n``. Cells are
+    learned on a seeded subsample (``train_size``) and every vector is then
+    assigned to its nearest final centroid in chunks (``_train_cells``).
+
+    ``layout="dense"`` keeps padded ``(n_cells, cap, d)`` blocks (cap = the
+    LARGEST cell); ``layout="csr"`` keeps the corpus flat in cell-major
+    order + a ``(n_cells+1,)`` offsets array and pads only the per-query
+    gathered candidate axis to one pow2 rung (``cand_pad``), so resident
+    memory is exactly ``n`` rows, at identical query results."""
+
+    kind = "ivf"
+
+    def __init__(self, vectors, *, n_cells: Optional[int] = None,
+                 nprobe: int = 8, train_size: int = 100_000,
+                 max_iterations: int = 25, seed: int = 123,
+                 layout: str = "dense", **kwargs):
+        if kwargs.get("metric", "euclidean") != "euclidean":
+            raise ValueError("IVFIndex supports euclidean only (KMeans "
+                             "cells are euclidean centroids)")
+        if layout not in ("dense", "csr"):
+            raise ValueError(f"unknown cell layout {layout!r} "
+                             "(known: 'dense', 'csr')")
+        n = int(np.asarray(vectors).shape[0])
+        self.n_cells = (max(1, int(round(n ** 0.5))) if n_cells is None
+                        else int(n_cells))
+        if self.n_cells > n:
+            raise ValueError(f"n_cells={self.n_cells} exceeds corpus size {n}")
+        self.nprobe = min(int(nprobe), self.n_cells)
+        if self.nprobe < 1:
+            raise ValueError(f"nprobe must be >= 1; got {nprobe}")
+        self.train_size = int(train_size)
+        self.max_iterations = int(max_iterations)
+        self.seed = int(seed)
+        self.layout = layout
+        super().__init__(vectors, **kwargs)
+
+    def _build(self, v: np.ndarray):
+        centroids, assign = _train_cells(v, self.n_cells, self.train_size,
+                                         self.max_iterations, self.seed, self.device)
+        counts = np.bincount(assign, minlength=self.n_cells)
+        self.cell_counts = counts
+        self.cap = max(1, int(counts.max()))
+        self._centroids = _as_tensor(centroids, self.device)
+        order = np.argsort(assign, kind="stable")
+        if self.int8 or self.int4:
+            # RESIDUAL encoding: quantize v − centroid[cell], whose amax is
+            # the cell radius; the published WIRE scale stays in the
+            # query's (whole-vector) space
+            res = v - centroids[assign]
+            if self.int4:
+                codes, scales, _ = quantize_int4(res, observer=self.observer)
+                deq = (unpack_nibbles_host(codes, self.dim).astype(np.float32)
+                       * scales[:, None])
+            else:
+                codes, scales, _ = _quantize_table(res, self.observer)
+                deq = codes.astype(np.float32) * scales[:, None]
+            self.scale = float(observe_stream(v, self.observer).scale())
+            norm2 = np.sum(deq ** 2, axis=1).astype(np.float32)  # |r̂|²
+            table = codes
+        else:
+            scales = None
+            norm2 = np.sum(v.astype(np.float64) ** 2, axis=1).astype(np.float32)
+            table = v
+        if self.layout == "csr":
+            self._build_csr(table, scales, norm2, order, counts)
+        else:
+            self._build_dense(table, scales, norm2, order, counts)
+
+    def _build_dense(self, table, scales, norm2, order, counts):
+        width = table.shape[1]  # the packed width for int4, d otherwise
+        cells = np.zeros((self.n_cells, self.cap, width), table.dtype)
+        ids = np.full((self.n_cells, self.cap), -1, np.int32)
+        vnorm2 = np.full((self.n_cells, self.cap), np.inf, np.float32)
+        ofs = 0
+        for c in range(self.n_cells):
+            m = int(counts[c])
+            rows = order[ofs:ofs + m]
+            ofs += m
+            cells[c, :m] = table[rows]
+            ids[c, :m] = rows
+            vnorm2[c, :m] = norm2[rows]
+        cscales = None
+        if scales is not None:
+            cscales = np.ones((self.n_cells, self.cap), np.float32)
+            cscales[ids >= 0] = scales[ids[ids >= 0]]
+        self._set_dense(cells, ids, vnorm2, cscales)
+        self.cand_pad = None
+
+    def _build_csr(self, table, scales, norm2, order, counts):
+        offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        self._set_csr(table[order], order.astype(np.int32), norm2[order], offsets,
+                      None if scales is None else scales[order])
+        # the per-query gathered candidate axis: the pow2 rung covering the
+        # nprobe FULLEST cells
+        worst = int(np.sort(counts)[-self.nprobe:].sum())
+        self.cand_pad = _pow2ceil(max(1, worst))
+
+    def _set_dense(self, cells, ids, vnorm2, scales):
+        dev = self.device
+        self._cells = _as_tensor(cells, dev)
+        self._ids = _as_tensor(np.asarray(ids, np.int32), dev).long()
+        self._vnorm2 = _as_tensor(np.asarray(vnorm2, np.float32), dev)
+        self._scales = (None if scales is None
+                        else _as_tensor(np.asarray(scales, np.float32), dev))
+        self._flat = self._flat_ids = self._offsets = self._flat_scales = None
+
+    def _set_csr(self, flat, flat_ids, vnorm2, offsets, flat_scales):
+        dev = self.device
+        self._flat = _as_tensor(flat, dev)
+        self._flat_ids = _as_tensor(np.asarray(flat_ids, np.int32), dev).long()
+        self._vnorm2 = _as_tensor(np.asarray(vnorm2, np.float32), dev)
+        self._offsets = _as_tensor(np.asarray(offsets, np.int32), dev)
+        self._flat_scales = (None if flat_scales is None
+                             else _as_tensor(np.asarray(flat_scales, np.float32), dev))
+        self._cells = self._ids = self._scales = None
+
+    def _candidates(self) -> int:
+        if self.layout == "csr":
+            return min(self.size, self.cand_pad)
+        return min(self.size, self.nprobe * self.cap)
+
+    def _search_device(self, q, k: int):
+        quant = self.int8 or self.int4
+        if self.layout == "csr":
+            if quant:
+                return _score_ivf_csr_int8(q, self._centroids, self._flat, self._flat_ids,
+                                           self._vnorm2, self._flat_scales, self._offsets,
+                                           k, self.nprobe, self.cand_pad, int4=self.int4)
+            return _score_ivf_csr(q, self._centroids, self._flat, self._flat_ids,
+                                  self._vnorm2, self._offsets, k, self.nprobe,
+                                  self.cand_pad)
+        if quant:
+            return _score_ivf_int8(q, self._centroids, self._cells, self._ids,
+                                   self._vnorm2, self._scales, k, self.nprobe,
+                                   int4=self.int4)
+        return _score_ivf(q, self._centroids, self._cells, self._ids, self._vnorm2,
+                          k, self.nprobe)
+
+    def memory_bytes(self) -> int:
+        # ids count at the JAX package's int32 width (held as int64 here
+        # for indexing)
+        n = _nbytes(self._vnorm2) + _nbytes(self._centroids)
+        if self.layout == "csr":
+            n += (_nbytes(self._flat) + 4 * self._flat_ids.numel()
+                  + _nbytes(self._offsets) + _nbytes(self._flat_scales))
+        else:
+            n += _nbytes(self._cells) + 4 * self._ids.numel() + _nbytes(self._scales)
+        return n
+
+    def code_bytes(self) -> int:
+        return _nbytes(self._flat if self.layout == "csr" else self._cells)
+
+    def stats(self) -> dict:
+        st = super().stats()
+        st.update(n_cells=self.n_cells, nprobe=self.nprobe, cap=self.cap,
+                  layout=self.layout,
+                  empty_cells=int((self.cell_counts == 0).sum()))
+        if self.layout == "csr":
+            st["cand_pad"] = self.cand_pad
+        return st
+
+    def _meta(self) -> dict:
+        m = super()._meta()
+        m.update(n_cells=self.n_cells, nprobe=self.nprobe, cap=self.cap,
+                 train_size=self.train_size, seed=self.seed,
+                 max_iterations=self.max_iterations, layout=self.layout,
+                 cand_pad=self.cand_pad)
+        return m
+
+    def _arrays(self) -> dict:
+        out = {"centroids": self._centroids, "vnorm2": self._vnorm2,
+               "cell_counts": self.cell_counts}
+        if self.layout == "csr":
+            out.update(flat=self._flat, flat_ids=self._flat_ids.to(torch.int32),
+                       offsets=self._offsets)
+            if self._flat_scales is not None:
+                out["flat_scales"] = self._flat_scales
+        else:
+            out.update(cells=self._cells, ids=self._ids.to(torch.int32))
+            if self._scales is not None:
+                out["scales"] = self._scales
+        return out
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "IVFIndex":
+        return _load_as(cls, path, device)
+
+
 # ----------------------------------------------------------- persistence
 def _load_as(cls, path: str, device=None) -> "_DeviceIndex":
     idx = load_index(path, device)
@@ -548,9 +856,24 @@ def load_index(path: str, device=None) -> "_DeviceIndex":
         idx._restore_common(meta, arrays, device)
         idx._set_tables(arrays["vecs"], arrays["vnorm2"], arrays.get("scales"))
         return idx
-    if kind == "ivf":
-        raise NotImplementedError(
-            f"{path} holds an IVFIndex (dense/CSR cells): the port serves "
-            "brute-force, PQ and IVF-PQ indexes so far; IVFIndex comes in a "
-            "later slice of the port (ROADMAP.md, section A)")
-    raise ValueError(f"unknown index kind {kind!r} in {path}")
+    if kind != "ivf":
+        raise ValueError(f"unknown index kind {kind!r} in {path}")
+    idx = IVFIndex.__new__(IVFIndex)
+    idx._restore_common(meta, arrays, device)
+    idx.n_cells = int(meta["n_cells"])
+    idx.nprobe = int(meta["nprobe"])
+    idx.cap = int(meta["cap"])
+    idx.train_size = int(meta.get("train_size", 100_000))
+    idx.seed = int(meta.get("seed", 123))
+    idx.max_iterations = int(meta.get("max_iterations", 25))
+    idx.layout = meta.get("layout", "dense")
+    idx.cand_pad = meta.get("cand_pad")
+    idx.cell_counts = arrays["cell_counts"]
+    idx._centroids = _as_tensor(np.asarray(arrays["centroids"], np.float32), idx.device)
+    if idx.layout == "csr":
+        idx._set_csr(arrays["flat"], arrays["flat_ids"], arrays["vnorm2"],
+                     arrays["offsets"], arrays.get("flat_scales"))
+    else:
+        idx._set_dense(arrays["cells"], arrays["ids"], arrays["vnorm2"],
+                       arrays.get("scales"))
+    return idx

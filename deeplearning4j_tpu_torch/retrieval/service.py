@@ -1,8 +1,7 @@
 """Retrieval behind the serving tier: batched index endpoints with the
 full overload contract (counterpart of
-``deeplearning4j_tpu/retrieval/service.py``; the obs registry hooks wait for
-the port's obs tier, and ``ModelServer.add_index`` (HTTP) for its serving
-tier).
+``deeplearning4j_tpu/retrieval/service.py``, with its obs registry hooks;
+``serving.ModelServer.add_index`` serves it over HTTP).
 
 :class:`IndexEndpoint` is to a vector index what ``ParallelInference``
 is to a model: client threads ``submit()`` queries into a BOUNDED queue;
@@ -104,6 +103,21 @@ class IndexEndpoint:
         self.queue_rejections = 0
         self.deadline_evictions = 0
         self.swaps = 0
+        from deeplearning4j_tpu_torch.obs.registry import (absorb_index_endpoint,
+                                                           get_registry)
+        reg = get_registry()
+        self._m_queries = reg.counter(
+            "retrieval_queries", unit="requests",
+            help="vector queries admitted into retrieval endpoints")
+        self._m_query_ms = reg.histogram(
+            "retrieval_query_ms", unit="ms",
+            help="end-to-end retrieval query latency for admitted "
+                 "requests (queue wait + batch formation + dispatch)")
+        self._m_occupancy = reg.histogram(
+            "retrieval_batch_occupancy", unit="requests",
+            help="coalesced queries per dispatched retrieval batch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+        absorb_index_endpoint(reg, self)
 
     # -------------------------------------------------------------- index
     @property
@@ -198,6 +212,7 @@ class IndexEndpoint:
                     " — the worker is not draining fast enough; shed load "
                     "upstream") from None
             self._ensure_worker_locked()
+        self._m_queries.inc()
         return obs
 
     def query(self, queries, k: Optional[int] = None,
@@ -213,6 +228,7 @@ class IndexEndpoint:
                  else float(deadline_ms))
         deadline = (time.monotonic() + dl_ms / 1000.0
                     if dl_ms and dl_ms > 0 else None)
+        t0 = time.perf_counter()
         obs = self.submit(queries, kk, deadline=deadline)
         try:
             out = obs.get(timeout=(dl_ms / 1000.0 + 5.0)
@@ -226,6 +242,7 @@ class IndexEndpoint:
             self.breaker.record_failure()
             raise IndexDispatchError(f"{type(e).__name__}: {e}") from e
         self.breaker.record_success()
+        self._m_query_ms.observe((time.perf_counter() - t0) * 1e3)
         if deadline is not None and time.monotonic() > deadline:
             # completed late (batch already on device when the deadline
             # passed): 504, so a 200 ALWAYS means the deadline was met
@@ -296,6 +313,7 @@ class IndexEndpoint:
                     "batch dispatch"))
             if not items:
                 continue
+            self._m_occupancy.observe(len(items))
             xs = [it[0] for it in items]
             sizes = [len(x) for x in xs]
             kmax = max(it[1] for it in items)

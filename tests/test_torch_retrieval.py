@@ -174,18 +174,20 @@ def test_build_index_from_network_and_kinds(corpus):
     emb = net.feed_forward(V[:5])[-2].numpy()
     idx, dist = ix.search(emb, 1)
     assert np.array_equal(idx[:, 0], np.arange(5)) and np.allclose(dist, 0, atol=1e-3)
-    with pytest.raises(NotImplementedError, match="IVFIndex"):
-        pr.build_index(V, "ivf", device="cpu")
+    ivf = pr.build_index(V, "ivf", device="cpu", n_cells=8, nprobe=3)
+    assert isinstance(ivf, pr.IVFIndex) and ivf.search(V[:4], 1)[0][:, 0].tolist() == [0, 1, 2, 3]
 
 
 def test_ivf_file_and_no_device_raise(corpus, tmp_path):
-    V, _ = corpus
-    path = jr.IVFIndex(V[:400], n_cells=4).save(str(tmp_path / "ivf.npz"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pr.load_index(path, device="cpu")
+    V, Q = corpus
+    jix = jr.IVFIndex(V[:400], n_cells=4)
+    ix = pr.load_index(jix.save(str(tmp_path / "ivf.npz")), device="cpu")
+    assert isinstance(ix, pr.IVFIndex)
+    assert np.array_equal(ix.search(Q[:8], 5)[0], jix.search(Q[:8], 5)[0])
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
     for make in (lambda: pr.BruteForceIndex(V), lambda: pr.PQIndex(V, M=4),
+                 lambda: pr.IVFIndex(V, n_cells=4),
                  lambda: KMeansClustering(4),
                  lambda: pr.load_index(jr.BruteForceIndex(V[:50]).save(
                      str(tmp_path / "b.npz")))):
