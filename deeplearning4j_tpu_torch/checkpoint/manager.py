@@ -674,15 +674,25 @@ _EXHAUSTED = object()
 
 
 def skip_consumed_batches(data, skip: int):
-    """One epoch pass over ``data`` minus its first ``skip`` batches, which
-    are drawn and dropped (no step runs for them, so the restored chain
-    stays exact).
+    """One epoch pass over ``data`` minus its first ``skip`` batches (no
+    step runs for them, so the restored chain stays exact).
+
+    A seekable source (``iter_from(start_batch)``: ``datasets/sharded.py``'s
+    ``ShardedReader``, also under ``AsyncDataSetIterator`` or
+    ``DevicePrefetchIterator``) skips by seeking: the consumed batches are
+    never read, sliced, ledgered or copied, at any world size. Any other
+    source is iterated and its first ``skip`` batches are drawn and
+    dropped. ``fit`` pads buckets on ``data`` before this call and
+    prefetches this call's result, as in the JAX package, so a dropped
+    batch is never staged onto the device.
 
     Raises when the stream ends before ``skip`` batches: the resume
     contract requires replaying the interrupted run's data in the same
     order, and an exhausted one-shot generator or shorter dataset would
     otherwise silently train a no-op epoch and diverge from the
     bitwise-resume guarantee."""
+    if skip and hasattr(data, "iter_from"):
+        return iter(data.iter_from(skip))
     it = iter(data)
     for i in range(skip):
         if next(it, _EXHAUSTED) is _EXHAUSTED:

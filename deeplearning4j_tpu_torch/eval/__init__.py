@@ -1,0 +1,7 @@
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation, EvaluationBinary  # noqa: F401
+from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation  # noqa: F401
+from deeplearning4j_tpu_torch.eval.roc import ROC, ROCBinary, ROCMultiClass  # noqa: F401
+from deeplearning4j_tpu_torch.eval.calibration import EvaluationCalibration  # noqa: F401
+from deeplearning4j_tpu_torch.eval.curves import (  # noqa: F401
+    Histogram, PrecisionRecallCurve, ReliabilityDiagram, RocCurve,
+)

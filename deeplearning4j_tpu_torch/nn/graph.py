@@ -34,10 +34,13 @@ one window into the next detached, as in ``MultiLayerNetwork``.
 ``rnn_time_step`` carries the same state across calls.
 
 ``fit`` runs the shared epoch loop (``TrainStep._fit_epochs``): listeners
-and ``checkpoint_manager``, with exact-step resume of a restored graph.
+and ``checkpoint_manager``, with exact-step resume of a restored graph,
+``bucket_policy`` (``pad_multi_dataset``), ``prefetch`` and the
+``train.data_wait`` span. ``set_augmentation`` augments every 4-D input of
+the train step, each with its own draws. ``evaluate`` is the JAX
+package's.
 
-Not ported (they raise ``NotImplementedError``): ``bucket_policy``,
-``prefetch``, gradient compression and augmentation.
+Not ported (it raises ``NotImplementedError``): gradient compression.
 """
 
 from __future__ import annotations
@@ -111,9 +114,6 @@ class ComputationGraph(TrainStep):
         self.params, self.state = params, state
         self._reset_updaters()
         return self
-
-    def set_augmentation(self, augmentation):
-        raise NotImplementedError("on-device augmentation is not in the PyTorch port yet")
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, state, inputs, train: bool, rng=None, masks=None,
@@ -195,6 +195,7 @@ class ComputationGraph(TrainStep):
         the new state (the JAX package's ``_loss_fn``); an output without a
         labels mask is scored over the features mask that reaches it. With
         ``carries`` (a tBPTT window), also the new carries, detached."""
+        inputs = [self._augment(x, rng) if x.dim() == 4 else x for x in inputs]
         _, preouts, new_state, mask_of, new_carries = self._forward(
             params, state, inputs, True, rng, fmasks, carries)
         loss = 0.0
@@ -218,13 +219,15 @@ class ComputationGraph(TrainStep):
         """Train on MultiDataSets, DataSets (single input and output) or an
         iterable of them, ``num_epochs`` times over. ``checkpoint_manager``
         checkpoints per its triggers; a graph ``restore_latest`` returned
-        resumes at the exact step (``num_epochs`` is then the run's total)."""
-        self._refuse(bucket_policy=bucket_policy, prefetch=prefetch)
+        resumes at the exact step (``num_epochs`` is then the run's total).
+        ``bucket_policy`` and ``prefetch`` as in ``MultiLayerNetwork.fit``."""
+        self._refuse()
         if self.params is None:
             self.init()
         if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]
-        return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch)
+        return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch,
+                                bucket_policy, prefetch)
 
     def _as_tensor(self, x) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -366,3 +369,23 @@ class ComputationGraph(TrainStep):
         with torch.no_grad():
             return float(self._loss_fn(self.params, self.state, inputs, labels,
                                        None, fmasks, lmasks)[0])
+
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator of DataSets (reference
+        ComputationGraph.evaluate) of the first network output, each
+        batch's features mask threaded through the inference forward. On
+        the card the counts accumulate there and are read once, when the
+        caller asks for a statistic."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        if self.params is None:
+            self.init()
+        e = Evaluation()
+        out_name = self.conf.network_outputs[0]
+        for ds in iterator:
+            fm = None if ds.features_mask is None else [ds.features_mask]
+            with torch.no_grad():
+                # the output stays on the device: Evaluation counts there
+                out = self._forward(self.params, self.state, [self._as_tensor(ds.features)],
+                                    False, masks=self._masks(fm))[0][out_name]
+            e.eval(ds.labels, out, mask=ds.labels_mask)
+        return e

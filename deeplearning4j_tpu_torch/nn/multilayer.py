@@ -3,9 +3,9 @@
 features mask and recurrent carries, ``fit``, ``fit_fused``, truncated BPTT
 (``_fit_tbptt``, ``fit_tbptt_fused``), ``_fit_batch``, ``_loss_fn``,
 ``_regularization``, ``score``, ``score_dataset``, ``output``, ``predict``,
-``feed_forward``, ``rnn_time_step`` and its stored state, and the serving
-decode tier's ``decode_step_fn`` / ``decode_prefill_fn`` /
-``decode_vocab_size``).
+``feed_forward``, ``rnn_time_step`` and its stored state, ``evaluate`` /
+``evaluate_regression``, and the serving decode tier's ``decode_step_fn`` /
+``decode_prefill_fn`` / ``decode_vocab_size``).
 
 Parameters are a list of per-layer dicts of tensors in the JAX package's
 layouts (nested, for the attention layers' ``q``/``k``/``v``/``o``
@@ -43,12 +43,14 @@ same loop. ``rnn_time_step`` carries the same state across calls.
 
 ``fit`` runs the epoch loop of ``nn/training.py::TrainStep._fit_epochs``:
 listeners (duck-typed: ``iteration_done`` after each updater step, each
-tBPTT window included, and ``on_epoch_start`` / ``on_epoch_end``) and a
+tBPTT window included, and ``on_epoch_start`` / ``on_epoch_end``), a
 ``checkpoint_manager`` (``checkpoint/manager.py``), whose resume marker on a
-restored network makes ``num_epochs`` the run's total and skips the
-batches already consumed. ``fit_fused`` and ``fit_tbptt_fused`` call the
-listeners once a step as well, where the JAX package's one scan calls them
-once.
+restored network makes ``num_epochs`` the run's total and skips (or seeks
+past) the batches already consumed, ``bucket_policy``, ``prefetch`` and the
+``train.data_wait`` span. ``set_augmentation`` augments the features in
+the train step (not in a tBPTT window, as in the JAX package).
+``fit_fused`` and ``fit_tbptt_fused`` call the listeners once a step as
+well, where the JAX package's one scan calls them once.
 
 ``pretrain`` / ``pretrain_layer`` train the pretrainable layers
 (AutoEncoder, RBM, VariationalAutoencoder) greedily on their unsupervised
@@ -56,9 +58,8 @@ losses. Layers' ``weight_noise`` applies in every training forward,
 ``constraints`` after every updater step, ``remat`` through
 ``torch.utils.checkpoint`` (``perf/fusion.py``).
 
-Not ported (they raise ``NotImplementedError``): ``bucket_policy``,
-``prefetch``, gradient compression, augmentation and the solver
-optimization algorithms.
+Not ported (they raise ``NotImplementedError``): gradient compression and
+the solver optimization algorithms.
 """
 
 from __future__ import annotations
@@ -134,10 +135,6 @@ class MultiLayerNetwork(TrainStep):
         out.params, out.state = ([_copy_tree(p, out.device) for p in tree]
                                  for tree in (self.params, self.state))
         return out
-
-    # ---------------------------------------------------------- not ported
-    def set_augmentation(self, augmentation):
-        raise NotImplementedError("on-device augmentation is not in the PyTorch port yet")
 
     # --------------------------------------------------------------- forward
     def _as_input(self, x) -> torch.Tensor:
@@ -226,6 +223,8 @@ class MultiLayerNetwork(TrainStep):
         out_layer = self.layers[-1]
         if not out_layer.is_output_layer():
             raise ValueError("Last layer must be an output/loss layer to fit()")
+        if train and carries is None:
+            x = self._augment(x, rng)
         _, preout, new_state, cur_mask, new_carries = self._forward(params, state, x, train,
                                                                     rng, fmask, carries)
         lm = lmask if lmask is not None else cur_mask
@@ -479,22 +478,31 @@ class MultiLayerNetwork(TrainStep):
         network's device are used without a copy. ``checkpoint_manager``
         checkpoints per its triggers; a network ``restore_latest`` returned
         resumes at the exact step (``num_epochs`` is then the run's total,
-        and ``data`` must replay the interrupted run's batches in order)."""
-        self._refuse(bucket_policy=bucket_policy, prefetch=prefetch)
+        and ``data`` must replay the interrupted run's batches in order, or
+        seek: a ``ShardedReader`` does). ``bucket_policy`` (a
+        ``perf.BucketPolicy``, or True for the default) pads every batch to
+        its bucket with the padded rows masked out of the loss;
+        ``prefetch=True`` stages each batch onto the device while the step
+        before it runs (``perf/prefetch.py``)."""
+        self._refuse()
         if self.params is None:
             self.init()
         if labels is not None:
             data = [DataSet(data, labels)]
         elif isinstance(data, DataSet):
             data = [data]
-        return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch)
+        return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch,
+                                bucket_policy, prefetch)
 
     def fit_fused(self, datasets, bucket_policy=None) -> "MultiLayerNetwork":
         """K steps over a list of equally shaped DataSets, or a pre-stacked
         ``(xs, ys)`` pair of (K, batch, ...) arrays: the JAX package's
         one-dispatch scan, here the same step as ``fit`` in a loop, so it
-        gives what ``fit`` on each batch in order gives, bitwise."""
-        self._refuse(bucket_policy=bucket_policy)
+        gives what ``fit`` on each batch in order gives, bitwise.
+        ``bucket_policy`` lets the list form carry a ragged batch: every
+        batch pads to the bucket of the largest, its padding masked out of
+        the loss (the JAX package's one scan program)."""
+        self._refuse()
         if self.params is None:
             self.init()
         if self.conf.backprop_type == "tbptt":
@@ -510,6 +518,14 @@ class MultiLayerNetwork(TrainStep):
                 raise ValueError("pre-stacked inputs must be (K, batch, ...); for one "
                                  "batch of (features, labels) use fit()")
             datasets = [DataSet(xs[i], ys[i]) for i in range(int(xs.shape[0]))]
+        elif bucket_policy is not None:
+            from deeplearning4j_tpu_torch.perf.bucketing import BucketPolicy, pad_dataset
+            datasets = list(datasets)
+            policy = BucketPolicy() if bucket_policy is True else bucket_policy
+            sizes = [d.num_examples() for d in datasets]
+            target = policy.bucket(max(sizes))
+            if any(n != target for n in sizes):
+                datasets = [pad_dataset(d, target) for d in datasets]
         for ds in datasets:
             self._fit_batch(ds)
         return self
@@ -523,3 +539,25 @@ class MultiLayerNetwork(TrainStep):
         with torch.no_grad():
             return float(self._loss_fn(self.params, self.state, x, y, None, fm, lm,
                                        train=False)[0])
+
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator of DataSets (reference
+        MultiLayerNetwork.evaluate): the inference forward of each batch,
+        its features mask threaded through, and ``Evaluation.eval`` over
+        the labels mask. On the card the counts accumulate there and are
+        read once, when the caller asks for a statistic."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        e = Evaluation()
+        for ds in iterator:
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            e.eval(ds.labels, out, mask=ds.labels_mask)
+        return e
+
+    def evaluate_regression(self, iterator):
+        """Regression evaluation over an iterator of DataSets."""
+        from deeplearning4j_tpu_torch.eval.regression import RegressionEvaluation
+        e = RegressionEvaluation()
+        for ds in iterator:
+            out = self.output(ds.features, features_mask=ds.features_mask)
+            e.eval(ds.labels, out, mask=ds.labels_mask)
+        return e

@@ -20,17 +20,32 @@ eagerly:
   and then applies the layer's ``constraints``;
 - ``_commit_state`` writes the new running stats into the state in place;
 - dropout draws from a ``torch.Generator`` seeded with the init seed + 1;
+- with ``set_augmentation``, the train step augments its 4-D (NHWC)
+  inputs on their device (``datasets/augment.py``) with draws from a second
+  ``torch.Generator`` on the network's device, seeded with the init seed +
+  2; evaluation and scoring paths do not augment. Both generators' states
+  travel in a checkpoint (``torchGeneratorState.npz``), so resume replays
+  both streams bitwise;
 - each listener's ``iteration_done(net, iteration, epoch)`` runs after the
   step's update, before ``iteration`` advances, as the JAX package calls
   it.
 
-``_fit_epochs`` is the epoch loop both networks' ``fit`` share: the
-listeners' ``on_epoch_start`` / ``on_epoch_end``, and with a
-``checkpoint_manager`` its ``step_end`` after every batch and
-``epoch_end`` after every epoch. A network that ``restore_latest``
-returned carries a resume marker, which the next ``fit`` consumes:
-``num_epochs`` is then the run's total and the batches the checkpoint had
-already consumed are skipped (``checkpoint/manager.py::resume_plan``).
+``_fit_epochs`` is the epoch loop both networks' ``fit`` share, in the
+JAX ``fit``'s order: data with ``bind_epoch`` (a ``ShardedReader``) follows
+the network's epoch counter; ``bucket_policy`` pads every batch to its
+bucket above the resume skip (``perf/bucketing.py``); each epoch's stream
+skips the batches a restored checkpoint had consumed, by seeking where the
+data has ``iter_from`` (``checkpoint/manager.py::skip_consumed_batches``);
+``prefetch=True`` stages each batch onto the device under
+``perf/prefetch.py::DevicePrefetchIterator`` (below the skip's result, so
+skipped batches are never copied); and a ``train.data_wait`` span times
+each wait for the next batch, above the prefetch (what the step loop
+really waits for). Around it: the listeners' ``on_epoch_start`` /
+``on_epoch_end``, and with a ``checkpoint_manager`` its ``step_end`` after
+every batch and ``epoch_end`` after every epoch. A network that
+``restore_latest`` returned carries a resume marker, which the next
+``fit`` consumes: ``num_epochs`` is then the run's total
+(``checkpoint/manager.py::resume_plan``).
 
 Listeners are duck-typed, as in the JAX package: any object with
 ``iteration_done``, ``on_epoch_start`` and ``on_epoch_end``
@@ -95,6 +110,8 @@ class TrainStep:
         self.grad_compression = None
         self._score = None
         self._gen: Optional[torch.Generator] = None  # dropout stream
+        self._aug_gen: Optional[torch.Generator] = None  # augmentation stream
+        self.augmentation = None
         self.listeners: list = []
         # set by CheckpointManager.restore_latest and consumed by the next
         # fit (exact-step resume); _restored_from is provenance only
@@ -102,8 +119,27 @@ class TrainStep:
         self._restored_from = None
 
     def _seed_dropout(self, seed: Optional[int] = None):
+        """Seed the dropout (seed + 1) and augmentation (seed + 2)
+        generators, on the network's device."""
+        base = self.conf.seed if seed is None else int(seed)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed((self.conf.seed if seed is None else int(seed)) + 1)
+        self._gen.manual_seed(base + 1)
+        self._aug_gen = torch.Generator(device=self.device)
+        self._aug_gen.manual_seed(base + 2)
+
+    def set_augmentation(self, augmentation):
+        """Enable on-device augmentation (a ``datasets.augment.
+        ImageAugmentation``, or None to disable) in the train step; see the
+        module docstring."""
+        self.augmentation = augmentation
+        return self
+
+    def _augment(self, x, rng):
+        """``x`` augmented when this is a train step (``rng`` set) and an
+        augmentation is on, else ``x``."""
+        if self.augmentation is None or rng is None:
+            return x
+        return self.augmentation.apply(x, self._aug_gen)
 
     def _reset_updaters(self):
         """Updater state anew for the current parameters."""
@@ -126,12 +162,12 @@ class TrainStep:
         """Most recent minibatch score (reference Model.score())."""
         return None if self._score is None else float(self._score)
 
-    def _refuse(self, **knobs):
-        """Raise for a knob of ``fit`` that the port does not have."""
-        knobs["grad_compression"] = self.grad_compression
-        for knob, val in knobs.items():
-            if val:
-                raise NotImplementedError(f"fit with {knob} is not in the PyTorch port yet")
+    def _refuse(self):
+        """Raise for what ``fit`` cannot do in the port yet: gradient
+        compression and the host solvers."""
+        if self.grad_compression:
+            raise NotImplementedError("fit with grad_compression is not in the PyTorch "
+                                      "port yet")
         algo = str(getattr(self.conf, "optimization_algo", "sgd")).strip().lower()
         if algo.replace(" ", "_").replace("-", "_") not in _SGD_FAMILY:
             raise NotImplementedError(f"optimization_algo '{self.conf.optimization_algo}' "
@@ -190,18 +226,35 @@ class TrainStep:
         self.iteration += 1
         return carries[0] if carries else None
 
-    def _fit_epochs(self, data, num_epochs: int, checkpoint_manager, fit_batch):
-        """The epoch loop of ``fit`` (the JAX package's, hooks included):
-        ``fit_batch(batch)`` for each batch of ``data``, which is iterated
-        anew every epoch."""
+    def _fit_epochs(self, data, num_epochs: int, checkpoint_manager, fit_batch,
+                    bucket_policy=None, prefetch: bool = False):
+        """The epoch loop of ``fit`` (the JAX package's, hooks included; see
+        the module docstring): ``fit_batch(batch)`` for each batch of
+        ``data``, which is iterated anew every epoch."""
         from deeplearning4j_tpu_torch.checkpoint.manager import (resume_plan,
                                                                  skip_consumed_batches)
+        from deeplearning4j_tpu_torch.obs.trace import get_tracer
         epochs_to_run, skip = resume_plan(self, num_epochs)
+        if hasattr(data, "bind_epoch"):
+            # a sharded reader follows the network's epoch, so a restored
+            # network replays the interrupted epoch's order
+            data.bind_epoch(lambda: self.epoch)
+        if bucket_policy is not None:
+            from deeplearning4j_tpu_torch.perf.bucketing import (BucketPadDataSetIterator,
+                                                                 BucketPolicy)
+            data = BucketPadDataSetIterator(data, BucketPolicy() if bucket_policy is True
+                                            else bucket_policy)
+        tracer = get_tracer()
         for _ in range(epochs_to_run):
             for listener in self.listeners:
                 listener.on_epoch_start(self)
+            stream = skip_consumed_batches(data, skip)
+            if prefetch:
+                from deeplearning4j_tpu_torch.perf.prefetch import DevicePrefetchIterator
+                stream = DevicePrefetchIterator(stream, device=self.device)
+            stream = tracer.wrap_iter(stream, "train.data_wait")
             bi = skip
-            for batch in skip_consumed_batches(data, skip):
+            for batch in stream:
                 bi += 1
                 fit_batch(batch)
                 if checkpoint_manager is not None:
@@ -213,3 +266,4 @@ class TrainStep:
             if checkpoint_manager is not None:
                 checkpoint_manager.epoch_end(self)
         return self
+

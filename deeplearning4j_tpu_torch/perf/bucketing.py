@@ -1,6 +1,9 @@
 """Batch-size bucketing (counterpart of ``deeplearning4j_tpu/perf/bucketing.py``:
 ``BucketPolicy`` with ``buckets_up_to`` and ``from_histogram``,
-``pad_to_bucket``, ``unpad``).
+``pad_to_bucket``, ``unpad``, and for training ``pad_dataset``,
+``pad_multi_dataset``, ``BucketPadDataSetIterator`` and
+``RebatchDataSetIterator``, which ``fit(bucket_policy=)`` and
+``fit_fused(bucket_policy=)`` use).
 
 On XLA every new batch shape is a compile; PyTorch runs eagerly, so the
 ladder's job here is to hand the kernels a small set of batch sizes (a
@@ -15,6 +18,8 @@ from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 
 
 class BucketPolicy:
@@ -135,3 +140,165 @@ def unpad(t, n: int, dim: int = 0):
     sl = [slice(None)] * t.ndim
     sl[dim] = slice(0, n)
     return t[tuple(sl)]
+
+
+def _ones_like_mask(mask_row_shape, n_real: int, target: int, ref):
+    """(target, *mask_row_shape) float32 mask, 1 for real rows and 0 for
+    the padding, held as ``ref`` is: a numpy array, or a tensor on
+    ``ref``'s device."""
+    m = np.zeros((target,) + tuple(mask_row_shape), np.float32)
+    m[:n_real] = 1.0
+    return torch.from_numpy(m).to(ref.device) if isinstance(ref, torch.Tensor) else m
+
+
+def _pad_mask_rows(mask, target: int, n: int, fill: float):
+    if isinstance(mask, torch.Tensor):
+        m = mask.to(torch.float32)
+        pad = m.new_full((target - n,) + tuple(m.shape[1:]), fill)
+        return torch.cat([m, pad])
+    m = np.asarray(mask, np.float32)
+    pad = np.full((target - n,) + m.shape[1:], fill, np.float32)
+    return np.concatenate([m, pad])
+
+
+def pad_dataset(ds: DataSet, target: int, ensure_lmask: bool = False) -> DataSet:
+    """Pad a training DataSet to ``target`` examples, masking the padded
+    rows out of the loss (the JAX package's ``pad_dataset``):
+
+    - features and labels zero-pad;
+    - ``labels_mask`` gains zero rows; when absent it is made from the
+      features mask (sequence labels) or as ones over the real rows, (batch,)
+      for 2-D labels or (batch, T) for 3-D ones;
+    - ``features_mask`` pads with ONES: all-zero rows of a features mask
+      would make masked time pooling divide 0 by 0.
+
+    ``ensure_lmask=True`` attaches the all-ones labels mask even where
+    nothing pads, so every batch of an epoch has the same form. Layers that
+    couple examples (batch norm in training) see the padded rows in their
+    statistics; everything row-independent is exact up to float
+    association."""
+    n = ds.num_examples()
+    if n == target and not (ensure_lmask and ds.labels_mask is None):
+        return ds
+    feats = pad_to_bucket(ds.features, target)
+    labels = pad_to_bucket(ds.labels, target)
+    labels_nd = ds.labels.ndim
+    if ds.labels_mask is not None:
+        lmask = _pad_mask_rows(ds.labels_mask, target, n, 0.0)
+    elif ds.features_mask is not None and labels_nd >= 3:
+        lmask = _pad_mask_rows(ds.features_mask, target, n, 0.0)
+    else:
+        row_shape = tuple(ds.labels.shape[1:-1]) if labels_nd >= 3 else ()
+        lmask = _ones_like_mask(row_shape, n, target, ds.labels)
+    fmask = (None if ds.features_mask is None
+             else _pad_mask_rows(ds.features_mask, target, n, 1.0))
+    return DataSet(feats, labels, fmask, lmask)
+
+
+def pad_multi_dataset(mds: MultiDataSet, target: int,
+                      ensure_lmask: bool = False) -> MultiDataSet:
+    """``pad_dataset`` for the ComputationGraph's MultiDataSet: every input
+    and label pads to ``target`` examples and every output gains a labels
+    mask. An absent sequence-output mask borrows the features mask only
+    when the graph has exactly one; otherwise it is ones over the real
+    rows (the JAX package's rule)."""
+    n = mds.num_examples()
+    k_out = len(mds.labels)
+    lmasks = (list(mds.labels_masks) if mds.labels_masks is not None
+              else [None] * k_out)
+    if n == target and not (ensure_lmask and any(m is None for m in lmasks)):
+        return mds
+    feats = [pad_to_bucket(f, target) for f in mds.features]
+    labels = [pad_to_bucket(y, target) for y in mds.labels]
+    fmasks_in = (list(mds.features_masks) if mds.features_masks is not None
+                 else [None] * len(mds.features))
+    present_fm = [m for m in fmasks_in if m is not None]
+    new_lmasks = []
+    for y, lm in zip(mds.labels, lmasks):
+        if lm is not None:
+            new_lmasks.append(_pad_mask_rows(lm, target, n, 0.0))
+        elif len(present_fm) == 1 and y.ndim >= 3:
+            new_lmasks.append(_pad_mask_rows(present_fm[0], target, n, 0.0))
+        else:
+            row_shape = tuple(y.shape[1:-1]) if y.ndim >= 3 else ()
+            new_lmasks.append(_ones_like_mask(row_shape, n, target, y))
+    new_fmasks = None
+    if mds.features_masks is not None:
+        new_fmasks = [None if m is None else _pad_mask_rows(m, target, n, 1.0)
+                      for m in fmasks_in]
+    return MultiDataSet(feats, labels, new_fmasks, new_lmasks)
+
+
+class BucketPadDataSetIterator:
+    """Wrap any iterable of DataSets or MultiDataSets so every emitted
+    batch lands on a bucket shape (``pad_dataset`` / ``pad_multi_dataset``
+    with ``ensure_lmask``). Within one pass a batch smaller than the
+    largest size already seen pads up to it, so a ragged final batch takes
+    the epoch's shape. Re-iterable iff the base is."""
+
+    def __init__(self, base, policy: Optional[BucketPolicy] = None):
+        self._base = base
+        self.policy = policy if policy is not None else BucketPolicy()
+
+    def __iter__(self):
+        max_seen = 0
+        for ds in self._base:
+            target = max(self.policy.bucket(ds.num_examples()), max_seen)
+            max_seen = max(max_seen, target)
+            if isinstance(ds, MultiDataSet):
+                yield pad_multi_dataset(ds, target, ensure_lmask=True)
+            else:
+                yield pad_dataset(ds, target, ensure_lmask=True)
+
+    def reset(self):
+        if hasattr(self._base, "reset"):
+            self._base.reset()
+
+    def batch_size(self):
+        if hasattr(self._base, "batch_size"):
+            return self.policy.bucket(self._base.batch_size())
+        return None
+
+
+class RebatchDataSetIterator:
+    """Re-slice an iterable of DataSets to exactly ``batch_size`` rows a
+    batch, the last one possibly ragged (emitted, not dropped). Example
+    order is kept, so the stream is deterministic and resume-safe;
+    re-iterable iff the base is."""
+
+    def __init__(self, base, batch_size: int):
+        if int(batch_size) <= 0:
+            raise ValueError(f"batch_size must be positive, got {batch_size}")
+        self._base = base
+        self._batch_size = int(batch_size)
+
+    def __iter__(self):
+        target = self._batch_size
+        buf: List[DataSet] = []
+        have = 0
+        for ds in self._base:
+            n = ds.num_examples()
+            if not buf and n == target:
+                yield ds
+                continue
+            buf.append(ds)
+            have += n
+            if have < target:
+                continue
+            merged = buf[0] if len(buf) == 1 else DataSet.merge(buf)
+            chunks = merged.split(target)
+            if chunks[-1].num_examples() < target:
+                buf, have = [chunks[-1]], chunks[-1].num_examples()
+                chunks = chunks[:-1]
+            else:
+                buf, have = [], 0
+            yield from chunks
+        if buf:
+            yield buf[0] if len(buf) == 1 else DataSet.merge(buf)
+
+    def reset(self):
+        if hasattr(self._base, "reset"):
+            self._base.reset()
+
+    def batch_size(self):
+        return self._batch_size

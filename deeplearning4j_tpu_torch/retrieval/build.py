@@ -12,8 +12,8 @@
 RAM: a seeded reservoir subsample trains the PQ codebooks (and IVF cells)
 on pass one, pass two encodes codes chunk by chunk. Sources: a callable
 returning a fresh iterator, an ``(n, d)`` array, a re-iterable of arrays, or
-an iterator with ``reset()``. Sharded data-tier readers (``bind_epoch``)
-wait for the port's data tier.
+an iterator with ``reset()`` (a ``ShardedReader`` included), or a
+``ShardedDataset``.
 
 ``synthetic_corpus`` is the JAX package's seeded clustered corpus, bitwise.
 """
@@ -132,8 +132,12 @@ _INDEX_KINDS = {"brute": BruteForceIndex, "ivf": IVFIndex, "pq": PQIndex,
 def _chunk_pass(source):
     """One pass over a re-startable batch source, yielding float32 (b, d)
     arrays: a CALLABLE returning a fresh iterator, an iterator with
-    ``reset()`` (each batch's flattened ``features``), an ``(n, d)`` array
-    (sliced), or a re-iterable of arrays (list/tuple)."""
+    ``reset()`` (each batch's flattened ``features``; a ``ShardedReader``
+    included), a ``ShardedDataset`` (a fresh full-plan reader each pass),
+    an ``(n, d)`` array (sliced), or a re-iterable of arrays
+    (list/tuple)."""
+    if hasattr(source, "reader") and hasattr(source, "epoch_order"):
+        source = source.reader()
     if callable(source):
         it = source()
     elif hasattr(source, "reset") and hasattr(source, "__iter__"):
@@ -249,11 +253,6 @@ def build_index_streaming(source, kind: str = "pq", *,
             f"got {kind!r} — materialize the corpus and use build_index "
             "for fp32/int8/int4 tables (their device table IS the "
             "matrix)")
-    if hasattr(source, "bind_epoch") or hasattr(source, "epoch_order"):
-        raise NotImplementedError(
-            "sharded data-tier sources (ShardedReader, ShardedDataset) come "
-            "with the port's data tier; pass a generator factory, an array "
-            "or a re-iterable of arrays")
     sample, n, d = _reservoir_pass(source, int(train_size), int(seed))
     if labels is not None and len(labels) != n:
         raise ValueError(f"labels length {len(labels)} != corpus rows {n}")

@@ -39,9 +39,15 @@ freshly seeded key. A JAX checkpoint restored here keeps parameters,
 state, updater state and counters exactly, and the dropout generator is
 seeded anew from ``conf.seed + 1``.
 
+The augmentation generator's state rides in the same member (key
+``augment_state``), so a resumed run draws the crops and flips the
+interrupted one would have; the metadata's ``"augmentation"`` holds an
+``ImageAugmentation.to_dict()`` in both packages, and restoring a zip
+re-enables it on the network.
+
 Not ported, and refused by name on restore (``NotImplementedError``): the
-autotuner's ``tuning.json``, gradient compression (``compressState.npz``)
-and on-device augmentation. The port writes none of them.
+autotuner's ``tuning.json`` and gradient compression
+(``compressState.npz``). The port writes neither.
 """
 
 from __future__ import annotations
@@ -245,7 +251,10 @@ def snapshot_training_state(model, staging: HostStaging = None) -> dict:
         "updater_state": updater_state,
         "generator": (None if gen is None else
                       {"state": gen.get_state().numpy().copy(),
+                       "augment_state": (None if model._aug_gen is None else
+                                         model._aug_gen.get_state().numpy().copy()),
                        "device": gen.device.type}),
+        "augmentation": _augmentation_dict(model),
         "quant_calibration": None if cal is None else cal.to_dict(),
         "_buffers": buffers,
     }
@@ -296,7 +305,7 @@ def checkpoint_zip_bytes(snap: dict, extra_meta: dict = None) -> memoryview:
         "has_compress_state": False,
         "has_quant_calibration": snap.get("quant_calibration") is not None,
         "has_tuning_record": False,
-        "augmentation": None,
+        "augmentation": snap.get("augmentation"),
     }
     meta.update(extra_meta or {})
     buf = io.BytesIO()
@@ -307,7 +316,10 @@ def checkpoint_zip_bytes(snap: dict, extra_meta: dict = None) -> memoryview:
         if snap["updater_state"] is not None:
             _write_npz(z, "updaterState.npz", snap["updater_state"])
         if gen is not None:
-            _write_npz(z, GENERATOR_MEMBER, {"state": gen["state"]})
+            states = {"state": gen["state"]}
+            if gen.get("augment_state") is not None:
+                states["augment_state"] = gen["augment_state"]
+            _write_npz(z, GENERATOR_MEMBER, states)
         if snap.get("quant_calibration") is not None:
             z.writestr("quantization.json",
                        json.dumps(snap["quant_calibration"], sort_keys=True))
@@ -321,7 +333,7 @@ def write_model(model, path, save_updater: bool = True):
     snap = snapshot_training_state(model)
     meta = {"format_version": FORMAT_VERSION, "model_type": snap["model_type"],
             "iteration": snap["iteration"], "epoch": snap["epoch"],
-            "has_updater": bool(save_updater), "augmentation": None}
+            "has_updater": bool(save_updater), "augmentation": _augmentation_dict(model)}
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
         z.writestr("configuration.json", snap["conf_json"])
         z.writestr("metadata.json", json.dumps(meta))
@@ -343,9 +355,11 @@ def _refuse_unported(z: zipfile.ZipFile, meta: dict):
         raise NotImplementedError("this zip carries gradient compression state "
                                   "(compressState.npz); parallel/compress is not in "
                                   "the PyTorch port yet")
-    if meta.get("augmentation"):
-        raise NotImplementedError("this zip carries an on-device augmentation; "
-                                  "datasets/augment is not in the PyTorch port yet")
+
+
+def _augmentation_dict(model):
+    aug = getattr(model, "augmentation", None)
+    return None if aug is None else aug.to_dict()
 
 
 def _read(source, expect, load_updater: bool, device, generator: bool):
@@ -378,13 +392,18 @@ def _read(source, expect, load_updater: bool, device, generator: bool):
             model.opt_state = _keyed(model._updaters, lambda k, u: _updater_state(
                 k, u, template[k], arrays, iteration, model.device))
         if generator and meta.get("has_torch_generator") and GENERATOR_MEMBER in z.namelist():
-            gen_state = np.load(io.BytesIO(z.read(GENERATOR_MEMBER)))["state"]
+            states = np.load(io.BytesIO(z.read(GENERATOR_MEMBER)))
             if meta.get("torch_generator_device") == model.device.type:
-                model._gen.set_state(torch.from_numpy(gen_state.copy()))
+                model._gen.set_state(torch.from_numpy(states["state"].copy()))
+                if "augment_state" in states.files:
+                    model._aug_gen.set_state(torch.from_numpy(states["augment_state"].copy()))
             else:
                 log.warning("the checkpoint's dropout generator is a %s generator and "
                             "this network's is a %s one; dropout is seeded anew",
                             meta.get("torch_generator_device"), model.device.type)
+        if meta.get("augmentation"):
+            from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
+            model.set_augmentation(ImageAugmentation.from_dict(meta["augmentation"]))
         if "quantization.json" in z.namelist():
             from deeplearning4j_tpu_torch.quant.calibrate import CalibrationRecord
             model._quant_calibration = CalibrationRecord.from_json(

@@ -325,16 +325,32 @@ def test_score_dataset_matches_jax():
 @pytest.mark.parametrize("knob", ["bucket_policy", "prefetch", "checkpoint_manager",
                                   "grad_compression", "augmentation", "solver"])
 def test_refused_knobs_raise(knob):
+    """Gradient compression, the host solvers and a sharded checkpoint
+    manager raise NotImplementedError and train nothing. bucket_policy,
+    prefetch and augmentation are ported: fit and fit_fused take them and
+    train, and an augmentation of a 2-D id input raises ValueError as the
+    JAX package's does."""
     jconf = _jax_lm(12, jupd.Sgd(0.1))
     if knob == "solver":
         jconf = dataclasses.replace(jconf, optimization_algo="lbfgs")
     net = MultiLayerNetwork(conf_from_jax_json(jconf.to_json()), device="cpu").init()
     x, y, _ = _lm_batch(12, False)
     ds = DataSet(x, y)
+    if knob in ("bucket_policy", "prefetch"):
+        net.fit(ds, **{knob: True})
+        net.fit_fused([ds], bucket_policy=True)
+        assert net.iteration == 2
+        return
+    if knob == "augmentation":
+        from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
+        aug = ImageAugmentation(flip_prob=0.5)
+        assert net.set_augmentation(aug) is net and net.augmentation is aug
+        with pytest.raises(ValueError, match="NHWC"):
+            net.fit(ds)
+        assert net.iteration == 0
+        return
     with pytest.raises(NotImplementedError):
-        if knob in ("bucket_policy", "prefetch"):
-            net.fit(ds, **{knob: True})
-        elif knob == "checkpoint_manager":
+        if knob == "checkpoint_manager":
             # fit takes a checkpoint manager now; its sharded form is not ported
             from deeplearning4j_tpu_torch.checkpoint import (CheckpointManager,
                                                              ObjectStoreBackend)
@@ -343,12 +359,11 @@ def test_refused_knobs_raise(knob):
         elif knob == "grad_compression":
             net.grad_compression = object()
             net.fit(ds)
-        elif knob == "augmentation":
-            net.set_augmentation(object())
         else:
             net.fit(ds)
-    with pytest.raises(NotImplementedError):
-        net.fit_fused([ds], bucket_policy=True)
+    if knob != "checkpoint_manager":
+        with pytest.raises(NotImplementedError):
+            net.fit_fused([ds], bucket_policy=True)
     assert net.iteration == 0
 
 

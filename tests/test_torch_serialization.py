@@ -265,6 +265,11 @@ def test_zip_with_unported_module_is_refused_by_name(tmp_path, member):
             w.writestr(name, data)
         if member != "augmentation":
             w.writestr(member, b"{}")
+    if member == "augmentation":
+        # ported: the zip's augmentation is re-enabled on the network
+        from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
+        assert pser.restore(out, device="cpu").augmentation == ImageAugmentation(flip_prob=0.5)
+        return
     with pytest.raises(NotImplementedError, match=member.split(".")[0]):
         pser.restore(out, device="cpu")
 

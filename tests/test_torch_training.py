@@ -281,13 +281,20 @@ def test_fit_lowers_the_loss_on_a_fixed_batch():
 
 
 def test_unported_training_options_raise():
+    """Gradient compression is the graph's unported training option and
+    raises; prefetch and augmentation are ported and train."""
+    from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
     pnet = ComputationGraph(ResNet50(num_classes=3, input_shape=(8, 8, 3)).conf(),
                             device="cpu").init()
     x, y = np.zeros((2, 8, 8, 3), np.float32), np.eye(3, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="prefetch"):
-        pnet.fit(DataSet(x, y), prefetch=True)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        pnet.set_augmentation(object())
+    pnet.fit(DataSet(x, y), prefetch=True)
+    assert pnet.set_augmentation(ImageAugmentation(crop_padding=1)) is pnet
+    pnet.fit(DataSet(x, y))
+    assert pnet.iteration == 2
+    pnet.grad_compression = object()
+    with pytest.raises(NotImplementedError, match="grad_compression"):
+        pnet.fit(DataSet(x, y))
+    assert pnet.iteration == 2
 
 
 LOSS_CASES = [(name, act) for name in ("mse", "l1", "mcxent", "xent", "kld", "poisson",
