@@ -334,10 +334,58 @@
    fp32 net's (GATE_LOSS_ABS says why not the relative budget; its verdict
    is printed); int4_dot launched 2 x the 100 validation dispatches, no
    kernel in training.
-32. Prints the kernels JSON line (nine kernels; the bn rows' launches by
-   path, data_tier included, and int4_dot's, adc_pq's and adc_ivf_pq's
-   with the model_server, hot_swap, ivf and lenet_gates paths), the card
-   line, and last {"ok": true, "device": {...}}.
+32. Fused update (the bucketed updater every fit runs,
+   optimize/fused_update.py): ResNet50 of 5 (224 x 224 x 3, batch 128, bf16
+   on float32 masters, fused) in two copies from one init, 3 steps each on
+   batches drawn on the card, Adam 1e-3 and then Nesterovs(1e-2, 0.9): one
+   copy through TrainStep._apply_updates, the other through
+   bucketed_apply(threshold=0) (the per-tensor path) with the same
+   gradients; every parameter, updater slot and count bitwise equal after
+   every step. Prints the buckets and their members, the updater's device
+   launches and device ms a step for both paths (a torch.profiler window
+   around the update), and for Adam the step ms median of each path through
+   fit and the bucketed step's idle share.
+33. Transfer learning: that Adam network through
+   TransferLearning.GraphBuilder, frozen up to res4f_out (43 fused blocks
+   on NoOp), res5 and a new 10-way head fine-tuned with Nesterovs(1e-4,
+   0.9), 10 steps at batch 128 bf16 on data_tier's 10-class
+   synthetic_images: the loss falls, every frozen vertex's parameters stay
+   bitwise, every frozen block's running statistics move (train-mode BN, as
+   in the JAX package), bn_act_fwd 53 and bn_act_bwd 10 launches every
+   step. A CheckpointListener zip (every 5 iterations) read back by restore
+   equals the network of its step bitwise; PerformanceListener samples/s
+   and CollectScoresIterationListener scores printed. Step ms and idle share
+   beside the full network's of 32. TransferLearningHelper(graph,
+   "res4f_out"): 4 batches featurized in eval mode (no bn launch), then
+   fit_featurized on each (10 + 10 bn launches a step), its parameters
+   folded back bitwise. get_memory_report(minibatch=128) on the card: rows
+   equal to a CPU copy's report, the measured step's peak printed. Then a
+   narrow graph of three fused blocks (two frozen) fine-tuned 3 steps on the
+   card (3 + 1 bn launches a step) and on the CPU in float32: loss within
+   rtol 1e-4, every parameter and running statistic within 1e-4 of its
+   tensor's largest magnitude, frozen parameters bitwise on both.
+34. Solvers: LeNet (configs[0]) on 2,048 synthetic MNIST images as one
+   batch, for lbfgs, conjugate_gradient and line_gradient_descent: fit with
+   the default Solver of each (no kernel of the port launched, lbfgs's
+   score lower after); Solver(algo) called directly for 20 iterations (the
+   backtracking search up to 20 trials): scores finite and falling, ms an
+   iteration printed; card against CPU on seeds 0-2, the first 5 scores
+   each within its own limit of the CPU's, relative to the CPU score
+   (SOLVER_RTOL, set from readings), and a control with every gradient
+   perturbed by 10% of its norm that the limits must catch (a 1% probe is
+   printed).
+35. Streaming: a StreamingHttpReceiver on a free loopback port takes 8
+   .npz batches of 64 from a client thread while LeNet's fit(prefetch=True)
+   consumes the StreamingDataSetIterator on the card: every POST 200, every
+   batch consumed once, one step a batch; batches and wall time printed.
+36. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+   path, data_tier, fused_update, transfer_learning and fit_featurized
+   included, and int4_dot's, adc_pq's and adc_ivf_pq's with the
+   model_server, hot_swap, ivf and lenet_gates paths; int4_dot's library
+   yardstick, torch._int_mm, on operands zero-padded to its multiples of 8,
+   the weights column-major, and held equal to the kernel's result), the
+   card line, and last
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line. Without a CUDA
 device the script exits 2 and prints no result.
@@ -609,18 +657,26 @@ def kernel_case(torch, dev, flush, b: int, n: int, d: int) -> dict:
     previous_ms = time_ms(torch, lambda: first_design_int4(torch, qq, packed, d), flush)
     plain_ms = time_ms(torch, lambda: int4_dot.int4_matmul_plain(qq, packed, d),
                        flush)
-    # torch._int_mm needs more than 16 rows and k % 8 == 0: the yardstick
-    # runs the same weights against the queries padded to a multiple of 32
+    # torch._int_mm needs more than 16 rows and k and n multiples of 8: the
+    # yardstick runs the same operands zero-padded, queries to a multiple of
+    # 32 rows, k and n to multiples of 8 (outside the timed call), the
+    # weights as the table's rows unpacked, so B = wpad.t() is column-major;
+    # its int32 result must equal the kernel's on the unpadded rows and columns
     library_ms, library_note = None, None
-    w8t = unpack_nibbles(packed, d).t()
-    qpad = torch.zeros((max(32, -(-b // 32) * 32), d), dtype=torch.int8,
+    kpad, npad = -(-d // 8) * 8, -(-n // 8) * 8
+    wpad = torch.zeros((npad, kpad), dtype=torch.int8, device=dev)
+    wpad[:n, :d] = unpack_nibbles(packed, d)
+    w8t = wpad.t()
+    qpad = torch.zeros((max(32, -(-b // 32) * 32), kpad), dtype=torch.int8,
                        device=dev)
-    qpad[:b] = qq
+    qpad[:b, :d] = qq
     try:
-        torch._int_mm(qpad, w8t)
+        lib = torch._int_mm(qpad, w8t)[:b, :n]
+        if not torch.equal(lib, got.to(lib.dtype)):
+            raise AssertionError(f"torch._int_mm differs from int4_dot at b={b} n={n} d={d}")
         library_ms = time_ms(torch, lambda: torch._int_mm(qpad, w8t), flush)
-        library_note = (f"torch._int_mm on unpacked int8 weights, queries "
-                        f"padded to {qpad.shape[0]} rows")
+        library_note = (f"torch._int_mm on unpacked int8 weights, operands zero-padded "
+                        f"to ({qpad.shape[0]}, {kpad}) x ({kpad}, {npad}), B column-major")
     except RuntimeError as e:
         library_note = f"torch._int_mm refused: {str(e).splitlines()[0]}"
     bound_ms, bound_by = int4_dot_bound(b, n, d)
@@ -1227,7 +1283,8 @@ def _bn_kernel_entry(name, rows, launches):
     stem shape in bf16, max error over every case, its first design's time
     (both were redesigned) and every other case's; ``launches`` by path
     (the training, checkpoint, checkpoint_overhead, yolo_training,
-    facenet_training, zoo, layer_families and data_tier phases)."""
+    facenet_training, zoo, layer_families, data_tier, fused_update,
+    transfer_learning and fit_featurized phases)."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
     extra = {
@@ -5384,6 +5441,644 @@ def lenet_gates_phase(torch, dev, card, workdir, flush) -> dict:
     return {"int4_dot": launches, "rows": shape_rows}
 
 
+# ---------------------------------------------------------- training extras
+# fused_update: ResNet50 (the training phase's network) in two copies from
+# one init, FT_BITWISE steps each on batches drawn on the card, for Adam and
+# Nesterovs; then FT_WARM + FT_TIMED timed fit steps a variant
+FT_BITWISE, FT_WARM, FT_TIMED = 3, 2, 5
+FT_NESTEROVS_LR = 1e-2
+# transfer_learning: the Adam network of fused_update frozen up to
+# TL_BOUNDARY, res5 and a new TL_CLASSES-way head fine-tuned with Nesterovs
+# for TL_STEPS steps over TL_TRAIN batches of synthetic_images (data_tier's
+# 10 classes); TL_FEATURIZE batches through TransferLearningHelper
+TL_BOUNDARY, TL_CLASSES, TL_STEPS, TL_TRAIN, TL_FEATURIZE = "res4f_out", 10, 10, 2, 4
+TL_LR, TL_CKPT_EVERY = 1e-4, 5
+TL_TRAINABLE_BLOCKS = 10      # res5's fused blocks: 3 bottlenecks x 3 + its shortcut
+# card against CPU: a narrow graph of three fused blocks (two frozen), float32
+TL_CHECK_SIDE, TL_CHECK_BATCH, TL_CHECK_STEPS = 32, 4, 3
+TL_CHECK_LOSS_RTOL, TL_CHECK_FRAC = 1e-4, 1e-4   # parameters: of each tensor's max |p|
+# solvers: LeNet (configs[0]) on SOLVER_N synthetic MNIST images as one batch:
+# fit with each algorithm's default Solver, then SOLVER_ITERS iterations of
+# Solver(algo) called directly, the backtracking search up to
+# SOLVER_LINE_TRIALS trials (step 1 halved down to 2^-19); card against CPU
+# on the first len(SOLVER_RTOL) scores for each seed of SOLVER_SEEDS
+SOLVER_ALGOS = ("lbfgs", "conjugate_gradient", "line_gradient_descent")
+SOLVER_N, SOLVER_ITERS, SOLVER_LINE_TRIALS = 2048, 20, 20
+SOLVER_SEEDS = (0, 1, 2)
+# the limit on score i: |card - CPU| / max(|CPU|, SOLVER_FLOOR). The two
+# devices sum float32 losses in other orders and the line searches branch
+# on them, so the trajectories part a little more at every iteration; the
+# limits are 4.3-9.6x the largest sound reading at each index over LeNet's
+# seeds 0-3 on an H100 (1.0e-7, 4.4e-7, 4.5e-5, 1.2e-3, 4.5e-3). A score
+# below the floor (CG reaches 4e-7) is judged on the floor's scale
+SOLVER_RTOL, SOLVER_FLOOR = (1e-6, 2e-6, 2e-4, 5e-3, 2e-2), 1e-4
+# the controls: the same card runs with every gradient perturbed by eps of
+# its norm; the limits must catch the first, and whether they catch the
+# second is printed
+SOLVER_CONTROL_EPS, SOLVER_PROBE_EPS = 1e-1, 1e-2
+# streaming: LeNet fed STREAM_BATCHES .npz batches of STREAM_BATCH over HTTP
+STREAM_BATCHES, STREAM_BATCH = 8, 64
+
+
+def _same_bits(torch, a, b) -> bool:
+    from deeplearning4j_tpu_torch.nn.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def _clone_tree(torch, tree):
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _device_window(torch, fn) -> dict:
+    """Device kernel launches and device ms of ``fn()`` from one
+    torch.profiler window (the card synchronized at both ends)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {"launches": len(_device_spans(prof)),
+            "device_ms": sum(ms for _, ms in _kernel_times(prof))}
+
+
+def _card_images(torch, dev, n, side, classes, seed):
+    """``n`` normal images and one-hot labels drawn on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((n, side, side, 3), generator=gen, device=dev)
+    y = torch.nn.functional.one_hot(torch.randint(0, classes, (n,), generator=gen, device=dev),
+                                    classes).float()
+    return x, y
+
+
+def fused_update_phase(torch, dev, card):
+    """The bucketed updater on ResNet50 at full width (the training phase's
+    network: 224 x 224 x 3, batch 128, bf16 on float32 masters, fused). Two
+    copies from one init take FT_BITWISE steps on the same card batches: one
+    through TrainStep._apply_updates (bucketed_apply), the other through
+    bucketed_apply(threshold=0), the per-tensor path, with the gradients
+    and batch statistics of the first; after every step every parameter,
+    every updater slot and every count must be bitwise equal. Adam 1e-3, then
+    Nesterovs. One step of each path is profiled for the updater's device
+    launches and ms. Then, for Adam, FT_WARM + FT_TIMED fit steps of each
+    path (step ms median) and one profiled bucketed step (idle share).
+    Returns the trained Adam network, a summary, and the bn launches."""
+    import functools
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.nn import training
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.tree import tree_leaves
+    from deeplearning4j_tpu_torch.optimize.fused_update import bucketed_apply, plan_buckets
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam, Nesterovs
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    t_phase = time.perf_counter()
+    batches = [DataSet(*_card_images(torch, dev, TRAIN_BATCH, TRAIN_SIDE, 1000, 40 + i))
+               for i in range(FT_BITWISE)]
+    bn_act.fwd_launches = bn_act.bwd_launches = 0
+    summary, keep = {"card": card}, None
+    for name, upd in (("adam", Adam(learning_rate=1e-3)),
+                      ("nesterovs", Nesterovs(learning_rate=FT_NESTEROVS_LR, momentum=0.9))):
+        conf = resnet50_train_conf(upd)
+        a = ComputationGraph(conf, dev).init()
+        b = ComputationGraph(conf, dev)
+        b.set_params(_clone_tree(torch, a.params), _clone_tree(torch, a.state))
+        keys = list(a._updaters)
+        plan = plan_buckets(keys, a._updaters, a.params)
+        leaves = len(tree_leaves(a.params))
+        windows, losses = {}, []
+        for step, ds in enumerate(batches):
+            inputs, labels, fm, lm = a._batch(MultiDataSet.from_dataset(ds))
+            loss, grads, new_state = a._loss_and_grads(inputs, labels, a._gen, fm, lm)
+            losses.append(float(loss))
+
+            def bucketed(g=grads):
+                a._apply_updates(g)
+
+            def per_tensor(g=grads):
+                with torch.no_grad():
+                    bucketed_apply(keys, b._updaters, b._gnorms, b.params, g, b.opt_state,
+                                   threshold=0)
+
+            if step == 1:
+                windows = {"bucketed": _device_window(torch, bucketed),
+                           "per_tensor": _device_window(torch, per_tensor)}
+            else:
+                bucketed()
+                per_tensor()
+            a._commit_state(new_state)
+            b._commit_state(new_state)
+            torch.cuda.synchronize()
+            if not (_same_bits(torch, a.params, b.params)
+                    and _same_bits(torch, a.opt_state, b.opt_state)):
+                raise AssertionError(f"fused_update {name}: bucketed and per-tensor differ "
+                                     f"after step {step}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"fused_update {name}: losses {losses}")
+        entry = {"leaves": leaves, "buckets": [
+            {"updater": type(u).__name__, "dtype": key[1], "members": len(m)}
+            for key, (u, m) in plan.items()],
+            "bitwise_steps": len(batches), "losses": losses,
+            "updater_launches": {k: w["launches"] for k, w in windows.items()},
+            "updater_device_ms": {k: w["device_ms"] for k, w in windows.items()}}
+        if name == "adam":
+            ds = batches[0]
+            _, times = _timed_steps(torch, a, ds, FT_WARM, FT_TIMED)
+            orig = training.bucketed_apply
+            training.bucketed_apply = functools.partial(orig, threshold=0)
+            try:
+                _, pt_times = _timed_steps(torch, b, ds, FT_WARM, FT_TIMED)
+            finally:
+                training.bucketed_apply = orig
+            step_ms = float(np.median(times))
+            prof = _profile_step(torch, a, ds, step_ms)
+            entry.update({"median_step_ms": step_ms, "step_ms": times,
+                          "per_tensor_median_step_ms": float(np.median(pt_times)),
+                          "per_tensor_step_ms": pt_times,
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "idle_share": prof["idle_share"],
+                          "optimizer_device_ms_in_profile":
+                              prof["device_ms_by_family"]["optimizer"]})
+            keep = a
+        summary[name] = entry
+        del a, b
+        torch.cuda.empty_cache()
+    launches = {"fwd": bn_act.fwd_launches, "bwd": bn_act.bwd_launches}
+    summary.update({"bn_act_launches": launches, "seconds": time.perf_counter() - t_phase})
+    print("fused_update " + json.dumps(summary), flush=True)
+    return keep, summary, launches
+
+
+class _SnapshotAt:
+    """A listener that keeps copies of the parameters and state as they are
+    after step ``iteration``, beside CheckpointListener's save of that step."""
+
+    def __init__(self, torch, iteration):
+        self.torch, self.iteration, self.params, self.state = torch, iteration, None, None
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration == self.iteration:
+            self.params = _clone_tree(self.torch, model.params)
+            self.state = _clone_tree(self.torch, model.state)
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def _narrow_tl_conf():
+    """A narrow graph of the fine-tuning network's shape: three fused
+    conv-BN-relu blocks, average pooling, a 4-way head, float32."""
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.network import Builder
+    from deeplearning4j_tpu_torch.nn.conf.pooling import GlobalPoolingLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+
+    m = ResNet50(num_classes=4, input_shape=(TL_CHECK_SIDE, TL_CHECK_SIDE, 3))
+    parent = Builder()
+    parent.seed(3).updater(Sgd(learning_rate=0.1)).weight_init("relu")
+    g = GraphBuilder(parent)
+    g.add_inputs("input")
+    x = m._conv_bn(g, "stem", "input", 16, (3, 3))
+    x = m._conv_bn(g, "blk1", x, 16, (3, 3))
+    x = m._conv_bn(g, "blk2", x, 32, (1, 1))
+    g.add_layer("avg_pool", GlobalPoolingLayer(pooling_type="avg"), x)
+    g.add_layer("output", OutputLayer(n_out=4, activation="softmax", loss="mcxent"),
+                "avg_pool")
+    g.set_outputs("output")
+    g.set_input_types(InputType.convolutional(TL_CHECK_SIDE, TL_CHECK_SIDE, 3))
+    return g.build().fused()
+
+
+def tl_card_vs_cpu(torch, dev) -> dict:
+    """The narrow graph frozen up to blk1 (two fused blocks frozen, one
+    trainable, a new 3-way head, Nesterovs): TL_CHECK_STEPS steps on the
+    card (3 bn_act_fwd and 1 bn_act_bwd launches a step) and on the CPU
+    (plain versions) from the same weights and batches. Loss within
+    TL_CHECK_LOSS_RTOL, every parameter and running statistic within
+    TL_CHECK_FRAC of its tensor's largest magnitude; frozen parameters
+    bitwise unchanged on both."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.transferlearning import (FineTuneConfiguration,
+                                                              TransferLearning)
+    from deeplearning4j_tpu_torch.nn.tree import tree_leaves, tree_map
+    from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    base = ComputationGraph(_narrow_tl_conf(), "cpu").init()
+    cpu = (TransferLearning.GraphBuilder(base)
+           .fine_tune_configuration(FineTuneConfiguration(
+               updater=Nesterovs(learning_rate=0.05, momentum=0.9)))
+           .set_feature_extractor("blk1_act").n_out_replace("output", 3).build())
+    card_net = ComputationGraph(cpu.conf, dev).set_params(
+        tree_map(lambda t: t.to(dev, copy=True), cpu.params),
+        tree_map(lambda t: t.to(dev, copy=True), cpu.state))
+    frozen = sorted(cpu._frozen)
+    before = _clone_tree(torch, {n: cpu.params[n] for n in frozen})
+    rng = np.random.default_rng(8)
+    losses, per_step = [], []
+    for _ in range(TL_CHECK_STEPS):
+        x = rng.standard_normal((TL_CHECK_BATCH, TL_CHECK_SIDE, TL_CHECK_SIDE, 3)
+                                ).astype(np.float32)
+        y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, TL_CHECK_BATCH)]
+        cpu.fit(DataSet(x, y))
+        bn_act.fwd_launches = bn_act.bwd_launches = 0
+        card_net.fit(DataSet(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+        torch.cuda.synchronize()
+        per_step.append([bn_act.fwd_launches, bn_act.bwd_launches])
+        losses.append([float(card_net.score()), float(cpu.score())])
+    if any(s != [3, 1] for s in per_step):
+        raise AssertionError(f"tl_card_vs_cpu: bn launches a step {per_step}, want [3, 1]")
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    if loss_err > TL_CHECK_LOSS_RTOL:
+        raise AssertionError(f"tl_card_vs_cpu: losses {losses}")
+    worst = 0.0
+    for tree in ("params", "state"):
+        for got, want in zip(tree_leaves(getattr(card_net, tree)),
+                             tree_leaves(getattr(cpu, tree))):
+            scale = float(want.abs().max()) or 1.0
+            worst = max(worst, float((got.cpu() - want).abs().max()) / scale)
+    if worst > TL_CHECK_FRAC:
+        raise AssertionError(f"tl_card_vs_cpu: a tensor differs by {worst} of its max")
+    for n in frozen:
+        if not (_same_bits(torch, cpu.params[n], before[n])
+                and _same_bits(torch, card_net.params[n],
+                               tree_map(lambda t: t.to(dev), before[n]))):
+            raise AssertionError(f"tl_card_vs_cpu: frozen vertex {n} moved")
+    return {"frozen": frozen, "steps": TL_CHECK_STEPS, "losses_card_cpu": losses,
+            "loss_rel_err": loss_err, "max_frac_err": worst,
+            "limits": {"loss_rtol": TL_CHECK_LOSS_RTOL, "frac": TL_CHECK_FRAC},
+            "bn_launches_per_step": per_step}
+
+
+def transfer_learning_phase(torch, dev, card, base, full, workdir):
+    """Fine-tuning ResNet50 at full width through TransferLearning.GraphBuilder:
+    fused_update's Adam network frozen up to res4f_out (43 fused blocks and
+    the stem pool on NoOp), res5 and a new 10-way head fine-tuned with
+    Nesterovs(1e-4, 0.9) for TL_STEPS steps at batch 128 bf16 over TL_TRAIN
+    batches of synthetic_images (224 x 224 x 3, data_tier's 10 classes).
+    Held: the loss falls; every frozen vertex's parameters bitwise
+    unchanged; every frozen fused block's running statistics moved (frozen
+    BN runs in train mode, as in the JAX package); bn_act_fwd 53 and
+    bn_act_bwd 10 launches every step. CheckpointListener (every
+    TL_CKPT_EVERY iterations) writes a zip that the port's restore reads
+    back bitwise equal to the network at that step; PerformanceListener and
+    CollectScoresIterationListener ride along. Then
+    TransferLearningHelper(graph, res4f_out): featurize TL_FEATURIZE batches
+    (eval mode: no bn launch) and fit_featurized on each (10 + 10 bn
+    launches a step), the folded-back parameters bitwise the sub-graph's.
+    get_memory_report(minibatch=128) on the card: its rows equal a CPU copy's
+    report, and it measures the step's peak. Then tl_card_vs_cpu."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, synthetic_images
+    from deeplearning4j_tpu_torch.nn.conf.convolutional import FusedConvBNActivation
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.memory import get_memory_report
+    from deeplearning4j_tpu_torch.nn.transferlearning import (FineTuneConfiguration,
+                                                              TransferLearning,
+                                                              TransferLearningHelper)
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+    from deeplearning4j_tpu_torch.optimize.listeners import (CheckpointListener,
+                                                             CollectScoresIterationListener,
+                                                             PerformanceListener)
+    from deeplearning4j_tpu_torch.optimize.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    from deeplearning4j_tpu_torch.utils.serialization import restore
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    net = (TransferLearning.GraphBuilder(base)
+           .fine_tune_configuration(FineTuneConfiguration(
+               updater=Nesterovs(learning_rate=TL_LR, momentum=0.9)))
+           .set_feature_extractor(TL_BOUNDARY).n_out_replace("output", TL_CLASSES).build())
+    build_s = time.perf_counter() - t0
+    fused = [n for n, (o, _) in net.vertices.items() if isinstance(o, FusedConvBNActivation)]
+    frozen_fused = [n for n in fused if n in net._frozen]
+    if len(fused) - len(frozen_fused) != TL_TRAINABLE_BLOCKS:
+        raise AssertionError(f"transfer_learning: {len(fused) - len(frozen_fused)} trainable "
+                             f"fused blocks, want {TL_TRAINABLE_BLOCKS}")
+    frozen_params = {n: _clone_tree(torch, net.params[n]) for n in net._frozen}
+    frozen_stats = {n: _clone_tree(torch, net.state[n]) for n in frozen_fused}
+    x, y = synthetic_images(TL_FEATURIZE * TRAIN_BATCH, TRAIN_SIDE, 3,
+                            num_classes=TL_CLASSES, seed=5)
+    batches = [DataSet(torch.from_numpy(x[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).to(dev),
+                       torch.from_numpy(y[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).to(dev))
+               for i in range(TL_FEATURIZE)]
+    del x, y
+    ckpt_dir = os.path.join(workdir, "tl_ckpt")
+    ckpt = CheckpointListener(ckpt_dir, every_n_iterations=TL_CKPT_EVERY, keep_last=1)
+    snap = _SnapshotAt(torch, TL_CKPT_EVERY)
+    perf, scores = PerformanceListener(frequency=1), CollectScoresIterationListener()
+    net.set_listeners(ckpt, snap, perf, scores)
+    times, per_step, rates = [], [], []
+    for step in range(TL_STEPS):
+        bn_act.fwd_launches = bn_act.bwd_launches = 0
+        t0 = time.perf_counter()
+        net.fit(batches[step % TL_TRAIN])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append([bn_act.fwd_launches, bn_act.bwd_launches])
+        rates.append(perf.samples_per_sec)
+    want = [RESNET50_FUSED_BLOCKS, TL_TRAINABLE_BLOCKS]
+    if any(s != want for s in per_step):
+        raise AssertionError(f"transfer_learning: bn launches a step {per_step}, want {want}")
+    losses = [s for _, s in scores.scores]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"transfer_learning: losses {losses}")
+    moved_params = [n for n in net._frozen
+                    if not _same_bits(torch, net.params[n], frozen_params[n])]
+    if moved_params:
+        raise AssertionError(f"transfer_learning: frozen vertices moved: {moved_params}")
+    still = [n for n in frozen_fused
+             if torch.equal(net.state[n]["mean"], frozen_stats[n]["mean"])]
+    if still:
+        raise AssertionError(f"transfer_learning: frozen BN running stats did not move: "
+                             f"{still}")
+    del frozen_params, frozen_stats
+    # the checkpoint of step TL_CKPT_EVERY, read back
+    t0 = time.perf_counter()
+    back = restore(CheckpointListener.last_checkpoint(ckpt_dir), device=dev)
+    restore_s = time.perf_counter() - t0
+    same = [_same_bits(torch, back.params, snap.params),
+            _same_bits(torch, back.state, snap.state), back.iteration == TL_CKPT_EVERY]
+    if not all(same):
+        raise AssertionError(f"transfer_learning: the checkpoint does not read back as the "
+                             f"network of its step (params, state, iteration: {same})")
+    del back, snap
+    step_ms = float(np.median(times))
+    net.set_listeners()
+    prof = _profile_step(torch, net, batches[0], step_ms)
+
+    # the helper: boundary features in eval mode, the rest fitted on them
+    helper = TransferLearningHelper(net, TL_BOUNDARY)
+    bn_act.fwd_launches = bn_act.bwd_launches = 0
+    t0 = time.perf_counter()
+    feats = [helper.featurize(ds.features)[0] for ds in batches]
+    torch.cuda.synchronize()
+    featurize_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    if (bn_act.fwd_launches, bn_act.bwd_launches) != (0, 0):
+        raise AssertionError(f"transfer_learning: featurize launched bn kernels "
+                             f"({bn_act.fwd_launches}, {bn_act.bwd_launches})")
+    sub_steps, sub_times, featurized = [], [], {"fwd": 0, "bwd": 0}
+    for f, ds in zip(feats, batches):
+        bn_act.fwd_launches = bn_act.bwd_launches = 0
+        t0 = time.perf_counter()
+        sub = helper.fit_featurized(f, ds.labels)
+        torch.cuda.synchronize()
+        sub_times.append((time.perf_counter() - t0) * 1e3)
+        sub_steps.append([bn_act.fwd_launches, bn_act.bwd_launches])
+        featurized["fwd"] += bn_act.fwd_launches
+        featurized["bwd"] += bn_act.bwd_launches
+        folded = [n for n in sub.conf.vertices if n in net.params]
+        if not all(_same_bits(torch, net.params[n], sub.params[n]) for n in folded):
+            raise AssertionError("transfer_learning: fit_featurized did not fold the "
+                                 "sub-graph's parameters back bitwise")
+    if any(s != [TL_TRAINABLE_BLOCKS] * 2 for s in sub_steps):
+        raise AssertionError(f"transfer_learning: fit_featurized bn launches {sub_steps}")
+    sub_losses = sub.score()
+    del feats, sub, helper
+
+    # the memory report: measured on the card, rows equal to a CPU copy's
+    rep = get_memory_report(net, minibatch=TRAIN_BATCH)
+    cpu_net = ComputationGraph(net.conf, "cpu").set_params(
+        tree_map(lambda t: t.to("cpu", copy=True), net.params),
+        tree_map(lambda t: t.to("cpu", copy=True), net.state))
+    cpu_rep = get_memory_report(cpu_net, minibatch=TRAIN_BATCH)
+    del cpu_net
+    rows = [dataclasses.asdict(r) for r in rep.layers]
+    if rows != [dataclasses.asdict(r) for r in cpu_rep.layers] or \
+            (rep.total_param_bytes, rep.updater_state_bytes, rep.total_activation_bytes) != \
+            (cpu_rep.total_param_bytes, cpu_rep.updater_state_bytes,
+             cpu_rep.total_activation_bytes) or cpu_rep.compiled is not None \
+            or not rep.compiled or rep.compiled["peak_bytes"] <= 0:
+        raise AssertionError("transfer_learning: the card's memory report differs from the "
+                             "CPU's")
+    check = tl_card_vs_cpu(torch, dev)
+    summary = {
+        "card": card, "boundary": TL_BOUNDARY, "frozen_vertices": len(net._frozen),
+        "frozen_fused_blocks": len(frozen_fused), "trainable_fused_blocks": TL_TRAINABLE_BLOCKS,
+        "batch": TRAIN_BATCH, "dtype": "bfloat16", "build_s": build_s,
+        "losses": losses, "median_step_ms": step_ms, "step_ms": times,
+        "images_per_s": TRAIN_BATCH / (step_ms / 1e3),
+        "performance_listener_samples_per_s": rates,
+        "device_busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+        "device_ms_by_family": prof["device_ms_by_family"],
+        "full_network_median_step_ms": full["adam"]["median_step_ms"],
+        "full_network_idle_share": full["adam"]["idle_share"],
+        "bn_launches_per_step": per_step[0], "checkpoint_restore_s": restore_s,
+        "featurize_ms_per_batch": featurize_ms, "fit_featurized_step_ms": sub_times,
+        "fit_featurized_bn_launches_per_step": sub_steps[0],
+        "fit_featurized_last_loss": sub_losses,
+        "memory_report": {"rows": len(rows), "total_param_bytes": rep.total_param_bytes,
+                          "updater_state_bytes": rep.updater_state_bytes,
+                          "activation_bytes": rep.total_activation_bytes,
+                          "measured": rep.compiled},
+        "card_vs_cpu": check, "seconds": time.perf_counter() - t_phase}
+    print("transfer_learning " + json.dumps(summary), flush=True)
+    launches = {"fwd": sum(s[0] for s in per_step), "bwd": sum(s[1] for s in per_step)}
+    del net, batches
+    torch.cuda.empty_cache()
+    return launches, featurized
+
+
+def _perturbed_solver(torch, base, eps):
+    """``base``'s Solver class with every gradient it takes perturbed by
+    ``eps`` of its norm along one fixed random unit vector: the control that
+    a card-against-CPU limit on the scores must catch."""
+
+    class Perturbed(base):
+        def _flat_fns(self, net, ds):
+            w0, unravel, value_fn, value_and_grad = base._flat_fns(net, ds)
+            gen = torch.Generator(device=w0.device)
+            gen.manual_seed(1)
+            r = torch.randn(w0.shape, generator=gen, device=w0.device)
+            r /= torch.linalg.vector_norm(r)
+
+            def perturbed(w):
+                v, g = value_and_grad(w)
+                return v, g + eps * torch.linalg.vector_norm(g) * r
+
+            return w0, unravel, value_fn, perturbed
+
+    return Perturbed
+
+
+def _score_errs(got, want):
+    """|got_i - want_i| / max(|want_i|, SOLVER_FLOOR), each over its limit
+    SOLVER_RTOL[i], for the first len(SOLVER_RTOL) scores: (errors,
+    largest error over its limit)."""
+    errs = [abs(a - b) / max(abs(b), SOLVER_FLOOR) for a, b in zip(got, want)][:len(SOLVER_RTOL)]
+    return errs, max(e / lim for e, lim in zip(errs, SOLVER_RTOL))
+
+
+def solvers_phase(torch, dev, card) -> dict:
+    """The full-batch solvers on LeNet (configs[0]) with SOLVER_N synthetic
+    MNIST images as one batch, for lbfgs, conjugate_gradient and
+    line_gradient_descent:
+
+    - fit, as a user calls it: Solver(optimization_algo) with its defaults
+      (100 iterations, the backtracking search's 5 trials); the score
+      finite, no kernel of the port launched, and for lbfgs lower than
+      before (the 5-trial search of the other two gives up within a few
+      iterations on LeNet; how far each got is printed);
+    - Solver(algo, SOLVER_ITERS, BackTrackLineSearch(SOLVER_LINE_TRIALS))
+      called directly: every score finite, the last below the first, ms an
+      iteration printed;
+    - card against CPU, for each seed of SOLVER_SEEDS (LeNet's seed and the
+      data's): len(SOLVER_RTOL) iterations of that solver on both, score i
+      within SOLVER_RTOL[i] of the CPU's, relative to the CPU score itself
+      (SOLVER_FLOOR below); the control, the same card run with every
+      gradient perturbed by SOLVER_CONTROL_EPS of its norm, must exceed a
+      limit, and whether the probe at SOLVER_PROBE_EPS does is printed."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.datasets import DataSet, synthetic_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.tree import tree_map
+    from deeplearning4j_tpu_torch.optimize.solvers import BackTrackLineSearch, Solver
+
+    t_phase = time.perf_counter()
+    controls = {"control": _perturbed_solver(torch, Solver, SOLVER_CONTROL_EPS),
+                "probe": _perturbed_solver(torch, Solver, SOLVER_PROBE_EPS)}
+    check_iters = len(SOLVER_RTOL)
+
+    def lenet(algo, seed):
+        conf = dataclasses.replace(LeNet(seed=12345 + seed).conf(), optimization_algo=algo)
+        return MultiLayerNetwork(conf, dev).init()
+
+    def copy_to(net, device):
+        return MultiLayerNetwork(net.conf, device).set_params(
+            tree_map(lambda t: t.to(device, copy=True), net.params),
+            tree_map(lambda t: t.to(device, copy=True), net.state))
+
+    def run(cls, net, ds, iters):
+        solver = cls(net.conf.optimization_algo, max_iterations=iters,
+                     line_search=BackTrackLineSearch(max_iterations=SOLVER_LINE_TRIALS))
+        t0 = time.perf_counter()
+        solver.optimize(net, ds)
+        torch.cuda.synchronize()
+        return solver.score_history, time.perf_counter() - t0
+
+    data = {seed: synthetic_mnist(SOLVER_N, seed=seed) for seed in SOLVER_SEEDS}
+    card_ds = {seed: DataSet(*(torch.from_numpy(a).to(dev) for a in xy))
+               for seed, xy in data.items()}
+    seed0 = SOLVER_SEEDS[0]
+    rows = {}
+    for algo in SOLVER_ALGOS:
+        net = lenet(algo, seed0)
+        before = net.score_dataset(card_ds[seed0])
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        net.fit(card_ds[seed0])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        after = net.score()
+        if any(_launch_counts().values()):
+            raise AssertionError(f"solvers: {algo} fit launched a kernel of the port")
+        if not np.isfinite(after) or net.iteration != 1 or (algo == "lbfgs" and after >= before):
+            raise AssertionError(f"solvers: {algo} fit from {before} to {after}")
+        row = {"fit_default": {"score_before": before, "score_after": after, "fit_s": fit_s}}
+        hist, secs = run(Solver, lenet(algo, seed0), card_ds[seed0], SOLVER_ITERS)
+        if not (all(np.isfinite(hist)) and hist[-1] < hist[0]):
+            raise AssertionError(f"solvers: {algo} scores {hist}")
+        row.update({"iterations": len(hist), "scores": hist, "seconds": secs,
+                    "ms_per_iteration": secs * 1e3 / len(hist)})
+        checks = {}
+        for seed in SOLVER_SEEDS:
+            card_net = lenet(algo, seed)
+            nets = {"card": card_net, "cpu": copy_to(card_net, "cpu"),
+                    **{k: copy_to(card_net, dev) for k in controls}}
+            ref, _ = run(Solver, nets["cpu"], DataSet(*data[seed]), check_iters)
+            entry = {"cpu_scores": ref}
+            for k, cls in (("card", Solver), *controls.items()):
+                got, _ = run(cls, nets[k], card_ds[seed], check_iters)
+                errs, over = _score_errs(got, ref)
+                entry[k] = {"scores": got, "errs": errs, "max_over_limit": over}
+            checks[seed] = entry
+            if len(ref) < check_iters or entry["card"]["max_over_limit"] > 1:
+                raise AssertionError(f"solvers: {algo} seed {seed} card {entry['card']} "
+                                     f"vs CPU {ref}")
+            if entry["control"]["max_over_limit"] <= 1:
+                raise AssertionError(f"solvers: {algo} seed {seed}: the control "
+                                     f"{entry['control']} stays within the limits of {ref}")
+        row["card_vs_cpu"] = checks
+        for k in ("card", *controls):
+            row[f"{k}_max_over_limit"] = [checks[sd][k]["max_over_limit"] for sd in SOLVER_SEEDS]
+        rows[algo] = row
+    summary = {"card": card, "examples": SOLVER_N, "seeds": list(SOLVER_SEEDS),
+               "limits": list(SOLVER_RTOL), "floor": SOLVER_FLOOR,
+               "control_eps": SOLVER_CONTROL_EPS, "probe_eps": SOLVER_PROBE_EPS, **rows,
+               "seconds": time.perf_counter() - t_phase}
+    print("solvers " + json.dumps(summary), flush=True)
+    return summary
+
+
+def streaming_phase(torch, dev, card) -> dict:
+    """A StreamingHttpReceiver on a free loopback port takes STREAM_BATCHES
+    .npz batches (synthetic MNIST, STREAM_BATCH rows) POSTed by a client
+    thread, then /end, while LeNet's fit(prefetch=True) consumes the
+    StreamingDataSetIterator on the card. Every POST answers 200, every
+    batch is consumed once, one step a batch, the losses finite."""
+    import io
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.datasets import (StreamingDataSetIterator,
+                                                   StreamingHttpReceiver, synthetic_mnist)
+    from deeplearning4j_tpu_torch.models import LeNet
+
+    it = StreamingDataSetIterator(queue_size=4, poll_timeout=120)
+    rx = StreamingHttpReceiver(it, port=0)
+    x, y = synthetic_mnist(STREAM_BATCHES * STREAM_BATCH, seed=3)
+    codes = []
+
+    def post(path, body):
+        req = urllib.request.Request(f"http://127.0.0.1:{rx.port}{path}", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            codes.append(r.status)
+
+    def produce():
+        for i in range(STREAM_BATCHES):
+            buf = io.BytesIO()
+            sl = slice(i * STREAM_BATCH, (i + 1) * STREAM_BATCH)
+            np.savez(buf, features=x[sl], labels=y[sl])
+            post("/push", buf.getvalue())
+        post("/end", b"")
+
+    net = LeNet().init(dev)
+    producer = threading.Thread(target=produce)
+    try:
+        t0 = time.perf_counter()
+        producer.start()
+        net.fit(it, prefetch=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        producer.join(timeout=120)
+    finally:
+        rx.stop()
+    if codes != [200] * (STREAM_BATCHES + 1) or it.consumed != STREAM_BATCHES \
+            or net.iteration != STREAM_BATCHES or not np.isfinite(net.score()):
+        raise AssertionError(f"streaming: statuses {codes}, consumed {it.consumed}, "
+                             f"steps {net.iteration}")
+    summary = {"card": card, "batches_pushed": it.pushed, "batches_consumed": it.consumed,
+               "batch": STREAM_BATCH, "wall_s": wall, "steps": net.iteration,
+               "last_loss": net.score()}
+    print("streaming " + json.dumps(summary), flush=True)
+    return summary
+
+
 #: seconds each phase of main() took, by the phase function's name
 PHASE_SECONDS = {}
 
@@ -5504,10 +6199,24 @@ def main() -> int:
         gates = _run(lenet_gates_phase, torch, dev, card, workdir, flush)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    net50, full, fused_launches = _run(fused_update_phase, torch, dev, card)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tl_")
+    try:
+        tl_launches, featurized = _run(transfer_learning_phase, torch, dev, card, net50, full,
+                                       workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del net50
+    torch.cuda.empty_cache()
+    _run(solvers_phase, torch, dev, card)
+    _run(streaming_phase, torch, dev, card)
     bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
                           "checkpoint_overhead": overhead[kind], "yolo_training": yolo[kind],
                           "facenet_training": facenet[kind], "zoo": zoo[kind],
-                          "layer_families": families[kind], "data_tier": data[kind]}
+                          "layer_families": families[kind], "data_tier": data[kind],
+                          "fused_update": fused_launches[kind],
+                          "transfer_learning": tl_launches[kind],
+                          "fit_featurized": featurized[kind]}
                    for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched

@@ -1,9 +1,9 @@
 """Datasets of the port (counterpart of ``deeplearning4j_tpu/datasets``):
 DataSet / MultiDataSet holders, the fetchers and their iterators, the
 async and adapter iterators, pre-processors, record readers and the shard
-sources, the sharded lease-based reader, and on-device augmentation. Every
-iterator, reader and fetcher yields the JAX package's arrays for the same
-arguments and seed."""
+sources, the sharded lease-based reader, on-device augmentation and the
+push-driven streaming iterator. Every iterator, reader and fetcher yields
+the JAX package's arrays for the same arguments and seed."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.fetchers import (cifar10_data, emnist_data, iris_data,
@@ -36,6 +36,8 @@ from deeplearning4j_tpu_torch.datasets.sharded import (DataLeaseError, DataLease
                                                        ShardedReader, ShardLeaseBoard,
                                                        StaleDataLeaseError, reconcile_ledger)
 from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
+from deeplearning4j_tpu_torch.datasets.streaming import (StreamingDataSetIterator,
+                                                         StreamingHttpReceiver)
 
 __all__ = [
     "DataSet", "MultiDataSet", "synthetic_mnist", "synthetic_images", "iris_data",
@@ -54,5 +56,5 @@ __all__ = [
     "SequenceRecordReaderDataSetIterator", "ShardFileSource", "write_shards",
     "DataLeaseError", "DataLeaseTimeout", "StaleDataLeaseError", "ShardedDataset",
     "ShardedReader", "ShardLeaseBoard", "LedgerReport", "reconcile_ledger",
-    "ImageAugmentation",
+    "ImageAugmentation", "StreamingDataSetIterator", "StreamingHttpReceiver",
 ]

@@ -373,6 +373,31 @@ class ComputationGraphConfiguration:
             out[name] = (obj, inputs)
         return out
 
+    # ---- static analysis (analysis/validation.py) and memory (nn/memory.py)
+    def validate(self, *, eval_shape_check: bool = False, batch: int = 2,
+                 labels_shapes=None, raise_on_error: bool = True):
+        """DAG validation before any parameter exists: cycles, dangling
+        vertices, unknown references, merge and element-wise agreement, and
+        per-layer shape inference with vertex-named messages.
+        ``eval_shape_check=True`` also runs the forward on the ``meta``
+        device. Returns the issues; raises
+        ``analysis.ConfigValidationError`` on errors unless
+        ``raise_on_error=False``."""
+        from deeplearning4j_tpu_torch.analysis.validation import (ConfigValidationError,
+                                                                  validate_graph)
+        issues = validate_graph(self, eval_shape_check=eval_shape_check, batch=batch,
+                                labels_shapes=labels_shapes)
+        errors = [i for i in issues if i.severity == "error"]
+        if errors and raise_on_error:
+            raise ConfigValidationError(errors)
+        return issues
+
+    def memory_report(self, minibatch: int = 32):
+        """Per-vertex parameter, activation and updater-state memory of
+        this configuration, with no allocation (``nn/memory.py``)."""
+        from deeplearning4j_tpu_torch.nn.memory import conf_memory_report
+        return conf_memory_report(self, minibatch=minibatch)
+
     def fused(self) -> "ComputationGraphConfiguration":
         """Conv→BN→Act(→residual-add) fusion rewrite of this DAG
         (``perf/fusion.py``)."""

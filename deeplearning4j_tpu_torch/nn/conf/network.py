@@ -92,6 +92,32 @@ class MultiLayerConfiguration:
         return {i: pre for i, (_, pre, _) in enumerate(self._walk())
                 if pre is not None}
 
+    # ---- static analysis (analysis/validation.py) and memory (nn/memory.py)
+    def validate(self, *, eval_shape_check: bool = False, batch: int = 2,
+                 labels_shape=None, raise_on_error: bool = True):
+        """Shape and type inference over the layer stack before any
+        parameter exists, with layer-named messages (conv geometry, n_in /
+        n_out wiring, unknown activations and losses, time-axis
+        consistency, loss against labels). ``eval_shape_check=True`` also
+        runs the forward on the ``meta`` device and holds every layer's
+        shape to the prediction. Returns the issues (warnings included);
+        raises ``analysis.ConfigValidationError`` on errors unless
+        ``raise_on_error=False``."""
+        from deeplearning4j_tpu_torch.analysis.validation import (ConfigValidationError,
+                                                                  validate_multilayer)
+        issues = validate_multilayer(self, eval_shape_check=eval_shape_check, batch=batch,
+                                     labels_shape=labels_shape)
+        errors = [i for i in issues if i.severity == "error"]
+        if errors and raise_on_error:
+            raise ConfigValidationError(errors)
+        return issues
+
+    def memory_report(self, input_type=None, minibatch: int = 32):
+        """Per-layer parameter, activation and updater-state memory of this
+        configuration, with no allocation (``nn/memory.py``)."""
+        from deeplearning4j_tpu_torch.nn.memory import conf_memory_report
+        return conf_memory_report(self, input_type=input_type, minibatch=minibatch)
+
     def fused(self) -> "MultiLayerConfiguration":
         """Conv→BN→Act fusion rewrite of this configuration
         (``perf/fusion.py``)."""
@@ -210,6 +236,14 @@ class ListBuilder:
         self._backprop_type = "standard"
         self._tbptt_fwd = 20
         self._tbptt_back = 20
+        self._optimization_algo = "stochastic_gradient_descent"
+
+    def optimization_algo(self, algo: str) -> "ListBuilder":
+        """reference NeuralNetConfiguration.Builder.optimizationAlgo:
+        "stochastic_gradient_descent", or a full-batch solver ("lbfgs",
+        "conjugate_gradient", "line_gradient_descent")."""
+        self._optimization_algo = algo.lower()
+        return self
 
     def layer(self, conf: Layer) -> "ListBuilder":
         self._layers.append(_apply_layer_defaults(conf, self._parent._defaults))
@@ -239,6 +273,7 @@ class ListBuilder:
             seed=self._parent._seed,
             dtype=self._parent._dtype,
             updater=self._parent._updater,
+            optimization_algo=self._optimization_algo,
             backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back,

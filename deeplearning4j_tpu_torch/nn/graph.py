@@ -40,6 +40,10 @@ and ``checkpoint_manager``, with exact-step resume of a restored graph,
 the train step, each with its own draws. ``evaluate`` is the JAX
 package's.
 
+``init`` validates the configuration first (``conf.validate()``,
+``analysis/validation.py``) unless ``validate=False`` or
+``DL4J_TPU_VALIDATE=0``.
+
 Not ported (it raises ``NotImplementedError``): gradient compression.
 """
 
@@ -90,10 +94,14 @@ class ComputationGraph(TrainStep):
         self._rnn_carries: Optional[dict] = None  # rnn_time_step's stored state
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: Optional[int] = None) -> "ComputationGraph":
+    def init(self, seed: Optional[int] = None,
+             validate: Optional[bool] = None) -> "ComputationGraph":
         """Draw every layer's parameters, in topological order, from one
         ``torch.Generator`` on the graph's device seeded with ``conf.seed``
-        (or ``seed``); dropout draws from a second one (seed + 1)."""
+        (or ``seed``); dropout draws from a second one (seed + 1). Runs
+        ``conf.validate()`` first; opt out with ``validate=False`` or
+        ``DL4J_TPU_VALIDATE=0``."""
+        self._validate(validate)
         seed = self.conf.seed if seed is None else int(seed)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -117,14 +125,16 @@ class ComputationGraph(TrainStep):
 
     # --------------------------------------------------------------- forward
     def _forward(self, params, state, inputs, train: bool, rng=None, masks=None,
-                 carries=None):
+                 carries=None, only=None):
         """Run the DAG. Returns (activations, output pre-activations, new
         state, each vertex's features mask, new carries), all dicts keyed by
         vertex name. ``masks`` holds one (batch, time) mask or None per
         network input. With ``carries`` (one per layer vertex, ``{}`` where
         a layer has none) each recurrent vertex that supports stateful use
         starts from its carry and returns its new one (tBPTT,
-        ``rnn_time_step``); without, the new carries are empty."""
+        ``rnn_time_step``); without, the new carries are empty. ``only``
+        (a set of vertex names, closed under inputs) runs just those
+        vertices (``TransferLearningHelper.featurize``)."""
         cdt = self._dtype
         params = self._cast(params)
         acts: Dict[str, torch.Tensor] = {}
@@ -136,6 +146,8 @@ class ComputationGraph(TrainStep):
             mask_of[name] = None if masks is None else masks[i]
         new_state, preouts, new_carries = {}, {}, {}
         for name in self.order:
+            if only is not None and name not in only:
+                continue
             obj, in_names = self.vertices[name]
             xs = [acts[i] for i in in_names]
             in_mask = next((mask_of[i] for i in in_names if mask_of[i] is not None), None)

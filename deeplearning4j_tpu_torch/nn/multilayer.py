@@ -58,12 +58,21 @@ losses. Layers' ``weight_noise`` applies in every training forward,
 ``constraints`` after every updater step, ``remat`` through
 ``torch.utils.checkpoint`` (``perf/fusion.py``).
 
-Not ported (they raise ``NotImplementedError``): gradient compression and
-the solver optimization algorithms.
+An ``optimization_algo`` outside the SGD family (``lbfgs``,
+``conjugate_gradient``, ``line_gradient_descent``) makes ``fit`` run
+``optimize/solvers.py``'s ``Solver(optimization_algo)``, with its
+defaults, on each batch as one full batch, with the epoch listeners, the
+resume skip and the checkpoint hooks; ``bucket_policy`` and ``prefetch``
+do not apply there. ``init`` validates
+the configuration first (``conf.validate()``, ``analysis/validation.py``)
+unless ``validate=False`` or ``DL4J_TPU_VALIDATE=0``.
+
+Not ported (it raises ``NotImplementedError``): gradient compression.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional
 
 import numpy as np
@@ -76,8 +85,11 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (apply_constraints, apply_la
                                                      regularization_penalty)
 from deeplearning4j_tpu_torch.nn.conf.network import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.normalization import LOW_PRECISION
-from deeplearning4j_tpu_torch.nn.training import TrainStep, to_float32
+from deeplearning4j_tpu_torch.nn.training import TrainStep, is_sgd_family, to_float32
 from deeplearning4j_tpu_torch.nn.tree import leaf_grads, tree_leaves, tree_map
+from deeplearning4j_tpu_torch.optimize.fused_update import bucketed_apply
+
+log = logging.getLogger(__name__)
 
 
 def _copy_tree(tree, device):
@@ -108,10 +120,14 @@ class MultiLayerNetwork(TrainStep):
         self._rnn_carries: Optional[list] = None  # rnn_time_step's stored state
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
+    def init(self, seed: Optional[int] = None,
+             validate: Optional[bool] = None) -> "MultiLayerNetwork":
         """Draw every layer's parameters from one ``torch.Generator`` on the
         network's device, seeded with ``conf.seed`` (or ``seed``); dropout
-        draws from a second one (seed + 1)."""
+        draws from a second one (seed + 1). Runs ``conf.validate()`` first,
+        so a broken configuration fails here with a layer-named message;
+        opt out with ``validate=False`` or ``DL4J_TPU_VALIDATE=0``."""
+        self._validate(validate)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.conf.seed if seed is None else int(seed))
         self._seed_dropout(seed)
@@ -459,9 +475,8 @@ class MultiLayerNetwork(TrainStep):
                                            draws=None if draws is None else next(draws))
                 grads = leaf_grads(loss, leaves)
                 with torch.no_grad():
-                    updates, self.opt_state[i] = self._updaters[i].update(
-                        self._gnorms[i](grads), self.opt_state[i])
-                    tree_map(torch.Tensor.add_, self.params[i], updates)
+                    bucketed_apply([i], self._updaters, self._gnorms, self.params,
+                                   {i: grads}, self.opt_state)
                 apply_constraints(layer, self.params[i])
                 self._score = loss.detach()
                 for listener in self.listeners:
@@ -483,7 +498,9 @@ class MultiLayerNetwork(TrainStep):
         ``perf.BucketPolicy``, or True for the default) pads every batch to
         its bucket with the padded rows masked out of the loss;
         ``prefetch=True`` stages each batch onto the device while the step
-        before it runs (``perf/prefetch.py``)."""
+        before it runs (``perf/prefetch.py``). A configuration outside the
+        SGD family trains through the full-batch solver instead (module
+        docstring)."""
         self._refuse()
         if self.params is None:
             self.init()
@@ -491,8 +508,48 @@ class MultiLayerNetwork(TrainStep):
             data = [DataSet(data, labels)]
         elif isinstance(data, DataSet):
             data = [data]
+        if not is_sgd_family(self.conf):
+            return self._fit_solver(data, num_epochs, checkpoint_manager,
+                                    bucket_policy is not None or prefetch)
         return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch,
                                 bucket_policy, prefetch)
+
+    def _fit_solver(self, data, num_epochs: int, checkpoint_manager, ignored: bool):
+        """The full-batch solver path of ``fit`` (reference Solver.java's
+        dispatch on OptimizationAlgorithm), the JAX package's loop: one
+        ``Solver.optimize`` a batch, the listeners and checkpoint hooks
+        around it."""
+        from deeplearning4j_tpu_torch.checkpoint.manager import (resume_plan,
+                                                                 skip_consumed_batches)
+        from deeplearning4j_tpu_torch.optimize.solvers import Solver
+        if ignored:
+            log.warning("fit(bucket_policy=/prefetch=) is ignored on the solver path "
+                        "(%s): these options apply to the SGD step loop only",
+                        self.conf.optimization_algo)
+        epochs_to_run, skip = resume_plan(self, num_epochs)
+        if hasattr(data, "bind_epoch"):
+            data.bind_epoch(lambda: self.epoch)
+        solver = Solver(self.conf.optimization_algo)
+        for _ in range(epochs_to_run):
+            for listener in self.listeners:
+                listener.on_epoch_start(self)
+            bi = skip
+            for ds in skip_consumed_batches(data, skip):
+                bi += 1
+                solver.optimize(self, ds)
+                self.last_batch_size = ds.num_examples()
+                for listener in self.listeners:
+                    listener.iteration_done(self, self.iteration, self.epoch)
+                self.iteration += 1
+                if checkpoint_manager is not None:
+                    checkpoint_manager.step_end(self, batch_in_epoch=bi)
+            skip = 0
+            for listener in self.listeners:
+                listener.on_epoch_end(self)
+            self.epoch += 1
+            if checkpoint_manager is not None:
+                checkpoint_manager.epoch_end(self)
+        return self
 
     def fit_fused(self, datasets, bucket_policy=None) -> "MultiLayerNetwork":
         """K steps over a list of equally shaped DataSets, or a pre-stacked
@@ -505,6 +562,9 @@ class MultiLayerNetwork(TrainStep):
         self._refuse()
         if self.params is None:
             self.init()
+        if not is_sgd_family(self.conf):
+            raise ValueError("fit_fused supports the jitted SGD-family path "
+                             "only; use fit() for solver-based optimization")
         if self.conf.backprop_type == "tbptt":
             raise ValueError("fit_fused does not window tBPTT sequences; "
                              "use fit() for tbptt-configured networks")

@@ -13,11 +13,18 @@ eagerly:
 - ``_cast`` casts the float32 master parameters to the compute dtype
   (``conf.dtype``) inside autograd, so gradients land on the masters in
   float32;
-- ``_loss_and_grads`` takes gradients of every leaf with
-  ``torch.autograd.grad`` (zeros for a leaf the loss does not reach);
+- ``_loss_and_grads`` takes gradients with ``torch.autograd.grad`` of
+  every leaf of a layer whose updater is not ``NoOp`` (zeros for a leaf the
+  loss does not reach). A frozen layer's (``NoOp``: transfer learning)
+  leaves are not handed to autograd and get zero gradients, so no backward
+  runs for a frozen prefix, as XLA drops the frozen trunk's backward from
+  the JAX step; a frozen layer between trainable ones still passes
+  gradients to the layers before it;
 - ``_apply_updates`` sends each layer's gradient tree through its gradient
-  normalization and its updater, adds the updates to the masters in place
-  and then applies the layer's ``constraints``;
+  normalization and its updater (``optimize/fused_update.py``:
+  ``bucketed_apply``, the small leaves of every layer that share an
+  updater in one foreach sequence, the rest per tensor, in place on the
+  masters and the slots), then applies every layer's ``constraints``;
 - ``_commit_state`` writes the new running stats into the state in place;
 - dropout draws from a ``torch.Generator`` seeded with the init seed + 1;
 - with ``set_augmentation``, the train step augments its 4-D (NHWC)
@@ -28,7 +35,10 @@ eagerly:
   both streams bitwise;
 - each listener's ``iteration_done(net, iteration, epoch)`` runs after the
   step's update, before ``iteration`` advances, as the JAX package calls
-  it.
+  it; where a listener sets ``needs_features`` (the activation sampler,
+  ``optimize/listeners.py::ConvolutionalIterationListener``),
+  ``_last_features`` keeps a copy of the batch's first example (one per
+  network input in a graph), a launch and a small allocation a step.
 
 ``_fit_epochs`` is the epoch loop both networks' ``fit`` share, in the
 JAX ``fit``'s order: data with ``bind_epoch`` (a ``ShardedReader``) follows
@@ -57,17 +67,33 @@ Every walk goes to every depth (``nn/tree.py``), so the attention layers'
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.layers import apply_constraints
 from deeplearning4j_tpu_torch.nn.tree import leaf_grads, tree_leaves, tree_map
-from deeplearning4j_tpu_torch.optimize.updaters import gradient_normalization
+from deeplearning4j_tpu_torch.optimize.fused_update import bucketed_apply
+from deeplearning4j_tpu_torch.optimize.updaters import NoOp, gradient_normalization
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
 _SGD_FAMILY = ("sgd", "stochastic_gradient_descent")
+
+
+def normalize_optimization_algo(name) -> str:
+    """The lowercase-underscore form of an optimization-algorithm name
+    ("Stochastic Gradient Descent", "SGD" and "sgd" alike)."""
+    return (str(name or "stochastic_gradient_descent").strip().lower()
+            .replace("-", "_").replace(" ", "_"))
+
+
+def is_sgd_family(algo_or_conf) -> bool:
+    """Whether a configuration (or an algorithm name) trains by minibatch
+    steps rather than through a full-batch solver (``optimize/solvers.py``)."""
+    algo = getattr(algo_or_conf, "optimization_algo", algo_or_conf)
+    return normalize_optimization_algo(algo) in _SGD_FAMILY
 
 
 def to_float32(preout):
@@ -103,6 +129,7 @@ class TrainStep:
         self._gnorms = _keyed(layers, lambda _, layer: gradient_normalization(
             getattr(layer, "gradient_normalization", None),
             getattr(layer, "gradient_normalization_threshold", 1.0)))
+        self._frozen = {k for k, u in _items(self._updaters) if isinstance(u, NoOp)}
         self.opt_state = None
         self.iteration = 0
         self.epoch = 0
@@ -113,10 +140,19 @@ class TrainStep:
         self._aug_gen: Optional[torch.Generator] = None  # augmentation stream
         self.augmentation = None
         self.listeners: list = []
+        self._last_features = None  # the last fit batch's first example
         # set by CheckpointManager.restore_latest and consumed by the next
         # fit (exact-step resume); _restored_from is provenance only
         self._resume_state = None
         self._restored_from = None
+
+    def _validate(self, validate: Optional[bool]):
+        """``init``'s first step: ``conf.validate()`` unless ``validate`` is
+        False, or None with ``DL4J_TPU_VALIDATE=0`` in the environment."""
+        if validate is None:
+            validate = os.environ.get("DL4J_TPU_VALIDATE", "1") != "0"
+        if validate:
+            self.conf.validate()
 
     def _seed_dropout(self, seed: Optional[int] = None):
         """Seed the dropout (seed + 1) and augmentation (seed + 2)
@@ -164,14 +200,10 @@ class TrainStep:
 
     def _refuse(self):
         """Raise for what ``fit`` cannot do in the port yet: gradient
-        compression and the host solvers."""
+        compression."""
         if self.grad_compression:
             raise NotImplementedError("fit with grad_compression is not in the PyTorch "
                                       "port yet")
-        algo = str(getattr(self.conf, "optimization_algo", "sgd")).strip().lower()
-        if algo.replace(" ", "_").replace("-", "_") not in _SGD_FAMILY:
-            raise NotImplementedError(f"optimization_algo '{self.conf.optimization_algo}' "
-                                      "(a host solver) is not in the PyTorch port yet")
 
     def _cast(self, params):
         """``params`` in the compute dtype (float leaves only)."""
@@ -184,22 +216,20 @@ class TrainStep:
         """(loss, gradient tree, new state[, new carries]) at the current
         parameters; ``batch`` and ``kw`` are what ``_loss_fn`` takes after
         the parameters and state."""
-        leaves = tree_map(lambda v: v.detach().requires_grad_(True), self.params)
+        frozen = self._frozen
+        leaves = _keyed(self.params, lambda k, p: p if k in frozen else
+                        tree_map(lambda v: v.detach().requires_grad_(True), p))
         loss, *aux = self._loss_fn(leaves, self.state, *batch, **kw)
-        return (loss.detach(), leaf_grads(loss, leaves), *aux)
+        live = leaf_grads(loss, {k: p for k, p in _items(leaves) if k not in frozen})
+        grads = _keyed(leaves, lambda k, p: live[k] if k in live
+                       else tree_map(torch.zeros_like, p))
+        return (loss.detach(), grads, *aux)
 
     def _apply_updates(self, grads):
         with torch.no_grad():
-            for k, updater in _items(self._updaters):
-                if not tree_leaves(self.params[k]):
-                    # a layer without parameters still counts the step, as
-                    # optax's state does, so every layer's count is the
-                    # network's
-                    self.opt_state[k]["count"] += 1
-                    continue
-                updates, self.opt_state[k] = updater.update(self._gnorms[k](grads[k]),
-                                                            self.opt_state[k])
-                tree_map(torch.Tensor.add_, self.params[k], updates)
+            bucketed_apply([k for k, _ in _items(self._updaters)], self._updaters,
+                           self._gnorms, self.params, grads, self.opt_state)
+            for k, _ in _items(self._updaters):
                 apply_constraints(self._layer_confs[k], self.params[k])
 
     def _commit_state(self, new_state):
@@ -221,6 +251,9 @@ class TrainStep:
         self._apply_updates(grads)
         self._commit_state(new_state)
         self._score = loss
+        if any(getattr(listener, "needs_features", False) for listener in self.listeners):
+            self._last_features = ([x[:1].clone() for x in inputs] if isinstance(inputs, list)
+                                   else inputs[:1].clone())
         for listener in self.listeners:
             listener.iteration_done(self, self.iteration, self.epoch)
         self.iteration += 1

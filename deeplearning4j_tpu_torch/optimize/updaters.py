@@ -26,6 +26,16 @@ tree}``, each slot's tree mirroring the layer's parameter tree, nested
 groups (``{"q": {"W", "b"}, ...}``) included, as optax's state mirrors the
 pytree. Bias corrections are computed in float32, as optax computes
 ``1 - decay**count``.
+
+Each class also writes its direction over lists of tensors,
+``_foreach_direction``: one ``torch._foreach_*`` call for each elementwise
+operation of ``_direction``, in the same order and rounding, so that
+``optimize/fused_update.py`` updates many small tensors at once with a
+result bitwise equal to the per-tensor one. No fused foreach op (``addcmul``,
+``lerp``) is used, since those round otherwise. One device difference is
+kept: on CUDA a tensor divided by a host scalar is computed as a product
+with the scalar's float32 reciprocal, where ``_foreach_div`` divides, so
+the list form multiplies by that reciprocal on CUDA (``_div_scalar``).
 """
 
 from __future__ import annotations
@@ -87,6 +97,22 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1) - np.float32(decay) ** count)
 
 
+def _div_scalar(xs, b: float):
+    """``[x / b for x in xs]`` with the rounding of ``x / b`` on the
+    tensors' device: CUDA multiplies by ``float32(1) / float32(b)``."""
+    if xs[0].is_cuda:
+        return torch._foreach_mul(xs, float(np.float32(1) / np.float32(b)))
+    return torch._foreach_div(xs, b)
+
+
+def _axpy_slot(slot, decay: float, x, w: float):
+    """``slot = w * x + decay * slot`` in place over lists (the moving
+    averages; an IEEE sum does not depend on its operands' order)."""
+    wx = torch._foreach_mul(x, w)
+    torch._foreach_mul_(slot, decay)
+    torch._foreach_add_(slot, wx)
+
+
 @dataclasses.dataclass(frozen=True)
 class Updater:
     """Base updater config: ``learning_rate`` plus an optional decay policy.
@@ -120,6 +146,12 @@ class Updater:
         """The step before the learning rate (optax's pre-scale update) and
         the new slot values for one tensor."""
         return g, slots
+
+    def _foreach_direction(self, g: list, slots: list, count: int) -> list:
+        """``_direction`` over lists of tensors (module docstring): the
+        direction list, with ``slots`` (one list a slot, in ``_slots``
+        order) updated in place."""
+        return g
 
     def _step(self, g, slots: dict, count: int, lr: float):
         """(update tree, {slot: new tree}) for the (nested) gradients ``g``."""
@@ -170,6 +202,14 @@ class Nesterovs(Updater):
         t = g + self.momentum * slots["trace"]
         return g + self.momentum * t, {"trace": t}
 
+    def _foreach_direction(self, g, slots, count):
+        (tr,) = slots
+        torch._foreach_mul_(tr, self.momentum)
+        torch._foreach_add_(tr, g)                       # t = g + m * t
+        d = torch._foreach_mul(tr, self.momentum)
+        torch._foreach_add_(d, g)                        # g + m * t
+        return d
+
 
 @register_updater
 @dataclasses.dataclass(frozen=True)
@@ -195,6 +235,20 @@ class Adam(Updater):
         d = self._mu_hat(g, mu, count) / (torch.sqrt(nu_hat) + self.epsilon)
         return d, {"mu": mu, "nu": nu}
 
+    def _foreach_mu_hat(self, g, mu, count):
+        return _div_scalar(mu, _bias_correction(self.beta1, count))
+
+    def _foreach_direction(self, g, slots, count):
+        mu, nu = slots
+        _axpy_slot(mu, self.beta1, g, 1 - self.beta1)
+        _axpy_slot(nu, self.beta2, torch._foreach_mul(g, g), 1 - self.beta2)
+        den = _div_scalar(nu, _bias_correction(self.beta2, count))
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.epsilon)
+        d = self._foreach_mu_hat(g, mu, count)
+        torch._foreach_div_(d, den)
+        return d
+
 
 @register_updater
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +258,17 @@ class AdaMax(Adam):
         nu = torch.maximum(torch.abs(g) + self.epsilon, self.beta2 * slots["nu"])
         return self._mu_hat(g, mu, count) / nu, {"mu": mu, "nu": nu}
 
+    def _foreach_direction(self, g, slots, count):
+        mu, nu = slots
+        _axpy_slot(mu, self.beta1, g, 1 - self.beta1)
+        a = torch._foreach_abs(g)
+        torch._foreach_add_(a, self.epsilon)
+        torch._foreach_mul_(nu, self.beta2)
+        torch._foreach_maximum_(nu, a)                   # max(|g| + eps, b2 nu)
+        d = self._foreach_mu_hat(g, mu, count)
+        torch._foreach_div_(d, nu)
+        return d
+
 
 @register_updater
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +276,14 @@ class Nadam(Adam):
     def _mu_hat(self, g, mu, count):
         return (self.beta1 * (mu / _bias_correction(self.beta1, count + 1))
                 + (1 - self.beta1) * (g / _bias_correction(self.beta1, count)))
+
+    def _foreach_mu_hat(self, g, mu, count):
+        d = _div_scalar(mu, _bias_correction(self.beta1, count + 1))
+        torch._foreach_mul_(d, self.beta1)
+        gb = _div_scalar(g, _bias_correction(self.beta1, count))
+        torch._foreach_mul_(gb, 1 - self.beta1)
+        torch._foreach_add_(d, gb)
+        return d
 
 
 @register_updater
@@ -230,6 +303,17 @@ class AdaGrad(Updater):
                           torch.zeros((), dtype=s.dtype, device=s.device))
         return inv * g, {"sum_of_squares": s}
 
+    def _foreach_direction(self, g, slots, count):
+        (s,) = slots
+        torch._foreach_add_(s, torch._foreach_mul(g, g))  # s = g * g + s
+        d = torch._foreach_add(s, self.epsilon)
+        torch._foreach_rsqrt_(d)
+        zero = torch.zeros((), dtype=s[0].dtype, device=s[0].device)
+        # torch.where has no foreach form: one where a member
+        d = [torch.where(si > 0, di, zero) for si, di in zip(s, d)]
+        torch._foreach_mul_(d, g)
+        return d
+
 
 @register_updater
 @dataclasses.dataclass(frozen=True)
@@ -243,6 +327,14 @@ class RmsProp(Updater):
     def _direction(self, g, slots, count):
         nu = (1 - self.rms_decay) * (g * g) + self.rms_decay * slots["nu"]
         return torch.rsqrt(nu + self.epsilon) * g, {"nu": nu}
+
+    def _foreach_direction(self, g, slots, count):
+        (nu,) = slots
+        _axpy_slot(nu, self.rms_decay, torch._foreach_mul(g, g), 1 - self.rms_decay)
+        d = torch._foreach_add(nu, self.epsilon)
+        torch._foreach_rsqrt_(d)
+        torch._foreach_mul_(d, g)
+        return d
 
 
 @register_updater
@@ -263,6 +355,18 @@ class AdaDelta(Updater):
         e_x = (1 - self.rho) * (d * d) + self.rho * slots["e_x"]
         return d, {"e_g": e_g, "e_x": e_x}
 
+    def _foreach_direction(self, g, slots, count):
+        e_g, e_x = slots
+        _axpy_slot(e_g, self.rho, torch._foreach_mul(g, g), 1 - self.rho)
+        d = torch._foreach_add(e_x, self.epsilon)
+        torch._foreach_sqrt_(d)
+        den = torch._foreach_add(e_g, self.epsilon)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(d, den)
+        torch._foreach_mul_(d, g)                        # sqrt(ex+eps)/sqrt(eg+eps)*g
+        _axpy_slot(e_x, self.rho, torch._foreach_mul(d, d), 1 - self.rho)
+        return d
+
 
 @register_updater
 @dataclasses.dataclass(frozen=True)
@@ -271,6 +375,9 @@ class NoOp(Updater):
 
     def _direction(self, g, slots, count):
         return torch.zeros_like(g), slots
+
+    def _foreach_direction(self, g, slots, count):
+        return [torch.zeros_like(x) for x in g]
 
 
 def gradient_normalization(kind: Optional[str], threshold: float = 1.0):

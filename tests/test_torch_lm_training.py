@@ -325,11 +325,12 @@ def test_score_dataset_matches_jax():
 @pytest.mark.parametrize("knob", ["bucket_policy", "prefetch", "checkpoint_manager",
                                   "grad_compression", "augmentation", "solver"])
 def test_refused_knobs_raise(knob):
-    """Gradient compression, the host solvers and a sharded checkpoint
-    manager raise NotImplementedError and train nothing. bucket_policy,
-    prefetch and augmentation are ported: fit and fit_fused take them and
-    train, and an augmentation of a 2-D id input raises ValueError as the
-    JAX package's does."""
+    """Gradient compression and a sharded checkpoint manager raise
+    NotImplementedError and train nothing. bucket_policy, prefetch and
+    augmentation are ported: fit and fit_fused take them and train, and an
+    augmentation of a 2-D id input raises ValueError as the JAX package's
+    does. The full-batch solvers are ported: fit runs them, and fit_fused
+    raises the JAX package's ValueError."""
     jconf = _jax_lm(12, jupd.Sgd(0.1))
     if knob == "solver":
         jconf = dataclasses.replace(jconf, optimization_algo="lbfgs")
@@ -348,6 +349,14 @@ def test_refused_knobs_raise(knob):
         with pytest.raises(ValueError, match="NHWC"):
             net.fit(ds)
         assert net.iteration == 0
+        return
+    if knob == "solver":
+        with pytest.raises(ValueError, match="SGD-family"):
+            net.fit_fused([ds])
+        assert net.iteration == 0
+        before = net.score_dataset(ds)
+        net.fit(ds)
+        assert net.iteration == 1 and np.isfinite(net.score()) and net.score() < before
         return
     with pytest.raises(NotImplementedError):
         if knob == "checkpoint_manager":

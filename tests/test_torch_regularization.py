@@ -358,7 +358,10 @@ def test_unknown_remat_policy_raises():
     conf = dataclasses.replace(conf, layers=(dataclasses.replace(conf.layers[0],
                                                                  remat="sometimes"),)
                                + conf.layers[1:])
-    net = MultiLayerNetwork(conf, device="cpu").init()
+    # init validates the configuration first, as the JAX package's does
+    with pytest.raises(ValueError, match="unknown-remat.*'sometimes'"):
+        MultiLayerNetwork(conf, device="cpu").init()
+    net = MultiLayerNetwork(conf, device="cpu").init(validate=False)
     with pytest.raises(ValueError, match="Unknown remat policy"):
         net.fit(DataSet(np.zeros((2, 7, 7, 2), np.float32), np.eye(3, dtype=np.float32)[[0, 1]]))
 
