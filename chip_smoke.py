@@ -378,9 +378,60 @@
    .npz batches of 64 from a client thread while LeNet's fit(prefetch=True)
    consumes the StreamingDataSetIterator on the card: every POST 200, every
    batch consumed once, one step a batch; batches and wall time printed.
-36. Prints the kernels JSON line (nine kernels; the bn rows' launches by
-   path, data_tier, fused_update, transfer_learning and fit_featurized
-   included, and int4_dot's, adc_pq's and adc_ivf_pq's with the
+36. Cloud checkpoint: 17's crash -> restore -> resume with every checkpoint
+   through backend_from_url(<ObjectStoreEmulator>/ckpt, cache_dir=,
+   cache_bytes=2 GiB), a CachedBackend over RetryingBackend over
+   CloudObjectBackend on loopback HTTP. Scripted: three 503s with
+   Retry-After on the first multipart part and a 500 on the first
+   complete (4 torn uploads aborted, none in flight, the bucket lists only
+   the journal's objects), a mid-transfer disconnect on the restore's get
+   (retried), rot in transit on the newest checkpoint (a cold reader's
+   restore_latest falls back from step 9 to 6). The resumed run bitwise
+   17's uninterrupted one; a second restore through the same cache hits
+   it; CheckpointManager(sharded=True) over the same stack saves and
+   restores the resumed network bitwise, and a simulated 4-shard set of it
+   restores into one network bitwise (N -> M), state_sha equal. Prints
+   bytes a checkpoint, put and get MB/s of its bytes over loopback, and
+   the emulator's, client's, retry layer's and cache's counters.
+37. Supervised: train_until_process runs 17's schedule in a python3 -c
+   worker on the card (local checkpoints every 3 steps); the worker is
+   killed by a real SIGKILL at step 7 (FaultInjector kill_mode="process"),
+   respawned, restores step 6 and finishes: one restart, the crash a
+   Preempted SIGKILL at store step 6, the final state_sha equal to 17's
+   uninterrupted run's. Prints each attempt's seconds from spawn to its
+   first step and the crash record.
+38. Graph embeddings: a seeded planted-partition graph of BlogCatalog's
+   size (10,312 vertices, 333,983 edges, 39 blocks, 80% of edges inside a
+   block). DeepWalk (d 128, walk length 40, window 10, 5 negatives, 10
+   walks a vertex, cut from the paper's 80) and Node2Vec (p 1, q 0.5, walk
+   length 80, window 10, one walk a vertex, rate 0.1), both at batch 8192,
+   through
+   fit on the card: 3 scatter_add launches a corpus batch and no other
+   kernel, the first launch of each fit bitwise against the plain
+   version; the same-block share of verts_nearest(v, 10) over 1,000
+   sampled vertices at least 0.25 (10x chance), which a control trained on
+   the same walks with the vertex ids shuffled must miss. VPTree, KDTree
+   and NearestNeighborsServer /knn over the DeepWalk vectors: the ids of
+   a float64 torch.cdist brute force on the card, ordered by (distance,
+   index), for 25 queries. BarnesHutTsne at the JAX defaults (perplexity
+   30, 1,000 iterations, exaggeration 12) approximate on all 10,312
+   vectors and exact on 2,000: the 2-D block share against the control's
+   embedding under the same gate; one step of each regime on the card
+   within 1e-5 of the CPU's (of the embedding's largest magnitude; KL
+   relative). Prints walk and fit seconds, words/s, launches,
+   iterations/s and the KL histories.
+39. CNN sentence: the sentence CNN of Kim 2014 at its widths (300-d
+   vectors from the port's Word2Vec on the card, at most 56 words, filters
+   3/4/5 x 100, max over time, MergeVertex, dropout 0.5, softmax, batch
+   50) on a seeded two-class synthetic corpus of 10,662 sentences laid
+   out by CnnSentenceDataSetIterator, ComputationGraph.fit with Adam 1e-3
+   for 2 epochs over 9,000: losses finite and falling, the held-out
+   accuracy 0.2 above a control trained on shuffled labels, no kernel of
+   the port launched.
+40. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+   path, data_tier, fused_update, transfer_learning, fit_featurized,
+   cloud_checkpoint and supervised included, scatter_add's by path
+   (word2vec, deepwalk, node2vec), and int4_dot's, adc_pq's and adc_ivf_pq's with the
    model_server, hot_swap, ivf and lenet_gates paths; int4_dot's library
    yardstick, torch._int_mm, on operands zero-padded to its multiples of 8,
    the weights column-major, and held equal to the kernel's result), the
@@ -1284,7 +1335,8 @@ def _bn_kernel_entry(name, rows, launches):
     (both were redesigned) and every other case's; ``launches`` by path
     (the training, checkpoint, checkpoint_overhead, yolo_training,
     facenet_training, zoo, layer_families, data_tier, fused_update,
-    transfer_learning and fit_featurized phases)."""
+    transfer_learning, fit_featurized, cloud_checkpoint and supervised
+    phases)."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
     extra = {
@@ -2032,16 +2084,18 @@ def word2vec_phase(torch, dev, flush, card):
     return rows, summary
 
 
-def _scatter_kernel_entry(rows, summary):
+def _scatter_kernel_entry(rows, summary, graph_launches):
     """The kernels-line entry of scatter_add: numbers at the corpus path's
     contexts shape (N = 8192, D = 128), the two other per-batch shapes
-    beside, max error over every case."""
+    beside, max error over every case; launches by path (the Word2Vec
+    phase's timed fit, DeepWalk's and Node2Vec's fits)."""
     head = {r["case"]: r for r in rows}
     main = head["corpus_contexts"]
+    by_path = {"word2vec": summary["scatter_add_launches"], **graph_launches}
     return {"name": "scatter_add", "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/scatter_add.cu",
             "replaces": "deeplearning4j_tpu/nlp/pallas_scatter.py:35",
-            "launches": summary["scatter_add_launches"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "previous_ms": main["previous_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -3216,6 +3270,7 @@ def checkpoint_phase(torch, dev, card, workdir) -> dict:
     times a step. One ResNet50 lives on the card at a time."""
     from deeplearning4j_tpu_torch.checkpoint import (CheckpointManager, FaultInjector,
                                                      SimulatedCrash, tear_file)
+    from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
     from deeplearning4j_tpu_torch.utils.serialization import write_model
@@ -3241,14 +3296,15 @@ def checkpoint_phase(torch, dev, card, workdir) -> dict:
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     bn_act.fwd_launches = bn_act.bwd_launches = 0
     try:
-        runs = []
+        runs, shas = [], []
         for _ in range(2):
             net = fit(ComputationGraph(conf, dev).init())
             runs.append(_run_record(net))
+            shas.append(state_sha(net))
             del net
             torch.cuda.empty_cache()
         diff = _differences(*runs)
-        if diff:
+        if diff or shas[0] != shas[1]:
             raise AssertionError(f"checkpoint: two uninterrupted runs from one seed differ in "
                                  f"{len(diff)} arrays (determinism control): {diff[:12]}")
         ref = runs.pop()
@@ -3326,7 +3382,7 @@ def checkpoint_phase(torch, dev, card, workdir) -> dict:
                "seconds": time.perf_counter() - t_phase}
     print("checkpoint " + json.dumps(summary), flush=True)
     return {"fwd": fwd, "bwd": bwd, "model_zip": model_zip, "record": ref,
-            "write_s": write_s}
+            "write_s": write_s, "state_sha": shas[0]}
 
 
 def serialization_phase(torch, dev, card, ckpt) -> dict:
@@ -6080,6 +6136,844 @@ def streaming_phase(torch, dev, card) -> dict:
 
 
 #: seconds each phase of main() took, by the phase function's name
+# ------------------------------------------------- slice 17: checkpoint tier
+# cloud_checkpoint: the disk cache's budget (above a ResNet50 + Adam
+# checkpoint of about 300 MB, so whole checkpoints stay cached), the 503
+# burst on the first multipart part (its Retry-After seconds), and the
+# loopback transfer timed for put / get MB/s
+CLOUD_CACHE_BYTES = 2 << 30
+CLOUD_PART_BURST, CLOUD_RETRY_AFTER_S = 3, 0.05
+# supervised: each attempt's and the whole run's deadline, in seconds
+SUPERVISED_ATTEMPT_S, SUPERVISED_OVERALL_S = 300, 600
+
+
+def _cloud_counters(emu, store) -> dict:
+    """The emulator's, the wire client's, the retry layer's and the disk
+    cache's counters of one backend_from_url stack."""
+    retry, cloud = store.inner, store.inner.inner
+    return {"emulator": {k: getattr(emu, k) for k in (
+                "faults_injected", "parts_received", "completes", "aborts",
+                "pages_served", "auth_rejections")} | {"calls": dict(emu.calls)},
+            "client": {"requests_sent": cloud.requests_sent,
+                       "multipart_puts": cloud.multipart_puts,
+                       "multipart_aborts": cloud.multipart_aborts,
+                       "ops": dict(cloud.op_counts)},
+            "retry": {k: getattr(retry, k, None) for k in ("retries", "retry_after_honored")},
+            "cache": store.stats()}
+
+
+def cloud_checkpoint_phase(torch, dev, card, workdir, ckpt) -> dict:
+    """The checkpoint phase's crash -> restore -> resume (ResNet50 bf16, Adam,
+    5 batches of 128, 2 epochs, cudnn.deterministic) with every checkpoint
+    going through backend_from_url(<port ObjectStoreEmulator>/ckpt,
+    cache_dir=, cache_bytes=): a CachedBackend over RetryingBackend over
+    CloudObjectBackend, over loopback HTTP. Scripted faults: a burst of 503s
+    with Retry-After on the first multipart part and a 500 on the first
+    complete (each torn upload aborted, never listed), a mid-transfer
+    disconnect on the restore's get, and rot in transit on the newest
+    checkpoint's get (restore_latest falls back one generation). Held: the
+    resumed run ends bitwise equal to the checkpoint phase's uninterrupted
+    run; no upload left in flight and only committed objects listed; a
+    second restore through the same cache hits it; a sharded save of the
+    resumed network (CheckpointManager(sharded=True) over the same stack)
+    restores bitwise, and a simulated 4-shard set of it restores into one
+    network bitwise (N -> M), state_sha equal before and after. Prints bytes
+    a checkpoint, put and get MB/s over loopback, the stack's counters."""
+    from deeplearning4j_tpu_torch.checkpoint import (CheckpointManager, FaultInjector,
+                                                     ObjectStoreEmulator, SimulatedCrash,
+                                                     backend_from_url)
+    from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    t_phase = time.perf_counter()
+    conf = resnet50_train_conf()
+    batches = ckpt_batches(torch, dev)
+    ref = ckpt["record"]
+    steps = 0
+    caches = iter(os.path.join(workdir, f"cache{i}") for i in range(8))
+
+    def stack(url):
+        return backend_from_url(url, cache_dir=next(caches), cache_bytes=CLOUD_CACHE_BYTES)
+
+    def fit(net, cm):
+        nonlocal steps
+        i0 = net.iteration
+        try:
+            net.fit(batches, num_epochs=CKPT_EPOCHS, checkpoint_manager=cm)
+        except SimulatedCrash:
+            steps += net.iteration - i0 + 1
+            raise
+        steps += net.iteration - i0
+        return net
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    emu = ObjectStoreEmulator().start()
+    bn_act.fwd_launches = bn_act.bwd_launches = 0
+    try:
+        url = emu.bucket_url("ckpt")
+        writer = stack(url)
+        emu.script("status", CLOUD_PART_BURST, op="part", code=503,
+                   retry_after=CLOUD_RETRY_AFTER_S)
+        emu.script("status", 1, op="complete", code=500)
+        cm = CheckpointManager(storage=writer, save_every_n_steps=CKPT_EVERY, device=dev)
+        net = ComputationGraph(conf, dev).init().set_listeners(FaultInjector(kill_at_step=CKPT_KILL))
+        try:
+            fit(net, cm)
+            raise AssertionError("cloud_checkpoint: the injected crash did not fire")
+        except SimulatedCrash:
+            pass
+        cm.close()
+        del net
+        torch.cuda.empty_cache()
+        crashed = _cloud_counters(emu, writer)
+        if crashed["client"]["multipart_aborts"] != CLOUD_PART_BURST + 1:
+            raise AssertionError(f"cloud_checkpoint: {crashed['client']['multipart_aborts']} "
+                                 f"multipart aborts, want {CLOUD_PART_BURST + 1}")
+        if emu.in_flight_uploads():
+            raise AssertionError(f"cloud_checkpoint: uploads left in flight: "
+                                 f"{emu.in_flight_uploads()}")
+        listed = writer.list()
+        saved = [e["file"] for e in cm.checkpoints()]
+        if listed != sorted(saved + ["manifest.json"]):
+            raise AssertionError(f"cloud_checkpoint: the bucket lists {listed}, "
+                                 f"the journal {saved}")
+        # a fresh reader (its own cache): the restore's first get is cut
+        # mid-transfer and retried
+        reader = stack(url)
+        faults = emu.faults_injected
+        emu.script("disconnect", 1, op="get", match="ckpt-")
+        cm2 = CheckpointManager(storage=reader, save_every_n_steps=CKPT_EVERY, device=dev)
+        t0 = time.perf_counter()
+        resumed = cm2.restore_latest()
+        restore_s = time.perf_counter() - t0
+        rs = resumed._resume_state
+        if (rs.step, rs.epoch, rs.batch_in_epoch) != CKPT_RESTORED:
+            raise AssertionError(f"cloud_checkpoint: restore_latest came back at "
+                                 f"{(rs.step, rs.epoch, rs.batch_in_epoch)}")
+        if emu.faults_injected != faults + 1 or reader.inner.retries < 1:
+            raise AssertionError("cloud_checkpoint: the disconnect was not injected and retried")
+        fit(resumed, cm2)
+        cm2.close()
+        diff = _differences(ref, _run_record(resumed))
+        if diff:
+            raise AssertionError(f"cloud_checkpoint: the resumed run differs from the "
+                                 f"uninterrupted one in {len(diff)} arrays: {diff[:12]}")
+        fwd, bwd = bn_act.fwd_launches, bn_act.bwd_launches
+        # a second restore through the same cache: served from the disk
+        hits = reader.stats()["hits"]
+        second = CheckpointManager(storage=reader, device=dev).restore_latest()
+        second_hits = reader.stats()["hits"] - hits
+        if second_hits < 1 or second._resume_state.step != CKPT_RESTORED[0] + CKPT_EVERY:
+            raise AssertionError(f"cloud_checkpoint: the second restore hit the cache "
+                                 f"{second_hits} times at step {second._resume_state.step}")
+        del second
+        # rot in transit on the newest checkpoint: a cold reader falls back
+        newest = CheckpointManager(storage=reader, device=dev).checkpoints()[-1]
+        emu.script("bitrot", 1, op="get", match=newest["file"])
+        back = CheckpointManager(storage=stack(url), device=dev).restore_latest()
+        fallback = (newest["step"], back._resume_state.step)
+        del back
+        torch.cuda.empty_cache()
+        if fallback != (CKPT_RESTORED[0] + CKPT_EVERY, CKPT_RESTORED[0]):
+            raise AssertionError(f"cloud_checkpoint: rotted step {fallback[0]} fell back to "
+                                 f"{fallback[1]}")
+        # loopback rates of one checkpoint's bytes through the bare client
+        cloud = reader.inner.inner
+        data = cloud.get(newest["file"])
+        t0 = time.perf_counter()
+        cloud.put("rate-probe.bin", data)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if cloud.get("rate-probe.bin") != data:
+            raise AssertionError("cloud_checkpoint: the probe object came back changed")
+        get_s = time.perf_counter() - t0
+        cloud.delete("rate-probe.bin")
+        # sharded: the resumed network as a shard set over the same stack
+        sharded_store = stack(emu.bucket_url("sharded"))
+        cms = CheckpointManager(storage=sharded_store, sharded=True, device=dev)
+        sha = shd.state_sha(resumed)
+        t0 = time.perf_counter()
+        name = cms.save(resumed)
+        sharded_save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = cms.restore_latest()
+        sharded_restore_s = time.perf_counter() - t0
+        diff = _differences(ref, _run_record(back))
+        if diff or shd.state_sha(back) != sha or not name.endswith(".sharded"):
+            raise AssertionError(f"cloud_checkpoint: the sharded restore differs in "
+                                 f"{len(diff)} arrays: {diff[:6]}")
+        del back
+        payloads = [shd.shard_zip_bytes(s, {"batch_in_epoch": 0})
+                    for s in shd.simulated_shard_snapshots(resumed, 4)]
+        t0 = time.perf_counter()
+        merged, meta = shd.restore_from_payloads(payloads, device=dev)
+        four_to_one_s = time.perf_counter() - t0
+        diff = _differences(ref, _run_record(merged))
+        if diff or meta["num_hosts"] != 4 or shd.state_sha(merged) != sha:
+            raise AssertionError(f"cloud_checkpoint: the 4 -> 1 restore differs in "
+                                 f"{len(diff)} arrays: {diff[:6]}")
+        del merged, resumed
+        counters = _cloud_counters(emu, reader)
+    finally:
+        emu.stop()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+        torch.cuda.empty_cache()
+    if not fwd == bwd == RESNET50_FUSED_BLOCKS * steps:
+        raise AssertionError(f"cloud_checkpoint: bn_act launched {fwd} forward / {bwd} "
+                             f"backward in {steps} steps")
+    mb = len(data) / 1e6
+    summary = {"card": card, "store": "backend_from_url(emulator, cache_dir, cache_bytes="
+                                      f"{CLOUD_CACHE_BYTES})",
+               "resume": "bitwise", "restored": list(CKPT_RESTORED),
+               "checkpoint_bytes": len(data), "checkpoints": saved,
+               "restore_latest_s": restore_s, "second_restore_cache_hits": second_hits,
+               "rotted_newest_fell_back": list(fallback),
+               "put_MB_per_s": mb / put_s, "get_MB_per_s": mb / get_s,
+               "put_s": put_s, "get_s": get_s,
+               "sharded": {"file": name, "save_s": sharded_save_s,
+                           "restore_s": sharded_restore_s, "restore": "bitwise",
+                           "four_to_one": "bitwise", "four_to_one_s": four_to_one_s,
+                           "shard_bytes": [len(p) for p in payloads], "state_sha": sha},
+               "writer_counters": crashed, "reader_counters": counters,
+               "steps": steps, "bn_act_fwd_launches": fwd, "bn_act_bwd_launches": bwd,
+               "seconds": time.perf_counter() - t_phase}
+    print("cloud_checkpoint " + json.dumps(summary), flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+SUPERVISED_WORKER = r'''
+import json, os, sys, time
+sys.path.insert(0, {root!r})
+import torch
+import chip_smoke as cs
+from deeplearning4j_tpu_torch.checkpoint import CheckpointManager, FaultInjector
+from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+spawned, attempt = float(sys.argv[1]), int(sys.argv[2])
+out = os.path.join({workdir!r}, f"attempt{{attempt}}.json")
+report = {{"attempt": attempt, "pid": os.getpid(), "import_s": time.time() - spawned}}
+
+
+class Report(TrainingListener):
+    """The report on disk after every step, ahead of the FaultInjector: the
+    killed attempt's launches are kept up to its last step."""
+    def iteration_done(self, model, iteration, epoch):
+        if "first_step_s" not in report:
+            torch.cuda.synchronize()
+            report["first_step_s"] = time.time() - spawned
+            report["first_step"] = iteration
+        report.update(steps_done=report.get("steps_done", 0) + 1,
+                      bn_act_fwd=bn_act.fwd_launches, bn_act_bwd=bn_act.bwd_launches)
+        open(out, "w").write(json.dumps(report))
+
+
+dev = resolve_device("cuda")
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+cm = CheckpointManager({ckpt!r}, save_every_n_steps=cs.CKPT_EVERY, async_write=False,
+                       device=dev)
+net = cm.restore_latest()
+report["restored_step"] = None if net is None else net.iteration
+if net is None:
+    net = ComputationGraph(cs.resnet50_train_conf(), dev).init()
+    net.set_listeners(Report(), FaultInjector(kill_at_step=cs.CKPT_KILL, kill_mode="process"))
+else:
+    net.set_listeners(Report())
+i0 = net.iteration
+net.fit(cs.ckpt_batches(torch, dev), num_epochs=cs.CKPT_EPOCHS, checkpoint_manager=cm)
+cm.close()
+report.update(steps=net.iteration - i0, iteration=net.iteration, epoch=net.epoch,
+              state_sha=state_sha(net), bn_act_fwd=bn_act.fwd_launches,
+              bn_act_bwd=bn_act.bwd_launches, done_s=time.time() - spawned)
+open(out, "w").write(json.dumps(report))
+'''
+
+
+def supervised_phase(torch, dev, card, workdir, ckpt) -> dict:
+    """train_until_process runs the checkpoint phase's ResNet50 schedule in a
+    worker process on the card (a python3 -c program, local checkpoints
+    every 3 steps, written synchronously). The first attempt is killed by a
+    real SIGKILL at step 7 (FaultInjector(kill_mode="process")); the
+    supervisor respawns it (respawn_preempted), the respawn restores step 6
+    and finishes. Held: the supervisor's summary (one restart, the crash a
+    Preempted SIGKILL at store step 6), and the final state_sha equal to
+    the checkpoint phase's uninterrupted run. Prints each attempt's
+    seconds from spawn to its first step, and the crash record. The
+    workers use the kernels this script built (build/ holds them), and
+    report their own bn_act launches after every step (the killed one up
+    to the step it died after)."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager, RestartPolicy
+    from deeplearning4j_tpu_torch.checkpoint.supervisor import train_until_process
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = os.path.join(workdir, "store")
+    prog = SUPERVISED_WORKER.format(root=root, workdir=workdir, ckpt=store)
+    torch.cuda.empty_cache()
+    watcher = CheckpointManager(store, device=dev)
+    summary = train_until_process(
+        lambda i, attempt: [sys.executable, "-c", prog, repr(time.time()), str(attempt)],
+        respawn_preempted=True, checkpoint_manager=watcher,
+        restart_policy=RestartPolicy(max_restarts=2, backoff_s=0.0),
+        attempt_timeout_s=SUPERVISED_ATTEMPT_S, overall_timeout_s=SUPERVISED_OVERALL_S,
+        cwd=root, log_dir=os.path.join(workdir, "logs"))
+    attempts = []
+    for a in (1, 2):
+        path = os.path.join(workdir, f"attempt{a}.json")
+        attempts.append(json.load(open(path)) if os.path.exists(path) else None)
+    tails = {}
+    for i, logs in summary.logs.items():
+        for p in logs:
+            tails[os.path.basename(p)] = open(p, errors="replace").read()[-2000:]
+    crash = [dataclasses.asdict(c) for c in summary.crashes]
+    ok = (summary.completed and summary.restarts == 1 and len(crash) == 1
+          and crash[0]["error_type"] == "Preempted"
+          and crash[0]["error"] == "killed by SIGKILL"
+          and crash[0]["crashed_at_step"] == CKPT_RESTORED[0]
+          and crash[0]["restored_step"] == CKPT_RESTORED[0]
+          and None not in attempts and attempts[1].get("restored_step") == CKPT_RESTORED[0])
+    if not ok:
+        raise AssertionError(f"supervised: summary {summary}, crashes {crash}, attempts "
+                             f"{attempts}, worker logs {tails}")
+    final = attempts[1]
+    if final["state_sha"] != ckpt["state_sha"]:
+        raise AssertionError(f"supervised: the respawned worker's final state_sha "
+                             f"{final['state_sha']} differs from the uninterrupted run's "
+                             f"{ckpt['state_sha']}")
+    killed = attempts[0]
+    fwd = killed["bn_act_fwd"] + final["bn_act_fwd"]
+    bwd = killed["bn_act_bwd"] + final["bn_act_bwd"]
+    steps = killed["steps_done"] + final["steps_done"]
+    if killed["steps_done"] != CKPT_KILL or not fwd == bwd == RESNET50_FUSED_BLOCKS * steps:
+        raise AssertionError(f"supervised: bn_act launched {fwd} / {bwd} times in {steps} "
+                             f"steps over both attempts: {attempts}")
+    out = {"card": card, "kill": "SIGKILL at step 7 (FaultInjector kill_mode='process')",
+           "restarts": summary.restarts, "crash_record": crash,
+           "worker_status": summary.worker_status,
+           "spawn_to_first_step_s": [a["first_step_s"] for a in attempts],
+           "spawn_to_imports_s": [a["import_s"] for a in attempts],
+           "respawn_restored_step": final["restored_step"],
+           "respawn_steps": final["steps"], "respawn_spawn_to_done_s": final["done_s"],
+           "final_state_sha": final["state_sha"], "equals_uninterrupted": True,
+           "bn_act_launches_by_attempt": [[a["bn_act_fwd"], a["bn_act_bwd"]] for a in attempts],
+           "wall_time_s": summary.wall_time_s, "seconds": time.perf_counter() - t_phase}
+    print("supervised " + json.dumps(out), flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+# ------------------------------------------------ slice 17: leaf modules
+# a planted-partition graph with BlogCatalog's size (Tang & Liu 2009: 10,312
+# vertices, 333,983 edges, 39 groups): each edge inside one block with
+# probability GRAPH_P_IN, else between two random vertices; seeded
+GRAPH_V, GRAPH_E, GRAPH_BLOCKS, GRAPH_P_IN, GRAPH_SEED = 10_312, 333_983, 39, 0.8, 17
+# DeepWalk at the paper's widths (Perozzi et al. 2014: d 128, walk length 40,
+# window 10; 5 negatives), walks per vertex cut from 80 to 10; Node2Vec
+# (Grover & Leskovec 2016: p 1, q 0.5, walk length 80, window 10), one walk
+# per vertex; both at the Word2Vec phase's batch of 8192 pairs. Node2Vec's
+# one walk a vertex draws a fifth of DeepWalk's pairs: at the default rate
+# 0.025 a 3,000-vertex graph on the CPU stayed at the chance share, at 0.1
+# it reached 1.0
+DEEPWALK_KW = dict(vector_size=128, window_size=10, walk_length=40, walks_per_vertex=10,
+                   negative=5, batch_size=8192, seed=5)
+NODE2VEC_KW = dict(p=1.0, q=0.5, vector_size=128, window_size=10, walk_length=80,
+                   walks_per_vertex=1, negative=5, batch_size=8192, learning_rate=0.1, seed=5)
+# the block-agreement check: sampled vertices, neighbours each; a fit must
+# reach BLOCK_GATE (10x the 1/39 chance share), its shuffled-id control
+# must not
+BLOCK_SAMPLE, BLOCK_K, BLOCK_GATE = 1000, 10, 0.25
+TREE_QUERIES, TREE_K = 25, 10
+# BarnesHutTsne's defaults, the JAX package's: iterations, and the size
+# from which theta > 0 takes the approximate regime
+TSNE_EXACT_N, TSNE_ITERS, TSNE_BH_THRESHOLD = 2000, 1000, 8192
+# a t-SNE step on the card against the same step on the CPU: each
+# coordinate within TSNE_STEP_TOL of the embedding's largest magnitude
+# (the grid's segment sums are index_add_ atomics on the card), KL within
+# TSNE_STEP_TOL relative
+TSNE_STEP_TOL = 1e-5
+
+
+def planted_graph():
+    """The seeded planted-partition graph (GRAPH_*) and each vertex's block."""
+    from deeplearning4j_tpu_torch.graphs import Graph
+
+    rng = np.random.default_rng(GRAPH_SEED)
+    block = np.arange(GRAPH_V) % GRAPH_BLOCKS
+    members = [np.flatnonzero(block == b) for b in range(GRAPH_BLOCKS)]
+    sizes = np.array([len(m) for m in members])
+    start = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    flat = np.concatenate(members)
+    a = rng.integers(0, GRAPH_V, GRAPH_E)
+    inside = rng.random(GRAPH_E) < GRAPH_P_IN
+    b = np.where(inside, flat[start[block[a]] + rng.integers(0, sizes[block[a]])],
+                 rng.integers(0, GRAPH_V, GRAPH_E))
+    b = np.where(b == a, (b + GRAPH_BLOCKS) % GRAPH_V, b)   # no self-loops, same block
+    g = Graph(GRAPH_V)
+    for x, y in zip(a.tolist(), b.tolist()):
+        g.add_edge(x, y)
+    return g, block
+
+
+class _ScatterProbe:
+    """Wraps the scatter_add the NLP steps call: the first launch's operands
+    and result are kept, to be held against the plain version."""
+
+    def __init__(self, torch):
+        from deeplearning4j_tpu_torch.nlp import kernels
+        self.torch, self.kernels, self.real = torch, kernels, kernels.scatter_add
+        self.kept = None
+
+    def __enter__(self):
+        def probe(table, idx, grads):
+            if self.kept is not None:
+                return self.real(table, idx, grads)
+            before = table.clone()
+            out = self.real(table, idx, grads)
+            self.kept = (before, idx.clone(), grads.clone(), out.clone())
+            return out
+        self.kernels.scatter_add = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.scatter_add = self.real
+
+    def hold(self, what) -> dict:
+        from deeplearning4j_tpu_torch.perf.kernels import scatter_add as sa
+        before, idx, grads, got = self.kept
+        want = sa.scatter_add_plain(before.clone(), idx, grads)
+        if not _bits_equal(self.torch, got, want):
+            raise AssertionError(f"{what}: a sampled scatter_add launch differs from its "
+                                 f"plain version (max |diff| "
+                                 f"{float((got - want).abs().max())})")
+        return {"V": int(before.shape[0]), "D": int(before.shape[1]), "N": int(idx.shape[0]),
+                "bitwise_vs_plain": True}
+
+
+def _timed_walks(model, walks=None) -> dict:
+    """Hook ``model``'s walk iterator: time its walks and keep them, or serve
+    ``walks`` (a control's) instead of drawing."""
+    record = {"seconds": 0.0, "walks": []}
+    make = model._make_walk_iterator
+
+    def hooked(graph, length):
+        it = make(graph, length)
+        draw = it.walks
+
+        def walks_of(epoch=0):
+            if walks is not None:
+                return walks[epoch]
+            t0 = time.perf_counter()
+            out = draw(epoch)
+            record["seconds"] += time.perf_counter() - t0
+            record["walks"].append(out)
+            return out
+        it.walks = walks_of
+        return it
+    model._make_walk_iterator = hooked
+    return record
+
+
+def _graph_fit(torch, cls, kw, dev, graph, walks=None, probe=True) -> tuple:
+    """One fit through the model's own ``fit(graph)``: walk and fit seconds,
+    words/s, the launches of every kernel and one scatter_add launch held
+    against the plain version."""
+    model = cls(device=dev, **kw)
+    rec = _timed_walks(model, walks)
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    with _ScatterProbe(torch) as p:
+        model.fit(graph)
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = _launch_counts()
+    sv = model._vectors
+    batches = sv.counters["corpus_batches"]
+    if launches["scatter_add"] != 3 * batches or batches == 0 or sv.counters["batches"]:
+        raise AssertionError(f"{cls.__name__}: scatter_add launched "
+                             f"{launches['scatter_add']} times in {batches} corpus batches "
+                             f"(want 3 each), host batches {sv.counters['batches']}")
+    if any(n for k, n in launches.items() if k != "scatter_add"):
+        raise AssertionError(f"{cls.__name__}: another kernel ran: {launches}")
+    if not np.isfinite(sv.loss_history).all():
+        raise AssertionError(f"{cls.__name__}: a loss is not finite: {sv.loss_history}")
+    held = p.hold(cls.__name__) if probe else None
+    words = sv.vocab.total_word_occurrences
+    fit_s = total - rec["seconds"]
+    return model, rec, {"walk_seconds": rec["seconds"], "fit_seconds": fit_s,
+                        "tokens": words, "words_per_s": words / fit_s,
+                        "corpus_batches": batches,
+                        "scatter_add_launches": launches["scatter_add"],
+                        "loss_per_epoch": sv.loss_history, "sampled_launch": held}
+
+
+def _block_share(model, block, sample) -> float:
+    """The share of same-block vertices among ``verts_nearest(v, BLOCK_K)``
+    over the sampled vertices."""
+    same = [np.mean(block[model.verts_nearest(int(v), BLOCK_K)] == block[v]) for v in sample]
+    return float(np.mean(same))
+
+
+def _shuffled(walk_sets, perm):
+    return [[[int(perm[v]) for v in w] for w in walks] for walks in walk_sets]
+
+
+def _brute_ids(torch, dev, items, queries, k, exclude=None) -> np.ndarray:
+    """The k nearest rows of ``items`` to each query by a float64
+    torch.cdist on the card (no matmul expansion), ordered by (distance,
+    index); ``exclude[i]`` drops one id from row i's answer."""
+    x = torch.as_tensor(items, dtype=torch.float64, device=dev)
+    q = torch.as_tensor(queries, dtype=torch.float64, device=dev)
+    d = torch.cdist(q, x, compute_mode="donot_use_mm_for_euclid_dist")
+    if exclude is not None:
+        d[torch.arange(len(exclude), device=dev),
+          torch.as_tensor(exclude, device=dev)] = float("inf")
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    return order.cpu().numpy()
+
+
+def _tree_checks(torch, dev, vectors, rng) -> dict:
+    from deeplearning4j_tpu_torch.clustering import KDTree, NearestNeighborsServer, VPTree
+
+    items = vectors.astype(np.float64)
+    sample = rng.choice(len(items), TREE_QUERIES, replace=False)
+    want = _brute_ids(torch, dev, items, items[sample], TREE_K)
+    out = {}
+    for cls in (VPTree, KDTree):
+        t0 = time.perf_counter()
+        tree = cls(items)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = np.array([tree.search(items[v], TREE_K)[0] for v in sample])
+        query_s = time.perf_counter() - t0
+        if not np.array_equal(got, want):
+            bad = int(np.sum(np.any(got != want, axis=1)))
+            raise AssertionError(f"{cls.__name__}: {bad} of {TREE_QUERIES} answers differ "
+                                 "from the card's brute force")
+        out[cls.__name__] = {"build_s": build_s, "ms_per_query": 1e3 * query_s / TREE_QUERIES}
+    srv = NearestNeighborsServer(items).start(port=0)
+    try:
+        want = _brute_ids(torch, dev, items, items[sample], TREE_K, exclude=sample)
+        t0 = time.perf_counter()
+        for row, v in enumerate(sample):
+            code, body, _, _ = _http(f"http://127.0.0.1:{srv.port}", "POST", "/knn",
+                                     {"index": int(v), "k": TREE_K})
+            ids = [r["index"] for r in body["results"]] if code == 200 else body
+            if code != 200 or ids != want[row].tolist():
+                raise AssertionError(f"NearestNeighborsServer /knn {int(v)}: {code} {ids}, "
+                                     f"want {want[row].tolist()}")
+        out["NearestNeighborsServer"] = {
+            "ms_per_request": 1e3 * (time.perf_counter() - t0) / TREE_QUERIES}
+    finally:
+        srv.stop()
+    out.update(queries=TREE_QUERIES, k=TREE_K, ids="equal to the card's float64 brute force")
+    return out
+
+
+def _tsne_block_share(torch, dev, emb, block, sample) -> float:
+    """The same-block share among each sampled point's BLOCK_K nearest in
+    the 2-D embedding."""
+    ids = _brute_ids(torch, dev, emb, emb[sample], BLOCK_K, exclude=sample)
+    return float(np.mean(block[ids] == block[sample][:, None]))
+
+
+def _tsne_step_vs_cpu(torch, dev, x, regime) -> dict:
+    """One t-SNE step on the card and on the CPU from the same state (the
+    JAX defaults' perplexity, the first exaggerated iteration)."""
+    from deeplearning4j_tpu_torch.plot import tsne as T
+
+    n = x.shape[0]
+    rng = np.random.default_rng(11)
+    if regime == "exact":
+        p = T._conditional_probs(x, 30.0)
+        p = np.maximum((p + p.T) / (2.0 * n), 1e-12).astype(np.float32) * np.float32(12.0)
+        y = rng.standard_normal((n, 2)).astype(np.float32)
+        args = [y, p, np.ones_like(y), np.zeros_like(y)]
+
+        def step(d):
+            return T._tsne_step(*[torch.as_tensor(a, device=d) for a in args], 0.5, 200.0)
+    else:
+        idx, d2 = T._knn_graph(x, 90, dev)
+        nbr_idx, nbr_val = T._symmetrize_sparse(idx, T._knn_probs(d2, 30.0))
+        n_pad = -(-n // 1024) * 1024
+        pad = ((0, n_pad - n), (0, 0))
+        y = np.pad(rng.standard_normal((n, 2)).astype(np.float32), pad)
+        wpt = np.pad(np.ones(n, np.float32), (0, n_pad - n))
+        args = [y, wpt, np.pad(nbr_idx, pad).astype(np.int64),
+                np.pad(nbr_val, pad) * np.float32(12.0), np.ones_like(y), np.zeros_like(y)]
+
+        def step(d):
+            return T._bh_step(*[torch.as_tensor(a, device=d) for a in args], 0.5, 200.0,
+                              64, 1024)
+    with T._full_float32():
+        card = [t.cpu().numpy() if t.dim() else float(t) for t in step(dev)]
+        cpu = [t.numpy() if t.dim() else float(t) for t in step("cpu")]
+    err = float(np.abs(card[0][:n] - cpu[0][:n]).max())
+    scale = float(np.abs(cpu[0][:n]).max())
+    kl_rel = abs(card[3] - cpu[3]) / abs(cpu[3])
+    if err > TSNE_STEP_TOL * scale or kl_rel > TSNE_STEP_TOL:
+        raise AssertionError(f"t-SNE {regime} step: card vs CPU max |dy| {err} "
+                             f"(limit {TSNE_STEP_TOL * scale}), KL rel {kl_rel}")
+    return {"max_abs_dy": err, "limit": TSNE_STEP_TOL * scale, "kl_rel_diff": kl_rel}
+
+
+def _tsne_run(torch, dev, x, regime) -> tuple:
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+
+    tsne = BarnesHutTsne(device=dev, theta=0.5 if regime == "bh" else 0.0,
+                         max_iter=TSNE_ITERS, bh_threshold=TSNE_BH_THRESHOLD)
+    if (regime == "bh") != (x.shape[0] >= tsne.bh_threshold):
+        raise AssertionError(f"t-SNE {regime} at n = {x.shape[0]}: the other regime would run")
+    t0 = time.perf_counter()
+    emb = tsne.fit_transform(x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if emb.shape != (x.shape[0], 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"t-SNE {regime}: embedding {emb.shape} not finite")
+    return emb, {"n": x.shape[0], "seconds": seconds,
+                 "iterations_per_s": tsne.max_iter / seconds, "kl_history": tsne.kl_history}
+
+
+def graph_embeddings_phase(torch, dev, card) -> dict:
+    """DeepWalk and Node2Vec on the seeded planted-partition graph of
+    BlogCatalog's size (GRAPH_*), each through its fit on the card (walks
+    drawn on the host, skip-gram on the corpus-resident SequenceVectors
+    path, so every table update is a scatter_add launch: 3 a batch, no
+    other kernel), the first launch of each fit held bitwise against
+    scatter_add's plain version. Quality: the share of same-block vertices
+    among verts_nearest(v, 10) over 1,000 sampled vertices must reach
+    BLOCK_GATE, which a control trained on the same walks with the vertex
+    ids shuffled must miss. VPTree, KDTree and NearestNeighborsServer's
+    /knn over the DeepWalk vectors answer the ids of a float64 torch.cdist
+    brute force on the card, ordered by (distance, index). BarnesHutTsne
+    at the JAX defaults (perplexity 30, 1,000 iterations, exaggeration 12)
+    in the approximate regime on all 10,312 vectors and in the exact
+    regime on 2,000 of them, each with the 2-D block share against the
+    control's embedding; one step of each regime on the card against the
+    CPU within TSNE_STEP_TOL. Prints walk and fit seconds, words/s,
+    launches, iterations/s and the KL histories."""
+    from deeplearning4j_tpu_torch.graphs import DeepWalk, Node2Vec
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    graph, block = planted_graph()
+    graph_s = time.perf_counter() - t0
+    rng = np.random.default_rng(GRAPH_SEED + 1)
+    sample = rng.choice(GRAPH_V, BLOCK_SAMPLE, replace=False)
+    perm = rng.permutation(GRAPH_V)
+    out = {"card": card, "graph": {"vertices": GRAPH_V, "edges": GRAPH_E,
+                                   "blocks": GRAPH_BLOCKS, "p_in": GRAPH_P_IN,
+                                   "build_s": graph_s},
+           "reduced": {"deepwalk_walks_per_vertex": "80 -> 10",
+                       "node2vec_walks_per_vertex": 1}}
+    launches, models = {}, {}
+    for name, cls, kw in (("deepwalk", DeepWalk, DEEPWALK_KW),
+                          ("node2vec", Node2Vec, NODE2VEC_KW)):
+        model, rec, row = _graph_fit(torch, cls, kw, dev, graph)
+        launches[name] = row["scatter_add_launches"]
+        row["block_share"] = _block_share(model, block, sample)
+        control, _, crow = _graph_fit(torch, cls, kw, dev, graph,
+                                      walks=_shuffled(rec["walks"], perm), probe=False)
+        row["control_block_share"] = _block_share(control, block, sample)
+        row["control_fit_seconds"] = crow["fit_seconds"]
+        if not row["block_share"] >= BLOCK_GATE > row["control_block_share"]:
+            raise AssertionError(f"{name}: block share {row['block_share']} against the "
+                                 f"gate {BLOCK_GATE}, control {row['control_block_share']}")
+        models[name] = (model, control)
+        print(f"graph_embeddings_{name} " + json.dumps(row), flush=True)
+        out[name] = row
+    dw, dw_control = models["deepwalk"]
+    vectors = dw._vectors.get_word_vector_matrix()
+    order = np.array([int(dw._vectors.vocab.word_at_index(i)) for i in range(GRAPH_V)])
+    x = np.empty_like(vectors)
+    x[order] = vectors                               # row v is vertex v's vector
+    cv = dw_control._vectors.get_word_vector_matrix()
+    corder = np.array([int(dw_control._vectors.vocab.word_at_index(i)) for i in range(GRAPH_V)])
+    xc = np.empty_like(cv)
+    xc[corder] = cv
+    del models
+    out["trees"] = _tree_checks(torch, dev, x, rng)
+    tsne = {}
+    for regime in ("bh", "exact"):
+        rows = (np.arange(GRAPH_V) if regime == "bh"
+                else np.sort(rng.choice(GRAPH_V, TSNE_EXACT_N, replace=False)))
+        pick = rng.choice(len(rows), BLOCK_SAMPLE, replace=False)
+        emb, row = _tsne_run(torch, dev, x[rows].astype(np.float64), regime)
+        row["block_share"] = _tsne_block_share(torch, dev, emb, block[rows], pick)
+        cemb, crow = _tsne_run(torch, dev, xc[rows].astype(np.float64), regime)
+        row["control_block_share"] = _tsne_block_share(torch, dev, cemb, block[rows], pick)
+        row["control_kl_last"] = crow["kl_history"][-1]
+        if not row["block_share"] >= BLOCK_GATE > row["control_block_share"]:
+            raise AssertionError(f"t-SNE {regime}: 2-D block share {row['block_share']}, "
+                                 f"gate {BLOCK_GATE}, control {row['control_block_share']}")
+        row["step_card_vs_cpu"] = _tsne_step_vs_cpu(torch, dev, x[rows].astype(np.float64),
+                                                    regime)
+        tsne[regime] = row
+    out["tsne"] = tsne
+    out["seconds"] = time.perf_counter() - t_phase
+    print("graph_embeddings " + json.dumps({k: v for k, v in out.items()
+                                            if k not in ("deepwalk", "node2vec")}), flush=True)
+    return launches
+
+
+# the sentence CNN (Kim 2014 at its widths): corpus size (the MR set's
+# 10,662 sentences), train share, vector size, longest sentence, filter
+# widths and maps, batch, epochs; a two-class synthetic corpus from
+# CNN_SEED: sentences of 8-56 Zipf filler words with 1-3 cue words of
+# their class and, with CNN_CROSS_P, one of the other class
+CNN_SENTS, CNN_TRAIN, CNN_VEC, CNN_MAX_LEN = 10_662, 9_000, 300, 56
+CNN_WIDTHS, CNN_MAPS, CNN_BATCH, CNN_EPOCHS, CNN_SEED = (3, 4, 5), 100, 50, 2, 23
+CNN_FILLER, CNN_CUES, CNN_CROSS_P = 5_000, 10, 0.3
+# the trained network's held-out accuracy must beat the shuffled-label
+# control's by this much
+CNN_MARGIN = 0.2
+# the word vectors: at Word2Vec's default rate one pass over this corpus
+# leaves the vectors at their initial scale (the mean loss stays at 6 ln 2
+# and the CNN learns nothing from them, measured on the CPU at 64-d); at 0.3
+# with batch 8192 every vector collapses onto one direction (cosine 0.999
+# between the classes' cue words); 0.05 with batch 512 separates them
+CNN_W2V_KW = dict(window_size=5, negative=5, epochs=3, learning_rate=0.05, batch_size=512,
+                  min_word_frequency=1, seed=CNN_SEED)
+
+
+def sentence_corpus():
+    rng = np.random.default_rng(CNN_SEED)
+    filler = [f"w{i}" for i in range(CNN_FILLER)]
+    zipf = 1.0 / np.arange(1, CNN_FILLER + 1)
+    zipf /= zipf.sum()
+    cues = {0: [f"neg{i}" for i in range(CNN_CUES)], 1: [f"pos{i}" for i in range(CNN_CUES)]}
+    sents, labels = [], []
+    for _ in range(CNN_SENTS):
+        label = int(rng.integers(0, 2))
+        words = [filler[i] for i in rng.choice(CNN_FILLER, int(rng.integers(8, CNN_MAX_LEN - 3)),
+                                               p=zipf)]
+        extra = [cues[label][i] for i in rng.integers(0, CNN_CUES, int(rng.integers(1, 4)))]
+        if rng.random() < CNN_CROSS_P:
+            extra.append(cues[1 - label][int(rng.integers(0, CNN_CUES))])
+        for w in extra:
+            words.insert(int(rng.integers(0, len(words) + 1)), w)
+        sents.append(" ".join(words[:CNN_MAX_LEN]))
+        labels.append("pos" if label else "neg")
+    return sents, labels
+
+
+def sentence_cnn_conf():
+    from deeplearning4j_tpu_torch.nn.conf import InputType, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.convolutional import ConvolutionLayer
+    from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder, MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf.layers import DropoutLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.pooling import GlobalPoolingLayer
+    from deeplearning4j_tpu_torch.optimize.updaters import Adam
+
+    parent = (NeuralNetConfiguration.builder().seed(CNN_SEED).updater(Adam(1e-3))
+              .weight_init("relu"))
+    g = GraphBuilder(parent).add_inputs("in")
+    for w in CNN_WIDTHS:
+        g.add_layer(f"conv{w}", ConvolutionLayer(n_out=CNN_MAPS, kernel_size=(w, CNN_VEC),
+                                                 activation="relu"), "in")
+        g.add_layer(f"pool{w}", GlobalPoolingLayer(pooling_type="max"), f"conv{w}")
+    g.add_vertex("merge", MergeVertex(), *[f"pool{w}" for w in CNN_WIDTHS])
+    g.add_layer("drop", DropoutLayer(dropout=0.5), "merge")
+    g.add_layer("out", OutputLayer(n_out=2, activation="softmax", loss="mcxent"), "drop")
+    return (g.set_outputs("out")
+            .set_input_types(InputType.convolutional(CNN_MAX_LEN, CNN_VEC, 1)).build())
+
+
+def _cnn_train(torch, dev, batches, test):
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(sentence_cnn_conf(), dev).init()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(CNN_EPOCHS):
+        for ds in batches:
+            net.fit(ds)
+            losses.append(net.score())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    right = sum(int(np.sum(net.predict(ds.features, features_masks=[ds.features_mask])
+                           == np.argmax(ds.labels, 1))) for ds in test)
+    n = sum(ds.num_examples() for ds in test)
+    return losses, right / n, seconds
+
+
+def cnn_sentence_phase(torch, dev, card) -> dict:
+    """The sentence CNN of Kim 2014 at its widths on the card: the port's
+    Word2Vec (300-d, on the card, CNN_W2V_KW) trained on the seeded
+    two-class corpus, CnnSentenceDataSetIterator (batch 50, at most 56
+    words, unknown words removed) laying each batch out as (50, T, 300, 1)
+    with its per-step feature mask from that Word2Vec's vectors, and a
+    ComputationGraph of 3/4/5-wide convolutions of 100 maps each, max over
+    time (GlobalPoolingLayer), MergeVertex, dropout 0.5 and a softmax,
+    trained with Adam 1e-3 for 2 epochs over 9,000 sentences through fit.
+    Held: every loss finite, the mean of the last 20 below the first 20's;
+    the held-out accuracy on the other 1,662 beats by CNN_MARGIN the same
+    network trained on the labels shuffled. No kernel of the port runs
+    (the convolutions are cuDNN's)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nlp import (CnnSentenceDataSetIterator,
+                                              CollectionLabeledSentenceProvider, Word2Vec)
+
+    t_phase = time.perf_counter()
+    sents, labels = sentence_corpus()
+    t0 = time.perf_counter()
+    w2v = Word2Vec(layer_size=CNN_VEC, device=dev, **CNN_W2V_KW).fit(sents)
+    torch.cuda.synchronize()
+    w2v_s = time.perf_counter() - t0
+
+    def batches(lo, hi, seed):
+        it = CnnSentenceDataSetIterator(
+            CollectionLabeledSentenceProvider(sents[lo:hi], labels[lo:hi], seed=seed), w2v,
+            batch_size=CNN_BATCH, max_sentence_length=CNN_MAX_LEN)
+        return list(it)
+
+    t0 = time.perf_counter()
+    train, test = batches(0, CNN_TRAIN, CNN_SEED), batches(CNN_TRAIN, CNN_SENTS, None)
+    layout_s = time.perf_counter() - t0
+    first = train[0]
+    if first.features.shape[0] != CNN_BATCH or first.features.shape[2:] != (CNN_VEC, 1) \
+            or first.features_mask.shape != first.features.shape[:2]:
+        raise AssertionError(f"cnn_sentence: batch {first.features.shape}, mask "
+                             f"{first.features_mask.shape}")
+    _zero_launch_counts()
+    losses, accuracy, seconds = _cnn_train(torch, dev, train, test)
+    launches = _launch_counts()
+    rng = np.random.default_rng(CNN_SEED + 1)
+    shuffled_labels = rng.permutation(np.concatenate([ds.labels for ds in train]))
+    control_train, at = [], 0
+    for ds in train:
+        n = ds.num_examples()
+        control_train.append(DataSet(ds.features, shuffled_labels[at:at + n],
+                                     features_mask=ds.features_mask))
+        at += n
+    c_losses, c_accuracy, _ = _cnn_train(torch, dev, control_train, test)
+    first20, last20 = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    if not (np.isfinite(losses).all() and last20 < first20):
+        raise AssertionError(f"cnn_sentence: losses {losses[:5]} ... {losses[-5:]}")
+    if any(launches.values()):
+        raise AssertionError(f"cnn_sentence: a kernel of the port ran: {launches}")
+    if not accuracy > c_accuracy + CNN_MARGIN:
+        raise AssertionError(f"cnn_sentence: held-out accuracy {accuracy}, shuffled-label "
+                             f"control {c_accuracy}")
+    steps = CNN_EPOCHS * len(train)
+    summary = {"card": card, "sentences": CNN_SENTS, "train": CNN_TRAIN,
+               "word2vec": {"layer_size": CNN_VEC, "tokens": w2v.vocab.total_word_occurrences,
+                            "vocab": w2v.vocab.num_words(), "seconds": w2v_s},
+               "layout_s": layout_s, "batch": CNN_BATCH, "max_len": CNN_MAX_LEN,
+               "filters": [list(CNN_WIDTHS), CNN_MAPS], "epochs": CNN_EPOCHS, "steps": steps,
+               "step_ms": 1e3 * seconds / steps, "sentences_per_s": steps * CNN_BATCH / seconds,
+               "loss_first20": first20, "loss_last20": last20,
+               "heldout_accuracy": accuracy, "control_heldout_accuracy": c_accuracy,
+               "control_loss_last": c_losses[-1], "seconds": time.perf_counter() - t_phase}
+    print("cnn_sentence " + json.dumps(summary), flush=True)
+    return summary
+
+
 PHASE_SECONDS = {}
 
 
@@ -6179,6 +7073,13 @@ def main() -> int:
         overhead = _run(checkpoint_overhead_phase, torch, dev, card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cloud_")
+    try:
+        cloud = _run(cloud_checkpoint_phase, torch, dev, card, workdir, ckpt)
+        supervised = _run(supervised_phase, torch, dev, card, workdir, ckpt)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del ckpt["record"]
     yolo = _run(yolo_training_phase, torch, dev, card)
     _run(yolo_card_vs_cpu_phase, torch, dev)
     facenet = _run(facenet_training_phase, torch, dev, card)
@@ -6210,13 +7111,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     _run(solvers_phase, torch, dev, card)
     _run(streaming_phase, torch, dev, card)
+    graph_launches = _run(graph_embeddings_phase, torch, dev, card)
+    _run(cnn_sentence_phase, torch, dev, card)
     bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
                           "checkpoint_overhead": overhead[kind], "yolo_training": yolo[kind],
                           "facenet_training": facenet[kind], "zoo": zoo[kind],
                           "layer_families": families[kind], "data_tier": data[kind],
                           "fused_update": fused_launches[kind],
                           "transfer_learning": tl_launches[kind],
-                          "fit_featurized": featurized[kind]}
+                          "fit_featurized": featurized[kind],
+                          "cloud_checkpoint": cloud[kind], "supervised": supervised[kind]}
                    for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
@@ -6263,7 +7167,7 @@ def main() -> int:
             "retrieval_ivf_pq": served["ivf_pq"]["launches"],
             "model_server": ms_launches["adc_ivf_pq"],
             "hot_swap": swap_launches["adc_ivf_pq"], "ivf": ivf_launches["adc_ivf_pq"]}, 103),
-        _scatter_kernel_entry(scatter_rows, w2v),
+        _scatter_kernel_entry(scatter_rows, w2v, graph_launches),
         _flash_kernel_entry(flash_rows, lm, train),
         dict(_flash_bwd_kernel_entry("flash_attn_bwd_dkv", bwd_rows, train),
              sass_hmma_bf16=hmma["flash_attn_bwd_dkv"]),

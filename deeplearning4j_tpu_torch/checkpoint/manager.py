@@ -33,10 +33,17 @@ checkpoints).
   already-consumed batches of the interrupted epoch and continues the
   restored generator, so resume is bitwise-identical to the uninterrupted
   run.
+- **Sharded sets.** ``sharded=True`` writes each checkpoint as a shard
+  set (checkpoint/sharded.py) journaled as one entry with a sha256 and a
+  block summary a shard, committed only once every shard is durable; the
+  restore walk reassembles a set written by any number of hosts, and
+  ``restore_blocks`` fetches only the shards holding the blocks asked for.
+  A torn manifest is rebuilt from the whole checkpoints and the complete
+  shard sets in storage.
 - **One process.** The JAX package's multi-host barrier is a no-op at one
   process, and so it is here; with ``torch.distributed`` initialised at a
   world size above 1 a save raises (multi-process training is ROADMAP
-  §A6). ``sharded=True`` raises until ``checkpoint/sharded.py`` is ported.
+  §A6), so a sharded save writes one shard holding every leaf whole.
 
 The manager also implements the early-stopping saver protocol
 (``save_best_model`` / ``save_latest_model`` / ``get_best_model``).
@@ -113,9 +120,6 @@ class CheckpointManager:
                  storage=None,
                  sharded: bool = False,
                  device=None):
-        if sharded:
-            raise NotImplementedError("sharded checkpoints (checkpoint/sharded.py) are "
-                                      "not in the PyTorch port yet")
         if save_every_n_steps is not None and save_every_n_steps < 1:
             raise ValueError("save_every_n_steps must be >= 1")
         if keep_best not in (None, "min", "max"):
@@ -132,6 +136,9 @@ class CheckpointManager:
         self.async_write = bool(async_write)
         self.save_updater = bool(save_updater)
         self.device = device
+        # sharded=True: each save writes a shard set (per-host shard files
+        # + one set entry in the journal); sharded saves are synchronous
+        self.sharded = bool(sharded)
         # optional fencing hook run immediately before a journal commit;
         # raising aborts the commit (payloads stay orphaned, never
         # journaled). The elastic layer points this at its membership
@@ -157,19 +164,26 @@ class CheckpointManager:
         except mf.ManifestError as e:
             log.warning("%s — rebuilding from storage scan", e)
             entries = None
-        if entries is None and mf.scan_checkpoint_files(self._storage):
-            # torn OR missing manifest over surviving checkpoint files:
-            # rebuild the journal — sha recomputed AND the per-entry
-            # metadata (step/metric/...) read back out of each zip, so
-            # restore_best / retention / checkpoints() keep working after
-            # the rebuild, not just restore_latest
-            entries = []
-            for e_ in mf.scan_checkpoint_files(self._storage):
-                rebuilt = self._entry_from_object(e_["file"])
-                if rebuilt is not None:
-                    entries.append(rebuilt)
-            entries.sort(key=lambda e: (int(e.get("step", 0)), int(e.get("seq", 0))))
-            mf.write_manifest(self._storage, entries)
+        if entries is None:
+            from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+            rebuilt_sharded = shd.scan_shard_sets(self._storage)
+            if mf.scan_checkpoint_files(self._storage) or rebuilt_sharded:
+                # torn OR missing manifest over surviving checkpoint files:
+                # rebuild the journal — sha recomputed AND the per-entry
+                # metadata (step/metric/...) read back out of each zip, so
+                # restore_best / retention / checkpoints() keep working
+                # after the rebuild, not just restore_latest. Complete
+                # shard SETS rebuild as sharded entries; incomplete sets
+                # (a crash between shard puts and the journal write) are
+                # skipped like tmp/ orphans.
+                entries = []
+                for e_ in mf.scan_checkpoint_files(self._storage):
+                    rebuilt = self._entry_from_object(e_["file"])
+                    if rebuilt is not None:
+                        entries.append(rebuilt)
+                entries.extend(rebuilt_sharded)
+                entries.sort(key=lambda e: (int(e.get("step", 0)), int(e.get("seq", 0))))
+                mf.write_manifest(self._storage, entries)
         self._entries: List[dict] = entries or []
         self.last_refresh_error: Optional[BaseException] = None
         self._seq = max((int(e.get("seq", 0)) for e in self._entries),
@@ -311,6 +325,8 @@ class CheckpointManager:
         self._barrier("checkpoint save")
         self._last_save_t = time.monotonic()
         self._last_save_step = int(model.iteration)
+        if self.sharded:
+            return self._save_sharded(model, metric)
         from deeplearning4j_tpu_torch.utils.serialization import snapshot_training_state
         t0 = time.perf_counter()
         snap = snapshot_training_state(model, self._staging)
@@ -384,6 +400,78 @@ class CheckpointManager:
                     self._write_err = e
             finally:
                 self._q.task_done()
+
+    # ---------------------------------------------------------- sharded save
+    def _save_sharded(self, model, metric: Optional[float]) -> Optional[str]:
+        """Write this process's shard, then journal the set as one entry
+        (its sha256 and block summary) once it is durable: the commit of
+        the SET is atomic, and a crash before the journal write leaves an
+        orphaned shard the restore walk never sees. Always synchronous, as
+        in the JAX package. One process writes the one shard of the set
+        (``_barrier`` refuses a larger world)."""
+        from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+        t0 = time.perf_counter()
+        self._seq += 1
+        snap = shd.shard_snapshot(model)
+        if not self.save_updater:
+            snap["updaterState"] = None
+        extra = {
+            "seq": self._seq,
+            "batch_in_epoch": self._batch_in_epoch,
+            "wall_time": time.time(),
+            "metric": None if metric is None else float(metric),
+        }
+        base = f"ckpt-{snap['iteration']:010d}-{self._seq:05d}"
+        name = shd.shard_object_name(base, 0, 1)
+        self.saves_requested += 1
+        shard_bytes = shd.shard_zip_bytes(snap, extra)
+        self._storage.put(name, shard_bytes)
+        self._m_bytes_written.inc(len(shard_bytes))
+        data = self._storage.get(name)  # read-back doubles as a
+        shards = [{  # read-your-writes durability probe
+            "file": name,
+            "sha256": hashlib.sha256(data).hexdigest(),
+            "size": len(data),
+            # journaled block coverage: lets a selective restore
+            # (sharded.fetch_blocks) decide which shard OBJECTS it needs
+            # without fetching any payload
+            "blocks": shd.shard_block_summary(data),
+        }]
+        entry = {
+            "file": f"{base}.sharded",
+            "sharded": True,
+            "num_hosts": 1,
+            "shards": shards,
+            "seq": extra["seq"],
+            "step": snap["iteration"],
+            "epoch": snap["epoch"],
+            "batch_in_epoch": extra["batch_in_epoch"],
+            "metric": extra["metric"],
+            "wall_time": extra["wall_time"],
+            "sha256": None,
+            "size": sum(s["size"] for s in shards),
+        }
+        try:
+            if self.commit_guard is not None:
+                self.commit_guard()  # raising aborts the commit
+            with self._lock:
+                self._entries.append(entry)
+                self._entries = self._apply_retention(self._entries)
+                self._mf.write_manifest(self._storage, self._entries)
+        except BaseException:
+            # the un-journaled shard set must not survive: it is a COMPLETE
+            # set, and a later manifest-loss rebuild (scan_shard_sets) would
+            # resurrect the very checkpoint the guard refused to commit
+            for s in shards:
+                try:
+                    self._storage.delete(s["file"])
+                except Exception as de:
+                    log.warning("could not delete aborted shard %s (%s: %s)",
+                                s["file"], type(de).__name__, de)
+            raise
+        self.saves_committed += 1
+        self._m_commit_ms.observe((time.perf_counter() - t0) * 1000.0)
+        return entry["file"]
 
     def _write_and_commit(self, snap: dict, extra: dict, filename: str):
         from deeplearning4j_tpu_torch.obs.trace import get_tracer
@@ -464,12 +552,17 @@ class CheckpointManager:
             (kept if id(e) in keep else pruned).append(e)
         from deeplearning4j_tpu_torch.checkpoint.storage import StorageError
         for e in pruned:
-            try:
-                self._storage.delete(e["file"])
-            except (OSError, StorageError) as err:
-                # retention is best-effort; the manifest is truth
-                log.warning("retention could not delete %s (%s: %s)",
-                            e["file"], type(err).__name__, err)
+            # a sharded entry's payload is its shard SET; the entry's own
+            # "file" is a virtual name with no object behind it
+            names = ([s["file"] for s in e["shards"]] if e.get("sharded")
+                     else [e["file"]])
+            for name in names:
+                try:
+                    self._storage.delete(name)
+                except (OSError, StorageError) as err:
+                    # retention is best-effort; the manifest is truth
+                    log.warning("retention could not delete %s (%s: %s)",
+                                name, type(err).__name__, err)
         return kept
 
     # ---------------------------------------------------------------- control
@@ -554,19 +647,26 @@ class CheckpointManager:
     def _try_restore(self, entry: dict, load_updater: bool,
                      arm_resume: bool):
         import io
-        if entry.get("sharded"):
-            raise NotImplementedError("sharded checkpoints (checkpoint/sharded.py) are "
-                                      "not in the PyTorch port yet")
         t0 = time.perf_counter()
-        data = self._storage.get(entry["file"])  # StorageNotFoundError
-        if entry.get("sha256") is not None and \
-                hashlib.sha256(data).hexdigest() != entry["sha256"]:
-            raise CheckpointError(
-                f"checksum mismatch for {entry['file']} "
-                f"(torn/corrupt write)")
-        from deeplearning4j_tpu_torch.utils.serialization import restore_checkpoint
-        model, meta = restore_checkpoint(io.BytesIO(data), load_updater=load_updater,
-                                         device=self.device)
+        if entry.get("sharded"):
+            # shard-set entry: fetch + sha-verify every shard, reassemble
+            # the full state (a set written by any number of hosts — the
+            # N→M reshard-on-restore path). Any failure raises and the walk
+            # falls back a whole generation; shard sets never mix.
+            from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+            model, meta = shd.restore_sharded(self._storage, entry,
+                                              load_updater=load_updater,
+                                              device=self.device)
+        else:
+            data = self._storage.get(entry["file"])  # StorageNotFoundError
+            if entry.get("sha256") is not None and \
+                    hashlib.sha256(data).hexdigest() != entry["sha256"]:
+                raise CheckpointError(
+                    f"checksum mismatch for {entry['file']} "
+                    f"(torn/corrupt write)")
+            from deeplearning4j_tpu_torch.utils.serialization import restore_checkpoint
+            model, meta = restore_checkpoint(io.BytesIO(data), load_updater=load_updater,
+                                             device=self.device)
         path = (os.path.join(self.directory, entry["file"])
                 if self.directory is not None
                 else f"{self._storage.describe()}/{entry['file']}")
@@ -628,6 +728,26 @@ class CheckpointManager:
                 log.warning("checkpoint %s unusable (%s: %s); falling back",
                             entry.get("file"), type(e).__name__, e)
         return None
+
+    def restore_blocks(self, want, filename: Optional[str] = None,
+                       trees=("coefficients", "updaterState")):
+        """Streaming reshard-on-restore: fetch only the blocks ``want``
+        selects from a SHARDED checkpoint (the newest one, or the named
+        journal entry), without reassembling the full state — see
+        ``checkpoint.sharded.fetch_blocks``. Returns host arrays."""
+        from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+        if self._worker is not None and self._worker.is_alive():
+            self.flush()
+        entries = [e for e in self._restorable_entries() if e.get("sharded")]
+        if filename is not None:
+            entries = [e for e in entries if e.get("file") == filename]
+        if not entries:
+            raise CheckpointError(
+                "no sharded checkpoint entry"
+                + (f" named {filename!r}" if filename else "")
+                + " to fetch blocks from")
+        return shd.fetch_blocks(self._storage, entries[-1], want,
+                                trees=tuple(trees))
 
     # ---------------------------------------------------------- multi-process
     def _barrier(self, what: str):

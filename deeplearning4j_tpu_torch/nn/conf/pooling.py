@@ -1,6 +1,9 @@
 """Global pooling (counterpart of ``deeplearning4j_tpu/nn/conf/pooling.py``):
 pools NHWC over H and W, or (batch, time, size) over time, to a
-feed-forward vector."""
+feed-forward vector. A features mask reaching a time series leaves the
+masked steps out of every pooling type, as in the JAX package; NHWC
+activations pool every position (the JAX package's layer takes no mask
+there either)."""
 
 from __future__ import annotations
 
@@ -35,20 +38,32 @@ class GlobalPoolingLayer(Layer):
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
         if x.dim() == 4:      # NHWC: pool over H, W
             axes = (1, 2)
-        elif x.dim() == 3:    # (batch, time, size): pool over time
+            m = None
+        elif x.dim() == 3:    # (batch, time, size): pool over time, mask-aware
             axes = (1,)
+            m = None if mask is None else mask[..., None].to(x.dtype)  # (b, t, 1)
         else:
             return x, state
         keep = not self.collapse_dimensions
         pt = self.pooling_type.lower()
         if pt == "max":
+            if m is not None:
+                x = torch.where(m > 0, x, float("-inf"))
             out = torch.amax(x, dim=axes, keepdim=keep)
         elif pt == "sum":
+            if m is not None:
+                x = x * m
             out = torch.sum(x, dim=axes, keepdim=keep)
         elif pt == "avg":
-            out = torch.mean(x, dim=axes, keepdim=keep)
+            if m is not None:
+                out = (torch.sum(x * m, dim=axes, keepdim=keep)
+                       / torch.clamp_min(torch.sum(m, dim=axes, keepdim=keep), 1.0))
+            else:
+                out = torch.mean(x, dim=axes, keepdim=keep)
         elif pt == "pnorm":
             p = float(self.pnorm)
+            if m is not None:
+                x = x * m
             out = torch.sum(torch.abs(x) ** p, dim=axes, keepdim=keep) ** (1.0 / p)
         else:
             raise ValueError(f"Unknown pooling type '{self.pooling_type}'")

@@ -4,8 +4,8 @@ resume bitwise on both networks; torn, bit-flipped and corrupt files and a
 torn or missing manifest fall back; counters and the dropout generator
 exact; retention; both triggers; async flush and error surfacing; the
 context manager), plus ``train_until`` over a ``FlakyBackend`` and the
-refusals of what is not ported (sharded checkpoints, multi-process saves,
-zips carrying modules the port lacks).
+refusals of what is not ported (multi-process saves, zips and shard sets
+carrying modules the port lacks).
 
 Networks are built with the port's builders from seeds; data comes from
 numpy with fixed seeds. The MultiLayerNetwork carries dropout, so a resume
@@ -410,11 +410,15 @@ def test_process_kill_mode_sigkills_the_process():
 
 # ---------------------------------------------------------------- refusals
 def test_unported_checkpoint_paths_are_refused(tmp_path):
-    """sharded=True and zips carrying modules the port lacks raise by name;
-    restore_latest does not fall back past such a zip as if it were
-    corrupt."""
-    with pytest.raises(NotImplementedError, match="sharded"):
-        CheckpointManager(tmp_path / "s", sharded=True, device="cpu")
+    """Zips and shard sets carrying modules the port lacks raise by name
+    (sharded=True itself is ported: checkpoint/sharded.py); restore_latest
+    does not fall back past such a zip as if it were corrupt."""
+    from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+    snap = shd.shard_snapshot(_net())
+    for unported, what in (({"grad_compression": {"scheme": "threshold"}}, "compression"),
+                           ({"tuning_record": {"batch_size": 8}}, "TuningRecord")):
+        with pytest.raises(NotImplementedError, match=what):
+            shd.restore_from_payloads([shd.shard_zip_bytes(snap, unported)], device="cpu")
     d = str(tmp_path / "ck")
     cm, net, names = _two_saves(d)
     path = os.path.join(d, names[-1])

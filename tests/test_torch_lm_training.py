@@ -325,8 +325,9 @@ def test_score_dataset_matches_jax():
 @pytest.mark.parametrize("knob", ["bucket_policy", "prefetch", "checkpoint_manager",
                                   "grad_compression", "augmentation", "solver"])
 def test_refused_knobs_raise(knob):
-    """Gradient compression and a sharded checkpoint manager raise
-    NotImplementedError and train nothing. bucket_policy, prefetch and
+    """Gradient compression raises NotImplementedError and trains nothing.
+    A sharded checkpoint manager is ported: fit takes it, trains and
+    journals a shard set a step. bucket_policy, prefetch and
     augmentation are ported: fit and fit_fused take them and train, and an
     augmentation of a 2-D id input raises ValueError as the JAX package's
     does. The full-batch solvers are ported: fit runs them, and fit_fused
@@ -358,21 +359,26 @@ def test_refused_knobs_raise(knob):
         net.fit(ds)
         assert net.iteration == 1 and np.isfinite(net.score()) and net.score() < before
         return
+    if knob == "checkpoint_manager":
+        from deeplearning4j_tpu_torch.checkpoint import (CheckpointManager,
+                                                         ObjectStoreBackend)
+        from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
+        cm = CheckpointManager(storage=ObjectStoreBackend(), sharded=True,
+                               save_every_n_steps=1, device="cpu")
+        net.fit(ds, checkpoint_manager=cm)
+        assert net.iteration == 1
+        (entry,) = cm.checkpoints()
+        assert entry["sharded"] and entry["step"] == 1
+        assert state_sha(cm.restore_latest()) == state_sha(net)
+        return
     with pytest.raises(NotImplementedError):
-        if knob == "checkpoint_manager":
-            # fit takes a checkpoint manager now; its sharded form is not ported
-            from deeplearning4j_tpu_torch.checkpoint import (CheckpointManager,
-                                                             ObjectStoreBackend)
-            net.fit(ds, checkpoint_manager=CheckpointManager(
-                storage=ObjectStoreBackend(), sharded=True, device="cpu"))
-        elif knob == "grad_compression":
+        if knob == "grad_compression":
             net.grad_compression = object()
             net.fit(ds)
         else:
             net.fit(ds)
-    if knob != "checkpoint_manager":
-        with pytest.raises(NotImplementedError):
-            net.fit_fused([ds], bucket_policy=True)
+    with pytest.raises(NotImplementedError):
+        net.fit_fused([ds], bucket_policy=True)
     assert net.iteration == 0
 
 
