@@ -428,9 +428,20 @@
    for 2 epochs over 9,000: losses finite and falling, the held-out
    accuracy 0.2 above a control trained on shuffled labels, no kernel of
    the port launched.
-40. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+40. Parallel training: ResNet50 of 17 through ClusterTrainer, bitwise
+   ComputationGraph.fit with no process group and in an NCCL group of one
+   (one all-reduce a step), then 20 steps with ThresholdCompression (loss
+   falling; ratio, tau, residual norm, the apply's device ms; no host sync
+   added to the step under set_sync_debug_mode) and one apply held
+   against the CPU's (see parallel_training_phase).
+41. Elastic: the same network through an ElasticWorker at world 1 across
+   three generations (a requested bump after epoch 1, then a hung guarded
+   call escalating to a bump), its final state_sha equal to an
+   uninterrupted ClusterTrainer run's (see elastic_phase).
+42. Prints the kernels JSON line (nine kernels; the bn rows' launches by
    path, data_tier, fused_update, transfer_learning, fit_featurized,
-   cloud_checkpoint and supervised included, scatter_add's by path
+   cloud_checkpoint, supervised, parallel, parallel_compressed and elastic
+   included, scatter_add's by path
    (word2vec, deepwalk, node2vec), and int4_dot's, adc_pq's and adc_ivf_pq's with the
    model_server, hot_swap, ivf and lenet_gates paths; int4_dot's library
    yardstick, torch._int_mm, on operands zero-padded to its multiples of 8,
@@ -1335,8 +1346,8 @@ def _bn_kernel_entry(name, rows, launches):
     (both were redesigned) and every other case's; ``launches`` by path
     (the training, checkpoint, checkpoint_overhead, yolo_training,
     facenet_training, zoo, layer_families, data_tier, fused_update,
-    transfer_learning, fit_featurized, cloud_checkpoint and supervised
-    phases)."""
+    transfer_learning, fit_featurized, cloud_checkpoint, supervised,
+    parallel_training (parallel, parallel_compressed) and elastic phases)."""
     kind = name[-3:]
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
     extra = {
@@ -6974,6 +6985,372 @@ def cnn_sentence_phase(torch, dev, card) -> dict:
     return summary
 
 
+# ------------------------------------------------ slice 18: data-parallel tier
+PAR_COMP_STEPS = 20      # the compressed run: one batch, as the training phase
+ELASTIC_BATCHES = 3      # batches an epoch of the elastic run (2 epochs)
+ELASTIC_HANG_S = 2.0     # the deliberately hung guarded call's deadline
+# residual_norm sums 25.6 M squares as a tree on the card and in blocks on
+# the CPU: each reduction is within log2(n) ~ 25 units of roundoff (2**-24)
+# of the sum, so two differ by at most 50 of them; the sqrt halves that
+RNORM_RTOL = 50 * 2.0 ** -24 / 2
+
+
+class _StepClock:
+    """Listener: the card's wall time of each step (synchronizes after
+    every update, a timing run) and each step's loss tensor."""
+
+    def __init__(self, torch):
+        self.torch, self.marks, self.losses = torch, [], []
+
+    def iteration_done(self, model, iteration, epoch):
+        self.torch.cuda.synchronize()
+        self.marks.append(time.perf_counter())
+        self.losses.append(model._score)
+
+    def on_epoch_start(self, model):
+        if not self.marks:
+            self.torch.cuda.synchronize()
+            self.marks.append(time.perf_counter())
+
+    def on_epoch_end(self, model):
+        pass
+
+    def step_ms(self):
+        d = np.diff(self.marks) * 1e3
+        return [float(v) for v in d]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sync_warnings(torch, fn) -> int:
+    """Host syncs ``fn`` makes on the card, counted by
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def _apply_card_vs_cpu(torch, dev, params) -> dict:
+    """One ThresholdCompression apply, twice (the second on a nonzero
+    residual), on the card and on the CPU on the same float32 gradient
+    tree of ResNet50's shapes: decoded gradients, residuals, tau and byte
+    counters bitwise; residual_norm within RNORM_RTOL."""
+    from deeplearning4j_tpu_torch.parallel.compress import (ThresholdCompression, _leaves,
+                                                            _rebuild, compress_state_arrays)
+    scheme = ThresholdCompression()
+    gen = torch.Generator()
+    gen.manual_seed(18)
+    leaves = _leaves(params)
+    states = {"card": scheme.init_state(params), "cpu": None}
+    cpu_params = _rebuild(params, {p: torch.empty(t.shape) for p, t in leaves})
+    states["cpu"] = scheme.init_state(cpu_params)
+    worst = {}
+    for step in range(2):
+        host = {p: torch.randn(t.shape, generator=gen) * 1e-3 for p, t in leaves}
+        g_cpu = _rebuild(params, host)
+        g_card = _rebuild(params, {p: v.to(dev) for p, v in host.items()})
+        dec_card, states["card"] = scheme.apply(g_card, states["card"])
+        dec_cpu, states["cpu"] = scheme.apply(g_cpu, states["cpu"])
+        for (p, a), (_, b) in zip(_leaves(dec_card), _leaves(dec_cpu)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"parallel_training: decoded {p} differs card vs CPU")
+        sc = compress_state_arrays(states["card"])
+        for k, b in compress_state_arrays(states["cpu"]).items():
+            a = sc[k].cpu()
+            if k == "acc/residual_norm":
+                rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                worst["residual_norm_rel"] = max(worst.get("residual_norm_rel", 0.0), rel)
+                if rel > RNORM_RTOL:
+                    raise AssertionError(f"parallel_training: residual_norm {float(a)} on "
+                                         f"the card, {float(b)} on the CPU")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"parallel_training: {k} differs card vs CPU")
+    return {"steps": 2, "decoded_residual_tau_bytes": "bitwise",
+            "residual_norm_rel_err": worst["residual_norm_rel"],
+            "residual_norm_limit": RNORM_RTOL}
+
+
+def _compress_device_ms(torch, dev, net, reps: int = 5) -> float:
+    """Median CUDA-event ms of one ThresholdCompression apply over a
+    gradient tree of the net's shapes (drawn on the card) with the net's
+    own state."""
+    from deeplearning4j_tpu_torch.parallel.compress import _leaves, _rebuild
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    grads = _rebuild(net.params, {p: torch.randn(t.shape, generator=gen, device=dev) * 1e-3
+                                  for p, t in _leaves(net.params)})
+    out = []
+    for _ in range(reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        net.grad_compression.apply(grads, net.compress_state)
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return float(np.median(out[1:]))
+
+
+def parallel_training_phase(torch, dev, card) -> dict:
+    """ResNet50 of 17 (bf16, fused, Adam 1e-3) through the port's
+    ClusterTrainer, under cudnn.deterministic, on CKPT_BATCHES batches of
+    128 drawn on the card (one epoch):
+    1. ComputationGraph.fit (the reference), ClusterTrainer.fit with no
+       process group, and ClusterTrainer.fit in an NCCL group of world
+       size 1 that the phase starts: parameters, running stats, Adam
+       state and state_sha of both ClusterTrainer runs bitwise the
+       reference's; the NCCL run launches one all-reduce a step (the
+       float32 gradient bucket with the loss in it);
+    2. in the same group, 20 steps with ThresholdCompression() on the first
+       batch (the training phase's schedule): every loss finite, the last
+       below the first; the compression ratio, tau and
+       residual norm printed; one apply's device ms (CUDA events); the host
+       syncs of one compressed step counted under
+       torch.cuda.set_sync_debug_mode("warn") against one uncompressed
+       step: compression adds none;
+    3. one apply on the card against the CPU on the same gradient tree of
+       ResNet50's shapes (bitwise, residual_norm within RNORM_RTOL).
+    53 bn_act_fwd and 53 bn_act_bwd launches every step."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
+    from deeplearning4j_tpu_torch.nn import data_parallel
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import (ClusterTrainer, ThresholdCompression,
+                                                   compression_stats)
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    t_phase = time.perf_counter()
+    conf = resnet50_train_conf()
+    batches = ckpt_batches(torch, dev)
+    n = len(batches)
+    launches = {"parallel": {"fwd": 0, "bwd": 0}, "parallel_compressed": {"fwd": 0, "bwd": 0}}
+    steps = {"parallel": 0, "parallel_compressed": 0}
+
+    def run(path, fn, net):
+        bn_act.fwd_launches = bn_act.bwd_launches = 0
+        i0 = net.iteration
+        fn()
+        launches[path]["fwd"] += bn_act.fwd_launches
+        launches[path]["bwd"] += bn_act.bwd_launches
+        steps[path] += net.iteration - i0
+
+    def fresh():
+        net = ComputationGraph(conf, dev).init()
+        clock = _StepClock(torch)
+        net.set_listeners(clock)
+        return net, clock
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {"card": card, "batches": n, "batch": TRAIN_BATCH}
+    try:
+        net, clock = fresh()
+        net.fit(batches)
+        ref, ref_sha = _run_record(net), state_sha(net)
+        out["fit_step_ms"] = float(np.median(clock.step_ms()[1:]))
+        del net
+        torch.cuda.empty_cache()
+
+        net, clock = fresh()
+        run("parallel", lambda: ClusterTrainer(net).fit(batches), net)
+        diff = _differences(ref, _run_record(net))
+        if diff or state_sha(net) != ref_sha:
+            raise AssertionError(f"parallel_training: ClusterTrainer without a group differs "
+                                 f"from ComputationGraph.fit in {len(diff)} arrays: {diff[:8]}")
+        out["no_group_step_ms"] = float(np.median(clock.step_ms()[1:]))
+        del net
+        torch.cuda.empty_cache()
+
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0)
+        try:
+            net, clock = fresh()
+            data_parallel.all_reduces = 0
+            ct = ClusterTrainer(net)
+            run("parallel", lambda: ct.fit(batches), net)
+            per_step = data_parallel.all_reduces / n
+            diff = _differences(ref, _run_record(net))
+            if diff or state_sha(net) != ref_sha:
+                raise AssertionError(f"parallel_training: ClusterTrainer in an NCCL group of "
+                                     f"one differs from ComputationGraph.fit in {len(diff)} "
+                                     f"arrays: {diff[:8]}")
+            if per_step != 1:
+                raise AssertionError(f"parallel_training: {data_parallel.all_reduces} "
+                                     f"all-reduces in {n} steps, want one a step")
+            out["nccl_step_ms"] = float(np.median(clock.step_ms()[1:]))
+            out["nccl_all_reduces_per_step"] = per_step
+            out["bitwise_vs_fit"] = {"no_group": True, "nccl_world_1": True,
+                                     "compared_arrays": len(ref["arrays"])}
+            net.set_listeners()  # no timing syncs in the counted step
+            syncs_plain = _sync_warnings(torch, lambda: run("parallel",
+                                                            lambda: ct.fit(batches[0]), net))
+            del net, ct
+            torch.cuda.empty_cache()
+
+            net, clock = fresh()
+            ct = ClusterTrainer(net, grad_compression=ThresholdCompression())
+            run("parallel_compressed",
+                lambda: ct.fit(batches[0], num_epochs=PAR_COMP_STEPS), net)
+            losses = [float(v) for v in clock.losses]
+            if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+                raise AssertionError(f"parallel_training: compressed losses {losses}")
+            stats = compression_stats(net)
+            net.set_listeners()
+            syncs_comp = _sync_warnings(torch, lambda: run("parallel_compressed",
+                                                           lambda: ct.fit(batches[0]), net))
+            if syncs_comp > syncs_plain:
+                raise AssertionError(f"parallel_training: a compressed step makes {syncs_comp} "
+                                     f"host syncs, an uncompressed one {syncs_plain}")
+            out["compressed"] = {
+                "steps": len(losses), "first_loss": losses[0], "last_loss": losses[-1],
+                "step_ms": float(np.median(clock.step_ms()[1:len(losses)])),
+                "ratio": stats["last_ratio"], "tau": stats["tau"],
+                "residual_norm": stats["residual_norm"],
+                "wire_bytes_per_step": stats["last_wire_bytes"],
+                "dense_bytes_per_step": stats["dense_bytes"] / stats["steps"],
+                "apply_device_ms": _compress_device_ms(torch, dev, net),
+                "host_syncs_per_step": {"uncompressed": syncs_plain,
+                                        "compressed": syncs_comp}}
+            out["apply_card_vs_cpu"] = _apply_card_vs_cpu(torch, dev, net.params)
+            del net, ct
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    for path, k in steps.items():
+        want = RESNET50_FUSED_BLOCKS * k
+        if not launches[path]["fwd"] == launches[path]["bwd"] == want:
+            raise AssertionError(f"parallel_training: {path} launched bn_act "
+                                 f"{launches[path]} in {k} steps; want {want} each")
+    out.update(steps=steps, bn_act_launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    print("parallel_training " + json.dumps(out), flush=True)
+    return {kind: {p: launches[p][kind] for p in launches} for kind in ("fwd", "bwd")}
+
+
+class _OnceListener:
+    """Runs ``fn`` once, at the first step or the first epoch end."""
+
+    def __init__(self, at, fn):
+        self.at, self.fn, self.fired = at, fn, False
+
+    def _maybe(self, where):
+        if where == self.at and not self.fired:
+            self.fired = True
+            self.fn()
+
+    def iteration_done(self, model, iteration, epoch):
+        self._maybe("step")
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        self._maybe("epoch")
+
+
+def elastic_phase(torch, dev, card, workdir) -> dict:
+    """ResNet50 of 17 through an ElasticWorker at world size 1 over a
+    local store (2 epochs of ELASTIC_BATCHES batches, sharded checkpoints,
+    cudnn.deterministic): generation 1 asks for a bump after epoch 1, so
+    the worker checkpoints, tears down, re-forms generation 2 and restores;
+    in generation 2 a guarded call that never returns (a
+    CollectiveWatchdog of ELASTIC_HANG_S around a wait) raises
+    CollectiveTimeoutError, which escalates to a bump, and generation 3
+    restores the epoch-1 checkpoint and finishes. The final state_sha
+    equals an uninterrupted ClusterTrainer run's; 53 + 53 bn launches
+    every step. Prints the generations, the transition pauses and the
+    checkpoint seconds."""
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager, LocalFSBackend
+    from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.obs.registry import get_registry
+    from deeplearning4j_tpu_torch.parallel import (ClusterTrainer, CollectiveWatchdog,
+                                                   ElasticWorker)
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    t_phase = time.perf_counter()
+    conf = resnet50_train_conf()
+    batches = ckpt_batches(torch, dev)[:ELASTIC_BATCHES]
+    epochs = 2
+    release = threading.Event()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        ref = ComputationGraph(conf, dev).init()
+        ClusterTrainer(ref).fit(batches, num_epochs=epochs)
+        ref_sha = state_sha(ref)
+        del ref
+        torch.cuda.empty_cache()
+
+        def hang():
+            CollectiveWatchdog(timeout_s=ELASTIC_HANG_S).call(
+                release.wait, what="deliberately hung collective")
+
+        def on_generation(model, m, rank, world):
+            if m.generation == 1:
+                model.add_listener(_OnceListener("epoch", lambda: worker.rendezvous
+                                                 .request_bump(1, "bump after epoch 1")))
+            elif m.generation == 2:
+                model.add_listener(_OnceListener("step", hang))
+
+        cm = CheckpointManager(os.path.join(workdir, "elastic_ck"), sharded=True,
+                               async_write=False, device=dev)
+        worker = ElasticWorker(store=LocalFSBackend(os.path.join(workdir, "rdzv")),
+                               worker_id="card0", checkpoint_manager=cm, num_workers=1,
+                               lease_ttl_s=60.0, poll_s=0.05, join_timeout_s=60.0,
+                               collective_timeout_s=120.0, on_generation=on_generation)
+        bn_act.fwd_launches = bn_act.bwd_launches = 0
+        t0 = time.perf_counter()
+        summary = worker.run(lambda: ComputationGraph(conf, dev).init(), batches,
+                             num_epochs=epochs)
+        run_s = time.perf_counter() - t0
+        fwd, bwd = bn_act.fwd_launches, bn_act.bwd_launches
+        model = summary.model
+        final_sha = state_sha(model)
+        del model, summary.model
+        torch.cuda.empty_cache()
+    finally:
+        release.set()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    gens = [{"generation": g.generation, "world": g.world_size, "epochs": g.epochs,
+             "ended": g.ended, "restored": g.restored_from is not None,
+             "wall_s": g.wall_s} for g in summary.generations]
+    if not summary.completed or [g["generation"] for g in gens] != [1, 2, 3]:
+        raise AssertionError(f"elastic: generations {gens}")
+    if "bump requested" not in gens[0]["ended"] or "membership bump" not in gens[1]["ended"]:
+        raise AssertionError(f"elastic: generations ended {[g['ended'] for g in gens]}")
+    if final_sha != ref_sha:
+        raise AssertionError("elastic: the final state_sha differs from the uninterrupted "
+                             "ClusterTrainer run's")
+    steps = ELASTIC_BATCHES + 1 + ELASTIC_BATCHES  # g1's epoch, g2's hung step, g3's epoch
+    if not fwd == bwd == RESNET50_FUSED_BLOCKS * steps:
+        raise AssertionError(f"elastic: bn_act launched {fwd} / {bwd} in {steps} steps; "
+                             f"want {RESNET50_FUSED_BLOCKS * steps} each")
+    pauses = get_registry().metric("elastic_transition_pause_ms")
+    out = {"card": card, "batch": TRAIN_BATCH, "batches_per_epoch": ELASTIC_BATCHES,
+           "epochs": epochs, "generations": gens, "state_sha_equal": True,
+           "transition_pause_ms": [] if pauses is None else pauses.as_dict(),
+           "checkpoints": [(e["step"], e["size"]) for e in cm.checkpoints()],
+           "run_s": run_s, "steps": steps, "bn_act_fwd_launches": fwd,
+           "bn_act_bwd_launches": bwd, "seconds": time.perf_counter() - t_phase}
+    print("elastic " + json.dumps(out, default=str), flush=True)
+    return {"fwd": fwd, "bwd": bwd}
+
+
 PHASE_SECONDS = {}
 
 
@@ -7113,6 +7490,12 @@ def main() -> int:
     _run(streaming_phase, torch, dev, card)
     graph_launches = _run(graph_embeddings_phase, torch, dev, card)
     _run(cnn_sentence_phase, torch, dev, card)
+    par_launches = _run(parallel_training_phase, torch, dev, card)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        elastic = _run(elastic_phase, torch, dev, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
                           "checkpoint_overhead": overhead[kind], "yolo_training": yolo[kind],
                           "facenet_training": facenet[kind], "zoo": zoo[kind],
@@ -7120,7 +7503,8 @@ def main() -> int:
                           "fused_update": fused_launches[kind],
                           "transfer_learning": tl_launches[kind],
                           "fit_featurized": featurized[kind],
-                          "cloud_checkpoint": cloud[kind], "supervised": supervised[kind]}
+                          "cloud_checkpoint": cloud[kind], "supervised": supervised[kind],
+                          **par_launches[kind], "elastic": elastic[kind]}
                    for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched

@@ -40,10 +40,16 @@ checkpoints).
   ``restore_blocks`` fetches only the shards holding the blocks asked for.
   A torn manifest is rebuilt from the whole checkpoints and the complete
   shard sets in storage.
-- **One process.** The JAX package's multi-host barrier is a no-op at one
-  process, and so it is here; with ``torch.distributed`` initialised at a
-  world size above 1 a save raises (multi-process training is ROADMAP
-  §A6), so a sharded save writes one shard holding every leaf whole.
+- **Several processes.** With ``torch.distributed`` initialised at a
+  world size above 1 (``parallel.ClusterTrainer``, the elastic worker),
+  rank 0 writes and every rank meets it at ``torch.distributed.barrier``
+  under a ``CollectiveWatchdog`` deadline (``barrier_timeout_s``), so the
+  ranks' save points stay in lockstep and a dead peer raises instead of
+  hanging. Parameters are replicated over the ranks, so a sharded save
+  writes one shard (rank 0's) holding every leaf whole, read by any
+  world size of either package. ``save_every_secs`` is single-process
+  only (local clocks drift); a multi-process run uses
+  ``save_every_n_steps``.
 
 The manager also implements the early-stopping saver protocol
 (``save_best_model`` / ``save_latest_model`` / ``get_best_model``).
@@ -70,6 +76,11 @@ log = logging.getLogger(__name__)
 def _world_size() -> int:
     import torch.distributed as dist
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 class CheckpointError(RuntimeError):
@@ -119,7 +130,8 @@ class CheckpointManager:
                  save_updater: bool = True,
                  storage=None,
                  sharded: bool = False,
-                 device=None):
+                 device=None,
+                 barrier_timeout_s: float = 300.0):
         if save_every_n_steps is not None and save_every_n_steps < 1:
             raise ValueError("save_every_n_steps must be >= 1")
         if keep_best not in (None, "min", "max"):
@@ -136,6 +148,7 @@ class CheckpointManager:
         self.async_write = bool(async_write)
         self.save_updater = bool(save_updater)
         self.device = device
+        self.barrier_timeout_s = float(barrier_timeout_s)
         # sharded=True: each save writes a shard set (per-host shard files
         # + one set entry in the journal); sharded saves are synchronous
         self.sharded = bool(sharded)
@@ -264,8 +277,14 @@ class CheckpointManager:
 
     # --------------------------------------------------------------- triggers
     def _secs_trigger_due(self) -> bool:
-        """The wall-clock trigger (single process: local clocks drift across
-        processes, and a save on one but not its peers would desync them)."""
+        """The wall-clock trigger, single process only: local clocks drift
+        across processes, and a save on one but not its peers would desync
+        the checkpoint barrier."""
+        if _world_size() > 1:
+            raise ValueError(
+                "save_every_secs is single-process only: local clocks drift across "
+                "processes, so the time trigger would fire on some ranks and not "
+                "others and desync the checkpoint barrier; use save_every_n_steps")
         return (time.monotonic() - self._last_save_t) >= self.save_every_secs
 
     def step_end(self, model, batch_in_epoch: Optional[int] = None):
@@ -322,11 +341,17 @@ class CheckpointManager:
                 "fenced to a different model object")
             return None
         self._raise_pending()
-        self._barrier("checkpoint save")
+        # both trigger watermarks advance on EVERY rank, or a non-writer
+        # would re-trigger each step and desync the barrier count
         self._last_save_t = time.monotonic()
         self._last_save_step = int(model.iteration)
         if self.sharded:
             return self._save_sharded(model, metric)
+        multi = _world_size() > 1
+        if multi and _rank() != 0:
+            # non-writers only barrier, in lockstep with rank 0's save
+            self._barrier("checkpoint save")
+            return None
         from deeplearning4j_tpu_torch.utils.serialization import snapshot_training_state
         t0 = time.perf_counter()
         snap = snapshot_training_state(model, self._staging)
@@ -352,6 +377,8 @@ class CheckpointManager:
             self.timings["queue_wait_ms"].append((time.perf_counter() - t0) * 1000.0)
         else:
             self._write_and_commit(snap, extra, filename)
+        if multi:
+            self._barrier("checkpoint save")
         if wait:
             self.flush()
         return filename
@@ -407,11 +434,16 @@ class CheckpointManager:
         (its sha256 and block summary) once it is durable: the commit of
         the SET is atomic, and a crash before the journal write leaves an
         orphaned shard the restore walk never sees. Always synchronous, as
-        in the JAX package. One process writes the one shard of the set
-        (``_barrier`` refuses a larger world)."""
+        in the JAX package. Rank 0 writes the one shard of the set (the
+        parameters are replicated, so it holds every leaf whole); the other
+        ranks meet it at the same two barriers."""
         from deeplearning4j_tpu_torch.checkpoint import sharded as shd
         t0 = time.perf_counter()
-        self._seq += 1
+        self._seq += 1  # every rank: the sequence stays agreed fleet-wide
+        if _world_size() > 1 and _rank() != 0:
+            self._barrier("sharded payloads durable")
+            self._barrier("sharded journal")
+            return None
         snap = shd.shard_snapshot(model)
         if not self.save_updater:
             snap["updaterState"] = None
@@ -427,6 +459,7 @@ class CheckpointManager:
         shard_bytes = shd.shard_zip_bytes(snap, extra)
         self._storage.put(name, shard_bytes)
         self._m_bytes_written.inc(len(shard_bytes))
+        self._barrier("sharded payloads durable")
         data = self._storage.get(name)  # read-back doubles as a
         shards = [{  # read-your-writes durability probe
             "file": name,
@@ -470,6 +503,7 @@ class CheckpointManager:
                                 s["file"], type(de).__name__, de)
             raise
         self.saves_committed += 1
+        self._barrier("sharded journal")
         self._m_commit_ms.observe((time.perf_counter() - t0) * 1000.0)
         return entry["file"]
 
@@ -751,13 +785,16 @@ class CheckpointManager:
 
     # ---------------------------------------------------------- multi-process
     def _barrier(self, what: str):
-        """The JAX package's bounded cross-host barrier: a no-op at one
-        process; multi-process checkpointing is not ported yet."""
-        if _world_size() > 1:
-            raise NotImplementedError(
-                f"checkpoint barrier ({what}) at torch.distributed world size "
-                f"{_world_size()}: multi-process training and its checkpoints are "
-                "not in the PyTorch port yet (ROADMAP §A6)")
+        """The bounded cross-process barrier: ``torch.distributed.barrier``
+        under a ``CollectiveWatchdog`` deadline, so a dead peer at a
+        checkpoint point raises ``CollectiveTimeoutError`` with the rank
+        diagnostics instead of hanging the fleet. A no-op at one process."""
+        if _world_size() <= 1:
+            return
+        import torch.distributed as dist
+        from deeplearning4j_tpu_torch.parallel.watchdog import CollectiveWatchdog
+        CollectiveWatchdog(timeout_s=self.barrier_timeout_s).call(
+            dist.barrier, what=f"checkpoint barrier ({what})")
 
 
 def consume_resume_state(model):

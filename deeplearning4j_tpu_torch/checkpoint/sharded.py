@@ -141,6 +141,9 @@ def shard_snapshot(model) -> dict:
         model.init()
     snap, coeff, upd, gen = _ordered_state(model)
     return {
+        "grad_compression": snap["grad_compression"],
+        "compressState": (None if snap["compress_state"] is None
+                          else _whole_blocks(snap["compress_state"])),
         "model_type": snap["model_type"],
         "conf_json": snap["conf_json"],
         "iteration": snap["iteration"],
@@ -184,7 +187,10 @@ def simulated_shard_snapshots(model, num_hosts: int) -> List[dict]:
                         "index": index, "data": data})
         return out
 
+    cs = snap["compress_state"]
     return [{
+        "grad_compression": snap["grad_compression"],
+        "compressState": None if cs is None else split(cs, host),
         "model_type": snap["model_type"],
         "conf_json": snap["conf_json"],
         "iteration": snap["iteration"],
@@ -220,14 +226,17 @@ def shard_zip_bytes(snap: dict, extra_meta: Optional[dict] = None) -> bytes:
         "has_rng": False,
         "has_torch_generator": gen is not None,
         "torch_generator_device": None if gen is None else gen["device"],
-        "grad_compression": None,
-        "has_compress": False,
+        "grad_compression": snap.get("grad_compression"),
+        "has_compress": snap.get("compressState") is not None,
         "augmentation": snap.get("augmentation"),
         "tuning_record": None,
     }
     meta.update(extra_meta or {})
     index, arrays = [], {}
-    for tree, prefix in (("coefficients", "c"), ("updaterState", "u")):
+    # distinct per-tree key prefixes, as the JAX package writes them;
+    # readers resolve keys through blockindex.json
+    for tree, prefix in (("coefficients", "c"), ("updaterState", "u"),
+                         ("compressState", "x")):
         for i, b in enumerate(snap.get(tree) or []):
             key = f"{prefix}{i}"
             index.append({"key": key, "tree": tree, "leaf": b["leaf"],
@@ -340,9 +349,6 @@ def restore_from_payloads(payloads: List[bytes], load_updater: bool = True,
             "duplicated shard")
     meta_p = next(p for p in parsed if p["meta"].get("host") == 0)
     meta = meta_p["meta"]
-    if meta.get("grad_compression") or meta.get("has_compress"):
-        raise NotImplementedError("this shard set carries gradient compression state; "
-                                  "parallel/compress is not in the PyTorch port yet")
     if meta.get("tuning_record"):
         raise NotImplementedError("this shard set carries an autotuner TuningRecord; "
                                   "perf/autotune is not in the PyTorch port yet")
@@ -372,6 +378,12 @@ def restore_from_payloads(payloads: List[bytes], load_updater: bool = True,
             log.warning("the shard set's dropout generator is a %s generator and this "
                         "network's is a %s one; dropout is seeded anew",
                         meta.get("torch_generator_device"), model.device.type)
+    if meta.get("grad_compression"):
+        # the whole zip's policy (parallel/compress.py): the residuals are
+        # replicated, so they restore onto any world size
+        from deeplearning4j_tpu_torch.parallel.compress import restore_compress_state
+        cs = _assemble(parsed, "compressState") if meta.get("has_compress") else None
+        restore_compress_state(model, meta["grad_compression"], cs, origin="sharded")
     if meta.get("augmentation"):
         from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
         model.set_augmentation(ImageAugmentation.from_dict(meta["augmentation"]))
@@ -490,11 +502,11 @@ def state_sha(model) -> str:
     leaf by leaf in the JAX package's flatten order with each leaf's shape
     and dtype, so the same state gives the same digest in both packages
     and a checkpoint restored into any world size gives the digest it was
-    saved with. Gradient compression state is not ported, so it adds
-    nothing here."""
-    _, coeff, upd, _ = _ordered_state(model)
+    saved with; the gradient-compression state (residual, controller,
+    accumulators) follows the updater state when the model has one."""
+    snap, coeff, upd, _ = _ordered_state(model)
     h = hashlib.sha256()
-    for arrays in (coeff, upd):
+    for arrays in (coeff, upd, snap["compress_state"] or {}):
         for a in arrays.values():
             a = np.ascontiguousarray(np.asarray(a))
             h.update(str((a.shape, str(a.dtype))).encode())

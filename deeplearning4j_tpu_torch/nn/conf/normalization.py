@@ -14,6 +14,11 @@ Numerics are the JAX package's, branch for branch:
 
 The new running stats are returned as new tensors (computed without
 autograd); the network copies them into its state.
+
+While a data group of more than one rank is active (``nn/data_parallel.py``,
+entered by ``parallel/trainer.py``), the train-mode statistics are over the
+global batch, as a batch sharded over the JAX package's ``data`` axis
+gives them.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nn import data_parallel
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayer, Layer, register_layer
 
@@ -30,7 +36,10 @@ LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 
 def batch_stats(x: torch.Tensor):
-    """Per-channel (mean, biased var) over all but the last axis."""
+    """Per-channel (mean, biased var) over all but the last axis, of the
+    global batch while a data group is active."""
+    if data_parallel.world() > 1:
+        return data_parallel.global_batch_stats(x)
     axes = tuple(range(x.dim() - 1))
     if x.dtype in LOW_PRECISION:
         xf = x.float()

@@ -44,7 +44,11 @@ package's.
 ``analysis/validation.py``) unless ``validate=False`` or
 ``DL4J_TPU_VALIDATE=0``.
 
-Not ported (it raises ``NotImplementedError``): gradient compression.
+With ``grad_compression`` set (``parallel.enable_grad_compression``),
+every step of ``fit``, ``fit_fused`` and the tBPTT windows compresses its
+gradients with error feedback (``nn/training.py``); inside a
+``parallel.ClusterTrainer`` step the gradients are first averaged over the
+data group.
 """
 
 from __future__ import annotations
@@ -233,7 +237,6 @@ class ComputationGraph(TrainStep):
         checkpoints per its triggers; a graph ``restore_latest`` returned
         resumes at the exact step (``num_epochs`` is then the run's total).
         ``bucket_policy`` and ``prefetch`` as in ``MultiLayerNetwork.fit``."""
-        self._refuse()
         if self.params is None:
             self.init()
         if isinstance(data, (DataSet, MultiDataSet)):

@@ -67,7 +67,11 @@ do not apply there. ``init`` validates
 the configuration first (``conf.validate()``, ``analysis/validation.py``)
 unless ``validate=False`` or ``DL4J_TPU_VALIDATE=0``.
 
-Not ported (it raises ``NotImplementedError``): gradient compression.
+With ``grad_compression`` set (``parallel.enable_grad_compression``),
+every step of ``fit``, ``fit_fused`` and the tBPTT windows compresses its
+gradients with error feedback (``nn/training.py``); inside a
+``parallel.ClusterTrainer`` step the gradients are first averaged over the
+data group.
 """
 
 from __future__ import annotations
@@ -501,7 +505,6 @@ class MultiLayerNetwork(TrainStep):
         before it runs (``perf/prefetch.py``). A configuration outside the
         SGD family trains through the full-batch solver instead (module
         docstring)."""
-        self._refuse()
         if self.params is None:
             self.init()
         if labels is not None:
@@ -559,7 +562,6 @@ class MultiLayerNetwork(TrainStep):
         ``bucket_policy`` lets the list form carry a ragged batch: every
         batch pads to the bucket of the largest, its padding masked out of
         the loss (the JAX package's one scan program)."""
-        self._refuse()
         if self.params is None:
             self.init()
         if not is_sgd_family(self.conf):

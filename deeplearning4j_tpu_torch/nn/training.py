@@ -25,6 +25,13 @@ eagerly:
   ``bucketed_apply``, the small leaves of every layer that share an
   updater in one foreach sequence, the rest per tensor, in place on the
   masters and the slots), then applies every layer's ``constraints``;
+- ``_reduce_and_compress`` sits between the gradients and the updaters:
+  while a data group is active (``nn/data_parallel.py``, entered by
+  ``parallel/trainer.py`` over a ``torch.distributed`` group) it
+  averages every trainable gradient leaf (one flat bucket a dtype) and
+  the loss over the ranks, then runs the attached gradient compression
+  (``grad_compression``, ``parallel/compress.py``) on the result, its
+  error-feedback state in ``compress_state``: the JAX step's order;
 - ``_commit_state`` writes the new running stats into the state in place;
 - dropout draws from a ``torch.Generator`` seeded with the init seed + 1;
 - with ``set_augmentation``, the train step augments its 4-D (NHWC)
@@ -72,6 +79,7 @@ from typing import Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import data_parallel
 from deeplearning4j_tpu_torch.nn.conf.layers import apply_constraints
 from deeplearning4j_tpu_torch.nn.tree import leaf_grads, tree_leaves, tree_map
 from deeplearning4j_tpu_torch.optimize.fused_update import bucketed_apply
@@ -134,7 +142,8 @@ class TrainStep:
         self.iteration = 0
         self.epoch = 0
         self.last_batch_size: Optional[int] = None
-        self.grad_compression = None
+        self.grad_compression = None  # parallel/compress.py scheme
+        self.compress_state = None
         self._score = None
         self._gen: Optional[torch.Generator] = None  # dropout stream
         self._aug_gen: Optional[torch.Generator] = None  # augmentation stream
@@ -198,13 +207,6 @@ class TrainStep:
         """Most recent minibatch score (reference Model.score())."""
         return None if self._score is None else float(self._score)
 
-    def _refuse(self):
-        """Raise for what ``fit`` cannot do in the port yet: gradient
-        compression."""
-        if self.grad_compression:
-            raise NotImplementedError("fit with grad_compression is not in the PyTorch "
-                                      "port yet")
-
     def _cast(self, params):
         """``params`` in the compute dtype (float leaves only)."""
         cdt = self._dtype
@@ -224,6 +226,23 @@ class TrainStep:
         grads = _keyed(leaves, lambda k, p: live[k] if k in live
                        else tree_map(torch.zeros_like, p))
         return (loss.detach(), grads, *aux)
+
+    def _reduce_and_compress(self, loss, grads):
+        """Between the gradients and the updaters: in a data group
+        (``nn/data_parallel.py``) the mean over the ranks of every trainable
+        gradient leaf and of the loss, then the gradient compression
+        (``parallel/compress.py``) when a scheme is attached, the JAX
+        step's order (its ``comp.apply`` sees GSPMD's global gradient)."""
+        if data_parallel.reducing():
+            loss = data_parallel.mean_gradients(
+                [g for k, t in _items(grads) if k not in self._frozen
+                 for g in tree_leaves(t)], loss)
+        if self.grad_compression is not None:
+            if self.compress_state is None:
+                self.compress_state = self.grad_compression.init_state(self.params)
+            grads, self.compress_state = self.grad_compression.apply(grads,
+                                                                     self.compress_state)
+        return loss, grads
 
     def _apply_updates(self, grads):
         with torch.no_grad():
@@ -248,6 +267,7 @@ class TrainStep:
             self._reset_updaters()
         loss, grads, new_state, *carries = self._loss_and_grads(inputs, labels, self._gen,
                                                                 *masks, **kw)
+        loss, grads = self._reduce_and_compress(loss, grads)
         self._apply_updates(grads)
         self._commit_state(new_state)
         self._score = loss

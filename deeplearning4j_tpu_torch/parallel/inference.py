@@ -38,8 +38,11 @@ back to an older one, neither re-swaps nor downgrades.
 Only the worker thread (or, in sequential mode, the caller) dispatches to
 the card, and each thread that does selects the card first.
 
-Not ported: mesh sharding (ROADMAP §A6) and tuning records (§A7), which
-raise ``NotImplementedError``.
+``mesh=`` takes a one-rank ``parallel.make_mesh()`` and serves on its
+device; a mesh of several ranks raises ``MultiRankMeshError`` (each rank
+serves on its own device: the JAX package shards one dispatch over its
+mesh, the port runs one ``ParallelInference`` a rank). Not ported: tuning
+records (§A7), which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -138,9 +141,10 @@ class ParallelInference:
                  queue_depth: int = 1024, queue_put_timeout_ms: float = 50.0,
                  tuning=None, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "ParallelInference(mesh=): sharding over several cards is not "
-                "in the PyTorch port yet (ROADMAP §A6)")
+            # a mesh of one rank names this process's device; a mesh of
+            # several raises (each rank serves on its own device)
+            from deeplearning4j_tpu_torch.parallel.mesh import local_device_of
+            device = local_device_of(mesh, device, "ParallelInference")
         if tuning is not None or getattr(model, "_tuning_record", None) is not None:
             raise NotImplementedError(
                 "ParallelInference(tuning=): tuning records (perf/autotune) "

@@ -32,6 +32,14 @@ and f16 with ``identity``, ``relu`` and ``leakyrelu`` (α = 0.01), the
 activations ``fuse`` produces in the zoo; any other raises
 ``NotImplementedError``. Each wrapper call that launches adds one to
 :data:`fwd_launches` / :data:`bwd_launches`.
+
+At a data world above 1 (``nn/data_parallel.py``) the plain versions take
+the batch statistics over the global batch and all-reduce Σdpre and
+Σdpre·x̂ before forming dz (the returned dgamma and dbeta stay this rank's
+sums: the step averages them with the other gradients). The kernels
+compute the statistics inside their one launch and one card cannot hold
+two ranks, so on a CUDA tensor at a data world above 1 the wrappers raise
+``NotImplementedError`` (ROADMAP §A6b) and never take the plain path.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import threading
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import data_parallel
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.normalization import (batch_stats, normalize,
                                                             scale_shift)
@@ -101,7 +110,10 @@ def bn_act_bwd_plain(act: str, eps: float, z, gamma, beta, res, mean, inv, dout)
     dpre32 = dpre.to(sdt)
     dgamma = (dpre32 * xhat).sum(dim=axes)
     dbeta = dpre32.sum(dim=axes)
-    dz = (scale * (dpre32 - dbeta / n - xhat * (dgamma / n))).to(z.dtype)
+    sum_g, sum_b = dgamma, dbeta
+    if data_parallel.world() > 1:
+        sum_g, sum_b, n = data_parallel.all_reduce_sums(dgamma, dbeta, rows=n)
+    dz = (scale * (dpre32 - sum_b / n - xhat * (sum_g / n))).to(z.dtype)
     return dz, dgamma, dbeta, (dpre if res is not None else None)
 
 
@@ -137,6 +149,12 @@ def _check(name, z, gamma, beta, res):
 
 
 def _check_cuda(name, act, z, tensors, stats):
+    if data_parallel.world() > 1:
+        raise NotImplementedError(
+            f"{name} at a data-parallel world of {data_parallel.world()} ranks: the "
+            "kernel takes the batch statistics inside its one launch, and the "
+            "cross-rank statistics it would need wait for ROADMAP §A6b (one card "
+            "holds one rank)")
     if z.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu; got {z.device}")
     if str(act).lower() not in KERNEL_ACTS:

@@ -97,16 +97,19 @@ class DevicePrefetchIterator(DataSetIterator):
 
     ``place_fn`` overrides the placement: a ``ds -> ds`` callable whose
     result is yielded in the batch's place; returning the batch unchanged
-    marks it passed through (``batches_passed_through``). ``mesh=`` (the
-    JAX package's data-parallel sharding) raises until the port has
-    meshes. ``lookahead`` is the number of batches in flight beyond the
+    marks it passed through (``batches_passed_through``). ``mesh=`` takes
+    a one-rank ``parallel.make_mesh()``, whose device it prefetches onto;
+    a mesh of several ranks raises ``MultiRankMeshError``: each rank
+    prefetches its own rows onto its own device. ``lookahead`` is the number of batches in flight beyond the
     one being consumed. ``bind_epoch`` and ``iter_from`` pass through to
     the base where it has them."""
 
     def __init__(self, base, device=None, lookahead: int = 1, place_fn=None, mesh=None):
         if mesh is not None:
-            raise NotImplementedError("DevicePrefetchIterator(mesh=) needs the port's "
-                                      "device meshes, which are not in it yet (ROADMAP §A6)")
+            # a mesh of one rank names this process's device; a mesh of
+            # several raises (each rank prefetches onto its own device)
+            from deeplearning4j_tpu_torch.parallel.mesh import local_device_of
+            device = local_device_of(mesh, device, "DevicePrefetchIterator")
         self._base = base
         self.device = resolve_device(device)
         self._lookahead = max(1, int(lookahead))

@@ -23,7 +23,13 @@ Members:
   NoOp, no decay policy), the port's per-layer ``count`` is restored from
   the metadata's ``iteration``: every layer's count advances once a step,
   so the two agree for a network trained through ``fit``;
-- ``quantization.json`` — the calibration record of a quantized network.
+- ``quantization.json`` — the calibration record of a quantized network;
+- ``compressState.npz`` — in a checkpoint of a network with gradient
+  compression (``parallel/compress.py``): the error-feedback residual, the
+  controller and the accumulators, keyed as the JAX package keys them
+  (``acc/steps``, ``ctrl/tau``, ``residual/0/W``), with the scheme's
+  config in the metadata's ``grad_compression``; restoring rebuilds the
+  scheme and continues the residual chain bitwise.
 
 Checkpoints (``checkpoint_zip_bytes``) are ``ZIP_STORED``; ``write_model``
 is ``ZIP_DEFLATED``, as in the JAX package.
@@ -46,8 +52,7 @@ interrupted one would have; the metadata's ``"augmentation"`` holds an
 re-enables it on the network.
 
 Not ported, and refused by name on restore (``NotImplementedError``): the
-autotuner's ``tuning.json`` and gradient compression
-(``compressState.npz``). The port writes neither.
+autotuner's ``tuning.json``. The port does not write it.
 """
 
 from __future__ import annotations
@@ -236,6 +241,14 @@ def snapshot_training_state(model, staging: HostStaging = None) -> dict:
         upd.update(updater_arrays(k, updater, model.opt_state[k]))
     coeff_keys = list(tensors)
     tensors.update({f"u:{k}": v for k, v in upd.items() if isinstance(v, torch.Tensor)})
+    comp = getattr(model, "grad_compression", None)
+    cs = getattr(model, "compress_state", None)
+    cs_keys = []
+    if comp is not None and cs is not None:
+        from deeplearning4j_tpu_torch.parallel.compress import compress_state_arrays
+        cs_arrays = compress_state_arrays(cs)
+        cs_keys = list(cs_arrays)
+        tensors.update({f"x:{k}": v for k, v in cs_arrays.items()})
     host, buffers = _host_arrays(tensors, staging)
     coeff = {k: host[k] for k in coeff_keys}
     updater_state = {k: (host[f"u:{k}"] if isinstance(v, torch.Tensor) else v)
@@ -256,6 +269,9 @@ def snapshot_training_state(model, staging: HostStaging = None) -> dict:
                        "device": gen.device.type}),
         "augmentation": _augmentation_dict(model),
         "quant_calibration": None if cal is None else cal.to_dict(),
+        "grad_compression": None if comp is None else comp.to_config(),
+        "compress_state": ({k: host[f"x:{k}"] for k in cs_keys}
+                           if comp is not None and cs is not None else None),
         "_buffers": buffers,
     }
 
@@ -301,8 +317,8 @@ def checkpoint_zip_bytes(snap: dict, extra_meta: dict = None) -> memoryview:
         "has_rng": False,
         "has_torch_generator": gen is not None,
         "torch_generator_device": None if gen is None else gen["device"],
-        "grad_compression": None,
-        "has_compress_state": False,
+        "grad_compression": snap.get("grad_compression"),
+        "has_compress_state": snap.get("compress_state") is not None,
         "has_quant_calibration": snap.get("quant_calibration") is not None,
         "has_tuning_record": False,
         "augmentation": snap.get("augmentation"),
@@ -323,6 +339,8 @@ def checkpoint_zip_bytes(snap: dict, extra_meta: dict = None) -> memoryview:
         if snap.get("quant_calibration") is not None:
             z.writestr("quantization.json",
                        json.dumps(snap["quant_calibration"], sort_keys=True))
+        if snap.get("compress_state") is not None:
+            _write_npz(z, "compressState.npz", snap["compress_state"])
     return buf.getbuffer()
 
 
@@ -351,10 +369,6 @@ def _refuse_unported(z: zipfile.ZipFile, meta: dict):
         raise NotImplementedError("this zip carries tuning.json (an autotuner "
                                   "TuningRecord); perf/autotune is not in the PyTorch "
                                   "port yet")
-    if meta.get("grad_compression") or "compressState.npz" in names:
-        raise NotImplementedError("this zip carries gradient compression state "
-                                  "(compressState.npz); parallel/compress is not in "
-                                  "the PyTorch port yet")
 
 
 def _augmentation_dict(model):
@@ -408,6 +422,13 @@ def _read(source, expect, load_updater: bool, device, generator: bool):
             from deeplearning4j_tpu_torch.quant.calibrate import CalibrationRecord
             model._quant_calibration = CalibrationRecord.from_json(
                 z.read("quantization.json").decode())
+        if meta.get("grad_compression"):
+            from deeplearning4j_tpu_torch.parallel.compress import restore_compress_state
+            arrays = None
+            if meta.get("has_compress_state") and "compressState.npz" in z.namelist():
+                arrays = dict(np.load(io.BytesIO(z.read("compressState.npz"))))
+            restore_compress_state(model, meta["grad_compression"], arrays,
+                                   origin="checkpointed")
         model.iteration = iteration
         model.epoch = int(meta.get("epoch", 0))
     return model, meta

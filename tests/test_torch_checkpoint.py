@@ -412,13 +412,23 @@ def test_process_kill_mode_sigkills_the_process():
 def test_unported_checkpoint_paths_are_refused(tmp_path):
     """Zips and shard sets carrying modules the port lacks raise by name
     (sharded=True itself is ported: checkpoint/sharded.py); restore_latest
-    does not fall back past such a zip as if it were corrupt."""
+    does not fall back past such a zip as if it were corrupt. Gradient
+    compression is ported (parallel/compress.py): a shard set carrying it
+    restores with its scheme and state."""
     from deeplearning4j_tpu_torch.checkpoint import sharded as shd
+    from deeplearning4j_tpu_torch.parallel import Int8Compression, enable_grad_compression
     snap = shd.shard_snapshot(_net())
-    for unported, what in (({"grad_compression": {"scheme": "threshold"}}, "compression"),
-                           ({"tuning_record": {"batch_size": 8}}, "TuningRecord")):
-        with pytest.raises(NotImplementedError, match=what):
-            shd.restore_from_payloads([shd.shard_zip_bytes(snap, unported)], device="cpu")
+    with pytest.raises(NotImplementedError, match="TuningRecord"):
+        shd.restore_from_payloads([shd.shard_zip_bytes(snap, {"tuning_record":
+                                                              {"batch_size": 8}})],
+                                  device="cpu")
+    comp = _net()
+    enable_grad_compression(comp, Int8Compression())
+    comp.fit(_batches(32, batch=8, seed=1)[0])
+    back, meta = shd.restore_from_payloads([shd.shard_zip_bytes(shd.shard_snapshot(comp))],
+                                           device="cpu")
+    assert meta["has_compress"] and back.grad_compression == Int8Compression()
+    assert shd.state_sha(back) == shd.state_sha(comp)
     d = str(tmp_path / "ck")
     cm, net, names = _two_saves(d)
     path = os.path.join(d, names[-1])

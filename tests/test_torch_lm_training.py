@@ -325,8 +325,10 @@ def test_score_dataset_matches_jax():
 @pytest.mark.parametrize("knob", ["bucket_policy", "prefetch", "checkpoint_manager",
                                   "grad_compression", "augmentation", "solver"])
 def test_refused_knobs_raise(knob):
-    """Gradient compression raises NotImplementedError and trains nothing.
-    A sharded checkpoint manager is ported: fit takes it, trains and
+    """Gradient compression is ported: fit and fit_fused take a scheme and
+    compress each step's gradients with error feedback, and a solver
+    configuration refuses one with the JAX package's ValueError. A sharded
+    checkpoint manager is ported: fit takes it, trains and
     journals a shard set a step. bucket_policy, prefetch and
     augmentation are ported: fit and fit_fused take them and train, and an
     augmentation of a 2-D id input raises ValueError as the JAX package's
@@ -371,15 +373,19 @@ def test_refused_knobs_raise(knob):
         assert entry["sharded"] and entry["step"] == 1
         assert state_sha(cm.restore_latest()) == state_sha(net)
         return
-    with pytest.raises(NotImplementedError):
-        if knob == "grad_compression":
-            net.grad_compression = object()
-            net.fit(ds)
-        else:
-            net.fit(ds)
-    with pytest.raises(NotImplementedError):
-        net.fit_fused([ds], bucket_policy=True)
-    assert net.iteration == 0
+    assert knob == "grad_compression"
+    from deeplearning4j_tpu_torch.parallel import (ThresholdCompression, compression_stats,
+                                                   enable_grad_compression)
+    enable_grad_compression(net, ThresholdCompression())
+    net.fit(ds)
+    net.fit_fused([ds], bucket_policy=True)
+    assert net.iteration == 2 and np.isfinite(net.score())
+    stats = compression_stats(net)
+    assert stats["steps"] == 2.0 and stats["wire_bytes"] < stats["dense_bytes"]
+    solver = MultiLayerNetwork(conf_from_jax_json(dataclasses.replace(
+        jconf, optimization_algo="lbfgs").to_json()), device="cpu").init()
+    with pytest.raises(ValueError, match="SGD-family"):
+        enable_grad_compression(solver, ThresholdCompression())
 
 
 def test_dataset_keeps_tensors_as_tensors():

@@ -434,9 +434,14 @@ def test_refusals_name_the_roadmap():
     srv = pserving.ModelServer()
     with pytest.raises(NotImplementedError, match="A7"):
         srv.add_model("t", _port_of(_jax_net()), tuning=object())
+    # meshes are ported (parallel/mesh.py); one of several ranks is refused
+    # by design, each rank serving on its own device
+    import torch
     from deeplearning4j_tpu_torch.parallel import ParallelInference
-    with pytest.raises(NotImplementedError, match="A6"):
-        ParallelInference(_port_of(_jax_net()), mesh=object(), device="cpu")
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh, MultiRankMeshError
+    with pytest.raises(MultiRankMeshError, match="C2"):
+        ParallelInference(_port_of(_jax_net()), device="cpu",
+                          mesh=Mesh(np.arange(2).reshape(2, 1), torch.device("cpu")))
 
 
 def test_command_line_server_serves_and_drains(tmp_path):

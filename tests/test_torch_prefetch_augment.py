@@ -208,8 +208,13 @@ def test_prefetch_iterator_places_batches_and_passes_seek_through():
     for a, b in zip(seek, want):
         assert np.array_equal(a.features.numpy(), b.features)
     assert list(DevicePrefetchIterator(got, device="cpu", place_fn=lambda d: d)) == got
-    with pytest.raises(NotImplementedError, match="A6"):
-        DevicePrefetchIterator(got, device="cpu", mesh=object())
+    # a one-rank mesh names the device; each rank of a larger one
+    # prefetches onto its own device, so a mesh of several raises
+    from deeplearning4j_tpu_torch.parallel.mesh import Mesh, MultiRankMeshError, make_mesh
+    assert DevicePrefetchIterator(got, mesh=make_mesh(device="cpu")).device.type == "cpu"
+    with pytest.raises(MultiRankMeshError):
+        DevicePrefetchIterator(got, device="cpu",
+                               mesh=Mesh(np.arange(2).reshape(2, 1), torch.device("cpu")))
 
 
 @pytest.mark.parametrize("form", ["fit", "fit_fused"])

@@ -270,6 +270,13 @@ def test_zip_with_unported_module_is_refused_by_name(tmp_path, member):
         from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
         assert pser.restore(out, device="cpu").augmentation == ImageAugmentation(flip_prob=0.5)
         return
+    if member == "compressState.npz":
+        # ported (parallel/compress.py): without a scheme in the metadata the
+        # member is ignored, as the JAX package ignores it; a checkpoint with
+        # one restores its scheme (tests/test_torch_compress.py)
+        assert pser.restore(out, device="cpu").grad_compression is None
+        assert jser.restore(out).grad_compression is None
+        return
     with pytest.raises(NotImplementedError, match=member.split(".")[0]):
         pser.restore(out, device="cpu")
 

@@ -281,8 +281,8 @@ def test_fit_lowers_the_loss_on_a_fixed_batch():
 
 
 def test_unported_training_options_raise():
-    """Gradient compression is the graph's unported training option and
-    raises; prefetch and augmentation are ported and train."""
+    """Prefetch, augmentation and gradient compression are ported and
+    train the graph (the last with its error-feedback state advancing)."""
     from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
     pnet = ComputationGraph(ResNet50(num_classes=3, input_shape=(8, 8, 3)).conf(),
                             device="cpu").init()
@@ -291,10 +291,10 @@ def test_unported_training_options_raise():
     assert pnet.set_augmentation(ImageAugmentation(crop_padding=1)) is pnet
     pnet.fit(DataSet(x, y))
     assert pnet.iteration == 2
-    pnet.grad_compression = object()
-    with pytest.raises(NotImplementedError, match="grad_compression"):
-        pnet.fit(DataSet(x, y))
-    assert pnet.iteration == 2
+    from deeplearning4j_tpu_torch.parallel import Int8Compression, enable_grad_compression
+    enable_grad_compression(pnet, Int8Compression())
+    pnet.fit(DataSet(x, y))
+    assert pnet.iteration == 3 and float(pnet.compress_state["acc"]["steps"]) == 1.0
 
 
 LOSS_CASES = [(name, act) for name in ("mse", "l1", "mcxent", "xent", "kld", "poisson",
