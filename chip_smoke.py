@@ -438,12 +438,37 @@
    three generations (a requested bump after epoch 1, then a hung guarded
    call escalating to a bump), its final state_sha equal to an
    uninterrupted ClusterTrainer run's (see elastic_phase).
-42. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+42. Fleet (after hot_swap, budget 40 s): two restore_and_serve replicas,
+   each a subprocess on the card, serve the model_server phase's VGG16
+   with 4-bit weights from one checkpoint behind a FleetRouter; a burst of
+   predicts through the router with one replica SIGKILLed mid-burst:
+   every answer byte for byte the surviving replica's direct answer, only
+   200s once the killed lease lapsed; the router hop's p50 overhead; each
+   replica's int4_dot launches (see fleet_phase).
+43. Data-parallel world 2 (after elastic, budget 60 s): ResNet50 through
+   ClusterTrainer in two processes on the one card over gloo, 64 rows a
+   rank: the bn wrappers take the split launches; each rank's split bn
+   outputs against the plain versions on the whole batch; 3 float32 steps
+   held, with fit on the global batch, to a float64 referee (the whole
+   update and its worst leaf within 3x fit's own distances from it, losses
+   within 1e-3, the first within 1e-5), and the same steps with per-rank statistics rejected by
+   those limits; bf16 step ms against fit's, gloo's share of the step (see
+   data_parallel_world2_phase).
+44. Model parallel (budget 50 s): in an NCCL group of one,
+   ParallelWrapper(tensor_parallel=True) trains ResNet50 bitwise fit;
+   ring_self_attention and ulysses_self_attention at (8, 12, 1024, 64)
+   causal float32 against reference_attention and the flash kernel, with
+   gradients; GPipeTrainer at one stage on 12 residual MLP blocks of
+   GPT-2 small's widths against the sequential stack; then the split bn
+   entries against the one launch at res2, res4 and the ragged 1,001 x 130
+   in both dtypes, timed (see model_parallel_phase, _split_times).
+45. Prints the kernels JSON line (nine kernels; the bn rows' launches by
    path, data_tier, fused_update, transfer_learning, fit_featurized,
-   cloud_checkpoint, supervised, parallel, parallel_compressed and elastic
-   included, scatter_add's by path
+   cloud_checkpoint, supervised, parallel, parallel_compressed, elastic,
+   data_parallel_world2 and model_parallel included, and a "split" entry
+   with the split launches' times; scatter_add's by path
    (word2vec, deepwalk, node2vec), and int4_dot's, adc_pq's and adc_ivf_pq's with the
-   model_server, hot_swap, ivf and lenet_gates paths; int4_dot's library
+   model_server, hot_swap, ivf, lenet_gates and fleet paths; int4_dot's library
    yardstick, torch._int_mm, on operands zero-padded to its multiples of 8,
    the weights column-major, and held equal to the kernel's result), the
    card line, and last
@@ -1046,13 +1071,41 @@ def hold_bn_fwd(torch, label, operands, act, got, want) -> dict:
             "max_err_addend_ulps": float(ulps.max())}
 
 
+def _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout) -> dict:
+    """The library yardsticks of the bn kernels (timed, never called by the
+    port): F.batch_norm(training=True) + add + activation ("fwd") and its
+    autograd backward ("bwd"), and what was timed ("note")."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.nn.activations import get_activation
+
+    note = "F.batch_norm(training=True) + add + activation; autograd backward"
+    gw, gb = gamma.float(), beta.float()  # batch-norm weights in float32
+
+    def lib_fwd(zz=z, ww=gw, bb=gb, rr=res):
+        y = F.batch_norm(zz, None, None, ww, bb, training=True, eps=BN_EPS)
+        return get_activation(act)(y if rr is None else y + rr)
+
+    out = {"fwd": None, "bwd": None}
+    try:
+        leaves = [z.detach().requires_grad_(True), gw.detach().requires_grad_(True),
+                  gb.detach().requires_grad_(True)]
+        if res is not None:
+            leaves.append(res.detach().requires_grad_(True))
+        y = lib_fwd(*leaves)
+        out["fwd"] = time_ms(torch, lib_fwd, flush)
+        out["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+            y, leaves, dout, retain_graph=True), flush)
+        del y, leaves
+    except RuntimeError as e:
+        note = f"F.batch_norm refused: {str(e).splitlines()[0]}"
+    return dict(out, note=note)
+
+
 def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
     """Hold bn_act_fwd and bn_act_bwd against their plain versions at one
     shape and time the kernels, the plain versions and the library
     yardsticks."""
-    import torch.nn.functional as F
-
-    from deeplearning4j_tpu_torch.nn.activations import get_activation
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
     (z, gamma, beta, res), (out, mean, var, inv), dout = bn_operands(
@@ -1074,28 +1127,8 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
             raise AssertionError(f"{what} {label}: two runs differ")
     del p_out, plain_bwd
 
-    # library yardsticks (timed here, never called by the port):
-    # F.batch_norm(training=True) + add + activation, and its autograd backward
-    lib_note = "F.batch_norm(training=True) + add + activation; autograd backward"
-    gw, gb = gamma.float(), beta.float()  # batch-norm weights in float32
-
-    def lib_fwd(zz=z, ww=gw, bb=gb, rr=res):
-        y = F.batch_norm(zz, None, None, ww, bb, training=True, eps=BN_EPS)
-        return get_activation(act)(y if rr is None else y + rr)
-
-    lib_ms = {"fwd": None, "bwd": None}
-    try:
-        leaves = [z.detach().requires_grad_(True), gw.detach().requires_grad_(True),
-                  gb.detach().requires_grad_(True)]
-        if res is not None:
-            leaves.append(res.detach().requires_grad_(True))
-        y = lib_fwd(*leaves)
-        lib_ms["fwd"] = time_ms(torch, lib_fwd, flush)
-        lib_ms["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
-            y, leaves, dout, retain_graph=True), flush)
-        del y, leaves
-    except RuntimeError as e:
-        lib_note = f"F.batch_norm refused: {str(e).splitlines()[0]}"
+    lib_ms = _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout)
+    lib_note = lib_ms.pop("note")
 
     esize = z.element_size()
     base = {"case": case, "rows": n, "channels": c, "dtype": dtype_name, "act": act,
@@ -1340,15 +1373,33 @@ def card_vs_cpu_phase(torch, dev):
     torch.cuda.empty_cache()
 
 
-def _bn_kernel_entry(name, rows, launches):
+def _bn_kernel_entry(name, rows, launches, split_rows):
     """The kernels-line entry of bn_act_fwd or bn_act_bwd: numbers at the
     stem shape in bf16, max error over every case, its first design's time
     (both were redesigned) and every other case's; ``launches`` by path
     (the training, checkpoint, checkpoint_overhead, yolo_training,
     facenet_training, zoo, layer_families, data_tier, fused_update,
     transfer_learning, fit_featurized, cloud_checkpoint, supervised,
-    parallel_training (parallel, parallel_compressed) and elastic phases)."""
+    parallel_training (parallel, parallel_compressed), elastic,
+    data_parallel_world2 (the split calls of both ranks) and model_parallel
+    phases); ``split``: the split launches at res2 bf16 +res, the one launch
+    on the same operands as ``previous_ms``, each entry's time and the
+    other SPLIT_CASES."""
     kind = name[-3:]
+    keys = ("ms", "host_ms", "previous_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    head = split_rows[0]
+    split = {"shape": {k: head[k] for k in ("case", "rows", "channels", "dtype", "act",
+                                            "residual")},
+             **{k: head[kind][k] for k in keys},
+             "entries": {k: v for k, v in head["entries"].items()
+                         if k.startswith(kind)},
+             "max_abs_err": max(r[kind]["max_abs_err"] for r in split_rows),
+             "other_shapes": [dict({k: r[k] for k in ("case", "rows", "channels", "dtype",
+                                                      "act", "residual")},
+                                   **{k: r[kind][k] for k in keys},
+                                   entries={k: v for k, v in r["entries"].items()
+                                            if k.startswith(kind)})
+                              for r in split_rows[1:]]}
     stem = next(r[kind] for r in rows if r["case"] == "stem" and r["dtype"] == "bfloat16")
     extra = {
         "previous_ms": stem["previous_ms"],
@@ -1367,7 +1418,7 @@ def _bn_kernel_entry(name, rows, launches):
             "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"],
             "library_ms": stem["library_ms"],
             "shape": {"rows": stem["rows"], "channels": stem["channels"],
-                      "dtype": "bfloat16"}, **extra}
+                      "dtype": "bfloat16"}, **extra, "split": split}
 
 
 # ------------------------------------------------------------- retrieval
@@ -7351,6 +7402,890 @@ def elastic_phase(torch, dev, card, workdir) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+# ------------------------------------ slice 19: model and sequence parallelism
+DP2_STEPS = 3            # float32 steps of the world-2 run held against fit
+DP2_WARM, DP2_TIMED = 2, 4   # bf16 steps of the world-2 run: warm-up, timed
+DP2_LR = 1e-3            # Sgd's rate in the float32 run
+# The float32 world-2 run against fit on the global batch. Each rank's
+# batch-norm statistics and gradient sums are the whole batch's in another
+# summation order (two halves, then an all-reduce), and cuDNN's weight
+# gradients sum 64 images a rank instead of 128: roundoff only, which
+# ResNet50's backward at initialisation amplifies far past the operations'
+# own (the tests hold the two-rank algebra at small sizes). So both float32
+# runs are held to a float64 referee (the unfused graph with the same
+# parameters, float64 compute, float32 masters, fit): the whole update
+# (the parameters' change over the steps, as one vector of 25.6 M numbers)
+# of the world-2 run within DP2_REFEREE_FACTOR times fit's own distance
+# from the referee, and so the worst leaf (each leaf's distance over its
+# own update). A loss is one number: each loss within DP2_LOSS_RTOL of the
+# referee's (sound runs read 4.73e-4 at world 2 and 1.54e-4 through fit),
+# and the first, which reads the initial parameters through the forward
+# alone with no backward to amplify roundoff, within DP2_FIRST_LOSS_RTOL
+# (float32 roundoff over ResNet50's 50 layers: about 1e-6). The negative
+# control (the same world-2 steps with each rank's own batch statistics,
+# what a step without global batch norm computes) must break a limit, or
+# the check has no power
+DP2_REFEREE_FACTOR, DP2_LOSS_RTOL, DP2_FIRST_LOSS_RTOL = 3.0, 1e-3, 1e-5
+DP2_BN_CASES = [("res2", 56 * 56, 256, "bfloat16", "relu", True),
+                ("res4", 14 * 14, 1024, "float32", "leakyrelu", True)]
+MP_STEPS = 3             # ParallelWrapper(tensor_parallel=True) steps against fit
+RING_SHAPE = (8, 12, 1024, 64)   # the LM's attention, causal float32
+RING_LIMIT = 1e-5        # of max |v|: flash_attn_fwd's float32 limit
+RING_GRAD_LIMIT = 1e-4   # of each gradient's largest magnitude
+GPIPE_BLOCKS, GPIPE_D, GPIPE_F = 12, 768, 3072   # GPT-2 small's MLP widths
+GPIPE_M, GPIPE_MB, GPIPE_STEPS, GPIPE_LR = 4, 1024, 3, 1e-1
+# the pipeline sums a stage's microbatch gradients in reverse order, the
+# sequential stack in autograd's order: 4 terms, a few units of roundoff
+GPIPE_PARAM_TOL = 1e-6   # of each parameter's largest magnitude
+SPLIT_CASES = [("res2", 401408, 256, "bfloat16", "relu", True),
+               ("res2", 401408, 256, "float32", "identity", False),
+               ("res4", 25088, 1024, "bfloat16", "relu", True),
+               ("res4", 25088, 1024, "float32", "leakyrelu", True),
+               ("ragged", 1001, 130, "float32", "leakyrelu", True),
+               ("ragged", 1001, 130, "bfloat16", "leakyrelu", False)]
+FLEET_TTL_S = 3.0        # replica lease TTL
+FLEET_CLIENTS, FLEET_REQUESTS = 4, 12   # burst: client threads, bodies each
+FLEET_KILL_AFTER = 16    # answered requests before one replica is SIGKILLed
+FLEET_AFTER_S = 2.0      # the burst goes on this long past the killed lease's lapse
+FLEET_HOPS = 15          # sequential 1-row requests, routed and direct, for the hop
+
+
+def _count_collectives(torch):
+    """Wrap nn/data_parallel's all-reduce to time each call after a device
+    sync (the collective's own seconds, not the wait for the step's work);
+    returns (the list of seconds, undo)."""
+    from deeplearning4j_tpu_torch.nn import data_parallel
+
+    inner, spent = data_parallel._all_reduce, []
+
+    def timed(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    data_parallel._all_reduce = timed
+
+    def undo():
+        data_parallel._all_reduce = inner
+
+    return spent, undo
+
+
+def _dp2_batches(torch, dev, n, permuted=False):
+    """``n`` global batches of 2 x 64 images and one-hot labels, drawn on the
+    card from one seed (every process draws the same); ``permuted``: each
+    batch's rows in another order (the same loss and gradients in exact
+    arithmetic, other sums)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    eye = torch.eye(1000, device=dev)
+    out = []
+    for _ in range(n):
+        x = torch.randn((TRAIN_BATCH, TRAIN_SIDE, TRAIN_SIDE, 3), generator=gen, device=dev)
+        y = eye[torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device=dev)]
+        if permuted:
+            order = torch.arange(TRAIN_BATCH, device=dev).roll(TRAIN_BATCH // 2 + 1).flip(0)
+            x, y = x[order], y[order]
+        out.append(DataSet(x, y))
+    return out
+
+
+def _dp2_float32_nets(dev, dtype="float32"):
+    """(unfused, fused) float32 ResNet50 with Sgd DP2_LR, the fused one on
+    the unfused one's parameters; the unfused one computes in ``dtype``."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.perf.fusion import fuse_network
+
+    conf = ResNet50(num_classes=1000, input_shape=(TRAIN_SIDE, TRAIN_SIDE, 3),
+                    updater=Sgd(learning_rate=DP2_LR)).conf()
+    net = ComputationGraph(dataclasses.replace(conf, dtype="float32"), dev).init()
+    fused = fuse_network(net)
+    if dtype != "float32":
+        params, state = net.params, net.state
+        net = ComputationGraph(dataclasses.replace(conf, dtype=dtype), dev)
+        net.set_params(params, state)
+    return net, fused
+
+
+def _dp2_bn_check(torch, dev, rank, world) -> dict:
+    """Each rank's split bn outputs (forward and backward, through the
+    wrappers at world 2) held against the plain versions on the
+    concatenated global batch, from the same global statistics."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn import data_parallel
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    out = {}
+    for case, hw, c, dtype_name, act, residual in DP2_BN_CASES:
+        n = TRAIN_BATCH * hw
+        (z, gamma, beta, res), _, dout = bn_operands(torch, dev, n, c, dtype_name, act,
+                                                     residual)
+        rows = slice(rank * n // world, (rank + 1) * n // world)
+        zr, rr, dr = z[rows], None if res is None else res[rows], dout[rows]
+        calls = bn_act.fwd_split_launches, bn_act.bwd_split_launches
+        with data_parallel.data_group(None, world):
+            fwd = bn_act.bn_act_fwd(act, BN_EPS, zr, gamma, beta, rr)
+            dz, dg, db, dpre = bn_act.bn_act_bwd(act, BN_EPS, zr, gamma, beta, rr, fwd[1],
+                                                 fwd[3], dr)
+        if (bn_act.fwd_split_launches - calls[0], bn_act.bwd_split_launches - calls[1]) != (1, 1):
+            raise AssertionError("data_parallel_world2: the wrappers did not take the split "
+                                 "launches at world 2")
+        sums = torch.stack([dg, db])
+        dist.all_reduce(sums)
+        label = f"world2 rank {rank} {case} {n}x{c} {dtype_name} {act}"
+        p_out, p_mean, p_var, p_inv = bn_act.bn_act_fwd_plain(act, BN_EPS, z, gamma, beta, res)
+        held = hold_bn_fwd(torch, label, (zr, gamma, beta, rr), act, fwd,
+                           (p_out[rows], p_mean, p_var, p_inv))
+        p_dz, p_dg, p_db, p_dpre = bn_act.bn_act_bwd_plain(act, BN_EPS, z, gamma, beta, res,
+                                                           fwd[1], fwd[3], dout)
+        dz_err = hold_bn_bwd(torch, label, (dz, sums[0], sums[1], dpre),
+                             (p_dz[rows], p_dg, p_db, None if p_dpre is None else p_dpre[rows]))
+        out[case] = dict(held, dz_max_abs_err=dz_err, rows=n // world, channels=c,
+                         dtype=dtype_name)
+    return out
+
+
+def _local_sums(*sums, rows: int):
+    """data_parallel.all_reduce_sums without the collective: this rank's
+    sums and row count (the negative control's per-rank statistics)."""
+    import torch
+    return (*sums, torch.full((), float(rows), dtype=sums[0].dtype, device=sums[0].device))
+
+
+def dp2_rank(rank, port, workdir) -> None:
+    """One rank of the data_parallel_world2 phase (run in a worker process
+    of its own on the one card; see data_parallel_world2_phase)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
+    from deeplearning4j_tpu_torch.device import resolve_device
+    from deeplearning4j_tpu_torch.nn import data_parallel
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import ClusterTrainer
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    dev = resolve_device("cuda")
+    ClusterTrainer.initialize(f"tcp://127.0.0.1:{port}", num_processes=2, process_id=rank,
+                              backend="gloo")
+    report = {"rank": rank, "bn_check": _dp2_bn_check(torch, dev, rank, 2)}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    net = _dp2_float32_nets(dev)[1]
+    clock = _StepClock(torch)
+    net.set_listeners(clock)
+    bn_act.fwd_launches = bn_act.bwd_launches = 0
+    bn_act.fwd_split_launches = bn_act.bwd_split_launches = 0
+    data_parallel.all_reduces = 0
+    ClusterTrainer(net).fit(_dp2_batches(torch, dev, DP2_STEPS))
+    report["float32"] = {
+        "losses": [float(v) for v in clock.losses], "step_ms": clock.step_ms(),
+        "state_sha": state_sha(net), "all_reduces": data_parallel.all_reduces,
+        "launches": [bn_act.fwd_launches, bn_act.bwd_launches],
+        "split_launches": [bn_act.fwd_split_launches, bn_act.bwd_split_launches]}
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in _run_record_tensors(net).items()},
+                   os.path.join(workdir, "dp2_float32.pt"))
+    del net
+    # the negative control: the same steps, the bn sums kept on each rank
+    net = _dp2_float32_nets(dev)[1]
+    clock = _StepClock(torch)
+    net.set_listeners(clock)
+    inner = data_parallel.all_reduce_sums
+    data_parallel.all_reduce_sums = _local_sums
+    try:
+        ClusterTrainer(net).fit(_dp2_batches(torch, dev, DP2_STEPS))
+    finally:
+        data_parallel.all_reduce_sums = inner
+    report["control"] = {"losses": [float(v) for v in clock.losses]}
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in _run_record_tensors(net).items()},
+                   os.path.join(workdir, "dp2_control.pt"))
+    del net
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    torch.cuda.empty_cache()
+    net = ComputationGraph(resnet50_train_conf(), dev).init()
+    clock = _StepClock(torch)
+    net.set_listeners(clock)
+    batches = _dp2_batches(torch, dev, 1)
+    ct = ClusterTrainer(net)
+    bn_act.fwd_split_launches = bn_act.bwd_split_launches = 0
+    ct.fit(batches, num_epochs=DP2_WARM + DP2_TIMED)
+    steps = clock.step_ms()[DP2_WARM:]
+    losses = [float(v) for v in clock.losses]
+    split = [bn_act.fwd_split_launches, bn_act.bwd_split_launches]
+    net.set_listeners()
+    bn_act.fwd_split_launches = bn_act.bwd_split_launches = 0
+    spent, undo = _count_collectives(torch)
+    try:
+        ct.fit(batches)
+    finally:
+        undo()
+    report["bfloat16"] = {"losses": losses, "step_ms": steps,
+                          "split_launches": split,
+                          "split_launches_timed": [bn_act.fwd_split_launches,
+                                                   bn_act.bwd_split_launches],
+                          "collective_ms_per_step": 1e3 * sum(spent),
+                          "collectives_per_step": len(spent)}
+    with open(os.path.join(workdir, f"dp2_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _run_record_tensors(net) -> dict:
+    """Every parameter and running-statistics tensor of a network, by path."""
+    from deeplearning4j_tpu_torch.parallel.compress import _leaves
+    return {f"{kind}:{p}": t.detach() for kind, tree in (("params", net.params),
+                                                         ("state", net.state))
+            for p, t in _leaves(tree)}
+
+
+DP2_WORKER = r'''
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.dp2_rank(int(sys.argv[1]), int(sys.argv[2]), {workdir!r})
+'''
+
+
+def data_parallel_world2_phase(torch, dev, card, workdir) -> dict:
+    """ResNet50 (the training phase's, full width) through ClusterTrainer.fit
+    in two processes on the one card, a gloo group of two (gloo all-reduces
+    CUDA tensors through host copies; NCCL refuses two ranks on one device),
+    64 rows a rank of global batches of 128: the bn wrappers take the split
+    launches at world 2, the statistics and the gradient sums going over
+    the ranks.
+    1. Each rank's split bn outputs at res2 (bf16, +res) and res4 (float32,
+       leakyrelu, +res) shapes held against the plain versions on the
+       concatenated global batch (hold_bn_fwd / hold_bn_bwd).
+    2. Float32, cudnn.deterministic, Sgd DP2_LR, DP2_STEPS steps: the
+       world-2 run and ComputationGraph.fit on the global batch in this
+       process both held to a float64 referee (the unfused graph, same
+       parameters, fit): the whole parameter update of the world-2 run,
+       and its worst leaf, within DP2_REFEREE_FACTOR times fit's own
+       distances from it, each loss within DP2_LOSS_RTOL of its and the
+       first within DP2_FIRST_LOSS_RTOL; both ranks end with one state_sha. The same steps with each rank's own
+       batch statistics (the negative control) must break a limit.
+    3. bf16 (Adam 1e-3, as the training phase): step ms at world 2 against
+       fit's in this process, and one step with each collective timed after
+       a device sync (gloo's share of the step).
+    53 split forward and 53 split backward calls a step on each rank."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    t_phase = time.perf_counter()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name in ("fit", "referee"):
+            unfused, fused = _dp2_float32_nets(dev, "float64" if name == "referee" else
+                                               "float32")
+            net = unfused if name == "referee" else fused
+            p0 = {k: v.clone() for k, v in _run_record_tensors(fused).items()}
+            del unfused, fused
+            clock = _StepClock(torch)
+            net.set_listeners(clock)
+            net.fit(_dp2_batches(torch, dev, DP2_STEPS))
+            if name == "referee":
+                from deeplearning4j_tpu_torch.perf.fusion import fuse_network
+                net = fuse_network(net)  # the fused layout, to compare
+            runs[name] = {"losses": [float(v) for v in clock.losses],
+                          "step_ms": clock.step_ms(),
+                          "params": {k: v.clone() for k, v in _run_record_tensors(net).items()}}
+            del net
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    ref_losses, ref_f32_ms = runs["fit"]["losses"], runs["fit"]["step_ms"]
+    net = ComputationGraph(resnet50_train_conf(), dev).init()
+    clock = _StepClock(torch)
+    net.set_listeners(clock)
+    net.fit(_dp2_batches(torch, dev, 1), num_epochs=DP2_WARM + DP2_TIMED)
+    fit_bf16_ms = clock.step_ms()[DP2_WARM:]
+    del net
+    torch.cuda.empty_cache()
+
+    prog = DP2_WORKER.format(root=os.path.dirname(os.path.abspath(__file__)), workdir=workdir)
+    port = _free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(workdir, f"dp2_rank{r}.log"), "w") for r in (0, 1)]
+    procs = [subprocess.Popen([sys.executable, "-c", prog, str(r), str(port)], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in (0, 1)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    workers_s = time.perf_counter() - t0
+    if any(rcs):
+        tails = [open(os.path.join(workdir, f"dp2_rank{r}.log")).read()[-3000:] for r in (0, 1)]
+        raise AssertionError(f"data_parallel_world2: workers exited {rcs}:\n" + "\n".join(tails))
+    reps = [json.load(open(os.path.join(workdir, f"dp2_rank{r}.json"))) for r in (0, 1)]
+    f32 = [r["float32"] for r in reps]
+    if f32[0]["state_sha"] != f32[1]["state_sha"]:
+        raise AssertionError("data_parallel_world2: the ranks' state_sha differ")
+    got = torch.load(os.path.join(workdir, "dp2_float32.pt"))
+    control = torch.load(os.path.join(workdir, "dp2_control.pt"))
+    referee = runs["referee"]
+
+    def loss_err(losses, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+
+    def update_err(params, want):
+        """|params - want's| over |want's update|, all tensors as one vector."""
+        num = sum(float((params[k].to(dev) - want[k]).double().norm()) ** 2 for k in want)
+        den = sum(float((want[k] - p0[k]).double().norm()) ** 2 for k in want)
+        return (num / den) ** 0.5
+
+    def leaf_err(params, want):
+        """The worst leaf's |params - want's| over |want's update|, and its path."""
+        worst = (0.0, None)
+        for k in want:
+            num = float((params[k].to(dev) - want[k]).double().norm())
+            den = float((want[k] - p0[k]).double().norm())
+            e = num / den if den else (float("inf") if num else 0.0)
+            if e > worst[0]:
+                worst = (e, k)
+        return worst
+
+    errs, worst_leaf = {}, {}
+    for run, losses, params in (("world2", f32[0]["losses"], got),
+                                ("fit", ref_losses, runs["fit"]["params"]),
+                                ("control", reps[0]["control"]["losses"], control)):
+        worst_leaf[run] = leaf_err(params, referee["params"])
+        errs[run] = {"loss": loss_err(losses, referee["losses"]),
+                     "first_loss": loss_err(losses[:1], referee["losses"]),
+                     "update": update_err(params, referee["params"]),
+                     "leaf": worst_leaf[run][0]}
+    limits = {"loss": DP2_LOSS_RTOL, "first_loss": DP2_FIRST_LOSS_RTOL,
+              "update": DP2_REFEREE_FACTOR * errs["fit"]["update"],
+              "leaf": DP2_REFEREE_FACTOR * errs["fit"]["leaf"]}
+    between = {"loss": loss_err(f32[0]["losses"], ref_losses),
+               "update": update_err(got, runs["fit"]["params"])}
+    rejects = {k: errs["control"][k] > limits[k] for k in limits}
+    if len(f32[0]["losses"]) != DP2_STEPS or any(errs["world2"][k] > limits[k] for k in limits):
+        raise AssertionError(f"data_parallel_world2: losses {f32[0]['losses']} at world 2, "
+                             f"{ref_losses} through fit, {referee['losses']} the float64 "
+                             f"referee; distances from the referee {errs} (worst leaves "
+                             f"{worst_leaf}), limits {limits}")
+    if not any(rejects.values()):
+        raise AssertionError(f"data_parallel_world2: the limits {limits} admit the per-rank "
+                             f"statistics control {errs['control']}")
+    launches = {"fwd": 0, "bwd": 0}
+    for r in reps:
+        steps = DP2_STEPS
+        split = r["float32"]["split_launches"]
+        if split != [RESNET50_FUSED_BLOCKS * steps] * 2 or r["float32"]["launches"] != split:
+            raise AssertionError(f"data_parallel_world2: rank {r['rank']} made {split} split "
+                                 f"calls in {steps} steps; want 53 each a step")
+        bsplit = r["bfloat16"]["split_launches"]
+        timed = r["bfloat16"]["split_launches_timed"]
+        if (bsplit != [RESNET50_FUSED_BLOCKS * (DP2_WARM + DP2_TIMED)] * 2
+                or timed != [RESNET50_FUSED_BLOCKS] * 2):
+            raise AssertionError(f"data_parallel_world2: rank {r['rank']} made {bsplit} bf16 "
+                                 f"split calls, then {timed} in the collective-timed step")
+        launches["fwd"] += split[0] + bsplit[0] + timed[0]
+        launches["bwd"] += split[1] + bsplit[1] + timed[1]
+    step_w2 = float(np.median(reps[0]["bfloat16"]["step_ms"]))
+    out = {"card": card, "world": 2, "backend": "gloo", "rows_per_rank": TRAIN_BATCH // 2,
+           "float32": {"steps": DP2_STEPS, "losses_world2": f32[0]["losses"],
+                       "losses_fit": ref_losses, "losses_float64": referee["losses"],
+                       "from_referee": errs, "worst_leaf": worst_leaf, "limits": limits,
+                       "control_rejected_by": rejects,
+                       "losses_control": reps[0]["control"]["losses"],
+                       "world2_from_fit": between,
+                       "step_ms_float64_referee": referee["step_ms"],
+                       "state_sha_equal": True, "step_ms_world2": f32[0]["step_ms"],
+                       "step_ms_fit": ref_f32_ms,
+                       "all_reduces": f32[0]["all_reduces"]},
+           "bfloat16": {"step_ms_world2": step_w2,
+                        "step_ms_world2_rank1": float(np.median(reps[1]["bfloat16"]["step_ms"])),
+                        "step_ms_fit": float(np.median(fit_bf16_ms)),
+                        "collective_ms_per_step": reps[0]["bfloat16"]["collective_ms_per_step"],
+                        "collectives_per_step": reps[0]["bfloat16"]["collectives_per_step"],
+                        "gloo_share_of_step": reps[0]["bfloat16"]["collective_ms_per_step"]
+                        / step_w2, "losses": reps[0]["bfloat16"]["losses"]},
+           "bn_check": {f"rank{r['rank']}": r["bn_check"] for r in reps},
+           "split_launches_per_rank": {"float32": f32[0]["split_launches"],
+                                       "bfloat16": reps[0]["bfloat16"]["split_launches"],
+                                       "bfloat16_timed":
+                                           reps[0]["bfloat16"]["split_launches_timed"]},
+           "workers_s": workers_s, "seconds": time.perf_counter() - t_phase}
+    print("data_parallel_world2 " + json.dumps(out), flush=True)
+    return launches
+
+
+def _split_times(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
+    """The four split entries against the one launch at one shape: the
+    composite split calls held against the one launch (bitwise where the
+    reduction order is shared: every bf16 output and every backward output;
+    float32 statistics against the plain version, hold_bn_fwd), each entry,
+    the split calls, the one launch (previous_ms), the plain versions and
+    F.batch_norm + act timed, beside the bound."""
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    (z, gamma, beta, res), one, dout = bn_operands(torch, dev, n, c, dtype_name, act,
+                                                   residual)
+    label = f"split {case} {n}x{c} {dtype_name} {act}{' +res' if residual else ''}"
+    args = (act, BN_EPS, z, gamma, beta, res)
+    spl = bn_act.bn_act_fwd_split(*args)
+    bargs = (act, BN_EPS, z, gamma, beta, res, one[1], one[3], dout)
+    bone, bspl = bn_act.bn_act_bwd(*bargs), bn_act.bn_act_bwd_split(*bargs)
+    torch.cuda.synchronize()
+    plain = bn_act.bn_act_fwd_plain(*args)
+    if dtype_name == "float32":
+        held = hold_bn_fwd(torch, label, (z, gamma, beta, res), act, spl, plain)
+    else:
+        if not all(torch.equal(a, b) for a, b in zip(one, spl)):
+            raise AssertionError(f"{label}: the split forward differs from the one launch")
+        held = {"max_abs_err": _max_err(spl[0], plain[0])}
+    if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(bone, bspl)):
+        raise AssertionError(f"{label}: the split backward differs from the one launch")
+    bwd_err = hold_bn_bwd(torch, label, bspl, bn_act.bn_act_bwd_plain(*bargs))
+    has_res = res is not None
+    n_rows = torch.full((1,), float(n), dtype=torch.float32, device=z.device)
+    if dtype_name == "float32":
+        gsum = bn_act.bn_fwd_sums(act, z, has_res, 1)
+        gsq = bn_act.bn_fwd_sums(act, z, has_res, 2, gsum, n_rows)
+        sums = {"fwd_sums_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(act, z, has_res, 1),
+                                       flush),
+                "fwd_sums_centered_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(
+                    act, z, has_res, 2, gsum, n_rows), flush)}
+    else:
+        sq = bn_act.bn_fwd_sums(act, z, has_res, 0)
+        gsum, gsq = sq[:c], sq[c:]
+        sums = {"fwd_sums_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(act, z, has_res, 0),
+                                       flush)}
+    gg, gb, _ = bn_act.bn_bwd_sums(act, z, gamma, beta, res, one[1], one[3], dout)
+    entries = dict(sums, fwd_apply_ms=time_ms(torch, lambda: bn_act.bn_fwd_apply(
+        act, BN_EPS, z, gamma, beta, res, gsum, gsq, n_rows), flush),
+        bwd_sums_ms=time_ms(torch, lambda: bn_act.bn_bwd_sums(
+            act, z, gamma, beta, res, one[1], one[3], dout), flush),
+        bwd_dz_ms=time_ms(torch, lambda: bn_act.bn_bwd_dz(
+            act, z, gamma, beta, res, one[1], one[3], dout, gg, gb, n_rows), flush))
+    lib = _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout)
+    esize = z.element_size()
+    row = {"case": case, "rows": n, "channels": c, "dtype": dtype_name, "act": act,
+           "residual": residual, "entries": entries}
+    for kind, split_fn, one_fn, plain_fn, tensors, err in (
+            ("fwd", lambda: bn_act.bn_act_fwd_split(*args), lambda: bn_act.bn_act_fwd(*args),
+             lambda: bn_act.bn_act_fwd_plain(*args), 3 if residual else 2,
+             held["max_abs_err"]),
+            ("bwd", lambda: bn_act.bn_act_bwd_split(*bargs), lambda: bn_act.bn_act_bwd(*bargs),
+             lambda: bn_act.bn_act_bwd_plain(*bargs), 5 if residual else 3, bwd_err)):
+        bound_ms, bound_by = bn_bound(n, c, esize, tensors, BN_OPS_PER_ELT[kind])
+        row[kind] = {"ms": time_ms(torch, split_fn, flush), "host_ms": host_ms(torch, split_fn),
+                     "previous_ms": time_ms(torch, one_fn, flush),
+                     "plain_ms": time_ms(torch, plain_fn, flush), "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib[kind], "max_abs_err": err}
+    row["bitwise_vs_one_launch"] = ("backward" if dtype_name == "float32"
+                                    else "forward and backward")
+    print("bn_split " + json.dumps(row), flush=True)
+    return row
+
+
+def _ring_check(torch, dev, flush) -> dict:
+    """ring_self_attention and ulysses_self_attention at one rank at the
+    LM's causal float32 shape against reference_attention and the flash
+    kernel (within RING_LIMIT of max |v|), the ring's and Ulysses'
+    gradients against the reference's (RING_GRAD_LIMIT of each gradient's
+    largest magnitude), each timed."""
+    from deeplearning4j_tpu_torch.parallel import (flash_self_attention, reference_attention,
+                                                   ring_self_attention, ulysses_self_attention)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(191)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=dev) for _ in range(3))
+    g = torch.randn(RING_SHAPE, generator=gen, device=dev)
+    vmax = float(v.abs().max())
+    ref = reference_attention(q, k, v, causal=True)
+    flash = flash_self_attention(q, k, v, causal=True)
+    out = {"shape": list(RING_SHAPE), "causal": True, "dtype": "float32",
+           "limit_of_max_v": RING_LIMIT}
+    for name, fn in (("ring", ring_self_attention), ("ulysses", ulysses_self_attention)):
+        got = fn(q, k, v, causal=True)
+        errs = {"vs_reference": _max_err(got, ref), "vs_flash": _max_err(got, flash)}
+        if max(errs.values()) > RING_LIMIT * vmax:
+            raise AssertionError(f"model_parallel: {name} {errs} against a limit of "
+                                 f"{RING_LIMIT * vmax}")
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads = torch.autograd.grad(fn(*leaves, causal=True), leaves, g)
+        rleaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        rgrads = torch.autograd.grad(reference_attention(*rleaves, causal=True), rleaves, g)
+        gerr = max(_max_err(a, b) / float(b.abs().max()) for a, b in zip(grads, rgrads))
+        if gerr > RING_GRAD_LIMIT:
+            raise AssertionError(f"model_parallel: {name} gradients {gerr} of the largest "
+                                 "magnitude from the reference's")
+        del leaves, grads, rleaves, rgrads
+        out[name] = dict(errs, grad_err_of_max=gerr, ms=time_ms(
+            torch, lambda fn=fn: fn(q, k, v, causal=True), flush, reps=5, warm=1))
+    out["reference_ms"] = time_ms(torch, lambda: reference_attention(q, k, v, causal=True),
+                                  flush, reps=5, warm=1)
+    out["flash_ms"] = time_ms(torch, lambda: flash_self_attention(q, k, v, causal=True), flush,
+                              reps=5, warm=1)
+    return out
+
+
+def _gpipe_check(torch, dev) -> dict:
+    """GPipeTrainer at one stage on a stack of GPIPE_BLOCKS residual MLP
+    blocks of GPT-2 small's widths (d -> 4d -> d, GELU), GPIPE_STEPS Sgd
+    steps on GPIPE_M microbatches, against the same steps of the sequential
+    stack under autograd: the outputs bitwise, the losses within rtol 1e-6
+    and every parameter within GPIPE_PARAM_TOL of its largest magnitude."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.optimize.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import (GPipeTrainer, make_pipeline_mesh,
+                                                   pipeline_apply)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(192)
+    L, d, f = GPIPE_BLOCKS, GPIPE_D, GPIPE_F
+
+    def draw(*shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # GPT-2's initialisation: the residual branch's projection scaled by
+    # 1/sqrt(2 L), so the stack starts near the identity; the target, half
+    # the input, is learnable
+    stacked = {"W1": draw(1, L, d, f, scale=0.02), "b1": draw(1, L, f, scale=0.02),
+               "W2": draw(1, L, f, d, scale=0.02 / (2 * L) ** 0.5),
+               "b2": draw(1, L, d, scale=0.02)}
+    xs = draw(GPIPE_M, GPIPE_MB, d, scale=1.0)
+    ys = 0.5 * xs
+
+    def block_fn(p, x):
+        for i in range(L):
+            x = x + F.gelu(x @ p["W1"][i] + p["b1"][i]) @ p["W2"][i] + p["b2"][i]
+        return x
+
+    def loss_fn(pred, y):
+        return torch.mean((pred - y) ** 2)
+
+    mesh = make_pipeline_mesh(1, device=dev)
+    tr = GPipeTrainer(block_fn, loss_fn, Sgd(GPIPE_LR), mesh)
+    params = tr.place(stacked)
+    fwd = pipeline_apply(block_fn, params, xs, mesh)
+    seq_fwd = torch.stack([block_fn({k: a[0] for k, a in params.items()}, x) for x in xs])
+    if not torch.equal(fwd, seq_fwd):
+        raise AssertionError("model_parallel: GPipe's one-stage output differs from the "
+                             "sequential stack's")
+    opt = tr.init_opt(params)
+    upd = Sgd(GPIPE_LR)
+    seq = {k: a.clone() for k, a in params.items()}
+    seq_opt = upd.init_state(seq)
+    losses, seq_losses, step_ms = [], [], []
+    for _ in range(GPIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = tr.step(params, opt, xs, ys)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        leaves = {k: a.detach().requires_grad_(True) for k, a in seq.items()}
+        sl = torch.stack([loss_fn(block_fn({k: a[0] for k, a in leaves.items()}, x), y)
+                          for x, y in zip(xs, ys)]).mean()
+        grads = dict(zip(leaves, torch.autograd.grad(sl, list(leaves.values()))))
+        ups, seq_opt = upd.update(grads, seq_opt)
+        seq = {k: (seq[k] + ups[k]).detach() for k in seq}
+        losses.append(float(loss))
+        seq_losses.append(float(sl.detach()))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, seq_losses))
+    perr = max(_max_err(params[k], seq[k]) / float(seq[k].abs().max()) for k in seq)
+    if loss_err > 1e-6 or perr > GPIPE_PARAM_TOL or not losses[-1] < losses[0]:
+        raise AssertionError(f"model_parallel: GPipe losses {losses} against {seq_losses}, "
+                             f"parameters {perr} of their largest magnitude")
+    return {"stages": 1, "blocks": L, "widths": [d, f, d], "microbatches": GPIPE_M,
+            "rows_per_microbatch": GPIPE_MB, "steps": GPIPE_STEPS, "losses": losses,
+            "loss_max_rel_err": loss_err, "param_max_err_of_max": perr,
+            "param_limit": GPIPE_PARAM_TOL, "forward_bitwise": True,
+            "step_ms": float(np.median(step_ms))}
+
+
+def model_parallel_phase(torch, dev, card, flush) -> tuple:
+    """Model and sequence parallelism at one rank, in an NCCL group of one
+    that the phase starts (one card: NCCL refuses two ranks on one device;
+    across ranks they are tested on the CPU over gloo):
+    1. ResNet50 (bf16, fused, Adam, cudnn.deterministic) through
+       ParallelWrapper(tensor_parallel=True) on a (1, 1) mesh, MP_STEPS
+       batches of 128: parameters, running stats, Adam state and state_sha
+       bitwise ComputationGraph.fit's; 53 + 53 bn launches a step (the one
+       launch at world 1);
+    2. ring_self_attention and ulysses_self_attention (_ring_check);
+    3. GPipeTrainer at one stage (_gpipe_check);
+    4. the four split bn entries against the one launch at SPLIT_CASES
+       (_split_times).
+    Returns the bn launches of step 1 and the split rows."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.checkpoint.sharded import state_sha
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    t_phase = time.perf_counter()
+    conf = resnet50_train_conf()
+    batches = ckpt_batches(torch, dev)[:MP_STEPS]
+    out = {"card": card}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        net = ComputationGraph(conf, dev).init()
+        net.fit(batches)
+        ref, ref_sha = _run_record(net), state_sha(net)
+        del net
+        torch.cuda.empty_cache()
+        net = ComputationGraph(conf, dev).init()
+        clock = _StepClock(torch)
+        net.set_listeners(clock)
+        pw = ParallelWrapper(net, mesh=make_mesh(tp=1, device=dev), tensor_parallel=True)
+        bn_act.fwd_launches = bn_act.bwd_launches = 0
+        pw.fit(batches)
+        launches = {"fwd": bn_act.fwd_launches, "bwd": bn_act.bwd_launches}
+        diff = _differences(ref, _run_record(net))
+        if diff or state_sha(net) != ref_sha:
+            raise AssertionError(f"model_parallel: ParallelWrapper(tensor_parallel=True) "
+                                 f"differs from fit in {len(diff)} arrays: {diff[:8]}")
+        if not launches["fwd"] == launches["bwd"] == RESNET50_FUSED_BLOCKS * MP_STEPS:
+            raise AssertionError(f"model_parallel: bn launches {launches} in {MP_STEPS} steps")
+        out["tensor_parallel"] = {"mesh": pw.mesh.shape, "steps": MP_STEPS,
+                                  "bitwise_vs_fit": True, "compared_arrays": len(ref["arrays"]),
+                                  "step_ms": float(np.median(clock.step_ms()[1:])),
+                                  "bn_act_launches": launches}
+        del net, pw
+        torch.cuda.empty_cache()
+        out["sequence_parallel"] = _ring_check(torch, dev, flush)
+        torch.cuda.empty_cache()
+        out["gpipe"] = _gpipe_check(torch, dev)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    rows = [_split_times(torch, dev, flush, *case) for case in SPLIT_CASES]
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print("model_parallel " + json.dumps(out), flush=True)
+    return launches, rows
+
+
+FLEET_REPLICA = r'''
+import json, os, signal, sys, threading
+sys.path.insert(0, {root!r})
+from deeplearning4j_tpu_torch.fleet.replica import restore_and_serve
+from deeplearning4j_tpu_torch.perf.kernels import int4_dot
+
+rid = sys.argv[1]
+report = os.path.join({workdir!r}, rid + ".json")
+done = threading.Event()
+signal.signal(signal.SIGTERM, lambda *a: done.set())
+
+
+def write():
+    with open(report + ".tmp", "w") as f:
+        json.dump({{"int4_dot": int4_dot.launches}}, f)
+    os.replace(report + ".tmp", report)
+
+
+rep = restore_and_serve({store!r}, [("vgg16", {ckpt!r})], replica_id=rid, ttl_s={ttl},
+                        weight_bits=4, batch_limit={batch_limit},
+                        default_deadline_ms={deadline}, wait_ready_s=600)
+print("ready", rid, rep.address, flush=True)
+while not done.wait(0.1):
+    write()
+rep.stop(drain_timeout_s=30)
+write()
+'''
+
+
+def fleet_phase(torch, dev, card, net, rec, workdir) -> dict:
+    """Two replicas of the serving fleet, each a restore_and_serve
+    subprocess on the card, serve the int4 VGG16 of the model_server phase
+    (its float32 weights and calibration record in one checkpoint, served
+    with 4-bit weights) behind a FleetRouter in this process:
+    1. a burst of predicts (FLEET_CLIENTS client threads, each cycling
+       through FLEET_REQUESTS bodies of 1-4 rows, float32 b64 frames)
+       through the router; one replica is SIGKILLed after FLEET_KILL_AFTER
+       answers, and the burst goes on FLEET_AFTER_S past its lease's
+       lapse. Every answer's body equals, byte for byte, the body the
+       surviving replica gives the same request directly; some answers
+       after the lapse and none of them but a 200 (typed sheds before,
+       counted);
+    2. FLEET_HOPS one-row predicts routed and direct, one at a time: the
+       router hop's p50 overhead;
+    3. each replica's int4_dot launches (its report file, written every 0.1
+       s; the killed one's up to its last write)."""
+    import signal
+
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.fleet import FleetRouter, FleetView
+    from deeplearning4j_tpu_torch.serving.wire import encode_array
+
+    t_phase = time.perf_counter()
+    ckpt, store = os.path.join(workdir, "vgg16_ckpt"), os.path.join(workdir, "leases")
+    os.makedirs(store)
+    net._quant_calibration = rec
+    try:
+        CheckpointManager(ckpt, async_write=False, device=dev).save(net)
+    finally:
+        del net._quant_calibration
+    prog = FLEET_REPLICA.format(root=os.path.dirname(os.path.abspath(__file__)),
+                                workdir=workdir, store=store, ckpt=ckpt, ttl=FLEET_TTL_S,
+                                batch_limit=MS_BATCH_LIMIT, deadline=MS_DEADLINE_MS)
+    rids = ["rep0", "rep1"]
+    logs = {r: open(os.path.join(workdir, f"{r}.log"), "w") for r in rids}
+    t0 = time.perf_counter()
+    procs = {r: subprocess.Popen([sys.executable, "-c", prog, r], stdout=logs[r],
+                                 stderr=subprocess.STDOUT) for r in rids}
+    router = FleetRouter(FleetView(store, ttl_s=FLEET_TTL_S), refresh_s=0.1, seed=0,
+                         request_timeout_s=120).start()
+    out = {"card": card, "replicas": len(rids), "weight_bits": 4, "ttl_s": FLEET_TTL_S}
+    try:
+        def tails():
+            return "\n".join(open(os.path.join(workdir, f"{r}.log")).read()[-2000:]
+                             for r in rids)
+
+        deadline = time.monotonic() + 300
+        while len(router.table()) < len(rids):
+            if time.monotonic() > deadline or any(p.poll() is not None for p in procs.values()):
+                raise AssertionError("fleet: the replicas did not become ready:\n" + tails())
+            time.sleep(0.1)
+        out["replicas_ready_s"] = time.perf_counter() - t0
+        table = router.table()
+        direct = {r: table[r].address for r in rids}
+        rng = np.random.default_rng(19)
+        bodies = [encode_array(rng.standard_normal((int(rng.integers(1, 5)), VGG_SIDE,
+                                                    VGG_SIDE, 3), dtype=np.float32))
+                  for _ in range(FLEET_CLIENTS * FLEET_REQUESTS)]
+        answers, lock = [], threading.Lock()
+        killed = {}
+
+        def client(cid):
+            # each client cycles through its bodies until the killed
+            # replica's lease has been lapsed FLEET_AFTER_S
+            i = 0
+            while True:
+                with lock:
+                    done = ("at" in killed and i >= FLEET_REQUESTS and time.perf_counter()
+                            > killed["at"] + FLEET_TTL_S + FLEET_AFTER_S)
+                if done or i >= 50 * FLEET_REQUESTS:
+                    return
+                j = cid * FLEET_REQUESTS + i % FLEET_REQUESTS
+                data = json.dumps(bodies[j]).encode()
+                t = time.perf_counter()
+                code, raw = _raw_post(router.address, "/v1/models/vgg16:predict", data)
+                with lock:
+                    answers.append((j, code, raw, t, time.perf_counter()))
+                    if len(answers) == FLEET_KILL_AFTER and not killed:
+                        procs["rep1"].send_signal(signal.SIGKILL)
+                        killed["at"] = time.perf_counter()
+                i += 1
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(FLEET_CLIENTS)]
+        t_burst = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        burst_s = time.perf_counter() - t_burst
+        if not killed or any(t.is_alive() for t in threads):
+            raise AssertionError(f"fleet: {len(answers)} answers, killed {killed}")
+        procs["rep1"].wait(timeout=60)
+        lapsed = killed["at"] + FLEET_TTL_S
+        after = [code for _, code, _, t, _ in answers if t >= lapsed]
+        before = [code for _, code, _, t, _ in answers if t < lapsed]
+        if not after or any(code != 200 for code in after):
+            raise AssertionError(f"fleet: answers after the lease lapsed {after}")
+        if any(code not in (200, 429, 503) for code in before):
+            raise AssertionError(f"fleet: answers during the lease's lapse {before}")
+        # every routed answer byte for byte the survivor's direct answer
+        direct_bodies = {}
+        for j, code, raw, _, _ in answers:
+            if code != 200:
+                continue
+            if j not in direct_bodies:
+                direct_bodies[j] = _raw_post(direct["rep0"], "/v1/models/vgg16:predict",
+                                             json.dumps(bodies[j]).encode())
+            dcode, draw = direct_bodies[j]
+            if dcode != 200 or draw != raw:
+                raise AssertionError(f"fleet: request {j}: the routed body differs from the "
+                                     f"direct one ({dcode})")
+        one = json.dumps(encode_array(rng.standard_normal((1, VGG_SIDE, VGG_SIDE, 3),
+                                                          dtype=np.float32))).encode()
+        hops = {"routed": [], "direct": []}
+        for _ in range(FLEET_HOPS):
+            for kind, base in (("routed", router.address), ("direct", direct["rep0"])):
+                t = time.perf_counter()
+                code, _ = _raw_post(base, "/v1/models/vgg16:predict", one)
+                if code != 200:
+                    raise AssertionError(f"fleet: a {kind} one-row predict answered {code}")
+                hops[kind].append((time.perf_counter() - t) * 1e3)
+        lat = [(e - s) * 1e3 for _, code, _, s, e in answers if code == 200]
+        out.update(burst={"requests": len(answers), "ok": sum(c == 200 for _, c, _, _, _ in
+                                                              answers),
+                          "non_200_before_lapse": sum(c != 200 for c in before),
+                          "answers_after_lapse": len(after), "wall_s": burst_s,
+                          "p50_ms": float(np.median(lat)), "p99_ms": float(np.percentile(lat,
+                                                                                          99)),
+                          "bodies_equal_direct": True},
+                   hop={"routed_p50_ms": float(np.median(hops["routed"])),
+                        "direct_p50_ms": float(np.median(hops["direct"])),
+                        "overhead_p50_ms": float(np.median(hops["routed"])
+                                                 - np.median(hops["direct"]))},
+                   router_retries=router._m_retries.value)
+    finally:
+        router.stop()
+        for r, p in procs.items():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for r, p in procs.items():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+    launches = {}
+    for r in rids:
+        path = os.path.join(workdir, f"{r}.json")
+        launches[r] = json.load(open(path))["int4_dot"] if os.path.exists(path) else 0
+    if launches["rep0"] <= 0:
+        raise AssertionError(f"fleet: the surviving replica launched int4_dot {launches}")
+    out.update(int4_dot_launches=launches, seconds=time.perf_counter() - t_phase)
+    print("fleet " + json.dumps(out), flush=True)
+    return sum(launches.values())
+
+
+def _raw_post(base, path, data, timeout=600):
+    """(status, raw body) of one POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
 PHASE_SECONDS = {}
 
 
@@ -7464,6 +8399,11 @@ def main() -> int:
     families = _run(layer_families_phase, torch, dev)
     ms_launches, vgg_fp32, vgg_rec = _run(model_server_phase, torch, dev, card, kept)
     swap_launches = _run(hot_swap_phase, torch, dev, card, vgg_fp32, vgg_rec)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        fleet_launches = _run(fleet_phase, torch, dev, card, vgg_fp32, vgg_rec, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     del vgg_fp32
     torch.cuda.empty_cache()
     _run(decode_phase, torch, dev, card)
@@ -7496,6 +8436,13 @@ def main() -> int:
         elastic = _run(elastic_phase, torch, dev, card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp2_")
+    try:
+        dp2 = _run(data_parallel_world2_phase, torch, dev, card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    mp, split_rows = _run(model_parallel_phase, torch, dev, card, flush)
     bn_launches = {kind: {"training": n, "checkpoint": ckpt[kind],
                           "checkpoint_overhead": overhead[kind], "yolo_training": yolo[kind],
                           "facenet_training": facenet[kind], "zoo": zoo[kind],
@@ -7504,7 +8451,8 @@ def main() -> int:
                           "transfer_learning": tl_launches[kind],
                           "fit_featurized": featurized[kind],
                           "cloud_checkpoint": cloud[kind], "supervised": supervised[kind],
-                          **par_launches[kind], "elastic": elastic[kind]}
+                          **par_launches[kind], "elastic": elastic[kind],
+                          "data_parallel_world2": dp2[kind], "model_parallel": mp[kind]}
                    for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
@@ -7525,13 +8473,14 @@ def main() -> int:
         # behind ModelServer before and after a hot swap, and LeNet's int4
         # layers under the quantization gate
         "launches": (launches + served["int4"]["launches"] + ms_launches["int4_dot"]
-                     + swap_launches["int4_dot"] + gates["int4_dot"]),
+                     + swap_launches["int4_dot"] + gates["int4_dot"] + fleet_launches),
         "launches_by_path": {"vgg16_serving": launches,
                              "retrieval_int4": served["int4"]["launches"],
                              "model_server": ms_launches["int4_dot"],
                              "hot_swap": swap_launches["int4_dot"],
                              "ivf": ivf_launches["int4_dot"],
-                             "lenet_gates": gates["int4_dot"]},
+                             "lenet_gates": gates["int4_dot"],
+                             "fleet": fleet_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1] + int4_retr + gates["rows"]),
         "ms": fc1["ms"], "host_ms": fc1["host_ms"], "previous_ms": fc1["previous_ms"],
         "plain_ms": fc1["plain_ms"],
@@ -7542,8 +8491,8 @@ def main() -> int:
         "retrieval_batches": [{k: r[k] for k in INT4_KEYS} for r in int4_retr
                               if r is not int4_head],
         "lenet_shapes": [{k: r[k] for k in INT4_KEYS} for r in gates["rows"]]},
-        _bn_kernel_entry("bn_act_fwd", bn_rows, bn_launches["fwd"]),
-        _bn_kernel_entry("bn_act_bwd", bn_rows, bn_launches["bwd"]),
+        _bn_kernel_entry("bn_act_fwd", bn_rows, bn_launches["fwd"], split_rows),
+        _bn_kernel_entry("bn_act_bwd", bn_rows, bn_launches["bwd"], split_rows),
         _adc_kernel_entry("adc_pq", pq_rows, {
             "retrieval_pq": served["pq"]["launches"], "model_server": ms_launches["adc_pq"],
             "hot_swap": swap_launches["adc_pq"], "ivf": ivf_launches["adc_pq"]}, 59),

@@ -27,7 +27,12 @@ Ported so far:
   float32 masters), with the attention in the flash kernels: forward
   ``csrc/flash_attn_fwd.cu``, backward ``csrc/flash_attn_bwd_dkv.cu`` and
   ``csrc/flash_attn_bwd_dq.cu``, behind a ``torch.autograd.Function``
-  (``perf/kernels/flash_attention.py``).
+  (``perf/kernels/flash_attention.py``);
+- parallelism (``parallel/``): data-parallel, tensor-parallel, pipelined
+  and elastic training over ``torch.distributed``, ring and Ulysses
+  attention; at a data world above 1 the bn kernels run as split launches
+  around the all-reduce; the serving fleet (``fleet/``) routes over
+  replicas of ``ModelServer``.
 """
 
 from deeplearning4j_tpu_torch.nn.conf import (InputType, MultiLayerConfiguration,

@@ -287,14 +287,16 @@ class CheckpointManager:
                 "others and desync the checkpoint barrier; use save_every_n_steps")
         return (time.monotonic() - self._last_save_t) >= self.save_every_secs
 
-    def step_end(self, model, batch_in_epoch: Optional[int] = None):
-        """Called by ``fit`` after every optimizer step (``model.iteration``
-        already incremented). ``batch_in_epoch`` is the number of batches
-        consumed so far in the CURRENT epoch — what exact-step resume skips."""
+    def save_due(self, model, epoch_end: bool = False) -> bool:
+        """Whether :meth:`step_end` (:meth:`epoch_end` with ``epoch_end``)
+        would save ``model`` now. A caller that readies the model for a
+        save only when one comes (tensor parallelism gathers its slices)
+        asks first and passes the answer on as ``due``, so the time
+        trigger is read once."""
         if self._fenced_model is not None and model is not self._fenced_model:
-            return  # stale thread: must not touch triggers or resume state
-        if batch_in_epoch is not None:
-            self._batch_in_epoch = int(batch_in_epoch)
+            return False
+        if epoch_end:
+            return self.save_every_secs is not None and self._secs_trigger_due()
         n = self.save_every_n_steps
         # threshold, not exact modulo: tbptt batches advance iteration by
         # SEVERAL windows per step_end, so `iteration % n == 0` would fire
@@ -302,16 +304,29 @@ class CheckpointManager:
         due = bool(n) and (model.iteration - self._last_save_step) >= n
         if not due and self.save_every_secs is not None:
             due = self._secs_trigger_due()
-        if due:
+        return due
+
+    def step_end(self, model, batch_in_epoch: Optional[int] = None,
+                 due: Optional[bool] = None):
+        """Called by ``fit`` after every optimizer step (``model.iteration``
+        already incremented). ``batch_in_epoch`` is the number of batches
+        consumed so far in the CURRENT epoch — what exact-step resume skips.
+        ``due``: :meth:`save_due`'s answer, when the caller asked first."""
+        if self._fenced_model is not None and model is not self._fenced_model:
+            return  # stale thread: must not touch triggers or resume state
+        if batch_in_epoch is not None:
+            self._batch_in_epoch = int(batch_in_epoch)
+        if self.save_due(model) if due is None else due:
             self.save(model)
 
-    def epoch_end(self, model):
+    def epoch_end(self, model, due: Optional[bool] = None):
         """Epoch boundary: resume state resets to batch 0 of the (already
-        incremented) next epoch; the time trigger may still fire."""
+        incremented) next epoch; the time trigger may still fire. ``due``
+        as for :meth:`step_end`."""
         if self._fenced_model is not None and model is not self._fenced_model:
             return  # stale thread: must not touch triggers or resume state
         self._batch_in_epoch = 0
-        if self.save_every_secs is not None and self._secs_trigger_due():
+        if self.save_due(model, epoch_end=True) if due is None else due:
             self.save(model)
 
     # ------------------------------------------------------------------ fence

@@ -151,12 +151,11 @@ __device__ __forceinline__ Item item_of(const Grid &g, int item) {
   return it;
 }
 
-// Plans g (n and C set) for V-element channel groups over as many blocks of
-// `kernel` (kThreads threads) as the card holds at once: at most min_blocks
-// an SM, fewer if the occupancy calculator finds fewer resident. The count
-// is cached per device in `resident`, one array per kernel.
-inline int plan_grid(Grid &g, int V, const void *kernel, int min_blocks,
-                     std::atomic<int> *resident) {
+// The blocks of `kernel` (kThreads threads) the card holds at once: at most
+// min_blocks an SM, fewer if the occupancy calculator finds fewer resident.
+// The count is cached per device in `resident`, one array per kernel.
+inline int resident_blocks(const void *kernel, int min_blocks, std::atomic<int> *resident,
+                           int *out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -170,6 +169,13 @@ inline int plan_grid(Grid &g, int V, const void *kernel, int min_blocks,
     blocks = std::min(per_sm, min_blocks) * sms;
     if (dev < kMaxDevices) resident[dev].store(blocks, std::memory_order_relaxed);
   }
+  *out = blocks;
+  return 0;
+}
+
+// Lays g (n and C set) out for V-element channel groups over at most
+// `blocks` blocks.
+inline int plan_items(Grid &g, int V, int blocks) {
   g.G = g.C / V;
   g.GC = 1;
   while (g.GC < g.G && g.GC < kThreads) g.GC *= 2;
@@ -181,6 +187,27 @@ inline int plan_grid(Grid &g, int V, const void *kernel, int min_blocks,
   g.rpb = (g.n + nrb - 1) / nrb;
   g.nrb = (int)((g.n + g.rpb - 1) / g.rpb);
   return 0;
+}
+
+// Plans g (n and C set) for V-element channel groups over as many blocks of
+// `kernel` as the card holds at once (resident_blocks).
+inline int plan_grid(Grid &g, int V, const void *kernel, int min_blocks,
+                     std::atomic<int> *resident) {
+  int blocks = 0;
+  const int err = resident_blocks(kernel, min_blocks, resident, &blocks);
+  return err != 0 ? err : plan_items(g, V, blocks);
+}
+
+// The split launches' statistics kernel runs on the one-launch kernel's
+// grid (planned into g), so that at one rank its partial sums are that
+// kernel's, bitwise; if fewer of its own blocks fit on the card at once, on
+// as many as fit.
+inline int fit_grid(Grid &g, int V, const void *kernel, int min_blocks,
+                    std::atomic<int> *resident) {
+  int blocks = 0;
+  const int err = resident_blocks(kernel, min_blocks, resident, &blocks);
+  if (err != 0) return err;
+  return (long long)g.tiles * g.nrb > blocks ? plan_items(g, V, blocks) : 0;
 }
 
 // The vector width a launch may take: 1, or 16 bytes' worth of T (the

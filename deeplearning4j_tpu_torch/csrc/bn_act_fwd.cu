@@ -59,6 +59,23 @@
 // three launches within 2% (slower at the stem and the ragged shapes,
 // faster at the residual ones); rereading in pass 1's order 1-4% slower.
 
+// The split launches (a data world above 1, perf/kernels/bn_act.py
+// bn_act_fwd_split): the one launch takes its statistics inside the launch,
+// where no all-reduce can sit, so the forward runs as
+// - bn_fwd_sums (cooperative, passes 1 and 2's sums on the one launch's
+//   grid, fit_grid): this rank's per-channel float32 sums, S and Q in one
+//   pass for bf16/f16; for float32 S, then after an all-reduce a second
+//   launch the centred Q = sum (z - S/n)^2 with the global S and n (the
+//   plain global path's two passes);
+// - the wrapper's all-reduce of the sums with the row count;
+// - bn_fwd_apply (one block a work item): each thread forms its channels'
+//   statistics from the global sums as pass 2 does, the first row block
+//   writes mean, var and inv, and pass 3 runs.
+// At one rank the bf16/f16 split reproduces the one launch bitwise (the
+// same partial sums in the same order); float32 differs from its shifted
+// sums by roundoff. It reads z once more than the one launch (twice more
+// in float32).
+
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -72,6 +89,16 @@ constexpr int kMinBlocks = 3;  // blocks an SM the grid is sized for
 constexpr int kStatRows = 4;   // rows a thread has in flight in pass 1
 constexpr int kApplyRows = 4;  // and in pass 3
 
+// What a launch runs: the one cooperative launch, or one of the split
+// launches a data world above 1 takes (a statistics launch, then after the
+// all-reduce the apply launch).
+enum Op { kFused = 0, kSums = 1, kApply = 2 };
+// What a statistics pass sums: the one-launch kernel's sums (float32 S and
+// Q for bf16/f16, which the split launch takes too; double sums shifted by
+// z[0, c] for float32), or for float32 at a data world above 1, sum z, then
+// sum (z - mean)^2 with the global mean (the plain global path's two passes).
+enum Pass { kFusedPass = 0, kSumPass = 1, kCenteredPass = 2 };
+
 struct Args : Grid {
   const void *z, *res, *gamma, *beta;
   void *out;
@@ -79,19 +106,25 @@ struct Args : Grid {
   double *ps, *pq;  // per row block and channel: the partial sums
   float *coef;      // per channel: scale, then shift
   float eps;
+  // the split launches: this rank's per-channel sums (statistics launch);
+  // the sums over the ranks and the global row count (apply launch, and
+  // the centred statistics pass)
+  float *lsum;
+  const float *gsum, *gsq, *gn;
+  int pass;
 };
 
 // What pass 1 sums in: float32 for bf16/f16 (the JAX kernel's float32 sums),
-// double for float32, whose sums are shifted by K = z[0, c].
+// double for float32.
 template <typename T> struct Stat { using type = float; };
 template <> struct Stat<float> { using type = double; };
 
 // Pass 1 for one work item: the per-channel partial sums over the item's rows.
-template <typename T, int V>
+template <typename T, int V, int P>
 __device__ __forceinline__ void partials(const Args &a, int item,
                                          typename Stat<T>::type *red) {
   using S = typename Stat<T>::type;
-  constexpr bool kShift = sizeof(T) == 4;
+  constexpr bool kShift = sizeof(T) == 4 && P == kFusedPass;
   const Item it = item_of<V>(a, item);
   const T *const z = (const T *)a.z;
   S s[V], q[V];
@@ -99,10 +132,16 @@ __device__ __forceinline__ void partials(const Args &a, int item,
   for (int e = 0; e < V; ++e) s[e] = q[e] = 0;
   if (it.active) {
     double k[V];
+    float m[V];
     if (kShift) {
       const Pack<T, V> k0 = ld<T, V>(z + it.c0);
 #pragma unroll
       for (int e = 0; e < V; ++e) k[e] = (double)Cvt<T>::f(k0.e[e]);
+    }
+    if (P == kCenteredPass) {
+      const float nf = *a.gn;
+#pragma unroll
+      for (int e = 0; e < V; ++e) m[e] = __fdiv_rn(a.gsum[it.c0 + e], nf);
     }
     for (long long r = it.r0 + it.lane; r < it.r1; r += kStatRows * a.RL) {
       bool ok[kStatRows];
@@ -122,6 +161,11 @@ __device__ __forceinline__ void partials(const Args &a, int item,
           if constexpr (kShift) {
             const double d = __dsub_rn((double)v, k[e]);
             s[e] = __dadd_rn(s[e], d);
+            q[e] = __fma_rn(d, d, q[e]);
+          } else if constexpr (P == kSumPass) {
+            s[e] = __dadd_rn(s[e], (double)v);
+          } else if constexpr (P == kCenteredPass) {
+            const double d = (double)__fsub_rn(v, m[e]);
             q[e] = __fma_rn(d, d, q[e]);
           } else {
             s[e] = __fadd_rn(s[e], v);
@@ -146,7 +190,7 @@ __device__ __forceinline__ void partials(const Args &a, int item,
     if (c >= a.C) continue;
     S ss = rs[j], sq = rq[j];
     for (int l = 1; l < a.RL; ++l) {
-      if constexpr (kShift) {
+      if constexpr (sizeof(S) == 8) {
         ss = __dadd_rn(ss, rs[l * width + j]);
         sq = __dadd_rn(sq, rq[l * width + j]);
       } else {
@@ -159,11 +203,13 @@ __device__ __forceinline__ void partials(const Args &a, int item,
   }
 }
 
-// Pass 2 for channel c, by one warp: lane l adds the partials of row blocks
-// l, l + 32, ... in order, then the lanes are added in a fixed tree.
-template <typename T>
-__device__ __forceinline__ void finalize(const Args &a, int c, int lane) {
-  double S = 0.0, Q = 0.0;
+// Pass 2's sums for channel c, by one warp: lane l adds the partials of row
+// blocks l, l + 32, ... in order, then the lanes are added in a fixed tree;
+// S and Q are valid in lane 0.
+__device__ __forceinline__ void channel_totals(const Args &a, int c, int lane, double &S,
+                                               double &Q) {
+  S = 0.0;
+  Q = 0.0;
   for (int k = lane; k < a.nrb; k += 32) {
     S = __dadd_rn(S, a.ps[(long long)k * a.C + c]);
     Q = __dadd_rn(Q, a.pq[(long long)k * a.C + c]);
@@ -173,6 +219,13 @@ __device__ __forceinline__ void finalize(const Args &a, int c, int lane) {
     S = __dadd_rn(S, __shfl_down_sync(0xffffffffu, S, off));
     Q = __dadd_rn(Q, __shfl_down_sync(0xffffffffu, Q, off));
   }
+}
+
+// Pass 2 for channel c, by one warp.
+template <typename T>
+__device__ __forceinline__ void finalize(const Args &a, int c, int lane) {
+  double S, Q;
+  channel_totals(a, c, lane, S, Q);
   if (lane != 0) return;
   float m, v;
   if constexpr (sizeof(T) == 4) {
@@ -194,18 +247,12 @@ __device__ __forceinline__ void finalize(const Args &a, int c, int lane) {
   a.coef[a.C + c] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m, sc));
 }
 
-// Pass 3 for one work item: out over the item's rows, walked from the last.
+// Pass 3 over one work item's rows, walked from the last, with its
+// channels' scale and shift.
 template <typename T, int V, int ACT, bool RES>
-__device__ __forceinline__ void apply(const Args &a, int item) {
-  const Item it = item_of<V>(a, item);
-  if (!it.active) return;
+__device__ __forceinline__ void apply_rows(const Args &a, const Item &it,
+                                           const float (&sc)[V], const float (&sh)[V]) {
   const T *const z = (const T *)a.z, *const res = (const T *)a.res;
-  float sc[V], sh[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    sc[e] = a.coef[it.c0 + e];
-    sh[e] = a.coef[a.C + it.c0 + e];
-  }
   for (long long r = it.r1 - 1 - it.lane; r >= it.r0; r -= kApplyRows * a.RL) {
     long long i[kApplyRows];
     bool ok[kApplyRows];
@@ -231,12 +278,26 @@ __device__ __forceinline__ void apply(const Args &a, int item) {
   }
 }
 
+// Pass 3 for one work item: out over the item's rows.
+template <typename T, int V, int ACT, bool RES>
+__device__ __forceinline__ void apply(const Args &a, int item) {
+  const Item it = item_of<V>(a, item);
+  if (!it.active) return;
+  float sc[V], sh[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    sc[e] = a.coef[it.c0 + e];
+    sh[e] = a.coef[a.C + it.c0 + e];
+  }
+  apply_rows<T, V, ACT, RES>(a, it, sc, sh);
+}
+
 // The three passes in one cooperative launch: every block is resident (see
 // plan_grid), so the grid-wide syncs cannot deadlock.
 template <typename T, int V, int ACT, bool RES>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_fused(const Args a) {
   __shared__ typename Stat<T>::type red[2 * kThreads * V];
-  partials<T, V>(a, blockIdx.x, red);
+  partials<T, V, kFusedPass>(a, blockIdx.x, red);
   cooperative_groups::this_grid().sync();
   const int warps = gridDim.x * (kThreads / 32);
   for (int c = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; c < a.C; c += warps)
@@ -245,19 +306,94 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_fused(const Args 
   apply<T, V, ACT, RES>(a, blockIdx.x);
 }
 
+// The split statistics launch (cooperative): passes 1 and 2's sums, written
+// as float32 per channel into lsum (S then Q for bf16/f16; S, or the
+// centred Q, for float32) for the all-reduce over the ranks.
+template <typename T, int V, int P>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_sums(const Args a) {
+  __shared__ typename Stat<T>::type red[2 * kThreads * V];
+  partials<T, V, P>(a, blockIdx.x, red);
+  cooperative_groups::this_grid().sync();
+  const int warps = gridDim.x * (kThreads / 32);
+  for (int c = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; c < a.C; c += warps) {
+    double S, Q;
+    channel_totals(a, c, threadIdx.x % 32, S, Q);
+    if (threadIdx.x % 32 != 0) continue;
+    if (P == kCenteredPass) {
+      a.lsum[c] = (float)Q;
+    } else {
+      a.lsum[c] = (float)S;
+      if (P == kFusedPass) a.lsum[a.C + c] = (float)Q;
+    }
+  }
+}
+
+// The split apply launch (one block a work item, no grid sync): each thread
+// forms its channels' statistics from the global sums gsum, gsq and row
+// count gn as the one-launch kernel's pass 2 does from its own (bf16/f16:
+// var = max(Q/n - mean^2, 0); float32: var = Q/n of the centred sums), the
+// first row block writes mean, var and inv, and pass 3 runs.
+template <typename T, int V, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads) bn_fwd_apply(const Args a) {
+  const Item it = item_of<V>(a, blockIdx.x);
+  if (!it.active) return;
+  const float nf = *a.gn;
+  const bool first = blockIdx.x / a.tiles == 0 && it.lane == 0;
+  float sc[V], sh[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const int c = it.c0 + e;
+    const float m = __fdiv_rn(a.gsum[c], nf);
+    const float v = sizeof(T) == 4
+                        ? __fdiv_rn(a.gsq[c], nf)
+                        : fmaxf(__fsub_rn(__fdiv_rn(a.gsq[c], nf), __fmul_rn(m, m)), 0.f);
+    const float iv = __frsqrt_rn(__fadd_rn(v, a.eps));
+    sc[e] = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv);
+    sh[e] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m, sc[e]));
+    if (first) {
+      a.mean[c] = m;
+      a.var[c] = v;
+      a.inv[c] = iv;
+    }
+  }
+  apply_rows<T, V, ACT, RES>(a, it, sc, sh);
+}
+
 template <typename T, int V, int ACT, bool RES>
 int plan(Args &a) {
   static std::atomic<int> resident[kMaxDevices];  // blocks, by device
   return plan_grid(a, V, (const void *)bn_fwd_fused<T, V, ACT, RES>, kMinBlocks, resident);
 }
 
+// The statistics kernel of a pass, and its grid fitted (fit_grid).
+template <typename T, int V>
+const void *sums_kernel(int pass) {
+  if constexpr (sizeof(T) == 4)
+    return pass == kSumPass ? (const void *)bn_fwd_sums<T, V, kSumPass>
+                            : (const void *)bn_fwd_sums<T, V, kCenteredPass>;
+  else
+    return (const void *)bn_fwd_sums<T, V, kFusedPass>;
+}
+
+template <typename T, int V>
+int fit_sums(Args &a) {
+  static std::atomic<int> resident[3][kMaxDevices];  // blocks, by pass and device
+  return fit_grid(a, V, sums_kernel<T, V>(a.pass), kMinBlocks, resident[a.pass]);
+}
+
 // Plans the grid and sets *need to the scratch it takes (floats); then,
-// given scratch of at least that, launches. The partial sums are doubles,
-// first in the scratch (which is 16-byte aligned), then scale and shift.
+// given scratch of at least that, launches `op`. The partial sums are
+// doubles, first in the scratch (which is 16-byte aligned), then scale and
+// shift. The apply launch takes no scratch.
 template <typename T, int V, int ACT, bool RES>
-int run_v(Args &a, float *scratch, long long cap, long long *need, cudaStream_t st) {
-  const int err = plan<T, V, ACT, RES>(a);
+int run_v(int op, Args &a, float *scratch, long long cap, long long *need, cudaStream_t st) {
+  int err = plan<T, V, ACT, RES>(a);
+  if (err == 0 && op == kSums) err = fit_sums<T, V>(a);
   if (err != 0) return err;
+  if (op == kApply) {
+    bn_fwd_apply<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
   *need = 4LL * a.nrb * a.C + 2LL * a.C;
   if (scratch == nullptr) return 0;
   if (cap < *need) return (int)cudaErrorInvalidValue;
@@ -265,44 +401,60 @@ int run_v(Args &a, float *scratch, long long cap, long long *need, cudaStream_t 
   a.pq = a.ps + (long long)a.nrb * a.C;
   a.coef = (float *)(a.pq + (long long)a.nrb * a.C);
   void *args[] = {(void *)&a};
-  return (int)cudaLaunchCooperativeKernel((const void *)bn_fwd_fused<T, V, ACT, RES>,
-                                          a.tiles * a.nrb, kThreads, args, 0, st);
+  const void *kernel = op == kSums ? sums_kernel<T, V>(a.pass)
+                                   : (const void *)bn_fwd_fused<T, V, ACT, RES>;
+  return (int)cudaLaunchCooperativeKernel(kernel, a.tiles * a.nrb, kThreads, args, 0, st);
 }
 
 template <typename T, int ACT>
-int run_act(Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
+int run_act(int op, Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
             cudaStream_t st) {
   constexpr int kV = 16 / (int)sizeof(T);
   if (res)
-    return vec == 1 ? run_v<T, 1, ACT, true>(a, scratch, cap, need, st)
-                    : run_v<T, kV, ACT, true>(a, scratch, cap, need, st);
-  return vec == 1 ? run_v<T, 1, ACT, false>(a, scratch, cap, need, st)
-                  : run_v<T, kV, ACT, false>(a, scratch, cap, need, st);
+    return vec == 1 ? run_v<T, 1, ACT, true>(op, a, scratch, cap, need, st)
+                    : run_v<T, kV, ACT, true>(op, a, scratch, cap, need, st);
+  return vec == 1 ? run_v<T, 1, ACT, false>(op, a, scratch, cap, need, st)
+                  : run_v<T, kV, ACT, false>(op, a, scratch, cap, need, st);
 }
 
 template <typename T>
-int run(int act, Args &a, bool res, int vec, float *scratch, long long cap, long long *need,
-        cudaStream_t st) {
+int run(int op, int act, Args &a, bool res, int vec, float *scratch, long long cap,
+        long long *need, cudaStream_t st) {
   if (!vec_ok<T>(vec)) return (int)cudaErrorInvalidValue;
-  if (act == kRelu) return run_act<T, kRelu>(a, res, vec, scratch, cap, need, st);
-  if (act == kLeakyRelu) return run_act<T, kLeakyRelu>(a, res, vec, scratch, cap, need, st);
-  return run_act<T, kIdentity>(a, res, vec, scratch, cap, need, st);
+  if (op == kSums && (sizeof(T) == 4 ? (a.pass != kSumPass && a.pass != kCenteredPass)
+                                     : a.pass != kFusedPass))
+    return (int)cudaErrorInvalidValue;
+  if (act == kRelu) return run_act<T, kRelu>(op, a, res, vec, scratch, cap, need, st);
+  if (act == kLeakyRelu)
+    return run_act<T, kLeakyRelu>(op, a, res, vec, scratch, cap, need, st);
+  return run_act<T, kIdentity>(op, a, res, vec, scratch, cap, need, st);
 }
 
-int dispatch(int dtype, int act, Args &a, bool res, int vec, float *scratch, long long cap,
-             long long *need, cudaStream_t st) {
+int dispatch(int op, int dtype, int act, Args &a, bool res, int vec, float *scratch,
+             long long cap, long long *need, cudaStream_t st) {
   if (a.n <= 0 || a.C <= 0 || act < kIdentity || act > kLeakyRelu || vec < 1 ||
       a.C % vec != 0)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
-      return run<float>(act, a, res, vec, scratch, cap, need, st);
+      return run<float>(op, act, a, res, vec, scratch, cap, need, st);
     case kBF16:
-      return run<__nv_bfloat16>(act, a, res, vec, scratch, cap, need, st);
+      return run<__nv_bfloat16>(op, act, a, res, vec, scratch, cap, need, st);
     case kF16:
-      return run<__half>(act, a, res, vec, scratch, cap, need, st);
+      return run<__half>(op, act, a, res, vec, scratch, cap, need, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+long long scratch_of(int op, int dtype, int act, int has_res, long long n, int C, int vec,
+                     int pass) {
+  Args a{};
+  a.n = n;
+  a.C = C;
+  a.pass = pass;
+  long long need = 0;
+  const int err = dispatch(op, dtype, act, a, has_res != 0, vec, nullptr, 0, &need, nullptr);
+  return err != 0 ? -(long long)err : need;
 }
 
 }  // namespace
@@ -312,12 +464,7 @@ int dispatch(int dtype, int act, Args &a, bool res, int vec, float *scratch, lon
 // The scratch floats a launch over (n, C) takes, or minus a cudaError_t.
 extern "C" long long bn_act_fwd_scratch(int dtype, int act, int has_res, long long n, int C,
                                         int vec) {
-  Args a{};
-  a.n = n;
-  a.C = C;
-  long long need = 0;
-  const int err = dispatch(dtype, act, a, has_res != 0, vec, nullptr, 0, &need, nullptr);
-  return err != 0 ? -(long long)err : need;
+  return scratch_of(kFused, dtype, act, has_res, n, C, vec, kFusedPass);
 }
 
 // scratch: scratch_floats floats, at least bn_act_fwd_scratch's count, 16-byte
@@ -342,6 +489,71 @@ extern "C" int bn_act_fwd_launch(int dtype, int act, const void *z, const void *
   a.n = n;
   a.C = C;
   long long need = 0;
-  return dispatch(dtype, act, a, res != nullptr, vec, scratch, scratch_floats, &need,
+  return dispatch(kFused, dtype, act, a, res != nullptr, vec, scratch, scratch_floats, &need,
+                  (cudaStream_t)stream);
+}
+
+// ---------------------------------------------- the split launches
+// At a data world above 1 the wrapper runs the statistics launch, sums its
+// float32 output over the ranks with the row count, and runs the apply
+// launch on the sums. act and has_res name the one-launch kernel whose grid
+// the statistics launch takes. pass: 0 for bf16/f16 (lsum gets S then Q, 2C
+// floats); for float32 1 (lsum gets S, C floats), then 2 after the first
+// all-reduce (lsum gets the centred Q; gsum and gn are the global S and row
+// count).
+extern "C" long long bn_act_fwd_sums_scratch(int dtype, int act, int has_res, int pass,
+                                             long long n, int C, int vec) {
+  return scratch_of(kSums, dtype, act, has_res, n, C, vec, pass);
+}
+
+extern "C" int bn_act_fwd_sums_launch(int dtype, int act, int has_res, int pass,
+                                      const void *z, long long n, int C, const float *gsum,
+                                      const float *gn, float *lsum, float *scratch,
+                                      long long scratch_floats, int vec, void *stream) {
+  if (n <= 0 || C <= 0) return 0;
+  if (scratch == nullptr || ((uintptr_t)scratch & 15) != 0) return (int)cudaErrorInvalidValue;
+  if (pass == kCenteredPass && (gsum == nullptr || gn == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.z = z;
+  a.gsum = gsum;
+  a.gn = gn;
+  a.lsum = lsum;
+  a.pass = pass;
+  a.n = n;
+  a.C = C;
+  long long need = 0;
+  return dispatch(kSums, dtype, act, a, has_res != 0, vec, scratch, scratch_floats, &need,
+                  (cudaStream_t)stream);
+}
+
+// gsum, gsq: the per-channel sums over the ranks (bf16/f16: S and Q; float32:
+// S and the centred Q); gn: the global row count. Writes out, mean, var and
+// inv as bn_act_fwd_launch does.
+extern "C" int bn_act_fwd_apply_launch(int dtype, int act, const void *z, const void *gamma,
+                                       const void *beta, const void *res, long long n, int C,
+                                       float eps, const float *gsum, const float *gsq,
+                                       const float *gn, void *out, float *mean, float *var,
+                                       float *inv, int vec, void *stream) {
+  if (n <= 0 || C <= 0) return 0;
+  if (out == nullptr || gsum == nullptr || gsq == nullptr || gn == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.z = z;
+  a.res = res;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.out = out;
+  a.mean = mean;
+  a.var = var;
+  a.inv = inv;
+  a.eps = eps;
+  a.gsum = gsum;
+  a.gsq = gsq;
+  a.gn = gn;
+  a.n = n;
+  a.C = C;
+  long long need = 0;
+  return dispatch(kApply, dtype, act, a, res != nullptr, vec, nullptr, 0, &need,
                   (cudaStream_t)stream);
 }

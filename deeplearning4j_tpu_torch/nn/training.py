@@ -25,6 +25,11 @@ eagerly:
   ``bucketed_apply``, the small leaves of every layer that share an
   updater in one foreach sequence, the rest per tensor, in place on the
   masters and the slots), then applies every layer's ``constraints``;
+- under tensor parallelism (``parallel/trainer.py``) ``_tp`` holds the
+  placement and the parameters are this rank's slices: ``_loss_and_grads``
+  gathers them whole through a differentiable all-gather and takes the
+  slices' gradients, and the compression encodes the whole gradient
+  (gathered with its residual) and keeps this rank's slices;
 - ``_reduce_and_compress`` sits between the gradients and the updaters:
   while a data group is active (``nn/data_parallel.py``, entered by
   ``parallel/trainer.py`` over a ``torch.distributed`` group) it
@@ -142,6 +147,7 @@ class TrainStep:
         self.iteration = 0
         self.epoch = 0
         self.last_batch_size: Optional[int] = None
+        self._tp = None  # parallel/mesh.py TensorParallel while sliced
         self.grad_compression = None  # parallel/compress.py scheme
         self.compress_state = None
         self._score = None
@@ -221,7 +227,9 @@ class TrainStep:
         frozen = self._frozen
         leaves = _keyed(self.params, lambda k, p: p if k in frozen else
                         tree_map(lambda v: v.detach().requires_grad_(True), p))
-        loss, *aux = self._loss_fn(leaves, self.state, *batch, **kw)
+        tp = self._tp
+        whole = leaves if tp is None else tp.gather(leaves, differentiable=True)
+        loss, *aux = self._loss_fn(whole, self.state, *batch, **kw)
         live = leaf_grads(loss, {k: p for k, p in _items(leaves) if k not in frozen})
         grads = _keyed(leaves, lambda k, p: live[k] if k in live
                        else tree_map(torch.zeros_like, p))
@@ -240,8 +248,22 @@ class TrainStep:
         if self.grad_compression is not None:
             if self.compress_state is None:
                 self.compress_state = self.grad_compression.init_state(self.params)
-            grads, self.compress_state = self.grad_compression.apply(grads,
-                                                                     self.compress_state)
+            tp = self._tp
+            if tp is None:
+                grads, self.compress_state = self.grad_compression.apply(grads,
+                                                                         self.compress_state)
+            else:
+                # the schemes' statistics (tau's nonzero count, a leaf's top
+                # k, scale or means) read whole leaves: encode the whole
+                # gradient on every rank of the model group, keep the slices
+                st = self.compress_state
+                res = st["residual"]
+                whole, st = self.grad_compression.apply(
+                    tp.gather(grads), dict(st, residual=None if res is None else tp.gather(res)))
+                grads = tp.shard(whole)
+                if st["residual"] is not None:
+                    st = dict(st, residual=tp.shard(st["residual"]))
+                self.compress_state = st
         return loss, grads
 
     def _apply_updates(self, grads):

@@ -6,8 +6,8 @@ The same flags. The model zip (either package's) restores through the
 port's ``utils/serialization``; the trained model is written back the
 same way. ``--dp`` is the data-parallel size (default: every rank of the
 ``torch.distributed`` group the process runs in, one when there is none);
-``--tp`` above 1 waits for ROADMAP §A6b and raises. The model runs on the
-card unless ``--device cpu`` is given::
+``--tp`` above 1 trains tensor-parallel over a ``(dp, tp)`` mesh. The
+model runs on the card unless ``--device cpu`` is given::
 
     python -m deeplearning4j_tpu_torch.parallel --model-path m.zip \\
         --data iris --batch 48 --epochs 5 --device cpu
@@ -52,7 +52,7 @@ def main(argv=None):
     ap.add_argument("--dp", type=int, default=None,
                     help="Data-parallel mesh size (default: every rank)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="Tensor-parallel mesh size (above 1: ROADMAP §A6b)")
+                    help="Tensor-parallel mesh size")
     ap.add_argument("--model-output-path", default=None,
                     help="Where to save the trained model (default: in place)")
     ap.add_argument("--report-stats", action="store_true",
@@ -62,15 +62,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
-    from deeplearning4j_tpu_torch.parallel.trainer import (TENSOR_PARALLEL_PENDING,
-                                                           ParallelWrapper)
+    from deeplearning4j_tpu_torch.parallel.trainer import ParallelWrapper
     from deeplearning4j_tpu_torch.utils.serialization import restore, write_model
 
-    if args.tp > 1:
-        raise NotImplementedError(TENSOR_PARALLEL_PENDING)
     net = restore(args.model_path, device=args.device)
-    mesh = make_mesh(dp=args.dp, device=net.device)
-    wrapper = ParallelWrapper(net, mesh=mesh, collect_stats=args.report_stats)
+    mesh = make_mesh(dp=args.dp, tp=args.tp, device=net.device)
+    wrapper = ParallelWrapper(net, mesh=mesh, tensor_parallel=args.tp > 1,
+                              collect_stats=args.report_stats)
     iterator = build_iterator(args.data, args.batch)
     wrapper.fit(iterator, num_epochs=args.epochs)
     out = args.model_output_path or args.model_path

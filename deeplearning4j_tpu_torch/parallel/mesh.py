@@ -15,8 +15,9 @@ process driving one device, with a process group per row and column:
 - :class:`Sharding` and :class:`P` stand for ``NamedSharding`` and
   ``PartitionSpec``: the per-leaf placement the JAX package computes.
   :func:`tp_param_spec` and :func:`tp_shardings` return the same specs as
-  the JAX ones for the same parameter trees. Training with ``tp > 1``
-  waits for ROADMAP §A6b (``parallel/trainer.py`` raises);
+  the JAX ones for the same parameter trees; :class:`TensorParallel`
+  keeps each rank's slice of the sharded leaves and gathers them over the
+  ``model`` group (``ParallelWrapper(tensor_parallel=True)``);
 - :func:`shard_batch` places this rank's rows of a global batch on its
   device.
 
@@ -33,13 +34,14 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn.tree import tree_map
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "Mesh", "P", "Sharding", "MultiRankMeshError",
            "make_mesh", "replicated", "data_sharding", "shard_batch", "tp_param_spec",
-           "tp_shardings", "local_device_of"]
+           "tp_shardings", "local_device_of", "TensorParallel"]
 
 
 class MultiRankMeshError(ValueError):
@@ -229,3 +231,68 @@ def tp_shardings(mesh: Mesh, params):
         return leaf(key, tree)
 
     return walk(params, None)
+
+
+class _Gather(torch.autograd.Function):
+    """This rank's slice -> the whole leaf, along ``axis`` over the model
+    group. Every rank of the group computes the same loss from the whole
+    leaf, so the gradient of this rank's slice is its slice of the whole
+    leaf's gradient (no sum over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, group, size, index):
+        import torch.distributed as dist
+        ctx.slice = (axis, index, x.shape[axis])
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, index, k = ctx.slice
+        return g.narrow(axis, index * k, k), None, None, None, None
+
+
+class TensorParallel:
+    """This rank's placement of a parameter tree under
+    :func:`tp_shardings`: :meth:`shard` keeps this rank's slice of every
+    leaf whose spec names ``model`` (its index along the mesh's ``model``
+    axis), :meth:`gather` rebuilds the whole leaves over the model group
+    (differentiably on request). Trees that mirror the parameters (updater
+    slots, a compression residual) go through the same calls. On a
+    ``model`` axis of one rank both are the identity."""
+
+    def __init__(self, mesh: Mesh, params):
+        self.mesh = mesh
+        self.size = mesh.shape[MODEL_AXIS]
+        self.group = mesh.model_group
+        self.index = 0
+        if self.size > 1:
+            import torch.distributed as dist
+            self.index = dist.get_rank(self.group)
+        self.axes = tree_map(lambda sh: next((i for i, a in enumerate(sh.spec)
+                                               if a == MODEL_AXIS), None),
+                              tp_shardings(mesh, params))
+
+    def shard(self, tree, axes=None):
+        """This rank's contiguous slice of each sharded leaf of ``tree`` (a
+        parameter tree, or a subtree mirroring the one ``axes`` names)."""
+        def cut(a, axis):
+            if axis is None or self.size == 1:
+                return a
+            k = a.shape[axis] // self.size
+            return a.narrow(axis, self.index * k, k).contiguous()
+        return tree_map(cut, tree, self.axes if axes is None else axes)
+
+    def gather(self, tree, axes=None, differentiable: bool = False):
+        """The whole leaves of a tree of slices, gathered over the model
+        group; with ``differentiable`` the gradient reaches the slices."""
+        def whole(a, axis):
+            if axis is None or self.size == 1:
+                return a
+            if differentiable:
+                return _Gather.apply(a, axis, self.group, self.size, self.index)
+            with torch.no_grad():
+                return _Gather.apply(a, axis, self.group, self.size, self.index)
+        return tree_map(whole, tree, self.axes if axes is None else axes)
+

@@ -14,9 +14,25 @@ takes batch-norm statistics over the global batch, before the gradient
 compression and the updaters. Parameters stay replicated: every rank
 applies the same update to the same parameters.
 
+With ``tensor_parallel=True`` each leaf that ``tp_shardings`` shards over
+the mesh's ``model`` axis lives on each rank as its slice only, and so do
+its updater slots and compression residual (``parallel/mesh.py::
+TensorParallel``): GSPMD's collectives become explicit. The step gathers
+every sharded leaf whole over the ``model`` group through a
+differentiable all-gather, runs the network's own forward and backward
+on the whole leaves (the ranks of a model group see the same rows and
+compute the same loss), takes each slice's gradient as its part of the
+whole gradient, averages the gradients over the ``data`` group as above,
+and updates this rank's slices. The numbers are the replicated run's.
+Outside ``fit`` the model holds whole leaves again (gathered at its end);
+the listeners' ``on_epoch_end`` sees whole leaves, and a checkpoint under
+``fit`` holds every leaf whole (gathered for the steps on which the
+manager saves, ``CheckpointManager.save_due``). A mesh with ``model``
+above 1 without ``tensor_parallel`` keeps the parameters replicated, the
+ranks of a model group computing the same step.
+
 - :class:`ParallelWrapper` trains from a global iterator: each rank takes
-  its rows of each batch (all of them at one rank). ``tensor_parallel`` /
-  a mesh with ``model`` above 1 waits for ROADMAP §A6b and raises.
+  the rows of its data index of each batch (all of them at one rank).
 - :class:`ClusterTrainer` adds the multi-process entry points:
   :meth:`~ClusterTrainer.initialize` (``init_process_group``, a no-op at
   one process), ``fit`` over a global iterator (each rank's row shard,
@@ -36,6 +52,7 @@ goes through ``model.fit``); the resume skip; ``bind_epoch``;
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Optional
 
@@ -43,16 +60,11 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.nn import data_parallel
-from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, TensorParallel, make_mesh
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ParallelWrapper", "ClusterTrainer", "EarlyStoppingParallelTrainer",
-           "TENSOR_PARALLEL_PENDING"]
-
-TENSOR_PARALLEL_PENDING = (
-    "tensor parallelism (tp > 1: parameters sharded over the mesh's 'model' axis "
-    "by tp_shardings) is not in the PyTorch port yet (ROADMAP §A6b)")
+__all__ = ["ParallelWrapper", "ClusterTrainer", "EarlyStoppingParallelTrainer"]
 
 
 def _dist():
@@ -94,6 +106,15 @@ def _rows(ds, sl):
                    labels_mask=cut(ds.labels_mask))
 
 
+def _map_opt_state(opt_state, fn):
+    """``fn(slot_tree, key)`` over every updater slot tree of a network's
+    updater state (a list a layer or a dict a vertex; ``count`` kept)."""
+    keys = range(len(opt_state)) if isinstance(opt_state, list) else list(opt_state)
+    out = {k: {name: (v if name == "count" else fn(v, k)) for name, v in opt_state[k].items()}
+           for k in keys}
+    return [out[k] for k in keys] if isinstance(opt_state, list) else out
+
+
 def _num_examples(ds) -> int:
     f = ds.features[0] if isinstance(ds, MultiDataSet) else ds.features
     return int(f.shape[0])
@@ -121,14 +142,13 @@ class ParallelWrapper:
         from deeplearning4j_tpu_torch.parallel.stats import TrainingStats
         self.model = model
         self.mesh = mesh if mesh is not None else make_mesh(device=model.device)
-        if tensor_parallel or self.mesh.shape[MODEL_AXIS] > 1:
-            raise NotImplementedError(TENSOR_PARALLEL_PENDING)
         if self.mesh.device != model.device:
             raise ValueError(f"the mesh drives {self.mesh.device}, the model lives on "
                              f"{model.device}: build the model on the rank's device")
         self.tensor_parallel = tensor_parallel
         self.prefetch_buffer = prefetch_buffer
         self.grad_compression = grad_compression
+        self._tp: Optional[TensorParallel] = None
         self._placed = False
         self._warned_ragged = False
         self.stats = TrainingStats() if collect_stats else None
@@ -143,9 +163,11 @@ class ParallelWrapper:
 
     # ---- parameters ----
     def _place_params(self):
-        """Parameters are replicated: each rank already holds them on its
-        device. Enables the compression scheme (the wrapper's, or one the
-        model carries) and makes its state."""
+        """Replicated parameters: each rank already holds them on its
+        device. Under tensor parallelism each rank keeps its slices of the
+        parameters, updater slots and compression residual. Enables the
+        compression scheme (the wrapper's, or one the model carries) and
+        makes its state."""
         if self._placed:
             return
         m = self.model
@@ -158,7 +180,90 @@ class ParallelWrapper:
                 enable_grad_compression, ensure_compress_state)
             enable_grad_compression(m, scheme)
             ensure_compress_state(m)
+        if self.tensor_parallel:
+            self._check_tensor_parallel()
+            tp = TensorParallel(self.mesh, m.params)
+            self._tp = m._tp = tp
+            self._set_trees(tp.shard)
         self._placed = True
+
+    def _check_tensor_parallel(self):
+        """The step's per-layer rules that read a whole leaf have no
+        counterpart on a slice: refused by name."""
+        from deeplearning4j_tpu_torch.nn.conf.layers import reg_object
+        for k, layer in self._layer_items():
+            for knob, value in (("gradient_normalization",
+                                 getattr(layer, "gradient_normalization", None)),
+                                ("constraints", reg_object(layer, "constraints"))):
+                if value not in (None, (), "none", "None"):
+                    raise NotImplementedError(
+                        f"tensor_parallel=True: layer {k!r} sets {knob}, which reads "
+                        "whole leaves; a rank holds slices of the sharded ones")
+
+    def _layer_items(self):
+        confs = self.model._layer_confs
+        return confs.items() if isinstance(confs, dict) else enumerate(confs)
+
+    def _set_trees(self, fn):
+        """``fn`` (``TensorParallel.shard`` or ``.gather``) over the model's
+        parameters, updater slots and compression residual."""
+        m, tp = self.model, self._tp
+        m.params = fn(m.params)
+        if m.opt_state is not None:
+            m.opt_state = _map_opt_state(m.opt_state,
+                                         lambda t, k: fn(t, axes=tp.axes[k]))
+        cs = getattr(m, "compress_state", None)
+        if cs is not None and cs.get("residual") is not None:
+            m.compress_state = dict(cs, residual=fn(cs["residual"]))
+
+    def unshard(self):
+        """Under tensor parallelism: gather the model's parameters,
+        updater slots and compression residual whole on every rank and
+        leave the placement (the next step places again). A no-op
+        otherwise."""
+        if self._tp is not None:
+            self._set_trees(self._tp.gather)
+            self.model._tp = self._tp = None
+            self._placed = False
+
+    @contextlib.contextmanager
+    def _whole(self):
+        """The model with whole leaves inside (a checkpoint, a forward),
+        its slices again after."""
+        if self._tp is None:
+            yield
+            return
+        m = self.model
+        saved = m.params, m.opt_state, getattr(m, "compress_state", None)
+        self._set_trees(self._tp.gather)
+        m._tp = None
+        try:
+            yield
+        finally:
+            m.params, m.opt_state, m.compress_state = saved
+            m._tp = self._tp
+
+    def _checkpoint(self, manager, seen=None):
+        """``manager``'s ``step_end`` after a step (``seen`` batches into
+        the epoch), or its ``epoch_end`` with ``seen`` None; under tensor
+        parallelism the leaves are gathered whole only for a save."""
+        due = manager.save_due(self.model, epoch_end=seen is None)
+        with self._whole() if due else contextlib.nullcontext():
+            if seen is None:
+                manager.epoch_end(self.model, due=due)
+            else:
+                manager.step_end(self.model, batch_in_epoch=seen, due=due)
+
+    def _epoch_end(self, checkpoint_manager):
+        """The listeners' ``on_epoch_end`` on whole leaves, the epoch count,
+        then the manager's ``epoch_end``."""
+        if self.model.listeners:
+            with self._whole():
+                for listener in self.model.listeners:
+                    listener.on_epoch_end(self.model)
+        self.model.epoch += 1
+        if checkpoint_manager is not None:
+            self._checkpoint(checkpoint_manager)
 
     def _local_rows(self, ds):
         """This rank's contiguous rows of a global batch."""
@@ -270,7 +375,7 @@ class ParallelWrapper:
                 if self.fit_batch(ds, drop_ragged=not explicit_single):
                     trained += 1
                     if checkpoint_manager is not None:
-                        checkpoint_manager.step_end(self.model, batch_in_epoch=seen)
+                        self._checkpoint(checkpoint_manager, seen)
             skip = 0
             if seen == 0:
                 raise ValueError(
@@ -282,14 +387,11 @@ class ParallelWrapper:
                     "Every batch this epoch was dropped as ragged — the batch size "
                     f"never divides the data-parallel size {self.data_size}; pick a "
                     "divisible batch")
-            for listener in self.model.listeners:
-                listener.on_epoch_end(self.model)
-            self.model.epoch += 1
-            if checkpoint_manager is not None:
-                checkpoint_manager.epoch_end(self.model)
+            self._epoch_end(checkpoint_manager)
             if self.stats is not None:
                 with self.stats.time("epoch_sync"):
                     self._sync()
+        self.unshard()
         return self
 
     def _prefetched(self, stream):
@@ -322,10 +424,12 @@ class ParallelWrapper:
             torch.cuda.synchronize(self.model.device)
 
     def output(self, x):
-        """The network's output on ``x`` (parameters are replicated, so every
-        rank computes the same whole answer)."""
-        self._place_params()
-        return self.model.output(x)
+        """The network's output on ``x`` (every rank computes the same
+        whole answer, from whole leaves under tensor parallelism)."""
+        if self.model.params is None:
+            self.model.init()
+        with self._whole():
+            return self.model.output(x)
 
 
 class ClusterTrainer(ParallelWrapper):
@@ -435,7 +539,7 @@ class ClusterTrainer(ParallelWrapper):
         global batch's)."""
         self._place_params()
         local = self._shard_dataset(ds)
-        with data_parallel.data_group(self.mesh.data_group, self.data_size):
+        with data_parallel.data_group(self.mesh.data_group, self.data_size), self._whole():
             s = torch.tensor(float(self.model.score_dataset(local)), dtype=torch.float64)
             if self.data_size > 1:
                 d = _dist()
@@ -520,24 +624,21 @@ class ClusterTrainer(ParallelWrapper):
                 if wd is not None and step_no % max(1, watchdog_every) == 0:
                     wd.sync(self.model.params, what=f"cluster step {step_no}")
                 if checkpoint_manager is not None:
-                    checkpoint_manager.step_end(self.model, batch_in_epoch=seen)
+                    self._checkpoint(checkpoint_manager, seen)
             skip = 0
             if seen == 0:
                 raise ValueError(
                     "No batches this epoch — the data iterable is empty or a one-shot "
                     "generator exhausted by a previous epoch; pass a re-iterable "
                     "DataSetIterator")
-            for listener in self.model.listeners:
-                listener.on_epoch_end(self.model)
-            self.model.epoch += 1
-            if checkpoint_manager is not None:
-                checkpoint_manager.epoch_end(self.model)
+            self._epoch_end(checkpoint_manager)
             if self.stats is not None:
                 with self.stats.time("epoch_sync"):
                     self._sync()
         if wd is not None:
             # tail steps after the last every-N wait stay under the deadline
             wd.sync(self.model.params, what=f"epoch end (step {step_no})")
+        self.unshard()
         return self
 
 
@@ -570,5 +671,8 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
         trainer_holder.append(self.wrapper)
 
     def _fit_batch(self, ds) -> bool:
-        # per-batch path: no epoch-listener double fire, ragged tails dropped
-        return self.wrapper.fit_batch(ds, drop_ragged=True)
+        # per-batch path: no epoch-listener double fire, ragged tails dropped;
+        # the model whole again for the scoring and savers between batches
+        trained = self.wrapper.fit_batch(ds, drop_ragged=True)
+        self.wrapper.unshard()
+        return trained

@@ -36,10 +36,28 @@ activations ``fuse`` produces in the zoo; any other raises
 At a data world above 1 (``nn/data_parallel.py``) the plain versions take
 the batch statistics over the global batch and all-reduce Σdpre and
 Σdpre·x̂ before forming dz (the returned dgamma and dbeta stay this rank's
-sums: the step averages them with the other gradients). The kernels
-compute the statistics inside their one launch and one card cannot hold
-two ranks, so on a CUDA tensor at a data world above 1 the wrappers raise
-``NotImplementedError`` (ROADMAP §A6b) and never take the plain path.
+sums: the step averages them with the other gradients). The one launch
+takes its statistics inside the launch, so on a CUDA tensor at a data
+world above 1 the wrappers take the split launches instead
+(:func:`bn_act_fwd_split`, :func:`bn_act_bwd_split`), each direction two
+launches around ``data_parallel.all_reduce_sums``:
+
+- forward: a statistics launch writes this rank's per-channel float32
+  sums (bf16/f16: Σz and Σz² in one pass; float32: Σz, then after the
+  all-reduce a second launch Σ(z − mean)² with the global mean, the plain
+  global path's two passes), the sums go over the ranks with the row
+  count, and the apply launch forms the statistics and ``out``;
+- backward: a sums launch writes dpre (with ``res``) and this rank's
+  Σdpre·x̂ and Σdpre, they go over the ranks, and the dz launch forms dz
+  with the global row count.
+
+The split entries are callable at world 1 too, where they skip the
+all-reduce: the statistics and sums launches run on the one-launch
+kernels' grids, so there they reproduce the one launch bitwise wherever
+the reduction order is shared (every output but the float32 forward's
+statistics, whose one launch sums shifted values in one read). Each split
+wrapper call adds one to :data:`fwd_launches` / :data:`bwd_launches` and
+to :data:`fwd_split_launches` / :data:`bwd_split_launches`.
 """
 
 from __future__ import annotations
@@ -55,13 +73,19 @@ from deeplearning4j_tpu_torch.nn.conf.normalization import (batch_stats, normali
                                                             scale_shift)
 
 __all__ = ["bn_act_fwd", "bn_act_bwd", "bn_act_fwd_plain", "bn_act_bwd_plain",
-           "bn_act_apply_plain", "vec_width", "fwd_launches", "bwd_launches",
-           "KERNEL_ACTS"]
+           "bn_act_apply_plain", "bn_act_fwd_split", "bn_act_bwd_split", "bn_fwd_sums",
+           "bn_fwd_apply", "bn_bwd_sums", "bn_bwd_dz", "vec_width", "fwd_launches",
+           "bwd_launches", "fwd_split_launches", "bwd_split_launches", "KERNEL_ACTS"]
 
-#: wrapper calls that launched the forward kernel (a caller may reset it)
+#: wrapper calls that launched the forward kernel or its split launches (a
+#: caller may reset it)
 fwd_launches = 0
-#: wrapper calls that launched the backward kernel
+#: wrapper calls that launched the backward kernel or its split launches
 bwd_launches = 0
+#: wrapper calls that took the forward's split launches
+fwd_split_launches = 0
+#: wrapper calls that took the backward's split launches
+bwd_split_launches = 0
 
 #: activation name -> the kernels' activation code
 KERNEL_ACTS = {"identity": 0, "linear": 0, "relu": 1, "leakyrelu": 2}
@@ -149,12 +173,6 @@ def _check(name, z, gamma, beta, res):
 
 
 def _check_cuda(name, act, z, tensors, stats):
-    if data_parallel.world() > 1:
-        raise NotImplementedError(
-            f"{name} at a data-parallel world of {data_parallel.world()} ranks: the "
-            "kernel takes the batch statistics inside its one launch, and the "
-            "cross-rank statistics it would need wait for ROADMAP §A6b (one card "
-            "holds one rank)")
     if z.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu; got {z.device}")
     if str(act).lower() not in KERNEL_ACTS:
@@ -194,6 +212,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _FWD_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _L, _I, _P]
 _BWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _L, _I, _P]
 _SCRATCH_ARGS = [_I, _I, _I, _L, _I, _I]
+_FWD_SUMS_SCRATCH_ARGS = [_I, _I, _I, _I, _L, _I, _I]
+_FWD_SUMS_ARGS = [_I, _I, _I, _I, _P, _L, _I, _P, _P, _P, _P, _L, _I, _P]
+_FWD_APPLY_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P]
+_BWD_SUMS_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _L, _I, _P]
+_BWD_DZ_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _I, _P]
 
 
 def _ptr(t):
@@ -207,6 +230,8 @@ def bn_act_fwd(act: str, eps: float, z, gamma, beta, res=None):
     _check("bn_act_fwd", z, gamma, beta, res)
     if z.device.type == "cpu":
         return bn_act_fwd_plain(act, eps, z, gamma, beta, res)
+    if data_parallel.world() > 1:
+        return bn_act_fwd_split(act, eps, z, gamma, beta, res)
     _check_cuda("bn_act_fwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res)), ())
     c = z.shape[-1]
@@ -243,6 +268,8 @@ def bn_act_bwd(act: str, eps: float, z, gamma, beta, res, mean, inv, dout):
                          f"z {tuple(z.shape)}")
     if z.device.type == "cpu":
         return bn_act_bwd_plain(act, eps, z, gamma, beta, res, mean, inv, dout)
+    if data_parallel.world() > 1:
+        return bn_act_bwd_split(act, eps, z, gamma, beta, res, mean, inv, dout)
     dout = dout.contiguous()
     _check_cuda("bn_act_bwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res),
@@ -271,4 +298,165 @@ def bn_act_bwd(act: str, eps: float, z, gamma, beta, res, mean, inv, dout):
         raise RuntimeError(f"bn_act_bwd launch failed with CUDA error {err}")
     with _count_lock:
         bwd_launches += 1
+    return dz, dgamma, dbeta, dpre
+
+
+# ----------------------------------------------------------- split launches
+def _codes(z, act):
+    return _DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()]
+
+
+def bn_fwd_sums(act: str, z, has_res: bool, pass_: int, gsum=None, gn=None, vec=None):
+    """The forward's statistics launch on CUDA ``z``: this rank's
+    per-channel float32 sums. ``pass_`` 0 (bf16/f16): Σz then Σz², 2C
+    floats; float32: 1, Σz (C floats), or 2, Σ(z − gsum/gn)² with the
+    global sums ``gsum`` (C) and row count ``gn`` (one float32 on the card).
+    ``act`` and ``has_res`` name the one-launch kernel whose grid it takes;
+    ``vec`` defaults to what ``z`` allows."""
+    c = z.shape[-1]
+    n = z.numel() // c
+    vec = _vec(z) if vec is None else vec
+    dtype, act_code = _codes(z, act)
+    lsum = torch.empty(2 * c if pass_ == 0 else c, dtype=torch.float32, device=z.device)
+    with torch.cuda.device(z.device):
+        need = _kernel("bn_act_fwd", _FWD_SUMS_SCRATCH_ARGS, "sums_scratch", ctypes.c_longlong)(
+            dtype, act_code, int(has_res), pass_, n, c, vec)
+        if need < 0:
+            raise RuntimeError(f"bn_act_fwd sums grid query failed with CUDA error {-need}")
+        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+        err = _kernel("bn_act_fwd", _FWD_SUMS_ARGS, "sums_launch")(
+            dtype, act_code, int(has_res), pass_, z.data_ptr(), n, c, _ptr(gsum), _ptr(gn),
+            lsum.data_ptr(), scratch.data_ptr(), need, vec,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bn_act_fwd sums launch failed with CUDA error {err}")
+    return lsum
+
+
+def bn_fwd_apply(act: str, eps: float, z, gamma, beta, res, gsum, gsq, gn, vec=None):
+    """The forward's apply launch on CUDA ``z``: ``(out, mean, var, inv)``
+    from the global sums ``gsum`` and ``gsq`` (bf16/f16: Σz and Σz²;
+    float32: Σz and the centred Σ(z − mean)²) and row count ``gn``."""
+    c = z.shape[-1]
+    n = z.numel() // c
+    out = torch.empty_like(z)
+    vec = _vec(z, res, out) if vec is None else vec
+    mean, var, inv = torch.empty((3, c), dtype=torch.float32, device=z.device)
+    dtype, act_code = _codes(z, act)
+    with torch.cuda.device(z.device):
+        err = _kernel("bn_act_fwd", _FWD_APPLY_ARGS, "apply_launch")(
+            dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res), n, c,
+            float(eps), gsum.data_ptr(), gsq.data_ptr(), gn.data_ptr(), out.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), inv.data_ptr(), vec,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bn_act_fwd apply launch failed with CUDA error {err}")
+    return out, mean, var, inv
+
+
+def bn_bwd_sums(act: str, z, gamma, beta, res, mean, inv, dout, vec=None):
+    """The backward's sums launch on CUDA ``z``: ``(dgamma, dbeta, dpre)``,
+    this rank's Σdpre·x̂ and Σdpre (float32) and dpre (None without
+    ``res``)."""
+    c = z.shape[-1]
+    n = z.numel() // c
+    dpre = None if res is None else torch.empty_like(z)
+    vec = _vec(z, res, dout, dpre) if vec is None else vec
+    dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=z.device) for _ in range(2))
+    dtype, act_code = _codes(z, act)
+    with torch.cuda.device(z.device):
+        need = _kernel("bn_act_bwd", _SCRATCH_ARGS, "sums_scratch", ctypes.c_longlong)(
+            dtype, act_code, int(res is not None), n, c, vec)
+        if need < 0:
+            raise RuntimeError(f"bn_act_bwd sums grid query failed with CUDA error {-need}")
+        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+        err = _kernel("bn_act_bwd", _BWD_SUMS_ARGS, "sums_launch")(
+            dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
+            mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, dgamma.data_ptr(),
+            dbeta.data_ptr(), _ptr(dpre), scratch.data_ptr(), need, vec,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bn_act_bwd sums launch failed with CUDA error {err}")
+    return dgamma, dbeta, dpre
+
+
+def bn_bwd_dz(act: str, z, gamma, beta, res, mean, inv, dout, gg, gb, gn, vec=None):
+    """The backward's dz launch on CUDA ``z``: dz from the global sums
+    ``gg`` (Σdpre·x̂), ``gb`` (Σdpre) and row count ``gn``."""
+    c = z.shape[-1]
+    n = z.numel() // c
+    dz = torch.empty_like(z)
+    vec = _vec(z, res, dout, dz) if vec is None else vec
+    dtype, act_code = _codes(z, act)
+    with torch.cuda.device(z.device):
+        err = _kernel("bn_act_bwd", _BWD_DZ_ARGS, "dz_launch")(
+            dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
+            mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, gg.data_ptr(),
+            gb.data_ptr(), gn.data_ptr(), dz.data_ptr(), vec,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bn_act_bwd dz launch failed with CUDA error {err}")
+    return dz
+
+
+def _over_ranks(*sums, rows: int):
+    """The per-channel ``sums`` over the data group's ranks and the global
+    row count (a float32 on the card), one collective; at world 1 the sums
+    themselves and this rank's count."""
+    if data_parallel.world() > 1:
+        *out, total = data_parallel.all_reduce_sums(*sums, rows=rows)
+        return out, total.reshape(1)
+    return list(sums), torch.full((1,), float(rows), dtype=torch.float32,
+                                  device=sums[0].device)
+
+
+def bn_act_fwd_split(act: str, eps: float, z, gamma, beta, res=None):
+    """``(out, mean, var, inv)`` through the split launches around the data
+    group's all-reduce (see the module docstring); the plain version on a
+    CPU tensor."""
+    global fwd_launches, fwd_split_launches
+    _check("bn_act_fwd", z, gamma, beta, res)
+    if z.device.type == "cpu":
+        return bn_act_fwd_plain(act, eps, z, gamma, beta, res)
+    _check_cuda("bn_act_fwd", act, z,
+                (("z", z), ("gamma", gamma), ("beta", beta), ("res", res)), ())
+    c = z.shape[-1]
+    n = z.numel() // c
+    vec = _vec(z, res)
+    has_res = res is not None
+    if z.dtype == torch.float32:
+        (gsum,), gn = _over_ranks(bn_fwd_sums(act, z, has_res, 1, vec=vec), rows=n)
+        (gsq,), _ = _over_ranks(bn_fwd_sums(act, z, has_res, 2, gsum, gn, vec=vec), rows=n)
+    else:
+        sq = bn_fwd_sums(act, z, has_res, 0, vec=vec)
+        (gsum, gsq), gn = _over_ranks(sq[:c], sq[c:], rows=n)
+    out = bn_fwd_apply(act, eps, z, gamma, beta, res, gsum, gsq, gn)
+    with _count_lock:
+        fwd_launches += 1
+        fwd_split_launches += 1
+    return out
+
+
+def bn_act_bwd_split(act: str, eps: float, z, gamma, beta, res, mean, inv, dout):
+    """``(dz, dgamma, dbeta, dpre)`` through the split launches around the
+    data group's all-reduce (see the module docstring); dgamma and dbeta
+    are this rank's sums. The plain version on a CPU tensor."""
+    global bwd_launches, bwd_split_launches
+    _check("bn_act_bwd", z, gamma, beta, res)
+    if dout.shape != z.shape:
+        raise ValueError(f"bn_act_bwd: dout {tuple(dout.shape)} does not match "
+                         f"z {tuple(z.shape)}")
+    if z.device.type == "cpu":
+        return bn_act_bwd_plain(act, eps, z, gamma, beta, res, mean, inv, dout)
+    dout = dout.contiguous()
+    _check_cuda("bn_act_bwd", act, z,
+                (("z", z), ("gamma", gamma), ("beta", beta), ("res", res),
+                 ("dout", dout)), (("mean", mean), ("inv", inv)))
+    n = z.numel() // z.shape[-1]
+    dgamma, dbeta, dpre = bn_bwd_sums(act, z, gamma, beta, res, mean, inv, dout)
+    (gg, gb), gn = _over_ranks(dgamma, dbeta, rows=n)
+    dz = bn_bwd_dz(act, z, gamma, beta, res, mean, inv, dout, gg, gb, gn)
+    with _count_lock:
+        bwd_launches += 1
+        bwd_split_launches += 1
     return dz, dgamma, dbeta, dpre

@@ -22,6 +22,7 @@ package, on the CPU.
 JAX is imported inside the tests, not at module top.
 """
 
+import dataclasses
 import threading
 import time
 
@@ -326,7 +327,9 @@ def test_cli_trains_a_jax_written_zip(tmp_path):
     assert a.iteration == b.iteration and a.epoch == b.epoch == 2
     for u, v in zip(_sorted_leaves(a.params), _jleaves(b.params)):
         np.testing.assert_allclose(u, v, rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A6b"):
+    # --tp trains tensor-parallel now; one process has one rank, not the two
+    # a (dp, 2) mesh needs
+    with pytest.raises(ValueError, match="tp=2"):
         pmain(["--model-path", str(src), "--data", "iris", "--tp", "2", "--device", "cpu"])
 
 
@@ -335,8 +338,14 @@ def test_named_refusals(tmp_path):
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
     from deeplearning4j_tpu_torch.perf.prefetch import DevicePrefetchIterator
     net = _to_port(_jax_mln(), tmp_path)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        ParallelWrapper(net, tensor_parallel=True)
+    # tensor parallelism refuses by name the per-layer rules that read whole
+    # leaves (a rank holds slices)
+    clipped = _to_port(_jax_mln(), tmp_path, "clipped.zip")
+    clipped._layer_confs = (dataclasses.replace(
+        clipped._layer_confs[0], gradient_normalization="clip_l2_per_layer"),
+        *clipped._layer_confs[1:])
+    with pytest.raises(NotImplementedError, match="gradient_normalization"):
+        ParallelWrapper(clipped, tensor_parallel=True).fit(DataSet(*_xy(4)))
     two = pmesh.Mesh(np.arange(2).reshape(2, 1), torch.device("cpu"))
     with pytest.raises(pmesh.MultiRankMeshError):
         ParallelInference(net, mesh=two, device="cpu")
@@ -348,12 +357,13 @@ def test_named_refusals(tmp_path):
     np.testing.assert_array_equal(np.asarray(pi.output(x)), net.output(x).numpy())
     assert DevicePrefetchIterator([], mesh=one).device == torch.device("cpu")
     # the bn kernels never take the plain path at a data world above 1: a
-    # tensor that is not on the CPU raises before any launch
+    # tensor that is not on the CPU goes to the split launches, and one
+    # that is not on a card either raises before any launch
     z = torch.empty((8, 4), device="meta")
     g = torch.empty((4,), device="meta")
     with data_parallel.data_group(None, size=2):
-        with pytest.raises(NotImplementedError, match="A6b"):
+        with pytest.raises(ValueError, match="cuda or cpu"):
             bn_act.bn_act_fwd("relu", 1e-5, z, g, g)
-        with pytest.raises(NotImplementedError, match="A6b"):
+        with pytest.raises(ValueError, match="cuda or cpu"):
             bn_act.bn_act_bwd("relu", 1e-5, z, g, g, None, g, g, z)
     assert data_parallel.world() == 1
