@@ -11,7 +11,8 @@
    the three flash libraries, each of which must hold some. The first
    designs of int4_dot, bn_act_fwd, bn_act_bwd, adc_pq, adc_ivf_pq,
    flash_attn_fwd, scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1.cu)
-   and flash_attn_bwd_dq (csrc/*_v1.cu) are built beside them and timed on
+   and flash_attn_bwd_dq (csrc/*_v1.cu), and of the bn kernels' split
+   launches (csrc/bn_act_split_v1.cu), are built beside them and timed on
    the same operands as "previous_ms".
 3. Kernel phases: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it, and times both (CUDA events, median
@@ -30,12 +31,14 @@
      out: at the kernel's own stats, bitwise the plain elementwise math;
      against the whole plain version, float32 within rtol 1e-5 / atol 1e-6
      and bf16 within 2 bf16 ulps of the largest addend of the
-     pre-activation (a one-ulp change of a per-channel bf16 scale or shift
-     moves pre by that much). Backward, from the same saved stats: dpre
-     bitwise; dgamma/dbeta within rtol 1e-4 of the plain float32 sums (1.6 M
-     rows summed in another order); dz within rtol 1e-4 (float32) or 2 bf16
-     ulps, plus 1e-5 of its largest magnitude (it inherits the sums'
-     rounding). Two runs of each kernel agree bitwise. Each kernel's first
+     pre-activation and within the bound derived from a one-step change of
+     each channel's bf16 scale and shift and one ulp a rounding
+     (_derived_out_bound). The library yardsticks: F.batch_norm + act and
+     its autograd backward, and SyncBatchNorm's primitives. Backward, from
+     the same saved stats: dpre bitwise; dgamma/dbeta within rtol 1e-4 of
+     the plain float32 sums (1.6 M rows summed in another order); dz
+     within rtol 1e-4 (float32) or 2 bf16 ulps, plus 1e-5 of its largest
+     magnitude (it inherits the sums' rounding). Two runs of each kernel agree bitwise. Each kernel's first
      design is timed beside it.
 4. Serving phase: VGG16 at full width (224x224x3, 1000 classes, random
    weights from a seeded torch.Generator) is calibrated on two seeded
@@ -451,8 +454,9 @@
    outputs against the plain versions on the whole batch; 3 float32 steps
    held, with fit on the global batch, to a float64 referee (the whole
    update and its worst leaf within 3x fit's own distances from it, losses
-   within 1e-3, the first within 1e-5), and the same steps with per-rank statistics rejected by
-   those limits; bf16 step ms against fit's, gloo's share of the step (see
+   within 1e-3, the first within 1e-5), and the same steps with per-rank
+   statistics rejected by those limits; 2 x 53 + 1 all-reduces a float32
+   step; bf16 step ms against fit's, gloo's share of the step (see
    data_parallel_world2_phase).
 44. Model parallel (budget 50 s): in an NCCL group of one,
    ParallelWrapper(tensor_parallel=True) trains ResNet50 bitwise fit;
@@ -460,8 +464,12 @@
    causal float32 against reference_attention and the flash kernel, with
    gradients; GPipeTrainer at one stage on 12 residual MLP blocks of
    GPT-2 small's widths against the sequential stack; then the split bn
-   entries against the one launch at res2, res4 and the ragged 1,001 x 130
-   in both dtypes, timed (see model_parallel_phase, _split_times).
+   launches at world 1 bitwise the one launch in both directions at res2,
+   res4 and the ragged 1,001 x 130 in both dtypes, float32's statistics
+   launch held to bn_fwd_partials_plain and its combination to
+   combine_rank_partials, timed beside their first design, the one launch,
+   F.batch_norm and SyncBatchNorm's primitives (see model_parallel_phase,
+   _split_times).
 45. Prints the kernels JSON line (nine kernels; the bn rows' launches by
    path, data_tier, fused_update, transfer_learning, fit_featurized,
    cloud_checkpoint, supervised, parallel, parallel_compressed, elastic,
@@ -1031,15 +1039,49 @@ def hold_bn_bwd(torch, label, got, want) -> float:
     return err
 
 
+def _derived_out_bound(torch, act, z, res, scale, shift, p_scale, p_shift):
+    """Elementwise bound on |out - plain out| below float32 when the two
+    differ only in their statistics: the triangle inequality through each
+    rounding of out = act(T(T(T(z*T(scale)) + T(shift)) + res)). With s, h
+    the scale and shift cast to z's type T (kernel k, plain p): |z| |s_k -
+    s_p| + |h_k - h_p| (a channel's one-step change of each) + one ulp of T
+    at the larger of the two magnitudes for each rounding (the product, the
+    shift's add, the residual's add; leaky-ReLU's product), each version
+    rounding within half an ulp."""
+    dt = z.dtype
+    zf = z.float()
+    s_k, s_p = scale.to(dt).float(), p_scale.to(dt).float()
+    h_k, h_p = shift.to(dt).float(), p_shift.to(dt).float()
+    tiny, eps = torch.finfo(dt).tiny, torch.finfo(dt).eps
+
+    def ulp(a, b):
+        mag = torch.maximum(a.abs(), b.abs()).clamp_min(tiny)
+        return torch.exp2(torch.floor(torch.log2(mag))) * eps
+
+    x_k, x_p = (zf * s_k).to(dt).float(), (zf * s_p).to(dt).float()
+    bound = zf.abs() * (s_k - s_p).abs() + (h_k - h_p).abs() + ulp(x_k, x_p)
+    y_k, y_p = (x_k + h_k).to(dt).float(), (x_p + h_p).to(dt).float()
+    bound += ulp(y_k, y_p)
+    if res is not None:
+        bound += ulp((y_k + res.float()).to(dt).float(), (y_p + res.float()).to(dt).float())
+        y_k = (y_k + res.float()).to(dt).float()
+    if act == "leakyrelu":
+        bound += ulp(y_k, y_k * 0.01)
+    return bound
+
+
 def hold_bn_fwd(torch, label, operands, act, got, want) -> dict:
     """Hold bn_act_fwd's (out, mean, var, inv) against the plain version's:
     stats within rtol 1e-5 / atol 1e-6; out bitwise the plain elementwise
     math at the kernel's own stats, and against the whole plain version
-    within rtol 1e-5 / atol 1e-6 (float32) or 2 ulps of z's type of the
-    largest addend of the pre-activation. Returns max |out - plain|
-    ("max_abs_err") and, below float32, the channels whose scale or shift
-    in z's type differ from the plain version's ("flipped_channels") and
-    the largest |out - plain| in those ulps ("max_err_addend_ulps")."""
+    within rtol 1e-5 / atol 1e-6 (float32) or, below float32, both 2 ulps of
+    z's type of the largest addend of the pre-activation and the bound
+    derived from the statistics alone (_derived_out_bound). Returns max
+    |out - plain| ("max_abs_err") and, below float32, the channels whose
+    scale or shift in z's type differ from the plain version's
+    ("flipped_channels"), the largest |out - plain| in those ulps
+    ("max_err_addend_ulps") and over the derived bound
+    ("max_err_of_derived_bound")."""
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
     (z, gamma, beta, res), (out, mean, var, inv), (p_out, p_mean, p_var, p_inv) = \
@@ -1066,27 +1108,76 @@ def hold_bn_fwd(torch, label, operands, act, got, want) -> dict:
         torch.exp2(torch.floor(torch.log2(mag.clamp_min(torch.finfo(dt).tiny))))
         * torch.finfo(dt).eps)
     _hold(f"bn_act_fwd out {label} (2 ulps)", ulps <= 2, err)
+    diff = (out.float() - p_out.float()).abs()
+    bound = _derived_out_bound(torch, act, z, res, scale, shift, p_scale, p_shift)
+    _hold(f"bn_act_fwd out {label} (derived bound)", diff <= bound, err)
     flipped = (scale.to(dt) != p_scale.to(dt)) | (shift.to(dt) != p_shift.to(dt))
     return {"max_abs_err": err, "flipped_channels": int(flipped.sum()),
-            "max_err_addend_ulps": float(ulps.max())}
+            "max_err_addend_ulps": float(ulps.max()),
+            "max_err_of_derived_bound": float((diff / bound.clamp_min(1e-30)).max())}
+
+
+def _sync_bn_ms(torch, flush, z, gamma, beta, res, act, dout) -> dict:
+    """SyncBatchNorm's primitives, the library's split form, at world 1:
+    torch.batch_norm_stats -> batch_norm_gather_stats_with_counts ->
+    batch_norm_elemt + add + activation ("sync_fwd"); the activation's
+    backward, batch_norm_backward_reduce -> batch_norm_backward_elemt
+    ("sync_bwd"). Timed, never called by the port."""
+    from deeplearning4j_tpu_torch.nn.activations import get_activation
+
+    c = z.shape[-1]
+    n = z.numel() // c
+    # a SyncBatchNorm module of z's type: weights and running statistics in
+    # it, the row count in the running statistics' type
+    gw, gb = gamma.to(z.dtype), beta.to(z.dtype)
+    running = torch.zeros(c, dtype=z.dtype, device=z.device)
+    running_var = torch.ones(c, dtype=z.dtype, device=z.device)
+    counts = torch.full((1,), float(n), dtype=z.dtype, device=z.device)
+    counts32 = torch.full((1,), n, dtype=torch.int32, device=z.device)
+    fn = get_activation(act)
+
+    def fwd():
+        mean, invstd = torch.batch_norm_stats(z, BN_EPS)
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            z, mean[None], invstd[None], running, running_var, 0.1, BN_EPS, counts)
+        y = torch.batch_norm_elemt(z, gw, gb, mean, invstd, BN_EPS)
+        return fn(y if res is None else y + res), mean, invstd
+
+    _, mean, invstd = fwd()
+    pre = torch.batch_norm_elemt(z, gw, gb, mean, invstd, BN_EPS)
+    if res is not None:
+        pre = pre + res
+    pre = pre.detach().requires_grad_(True)
+    post = fn(pre)
+
+    def bwd():
+        (dy,) = torch.autograd.grad(post, pre, dout, retain_graph=True)
+        sdy, sdyx, dgw, dgb = torch.batch_norm_backward_reduce(dy, z, mean, invstd, gw, True,
+                                                               True, True)
+        return torch.batch_norm_backward_elemt(dy, z, mean, invstd, gw.to(mean.dtype), sdy,
+                                               sdyx, counts32), dgw, dgb
+
+    return {"sync_fwd": time_ms(torch, fwd, flush), "sync_bwd": time_ms(torch, bwd, flush)}
 
 
 def _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout) -> dict:
     """The library yardsticks of the bn kernels (timed, never called by the
     port): F.batch_norm(training=True) + add + activation ("fwd") and its
-    autograd backward ("bwd"), and what was timed ("note")."""
+    autograd backward ("bwd"), SyncBatchNorm's primitives ("sync_fwd",
+    "sync_bwd": _sync_bn_ms), and what was timed ("note")."""
     import torch.nn.functional as F
 
     from deeplearning4j_tpu_torch.nn.activations import get_activation
 
-    note = "F.batch_norm(training=True) + add + activation; autograd backward"
+    note = ("F.batch_norm(training=True) + add + activation; autograd backward; "
+            "SyncBatchNorm's primitives (sync_*)")
     gw, gb = gamma.float(), beta.float()  # batch-norm weights in float32
 
     def lib_fwd(zz=z, ww=gw, bb=gb, rr=res):
         y = F.batch_norm(zz, None, None, ww, bb, training=True, eps=BN_EPS)
         return get_activation(act)(y if rr is None else y + rr)
 
-    out = {"fwd": None, "bwd": None}
+    out = {"fwd": None, "bwd": None, "sync_fwd": None, "sync_bwd": None}
     try:
         leaves = [z.detach().requires_grad_(True), gw.detach().requires_grad_(True),
                   gb.detach().requires_grad_(True)]
@@ -1099,6 +1190,10 @@ def _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout) -> dict:
         del y, leaves
     except RuntimeError as e:
         note = f"F.batch_norm refused: {str(e).splitlines()[0]}"
+    try:
+        out.update(_sync_bn_ms(torch, flush, z, gamma, beta, res, act, dout))
+    except RuntimeError as e:
+        note += f"; SyncBatchNorm's primitives refused: {str(e).splitlines()[0]}"
     return dict(out, note=note)
 
 
@@ -1146,7 +1241,8 @@ def bn_case(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
         r = dict(base, **held, ms=time_ms(torch, kernel, flush),
                  host_ms=host_ms(torch, kernel), previous_ms=time_ms(torch, first, flush))
         r.update(plain_ms=time_ms(torch, plain, flush), bound_ms=bound_ms,
-                 bound_by=bound_by, library_ms=lib_ms[kind])
+                 bound_by=bound_by, library_ms=lib_ms[kind],
+                 sync_library_ms=lib_ms["sync_" + kind])
         print(f"bn_act_{kind} " + json.dumps(r), flush=True)
         row[kind] = r
     return row
@@ -1382,11 +1478,13 @@ def _bn_kernel_entry(name, rows, launches, split_rows):
     transfer_learning, fit_featurized, cloud_checkpoint, supervised,
     parallel_training (parallel, parallel_compressed), elastic,
     data_parallel_world2 (the split calls of both ranks) and model_parallel
-    phases); ``split``: the split launches at res2 bf16 +res, the one launch
-    on the same operands as ``previous_ms``, each entry's time and the
-    other SPLIT_CASES."""
+    phases); ``split``: the split launches at res2 bf16 +res, their first
+    design (csrc/bn_act_split_v1.cu) on the same operands as
+    ``previous_ms``, the one launch's time, each entry's time, the split's
+    floor and the other SPLIT_CASES."""
     kind = name[-3:]
-    keys = ("ms", "host_ms", "previous_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "host_ms", "previous_ms", "one_launch_ms", "plain_ms", "bound_ms",
+            "bound_by", "floor_ms", "library_ms", "sync_library_ms")
     head = split_rows[0]
     split = {"shape": {k: head[k] for k in ("case", "rows", "channels", "dtype", "act",
                                             "residual")},
@@ -1405,7 +1503,8 @@ def _bn_kernel_entry(name, rows, launches, split_rows):
         "previous_ms": stem["previous_ms"],
         "other_shapes": [{k: r[kind][k] for k in ("case", "rows", "channels", "dtype", "act",
                                                   "residual", "ms", "host_ms", "previous_ms",
-                                                  "plain_ms", "bound_ms", "library_ms")}
+                                                  "plain_ms", "bound_ms", "library_ms",
+                                                  "sync_library_ms")}
                          for r in rows if r[kind] is not stem]}
     return {"name": name, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{name}.cu",
@@ -1416,7 +1515,7 @@ def _bn_kernel_entry(name, rows, launches, split_rows):
             "max_abs_err_all_cases": max(r[kind]["max_abs_err"] for r in rows),
             "ms": stem["ms"], "host_ms": stem["host_ms"], "plain_ms": stem["plain_ms"],
             "bound_ms": stem["bound_ms"], "bound_by": stem["bound_by"],
-            "library_ms": stem["library_ms"],
+            "library_ms": stem["library_ms"], "sync_library_ms": stem["sync_library_ms"],
             "shape": {"rows": stem["rows"], "channels": stem["channels"],
                       "dtype": "bfloat16"}, **extra, "split": split}
 
@@ -7555,11 +7654,11 @@ def _dp2_bn_check(torch, dev, rank, world) -> dict:
     return out
 
 
-def _local_sums(*sums, rows: int):
-    """data_parallel.all_reduce_sums without the collective: this rank's
-    sums and row count (the negative control's per-rank statistics)."""
-    import torch
-    return (*sums, torch.full((), float(rows), dtype=sums[0].dtype, device=sums[0].device))
+def _local_sums(flat):
+    """data_parallel.sum_over_ranks without the collective: this rank's
+    statistics and sums alone (the negative control's per-rank statistics;
+    the float32 forward's zero rows of the other ranks add nothing)."""
+    return flat
 
 
 def dp2_rank(rank, port, workdir) -> None:
@@ -7600,12 +7699,12 @@ def dp2_rank(rank, port, workdir) -> None:
     net = _dp2_float32_nets(dev)[1]
     clock = _StepClock(torch)
     net.set_listeners(clock)
-    inner = data_parallel.all_reduce_sums
-    data_parallel.all_reduce_sums = _local_sums
+    inner = data_parallel.sum_over_ranks
+    data_parallel.sum_over_ranks = _local_sums
     try:
         ClusterTrainer(net).fit(_dp2_batches(torch, dev, DP2_STEPS))
     finally:
-        data_parallel.all_reduce_sums = inner
+        data_parallel.sum_over_ranks = inner
     report["control"] = {"losses": [float(v) for v in clock.losses]}
     if rank == 0:
         torch.save({k: v.cpu() for k, v in _run_record_tensors(net).items()},
@@ -7680,7 +7779,9 @@ def data_parallel_world2_phase(torch, dev, card, workdir) -> dict:
     3. bf16 (Adam 1e-3, as the training phase): step ms at world 2 against
        fit's in this process, and one step with each collective timed after
        a device sync (gloo's share of the step).
-    53 split forward and 53 split backward calls a step on each rank."""
+    53 split forward and 53 split backward calls a step on each rank, and
+    in float32 2 x 53 + 1 all-reduces a step (one a fused block and
+    direction, one gradient bucket)."""
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
     t_phase = time.perf_counter()
@@ -7793,6 +7894,11 @@ def data_parallel_world2_phase(torch, dev, card, workdir) -> dict:
         if split != [RESNET50_FUSED_BLOCKS * steps] * 2 or r["float32"]["launches"] != split:
             raise AssertionError(f"data_parallel_world2: rank {r['rank']} made {split} split "
                                  f"calls in {steps} steps; want 53 each a step")
+        # one all-reduce a fused block and direction, and the gradient bucket
+        if r["float32"]["all_reduces"] != steps * (2 * RESNET50_FUSED_BLOCKS + 1):
+            raise AssertionError(f"data_parallel_world2: rank {r['rank']} took "
+                                 f"{r['float32']['all_reduces']} all-reduces in {steps} "
+                                 f"float32 steps; want {2 * RESNET50_FUSED_BLOCKS + 1} a step")
         bsplit = r["bfloat16"]["split_launches"]
         timed = r["bfloat16"]["split_launches_timed"]
         if (bsplit != [RESNET50_FUSED_BLOCKS * (DP2_WARM + DP2_TIMED)] * 2
@@ -7830,13 +7936,142 @@ def data_parallel_world2_phase(torch, dev, card, workdir) -> dict:
     return launches
 
 
+def _split_v1(name, argtypes):
+    """The C entry bn_act_split_v1_<name> of the split launches' first
+    design (csrc/bn_act_split_v1.cu)."""
+    import ctypes
+
+    from deeplearning4j_tpu_torch.perf.kernels import _build
+    fn = getattr(_build.load("bn_act_split_v1"), f"bn_act_split_v1_{name}")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_longlong if name.endswith("scratch") else ctypes.c_int
+    return fn
+
+
+def first_design_split_fwd(torch, act, z, gamma, beta, res):
+    """The split forward's first design at world 1 on the same operands, as
+    its wrapper ran it: bf16/f16 one statistics launch (S and Q), float32
+    two (S, then the centred Q with the global mean), each row count a
+    torch.full, then the apply launch (entries: the launches' ms keys)."""
+    import ctypes
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    c = z.shape[-1]
+    n = z.numel() // c
+    codes = (bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act], int(res is not None))
+    vec = bn_act._vec(z, res)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def sums(pass_, gsum=None, gn=None):
+        need = _split_v1("fwd_sums_scratch", [I, I, I, I, L, I, I])(*codes, pass_, n, c, vec)
+        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+        lsum = torch.empty(2 * c if pass_ == 0 else c, dtype=torch.float32, device=z.device)
+        err = _split_v1("fwd_sums_launch", [I, I, I, I, P, L, I, P, P, P, P, L, I, P])(
+            *codes, pass_, z.data_ptr(), n, c, None if gsum is None else gsum.data_ptr(),
+            None if gn is None else gn.data_ptr(), lsum.data_ptr(), scratch.data_ptr(), need,
+            vec, stream)
+        if err:
+            raise RuntimeError(f"bn_act_split_v1 fwd sums failed with CUDA error {err}")
+        return lsum
+
+    def count():
+        return torch.full((1,), float(n), dtype=torch.float32, device=z.device)
+
+    if z.dtype == torch.float32:
+        gsum = sums(1)
+        gn = count()
+        gsq = sums(2, gsum, gn)
+        count()
+    else:
+        sq = sums(0)
+        gsum, gsq, gn = sq[:c], sq[c:], count()
+    out = torch.empty_like(z)
+    mean, var, inv = torch.empty((3, c), dtype=torch.float32, device=z.device)
+    err = _split_v1("fwd_apply_launch", [I, I, P, P, P, P, L, I, F, P, P, P, P, P, P, P, I, P])(
+        *codes[:2], z.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        None if res is None else res.data_ptr(), n, c, BN_EPS, gsum.data_ptr(), gsq.data_ptr(),
+        gn.data_ptr(), out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(),
+        bn_act._vec(z, res, out), stream)
+    if err:
+        raise RuntimeError(f"bn_act_split_v1 fwd apply failed with CUDA error {err}")
+    return out, mean, var, inv
+
+
+def first_design_split_bwd(torch, act, z, gamma, beta, res, mean, inv, dout):
+    """The split backward's first design at world 1 on the same operands,
+    as its wrapper ran it: the sums launch, the row count a torch.full, the
+    dz launch (which recomputes dpre from dout and res)."""
+    import ctypes
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    c = z.shape[-1]
+    n = z.numel() // c
+    dt, ac = bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act]
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    dpre = None if res is None else torch.empty_like(z)
+    vec = bn_act._vec(z, res, dout, dpre)
+    stream = torch.cuda.current_stream().cuda_stream
+    need = _split_v1("bwd_sums_scratch", [I, I, I, L, I, I])(dt, ac, int(res is not None), n,
+                                                              c, vec)
+    scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+    dg, db = torch.empty((2, c), dtype=torch.float32, device=z.device)
+    err = _split_v1("bwd_sums_launch", [I, I, P, P, P, P, P, P, P, L, I, P, P, P, P, L, I, P])(
+        dt, ac, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(res), mean.data_ptr(),
+        inv.data_ptr(), dout.data_ptr(), n, c, dg.data_ptr(), db.data_ptr(), ptr(dpre),
+        scratch.data_ptr(), need, vec, stream)
+    gn = torch.full((1,), float(n), dtype=torch.float32, device=z.device)
+    dz = torch.empty_like(z)
+    if not err:
+        err = _split_v1("bwd_dz_launch", [I, I, P, P, P, P, P, P, P, L, I, P, P, P, P, I, P])(
+            dt, ac, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(res), mean.data_ptr(),
+            inv.data_ptr(), dout.data_ptr(), n, c, dg.data_ptr(), db.data_ptr(), gn.data_ptr(),
+            dz.data_ptr(), vec, stream)
+    if err:
+        raise RuntimeError(f"bn_act_split_v1 bwd failed with CUDA error {err}")
+    return dz, dg, db, dpre
+
+
+def split_floor(n, c, esize, residual, kind):
+    """(ms) of the bytes the split's design must move at the card's peak:
+    the forward reads z twice (the statistics launch, then the apply),
+    res once and writes out; the backward reads z, dout (and res, writing
+    dpre) in the sums launch, then z and dpre (or dout) and writes dz."""
+    tensors = (4 if residual else 3) if kind == "fwd" else (7 if residual else 5)
+    return 1e3 * (tensors * n * c * esize + 6 * 4 * c) / PEAK_BYTES_PER_S
+
+
+def _hold_partials(torch, label, z, got):
+    """The float32 statistics launch's row (K, S', Q', n) against
+    bn_fwd_partials_plain's on the same z: K and n exact, S' within n
+    2^-53 sum |z - K| and Q' within n 2^-53 Q' (the worst-case roundoff of
+    an n-term double sum; both orders are sums of the same doubles)."""
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    c = z.shape[-1]
+    n = z.numel() // c
+    want = bn_act.bn_fwd_partials_plain(z)
+    if not (torch.equal(got[0, :c], want[0, :c]) and float(got[0, -1]) == n):
+        raise AssertionError(f"split {label}: the statistics launch's K or n differs")
+    spread = (z.double() - want[0, :c]).abs().sum(dim=0)
+    tol = n * 2.0 ** -53
+    s_err = (got[0, c:2 * c] - want[0, c:2 * c]).abs()
+    q_err = (got[0, 2 * c:3 * c] - want[0, 2 * c:3 * c]).abs()
+    _hold(f"split {label} S'", s_err <= tol * spread, float(s_err.max()))
+    _hold(f"split {label} Q'", q_err <= tol * want[0, 2 * c:3 * c], float(q_err.max()))
+    return {"s_err_of_bound": float((s_err / (tol * spread).clamp_min(1e-300)).max()),
+            "q_err_of_bound": float((q_err / (tol * want[0, 2 * c:3 * c]).clamp_min(1e-300)).max())}
+
+
 def _split_times(torch, dev, flush, case, n, c, dtype_name, act, residual) -> dict:
-    """The four split entries against the one launch at one shape: the
-    composite split calls held against the one launch (bitwise where the
-    reduction order is shared: every bf16 output and every backward output;
-    float32 statistics against the plain version, hold_bn_fwd), each entry,
-    the split calls, the one launch (previous_ms), the plain versions and
-    F.batch_norm + act timed, beside the bound."""
+    """The split launches against the one launch at one shape, at world 1:
+    both directions bitwise the one launch in every dtype; float32's
+    statistics launch held to bn_fwd_partials_plain (_hold_partials) and the
+    apply's mean and var bitwise combine_rank_partials of its output; out
+    and dz held to the plain versions (hold_bn_fwd, hold_bn_bwd). Timed: the
+    split calls ("ms"), each launch ("entries"), the first design
+    (csrc/bn_act_split_v1.cu, "previous_ms"), the one launch
+    ("one_launch_ms"), the plain versions, F.batch_norm + act and
+    SyncBatchNorm's primitives, beside the bound (each tensor once) and the
+    split's floor (z read twice, split_floor)."""
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
     (z, gamma, beta, res), one, dout = bn_operands(torch, dev, n, c, dtype_name, act,
@@ -7847,54 +8082,64 @@ def _split_times(torch, dev, flush, case, n, c, dtype_name, act, residual) -> di
     bargs = (act, BN_EPS, z, gamma, beta, res, one[1], one[3], dout)
     bone, bspl = bn_act.bn_act_bwd(*bargs), bn_act.bn_act_bwd_split(*bargs)
     torch.cuda.synchronize()
-    plain = bn_act.bn_act_fwd_plain(*args)
-    if dtype_name == "float32":
-        held = hold_bn_fwd(torch, label, (z, gamma, beta, res), act, spl, plain)
-    else:
-        if not all(torch.equal(a, b) for a, b in zip(one, spl)):
-            raise AssertionError(f"{label}: the split forward differs from the one launch")
-        held = {"max_abs_err": _max_err(spl[0], plain[0])}
+    if not all(torch.equal(a, b) for a, b in zip(one, spl)):
+        raise AssertionError(f"{label}: the split forward differs from the one launch")
     if not all((a is None and b is None) or torch.equal(a, b) for a, b in zip(bone, bspl)):
         raise AssertionError(f"{label}: the split backward differs from the one launch")
+    held = hold_bn_fwd(torch, label, (z, gamma, beta, res), act, spl,
+                       bn_act.bn_act_fwd_plain(*args))
     bwd_err = hold_bn_bwd(torch, label, bspl, bn_act.bn_act_bwd_plain(*bargs))
     has_res = res is not None
-    n_rows = torch.full((1,), float(n), dtype=torch.float32, device=z.device)
-    if dtype_name == "float32":
-        gsum = bn_act.bn_fwd_sums(act, z, has_res, 1)
-        gsq = bn_act.bn_fwd_sums(act, z, has_res, 2, gsum, n_rows)
-        sums = {"fwd_sums_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(act, z, has_res, 1),
-                                       flush),
-                "fwd_sums_centered_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(
-                    act, z, has_res, 2, gsum, n_rows), flush)}
-    else:
-        sq = bn_act.bn_fwd_sums(act, z, has_res, 0)
-        gsum, gsq = sq[:c], sq[c:]
-        sums = {"fwd_sums_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(act, z, has_res, 0),
-                                       flush)}
-    gg, gb, _ = bn_act.bn_bwd_sums(act, z, gamma, beta, res, one[1], one[3], dout)
-    entries = dict(sums, fwd_apply_ms=time_ms(torch, lambda: bn_act.bn_fwd_apply(
-        act, BN_EPS, z, gamma, beta, res, gsum, gsq, n_rows), flush),
-        bwd_sums_ms=time_ms(torch, lambda: bn_act.bn_bwd_sums(
-            act, z, gamma, beta, res, one[1], one[3], dout), flush),
-        bwd_dz_ms=time_ms(torch, lambda: bn_act.bn_bwd_dz(
-            act, z, gamma, beta, res, one[1], one[3], dout, gg, gb, n_rows), flush))
-    lib = _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout)
-    esize = z.element_size()
+    stats = bn_act.bn_fwd_sums(act, z, has_res)
     row = {"case": case, "rows": n, "channels": c, "dtype": dtype_name, "act": act,
-           "residual": residual, "entries": entries}
-    for kind, split_fn, one_fn, plain_fn, tensors, err in (
-            ("fwd", lambda: bn_act.bn_act_fwd_split(*args), lambda: bn_act.bn_act_fwd(*args),
-             lambda: bn_act.bn_act_fwd_plain(*args), 3 if residual else 2,
-             held["max_abs_err"]),
-            ("bwd", lambda: bn_act.bn_act_bwd_split(*bargs), lambda: bn_act.bn_act_bwd(*bargs),
-             lambda: bn_act.bn_act_bwd_plain(*bargs), 5 if residual else 3, bwd_err)):
+           "residual": residual, "bitwise_vs_one_launch": "forward and backward"}
+    if dtype_name == "float32":
+        row["partials"] = _hold_partials(torch, label, z, stats)
+        mean, var = bn_act.combine_rank_partials(stats)
+        if not (torch.equal(mean, spl[1]) and torch.equal(var, spl[2])):
+            raise AssertionError(f"{label}: the apply's statistics differ from "
+                                 "combine_rank_partials of the statistics launch's")
+    dgamma, dbeta, dpre, sums = bn_act.bn_bwd_sums(act, z, gamma, beta, res, one[1], one[3],
+                                                   dout)
+    v1 = (first_design_split_fwd(torch, act, z, gamma, beta, res),
+          first_design_split_bwd(torch, *bargs[:1], *bargs[2:]))
+    torch.cuda.synchronize()
+    row["v1_max_abs_diff"] = {"fwd": _max_err(v1[0][0], spl[0]),
+                              "bwd": _max_err(v1[1][0], bspl[0])}
+    del v1
+    row["entries"] = {
+        "fwd_sums_ms": time_ms(torch, lambda: bn_act.bn_fwd_sums(act, z, has_res), flush),
+        "fwd_apply_ms": time_ms(torch, lambda: bn_act.bn_fwd_apply(
+            act, BN_EPS, z, gamma, beta, res, stats), flush),
+        "bwd_sums_ms": time_ms(torch, lambda: bn_act.bn_bwd_sums(
+            act, z, gamma, beta, res, one[1], one[3], dout), flush),
+        "bwd_dz_ms": time_ms(torch, lambda: bn_act.bn_bwd_dz(
+            act, z, gamma, beta, res, one[1], one[3], dout, dpre, sums), flush)}
+    lib = _bn_library_ms(torch, flush, z, gamma, beta, res, act, dout)
+    row["library"] = lib["note"]
+    esize = z.element_size()
+    for kind, split_fn, v1_fn, one_fn, plain_fn, tensors, err in (
+            ("fwd", lambda: bn_act.bn_act_fwd_split(*args),
+             lambda: first_design_split_fwd(torch, act, z, gamma, beta, res),
+             lambda: bn_act.bn_act_fwd(*args), lambda: bn_act.bn_act_fwd_plain(*args),
+             3 if residual else 2, held["max_abs_err"]),
+            ("bwd", lambda: bn_act.bn_act_bwd_split(*bargs),
+             lambda: first_design_split_bwd(torch, *bargs[:1], *bargs[2:]),
+             lambda: bn_act.bn_act_bwd(*bargs), lambda: bn_act.bn_act_bwd_plain(*bargs),
+             5 if residual else 3, bwd_err)):
         bound_ms, bound_by = bn_bound(n, c, esize, tensors, BN_OPS_PER_ELT[kind])
-        row[kind] = {"ms": time_ms(torch, split_fn, flush), "host_ms": host_ms(torch, split_fn),
-                     "previous_ms": time_ms(torch, one_fn, flush),
+        # parent, change, change, parent: the first design and the redesign in turns
+        v1_ms = [time_ms(torch, v1_fn, flush)]
+        ms = [time_ms(torch, split_fn, flush), time_ms(torch, split_fn, flush)]
+        v1_ms.append(time_ms(torch, v1_fn, flush))
+        row[kind] = {"ms": float(np.median(ms)), "ms_runs": ms, "host_ms": host_ms(torch, split_fn),
+                     "previous_ms": float(np.median(v1_ms)), "previous_ms_runs": v1_ms,
+                     "one_launch_ms": time_ms(torch, one_fn, flush),
                      "plain_ms": time_ms(torch, plain_fn, flush), "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib[kind], "max_abs_err": err}
-    row["bitwise_vs_one_launch"] = ("backward" if dtype_name == "float32"
-                                    else "forward and backward")
+                     "bound_by": bound_by,
+                     "floor_ms": split_floor(n, c, esize, residual, kind),
+                     "library_ms": lib[kind], "sync_library_ms": lib["sync_" + kind],
+                     "max_abs_err": err}
     print("bn_split " + json.dumps(row), flush=True)
     return row
 
@@ -8027,8 +8272,8 @@ def model_parallel_phase(torch, dev, card, flush) -> tuple:
        launch at world 1);
     2. ring_self_attention and ulysses_self_attention (_ring_check);
     3. GPipeTrainer at one stage (_gpipe_check);
-    4. the four split bn entries against the one launch at SPLIT_CASES
-       (_split_times).
+    4. the split bn launches against the one launch and their first
+       design at SPLIT_CASES (_split_times).
     Returns the bn launches of step 1 and the split rows."""
     import torch.distributed as dist
 
@@ -8341,13 +8586,13 @@ def main() -> int:
     dev = resolve_device("cuda")
     # the *_v1 sources are the first designs of int4_dot, flash_attn_fwd,
     # scatter_add, flash_attn_bwd_dkv (flash_attn_bwd_v1), flash_attn_bwd_dq,
-    # bn_act_bwd, bn_act_fwd, adc_pq and adc_ivf_pq, timed beside their
-    # redesigns (previous_ms)
+    # bn_act_bwd, bn_act_fwd, adc_pq, adc_ivf_pq and the bn kernels' split
+    # launches (bn_act_split_v1), timed beside their redesigns (previous_ms)
     names = ["int4_dot", "bn_act_fwd", "bn_act_bwd", "adc_pq", "adc_ivf_pq",
              "scatter_add", "flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq",
              "int4_dot_v1", "bn_act_fwd_v1", "bn_act_bwd_v1", "adc_pq_v1", "adc_ivf_pq_v1",
              "flash_attn_fwd_v1", "scatter_add_v1", "flash_attn_bwd_v1",
-             "flash_attn_bwd_dq_v1"]
+             "flash_attn_bwd_dq_v1", "bn_act_split_v1"]
     t0 = time.perf_counter()
     _build.build(names)
     PHASE_SECONDS["build"] = time.perf_counter() - t0

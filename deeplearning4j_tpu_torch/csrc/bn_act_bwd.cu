@@ -53,12 +53,23 @@
 // its bound.
 
 // The split launches (a data world above 1, perf/kernels/bn_act.py
-// bn_act_bwd_split): bn_bwd_sums (cooperative, passes 1 and 2's sums on the
-// one launch's grid, fit_grid) writes dpre and this rank's dgamma and
-// dbeta; the wrapper all-reduces the two with the row count; bn_bwd_dz (one
-// block a work item) forms each channel's coefficients from the global sums
-// as pass 2 does and runs pass 3. At one rank it reproduces the one launch
-// bitwise.
+// bn_act_bwd_split), both on the one launch's grid and work items
+// (fit_grid):
+// - bn_bwd_sums (cooperative): passes 1 and 2's sums as the one launch
+//   takes them, bitwise: dpre (when res is given), this rank's dgamma and
+//   dbeta, and the same two with the row count as 2C + 1 floats for the
+//   wrapper's one all-reduce;
+// - bn_bwd_dz: each thread forms its channels' coefficients from the
+//   all-reduced sums as pass 2 does, then pass 3 runs, each block walking
+//   its rows from the last (the sums launch read them last: L2 hits). With
+//   res it reads z and the dpre the sums launch wrote (stored in z's type,
+//   as the JAX reference rounds it before use: the same bits as
+//   recomputing it) in place of dout and res; without, z and dout.
+// At one rank the split reproduces the one launch bitwise. Both launches
+// stream rows through ring_walk (bn_act_common.cuh): TMA bulk copies into
+// a ring of kStages stages of dynamic shared memory; at V = 1, reg_walk.
+// The first design (bn_act_split_v1.cu) walked registers two rows deep and
+// reread dout and res in the dz launch.
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -73,6 +84,14 @@ constexpr int kMinBlocks = 2;  // blocks an SM the grid is sized for
 constexpr int kMaxV = 8;
 constexpr int kRows = 2;  // rows a thread has in flight
 
+// The split launches walk registers (reg_walk, kSplitRows rows of loads in
+// flight a thread); the TMA ring (kStages stages in kRing bytes of dynamic
+// shared memory a block, two blocks an SM) is the timed alternative
+constexpr int kStages = 4;
+constexpr int kRing = 98304;
+constexpr bool kUseRing = false;  // V > 1: ring_walk (false: reg_walk)
+constexpr int kSplitRows = 2;
+
 // What a launch runs: the one cooperative launch, or one of the split
 // launches a data world above 1 takes (the sums launch, then after the
 // all-reduce the dz launch).
@@ -83,9 +102,10 @@ struct Args : Grid {
   const float *mean, *inv;
   void *dz, *dpre;
   float *dgamma, *dbeta, *pg, *pb, *coef;
-  // the dz launch: the sums of dpre*xhat and dpre over the ranks, and the
-  // global row count
-  const float *gg, *gb, *gn;
+  // the split launches: the sums launch writes sums (dgamma, dbeta, n: 2C +
+  // 1 floats); the dz launch reads them summed over the ranks (gsums)
+  float *sums;
+  const float *gsums;
 };
 
 // pre, then dpre, of V elements
@@ -98,6 +118,33 @@ __device__ __forceinline__ void dpre_of(const Pack<T, V> &z, const Pack<T, V> &r
     d[e] = act_bwd<T, ACT>(
         pre_act_of<T, RES>(Cvt<T>::f(z.e[e]), RES ? Cvt<T>::f(r.e[e]) : 0.f, sc[e], sh[e]),
         Cvt<T>::f(dd.e[e]));
+}
+
+// The row lanes' sums in order, written as the item's row block's partials.
+template <int V>
+__device__ __forceinline__ void lane_totals(const Args &a, int item, const Item &it,
+                                            const float (&g)[V], const float (&b)[V],
+                                            float *red) {
+  const int gl = threadIdx.x % a.GC, width = a.GC * V;
+  float *const rg = red, *const rb = red + kThreads * kMaxV;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    rg[it.lane * width + gl * V + e] = g[e];
+    rb[it.lane * width + gl * V + e] = b[e];
+  }
+  __syncthreads();
+  const int tile = item % a.tiles, rbk = item / a.tiles;
+  for (int j = threadIdx.x; j < width; j += kThreads) {
+    const int c = tile * width + j;
+    if (c >= a.C) continue;
+    float sg = rg[j], sb = rb[j];
+    for (int l = 1; l < a.RL; ++l) {
+      sg = __fadd_rn(sg, rg[l * width + j]);
+      sb = __fadd_rn(sb, rb[l * width + j]);
+    }
+    a.pg[(long long)rbk * a.C + c] = sg;
+    a.pb[(long long)rbk * a.C + c] = sb;
+  }
 }
 
 // Pass 1 for one work item: the per-channel partial sums of dpre*xhat and
@@ -153,27 +200,48 @@ __device__ __forceinline__ void partials(const Args &a, int item, float *red) {
       }
     }
   }
-  // the row lanes in order
-  const int gl = threadIdx.x % a.GC, width = a.GC * V;
-  float *const rg = red, *const rb = red + kThreads * kMaxV;
+  lane_totals<V>(a, item, it, g, b, red);
+}
+
+// The split sums launch's pass 1: partials' sums and dpre, in partials'
+// order (each lane's rows in increasing order), its rows (z, dout and res)
+// through ring_walk.
+template <typename T, int V, int ACT, bool RES>
+__device__ __forceinline__ void split_partials(const Args &a, int item, unsigned char *smem) {
+  const Item it = item_of<V>(a, item);
+  float g[V], b[V], m[V], iv[V], sc[V], sh[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) {
-    rg[it.lane * width + gl * V + e] = g[e];
-    rb[it.lane * width + gl * V + e] = b[e];
+    g[e] = b[e] = 0.f;
+    const int c = it.active ? it.c0 + e : 0;
+    m[e] = a.mean[c];
+    iv[e] = a.inv[c];
+    sc[e] = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv[e]);
+    sh[e] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m[e], sc[e]));
   }
-  __syncthreads();
-  const int tile = item % a.tiles, rbk = item / a.tiles;
-  for (int j = threadIdx.x; j < width; j += kThreads) {
-    const int c = tile * width + j;
-    if (c >= a.C) continue;
-    float sg = rg[j], sb = rb[j];
-    for (int l = 1; l < a.RL; ++l) {
-      sg = __fadd_rn(sg, rg[l * width + j]);
-      sb = __fadd_rn(sb, rb[l * width + j]);
+  constexpr int NT = RES ? 3 : 2;
+  const T *const src[3] = {(const T *)a.z, (const T *)a.dout, (const T *)a.res};
+  auto add = [&](long long i, const Pack<T, V> *v) {
+    float d[V];
+    dpre_of<T, V, ACT, RES>(v[0], v[NT - 1], v[1], sc, sh, d);
+    if (RES) {
+      Pack<T, V> out;
+#pragma unroll
+      for (int e = 0; e < V; ++e) out.e[e] = Cvt<T>::t(d[e]);
+      st<T, V>((T *)a.dpre + i, out);
     }
-    a.pg[(long long)rbk * a.C + c] = sg;
-    a.pb[(long long)rbk * a.C + c] = sb;
-  }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float xh = __fmul_rn(__fsub_rn(Cvt<T>::f(v[0].e[e]), m[e]), iv[e]);
+      g[e] = __fmaf_rn(d[e], xh, g[e]);
+      b[e] = __fadd_rn(b[e], d[e]);
+    }
+  };
+  if constexpr (V > 1 && kUseRing)
+    ring_walk<T, V, NT, false, kStages>(a, item, it, src, smem, kRing, add);
+  else
+    reg_walk<T, V, NT, false, kSplitRows>(a, it, src, add);
+  lane_totals<V>(a, item, it, g, b, reinterpret_cast<float *>(smem + ring_head(kStages)));
 }
 
 // Pass 2's sums for channel c, by one thread: the partials in block order,
@@ -275,40 +343,66 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_fused(const Args 
   dz_pass<T, V, ACT, RES>(a, blockIdx.x);
 }
 
+extern __shared__ __align__(16) unsigned char split_smem[];
+
 // The split sums launch (cooperative): passes 1 and 2's sums, this rank's
-// dgamma and dbeta (and dpre when res is given), for the all-reduce over
-// the ranks.
+// dgamma and dbeta (and dpre when res is given), and sums = (dgamma,
+// dbeta, n) for the all-reduce over the ranks.
 template <typename T, int V, int ACT, bool RES>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_sums(const Args a) {
-  __shared__ float red[2 * kThreads * kMaxV];
-  partials<T, V, ACT, RES>(a, blockIdx.x, red);
+  split_partials<T, V, ACT, RES>(a, blockIdx.x, split_smem);
   cooperative_groups::this_grid().sync();
-  for (int c = blockIdx.x * kThreads + threadIdx.x; c < a.C; c += gridDim.x * kThreads)
-    channel_sums(a, c, a.dgamma[c], a.dbeta[c]);
+  for (int c = blockIdx.x * kThreads + threadIdx.x; c < a.C; c += gridDim.x * kThreads) {
+    float dg, db;
+    channel_sums(a, c, dg, db);
+    a.dgamma[c] = a.sums[c] = dg;
+    a.dbeta[c] = a.sums[a.C + c] = db;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.sums[2 * a.C] = (float)a.n;
 }
 
-// The split dz launch (one block a work item, no grid sync): each thread
-// forms its channels' coefficients from the global sums gg, gb and row
-// count gn as the one-launch kernel's pass 2 does from its own, then pass 3
-// runs.
+// The split dz launch (the sums launch's grid and items, no grid sync):
+// each thread forms its channels' coefficients from gsums as the one
+// launch's pass 2 does from its own, then pass 3 runs over the item's rows
+// from the last, from z and dpre (with res) or z and dout.
 template <typename T, int V, int ACT, bool RES>
-__global__ void __launch_bounds__(kThreads) bn_bwd_dz(const Args a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_bwd_dz(const Args a) {
   const Item it = item_of<V>(a, blockIdx.x);
-  if (!it.active) return;
-  const float nf = *a.gn;
+  const float nf = a.gsums[2 * a.C];
   float sc[V], sh[V], m[V], iv[V], cb[V], cg[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) {
-    const int c = it.c0 + e;
+    const int c = it.active ? it.c0 + e : 0;
     m[e] = a.mean[c];
     iv[e] = a.inv[c];
     sc[e] = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv[e]);
     sh[e] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m[e], sc[e]));
-    cb[e] = __fdiv_rn(a.gb[c], nf);
-    cg[e] = __fdiv_rn(a.gg[c], nf);
+    cb[e] = __fdiv_rn(a.gsums[a.C + c], nf);
+    cg[e] = __fdiv_rn(a.gsums[c], nf);
   }
-  dz_rows<T, V, ACT, RES>(a, it, sc, sh, cb, cg, m, iv);
+  const T *const src[2] = {(const T *)a.z, (const T *)(RES ? a.dpre : a.dout)};
+  auto put = [&](long long i, const Pack<T, V> *v) {
+    Pack<T, V> out;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float z = Cvt<T>::f(v[0].e[e]);
+      const float d = RES ? Cvt<T>::f(v[1].e[e])
+                          : act_bwd<T, ACT>(pre_act_of<T, false>(z, 0.f, sc[e], sh[e]),
+                                            Cvt<T>::f(v[1].e[e]));
+      const float xh = __fmul_rn(__fsub_rn(z, m[e]), iv[e]);
+      const float t = __fsub_rn(__fsub_rn(d, cb[e]), __fmul_rn(xh, cg[e]));
+      out.e[e] = Cvt<T>::t(__fmul_rn(sc[e], t));
+    }
+    st<T, V>((T *)a.dz + i, out);
+  };
+  if constexpr (V > 1 && kUseRing)
+    ring_walk<T, V, 2, true, kStages>(a, blockIdx.x, it, src, split_smem, kRing, put);
+  else
+    reg_walk<T, V, 2, true, kSplitRows>(a, it, src, put);
 }
+
+static_assert(kRing / kStages >= 3 * kLaneRowsBytes, "a stage holds a row a lane of 3 tensors");
+static_assert(2 * kThreads * kMaxV * 4 <= kRing, "the sums' lane totals fit in the ring");
 
 // The grid for V-element channel groups (bn_act_common.cuh's plan_grid).
 template <typename T, int V, int ACT, bool RES>
@@ -317,22 +411,57 @@ int plan(Args &a) {
   return plan_grid(a, V, (const void *)bn_bwd_fused<T, V, ACT, RES>, kMinBlocks, resident);
 }
 
+// Dynamic shared memory of the split launches' blocks: the ring at V > 1;
+// at V = 1 the sums launch's lane totals alone, the dz launch none.
+template <int V>
+constexpr int sums_smem() {
+  return V > 1 && kUseRing ? ring_smem(kStages, kRing)
+                           : ring_head(kStages) + 2 * kThreads * kMaxV * 4;
+}
+template <int V>
+constexpr int dz_smem() {
+  return V > 1 && kUseRing ? ring_smem(kStages, kRing) : 0;
+}
+
+// Allows `kernel` `bytes` of dynamic shared memory, once a device.
+inline int allow_smem(const void *kernel, int bytes, std::atomic<int> *allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= kMaxDevices || allowed[dev].load() == 0)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && dev < kMaxDevices) allowed[dev].store(1);
+  }
+  return (int)err;
+}
+
+// The split launches' grid: the one launch's (plan), fitted to the sums
+// kernel (fit_grid).
+template <typename T, int V, int ACT, bool RES>
+int split_plan(Args &a) {
+  static std::atomic<int> allowed[kMaxDevices], resident[kMaxDevices];
+  int err = plan<T, V, ACT, RES>(a);
+  const void *kernel = (const void *)bn_bwd_sums<T, V, ACT, RES>;
+  if (err == 0) err = allow_smem(kernel, sums_smem<V>(), allowed);
+  return err != 0 ? err : fit_grid(a, V, kernel, kMinBlocks, resident, sums_smem<V>());
+}
+
 // Plans the grid and sets *need to the scratch it takes (floats); then,
-// given scratch of at least that, launches `op`. The sums launch runs on the
-// one-launch kernel's grid (fit_grid); the dz launch takes no scratch.
+// given scratch of at least that, launches `op`. The dz launch takes no
+// scratch.
 template <typename T, int V, int ACT, bool RES>
 int run_v(int op, Args &a, float *scratch, long long cap, long long *need, cudaStream_t st) {
-  int err = plan<T, V, ACT, RES>(a);
-  if (err == 0 && op == kSums) {
-    static std::atomic<int> resident[kMaxDevices];  // blocks, by device
-    err = fit_grid(a, V, (const void *)bn_bwd_sums<T, V, ACT, RES>, kMinBlocks, resident);
-  }
-  if (err != 0) return err;
   if (op == kDz) {
-    bn_bwd_dz<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);
+    static std::atomic<int> allowed[kMaxDevices];
+    int err = split_plan<T, V, ACT, RES>(a);
+    if (err == 0)
+      err = allow_smem((const void *)bn_bwd_dz<T, V, ACT, RES>, dz_smem<V>(), allowed);
+    if (err != 0) return err;
+    bn_bwd_dz<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, dz_smem<V>(), st>>>(a);
     return (int)cudaGetLastError();
   }
-  *need = 2LL * a.nrb * a.C + 4LL * a.C;
+  const int err = op == kSums ? split_plan<T, V, ACT, RES>(a) : plan<T, V, ACT, RES>(a);
+  if (err != 0) return err;
+  *need = 2LL * a.nrb * a.C + (op == kSums ? 0 : 4LL * a.C);
   if (scratch == nullptr) return 0;
   if (cap < *need) return (int)cudaErrorInvalidValue;
   a.pg = scratch;
@@ -341,7 +470,8 @@ int run_v(int op, Args &a, float *scratch, long long cap, long long *need, cudaS
   void *args[] = {(void *)&a};
   const void *kernel = op == kSums ? (const void *)bn_bwd_sums<T, V, ACT, RES>
                                    : (const void *)bn_bwd_fused<T, V, ACT, RES>;
-  return (int)cudaLaunchCooperativeKernel(kernel, a.tiles * a.nrb, kThreads, args, 0, st);
+  return (int)cudaLaunchCooperativeKernel(kernel, a.tiles * a.nrb, kThreads, args,
+                                          op == kSums ? sums_smem<V>() : 0, st);
 }
 
 template <typename T, int ACT>
@@ -433,8 +563,9 @@ extern "C" int bn_act_bwd_launch(int dtype, int act, const void *z, const void *
 
 // ---------------------------------------------- the split launches
 // At a data world above 1 the wrapper runs the sums launch (this rank's
-// dgamma and dbeta, and dpre when res is given), sums dgamma and dbeta over
-// the ranks with the row count, and runs the dz launch on the sums.
+// dgamma and dbeta, dpre when res is given, and sums = (dgamma, dbeta, n),
+// 2C + 1 floats), all-reduces sums over the ranks, and runs the dz launch
+// on them.
 extern "C" long long bn_act_bwd_sums_scratch(int dtype, int act, int has_res, long long n,
                                              int C, int vec) {
   return scratch_of(kSums, dtype, act, has_res, n, C, vec);
@@ -443,10 +574,11 @@ extern "C" long long bn_act_bwd_sums_scratch(int dtype, int act, int has_res, lo
 extern "C" int bn_act_bwd_sums_launch(int dtype, int act, const void *z, const void *gamma,
                                       const void *beta, const void *res, const float *mean,
                                       const float *inv, const void *dout, long long n, int C,
-                                      float *dgamma, float *dbeta, void *dpre, float *scratch,
-                                      long long scratch_floats, int vec, void *stream) {
+                                      float *dgamma, float *dbeta, void *dpre, float *sums,
+                                      float *scratch, long long scratch_floats, int vec,
+                                      void *stream) {
   if (n <= 0 || C <= 0) return 0;
-  if ((res == nullptr) != (dpre == nullptr) || scratch == nullptr)
+  if ((res == nullptr) != (dpre == nullptr) || scratch == nullptr || sums == nullptr)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.z = z;
@@ -459,6 +591,7 @@ extern "C" int bn_act_bwd_sums_launch(int dtype, int act, const void *z, const v
   a.dpre = dpre;
   a.dgamma = dgamma;
   a.dbeta = dbeta;
+  a.sums = sums;
   a.n = n;
   a.C = C;
   long long need = 0;
@@ -466,28 +599,29 @@ extern "C" int bn_act_bwd_sums_launch(int dtype, int act, const void *z, const v
                   (cudaStream_t)stream);
 }
 
-// gg, gb: the per-channel sums of dpre*xhat and dpre over the ranks; gn: the
-// global row count.
+// gsums: the sums launch's `sums` summed over the ranks. With res, dpre (the
+// sums launch's) is read in place of dout and res (res only names the
+// kernel); without, dout.
 extern "C" int bn_act_bwd_dz_launch(int dtype, int act, const void *z, const void *gamma,
                                     const void *beta, const void *res, const float *mean,
-                                    const float *inv, const void *dout, long long n, int C,
-                                    const float *gg, const float *gb, const float *gn,
-                                    void *dz, int vec, void *stream) {
+                                    const float *inv, const void *dout, const void *dpre,
+                                    long long n, int C, const float *gsums, void *dz, int vec,
+                                    void *stream) {
   if (n <= 0 || C <= 0) return 0;
-  if (dz == nullptr || gg == nullptr || gb == nullptr || gn == nullptr)
+  if (dz == nullptr || gsums == nullptr || (res == nullptr) != (dpre == nullptr) ||
+      (res == nullptr && dout == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.z = z;
   a.res = res;
   a.dout = dout;
+  a.dpre = (void *)dpre;
   a.gamma = gamma;
   a.beta = beta;
   a.mean = mean;
   a.inv = inv;
   a.dz = dz;
-  a.gg = gg;
-  a.gb = gb;
-  a.gn = gn;
+  a.gsums = gsums;
   a.n = n;
   a.C = C;
   long long need = 0;

@@ -15,6 +15,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <algorithm>
 #include <atomic>
@@ -151,18 +152,19 @@ __device__ __forceinline__ Item item_of(const Grid &g, int item) {
   return it;
 }
 
-// The blocks of `kernel` (kThreads threads) the card holds at once: at most
-// min_blocks an SM, fewer if the occupancy calculator finds fewer resident.
-// The count is cached per device in `resident`, one array per kernel.
+// The blocks of `kernel` (kThreads threads, `smem` bytes of dynamic shared
+// memory) the card holds at once: at most min_blocks an SM, fewer if the
+// occupancy calculator finds fewer resident. The count is cached per device
+// in `resident`, one array per kernel.
 inline int resident_blocks(const void *kernel, int min_blocks, std::atomic<int> *resident,
-                           int *out) {
+                           int *out, int smem = 0) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   int blocks = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed) : 0;
   if (blocks == 0) {
     int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
@@ -198,14 +200,15 @@ inline int plan_grid(Grid &g, int V, const void *kernel, int min_blocks,
   return err != 0 ? err : plan_items(g, V, blocks);
 }
 
-// The split launches' statistics kernel runs on the one-launch kernel's
-// grid (planned into g), so that at one rank its partial sums are that
-// kernel's, bitwise; if fewer of its own blocks fit on the card at once, on
-// as many as fit.
+// The split launches run on the one-launch kernel's grid (planned into g),
+// so that at one rank their partial sums are that kernel's, bitwise; if
+// fewer of the statistics kernel's blocks (`smem` bytes of dynamic shared
+// memory each) fit on the card at once, on as many as fit. Both launches of
+// a direction fit the grid to the statistics kernel, so they share one plan.
 inline int fit_grid(Grid &g, int V, const void *kernel, int min_blocks,
-                    std::atomic<int> *resident) {
+                    std::atomic<int> *resident, int smem = 0) {
   int blocks = 0;
-  const int err = resident_blocks(kernel, min_blocks, resident, &blocks);
+  const int err = resident_blocks(kernel, min_blocks, resident, &blocks, smem);
   if (err != 0) return err;
   return (long long)g.tiles * g.nrb > blocks ? plan_items(g, V, blocks) : 0;
 }
@@ -216,6 +219,178 @@ inline int fit_grid(Grid &g, int V, const void *kernel, int min_blocks,
 template <typename T>
 constexpr bool vec_ok(int vec) {
   return vec == 1 || vec == 16 / (int)sizeof(T);
+}
+
+// ------------------------------------------- the split launches' row walks
+// A work item's rows stream through one of two walks, each handing every
+// row of the thread's lane to a consumer fn(i, v) as NT 16-byte (or, at
+// V = 1, scalar) packs v[t] of the NT tensors src[t] at element offset i
+// (row * C + c0):
+// - ring_walk (V > 1): a ring of STAGES stages in dynamic shared memory,
+//   filled by TMA 1-D bulk copies (cp.async.bulk) that complete on one
+//   mbarrier a stage; warp 0 refills a stage once every warp has
+//   arrived on its "empty" barrier. A stage holds R rows of the item's
+//   channel tile (R a multiple of RL, each lane R / RL of them), tensor by
+//   tensor, each tensor's rows packed (one bulk copy when the tile spans
+//   every channel, else one a row). Stage bytes are ring / STAGES.
+// - reg_walk (V = 1: ragged C or unaligned operands, where bulk copies
+//   cannot go): ROWS rows of loads in flight a thread, as the one launch.
+// Either walk hands a lane its rows in increasing order (REV false: the
+// statistics launches, whose sums must be the one launch's bitwise) or in
+// decreasing order (REV true: the second launches, which reread first the
+// rows the first launch read last, still in the 50 MB L2).
+
+__device__ __forceinline__ unsigned smem_u32(const void *p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t *bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t *bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t *bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t *bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global src
+// to shared dst, completing on bar
+__device__ __forceinline__ void bulk_load(void *dst, const void *src, unsigned bytes,
+                                          uint64_t *bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Dynamic shared memory of a ring_walk of `stages` stages: the barriers
+// (ring_head bytes), then the ring.
+__host__ __device__ constexpr int ring_head(int stages) { return 16 * stages; }
+__host__ __device__ constexpr int ring_smem(int stages, int ring_bytes) {
+  return ring_head(stages) + ring_bytes;
+}
+
+// The rows of a stage of NT tensors: RL rows (one a lane) of at most
+// 16 * GC bytes each take 4 KB a tensor, so a stage of `stage_bytes` (at
+// least NT * 4 KB) holds RL * (stage_bytes / (NT * 4 KB)) rows.
+constexpr int kLaneRowsBytes = 16 * kThreads;
+
+template <typename T, int V, int NT, bool REV, int STAGES, class Fn>
+__device__ __forceinline__ void ring_walk(const Grid &g, int item, const Item &it,
+                                          const T *const *src, unsigned char *smem,
+                                          int ring_bytes, Fn &&fn) {
+  static_assert(V * sizeof(T) == 16, "ring_walk moves 16-byte channel groups");
+  uint64_t *const full = reinterpret_cast<uint64_t *>(smem);
+  uint64_t *const empty = full + STAGES;
+  unsigned char *const ring = smem + ring_head(STAGES);
+  const int tile = item % g.tiles;
+  const int gl = threadIdx.x % g.GC, warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const unsigned rb = min(g.GC, g.G - tile * g.GC) * 16u;  // bytes of a row's tile slice
+  const long long c0 = (long long)tile * g.GC * V;       // the tile's first channel
+  const unsigned stage_bytes = (unsigned)(ring_bytes / STAGES) & ~15u;
+  const int R = g.RL * (int)(stage_bytes / (NT * kLaneRowsBytes));
+  const unsigned tbytes = R * rb;  // one tensor's rows in a stage
+  const long long rows = it.r1 - it.r0;
+  const int nst = rows <= 0 ? 0 : (int)((rows + R - 1) / R);
+  const bool whole = g.tiles == 1;  // a stage's rows are contiguous in global memory
+  // stage s of the walk covers rows [r0 + j R, ...), j = s (REV: nst - 1 - s)
+  auto first_row = [&](int s) { return it.r0 + (long long)(REV ? nst - 1 - s : s) * R; };
+  auto fill = [&](int s) {  // by warp 0: stage s into slot s % STAGES
+    const int slot = s % STAGES;
+    const long long f = first_row(s);
+    const int nr = (int)min((long long)R, it.r1 - f);
+    if (wl == 0) mbar_arrive_tx(&full[slot], NT * nr * rb);
+    __syncwarp();
+    unsigned char *const dst = ring + (size_t)slot * stage_bytes;
+    if (whole) {
+      if (wl < NT)
+        bulk_load(dst + wl * tbytes, src[wl] + f * g.C + c0, nr * rb, &full[slot]);
+    } else {
+      for (int k = wl; k < NT * nr; k += 32) {
+        const int t = k / nr, r = k % nr;
+        bulk_load(dst + t * tbytes + r * rb, src[t] + (f + r) * g.C + c0, rb, &full[slot]);
+      }
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kThreads / 32);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int s = 0; s < STAGES && s < nst; ++s) fill(s);
+  for (int s = 0; s < nst; ++s) {
+    const int slot = s % STAGES;
+    const unsigned parity = (s / STAGES) & 1;
+    mbar_wait(&full[slot], parity);
+    if (it.active) {
+      const long long f = first_row(s);
+      const int nr = (int)min((long long)R, it.r1 - f);
+      const unsigned char *const base = ring + (size_t)slot * stage_bytes + gl * 16;
+      for (int k0 = 0; k0 < R; k0 += g.RL) {
+        const int k = (REV ? R - g.RL - k0 : k0) + it.lane;
+        if (k >= nr) continue;
+        Pack<T, V> v[NT];
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          v[t] = *reinterpret_cast<const Pack<T, V> *>(base + t * tbytes + k * rb);
+        fn((f + k) * g.C + it.c0, v);
+      }
+    }
+    __syncwarp();
+    if (wl == 0) mbar_arrive(&empty[slot]);
+    if (warp == 0 && s + STAGES < nst) {
+      mbar_wait(&empty[slot], parity);
+      fill(s + STAGES);
+    }
+  }
+  __syncthreads();  // every stage consumed: the ring may be reused
+}
+
+template <typename T, int V, int NT, bool REV, int ROWS, class Fn>
+__device__ __forceinline__ void reg_walk(const Grid &g, const Item &it, const T *const *src,
+                                         Fn &&fn) {
+  if (!it.active) return;
+  const long long step = REV ? -(long long)g.RL : (long long)g.RL;
+  for (long long r = REV ? it.r1 - 1 - it.lane : it.r0 + it.lane;
+       REV ? r >= it.r0 : r < it.r1; r += ROWS * step) {
+    long long i[ROWS];
+    bool ok[ROWS];
+    Pack<T, V> v[ROWS][NT];
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {  // every row's loads first
+      const long long rj = r + j * step;
+      ok[j] = REV ? rj >= it.r0 : rj < it.r1;
+      i[j] = (ok[j] ? rj : r) * g.C + it.c0;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) v[j][t] = ld<T, V>(src[t] + i[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      if (!ok[j]) break;
+      fn(i[j], v[j]);
+    }
+  }
 }
 
 }  // namespace bn_act

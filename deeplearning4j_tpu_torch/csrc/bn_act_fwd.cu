@@ -61,20 +61,30 @@
 
 // The split launches (a data world above 1, perf/kernels/bn_act.py
 // bn_act_fwd_split): the one launch takes its statistics inside the launch,
-// where no all-reduce can sit, so the forward runs as
-// - bn_fwd_sums (cooperative, passes 1 and 2's sums on the one launch's
-//   grid, fit_grid): this rank's per-channel float32 sums, S and Q in one
-//   pass for bf16/f16; for float32 S, then after an all-reduce a second
-//   launch the centred Q = sum (z - S/n)^2 with the global S and n (the
-//   plain global path's two passes);
-// - the wrapper's all-reduce of the sums with the row count;
-// - bn_fwd_apply (one block a work item): each thread forms its channels'
-//   statistics from the global sums as pass 2 does, the first row block
-//   writes mean, var and inv, and pass 3 runs.
-// At one rank the bf16/f16 split reproduces the one launch bitwise (the
-// same partial sums in the same order); float32 differs from its shifted
-// sums by roundoff. It reads z once more than the one launch (twice more
-// in float32).
+// where no collective can sit, so the forward runs as two launches around
+// one collective, both on the one launch's grid and work items (fit_grid):
+// - bn_fwd_sums (cooperative): pass 1 and pass 2's sums as the one launch
+//   takes them, bitwise. bf16/f16: float32 S and Q with the row count (2C + 1
+//   floats). float32: this rank's row (K, S', Q', n) of a zero-padded
+//   (world, 3C + 1) buffer of doubles, K = z[0, c] of this rank;
+// - the wrapper's one all-reduce of that buffer (the float32 rows come back
+//   every rank's, in rank order);
+// - bn_fwd_apply: each thread forms its channels' statistics in its
+//   prologue (float32: the ranks' shifted sums re-shifted to rank 0's K in
+//   rank order, in double: with d_r = K_r - K_0, S = sum (S'_r + n_r d_r),
+//   Q = sum (Q'_r + 2 d_r S'_r + n_r d_r^2), then pass 2's expressions; at
+//   one rank d = 0 and these are the one launch's), the first row block
+//   writes mean, var and inv, and pass 3 runs, each block rereading its rows
+//   from the last (the statistics launch read them last: L2 hits).
+// At one rank the split reproduces the one launch bitwise in every type.
+// Both launches stream rows through ring_walk (bn_act_common.cuh): TMA
+// bulk copies into a ring of kStages stages of dynamic shared memory; at
+// V = 1, reg_walk. The split reads z twice (the one launch too, from L2
+// where it can); its first design read it three times in float32 and took
+// a second collective (kept as bn_act_split_v1.cu).
+//
+// The choices, timed by tools/kernel_variants.py (split_fwd_*): see
+// PERF.md (the table's row 1).
 
 #include <cooperative_groups.h>
 #include <stdint.h>
@@ -89,15 +99,18 @@ constexpr int kMinBlocks = 3;  // blocks an SM the grid is sized for
 constexpr int kStatRows = 4;   // rows a thread has in flight in pass 1
 constexpr int kApplyRows = 4;  // and in pass 3
 
+// The split launches' TMA ring (kStages stages in kRing bytes of dynamic
+// shared memory a block; three blocks an SM take 96 KB) and the rows a
+// thread has in flight where they walk registers (V = 1)
+constexpr int kStages = 2;
+constexpr int kRing = 32768;
+constexpr bool kUseRing = true;  // V > 1: ring_walk (false: reg_walk)
+constexpr int kSplitRows = 4;
+
 // What a launch runs: the one cooperative launch, or one of the split
 // launches a data world above 1 takes (a statistics launch, then after the
-// all-reduce the apply launch).
+// collective the apply launch).
 enum Op { kFused = 0, kSums = 1, kApply = 2 };
-// What a statistics pass sums: the one-launch kernel's sums (float32 S and
-// Q for bf16/f16, which the split launch takes too; double sums shifted by
-// z[0, c] for float32), or for float32 at a data world above 1, sum z, then
-// sum (z - mean)^2 with the global mean (the plain global path's two passes).
-enum Pass { kFusedPass = 0, kSumPass = 1, kCenteredPass = 2 };
 
 struct Args : Grid {
   const void *z, *res, *gamma, *beta;
@@ -106,12 +119,12 @@ struct Args : Grid {
   double *ps, *pq;  // per row block and channel: the partial sums
   float *coef;      // per channel: scale, then shift
   float eps;
-  // the split launches: this rank's per-channel sums (statistics launch);
-  // the sums over the ranks and the global row count (apply launch, and
-  // the centred statistics pass)
-  float *lsum;
-  const float *gsum, *gsq, *gn;
-  int pass;
+  // the split launches: the statistics launch writes `stats` (bf16/f16: S,
+  // Q, n as 2C + 1 floats; float32: the (world, 3C + 1) doubles, row rank);
+  // the apply launch reads them summed over the ranks (gstats)
+  void *stats;
+  const void *gstats;
+  int rank, world;
 };
 
 // What pass 1 sums in: float32 for bf16/f16 (the JAX kernel's float32 sums),
@@ -119,63 +132,41 @@ struct Args : Grid {
 template <typename T> struct Stat { using type = float; };
 template <> struct Stat<float> { using type = double; };
 
-// Pass 1 for one work item: the per-channel partial sums over the item's rows.
-template <typename T, int V, int P>
-__device__ __forceinline__ void partials(const Args &a, int item,
-                                         typename Stat<T>::type *red) {
-  using S = typename Stat<T>::type;
-  constexpr bool kShift = sizeof(T) == 4 && P == kFusedPass;
-  const Item it = item_of<V>(a, item);
-  const T *const z = (const T *)a.z;
-  S s[V], q[V];
+// One row's V values into a thread's pass-1 sums: double sums shifted by
+// k for float32, float32 sums of z and z^2 for bf16/f16.
+template <typename T, int V, typename S>
+__device__ __forceinline__ void add_row(const Pack<T, V> &zv, const double (&k)[V], S (&s)[V],
+                                        S (&q)[V]) {
 #pragma unroll
-  for (int e = 0; e < V; ++e) s[e] = q[e] = 0;
-  if (it.active) {
-    double k[V];
-    float m[V];
-    if (kShift) {
-      const Pack<T, V> k0 = ld<T, V>(z + it.c0);
-#pragma unroll
-      for (int e = 0; e < V; ++e) k[e] = (double)Cvt<T>::f(k0.e[e]);
-    }
-    if (P == kCenteredPass) {
-      const float nf = *a.gn;
-#pragma unroll
-      for (int e = 0; e < V; ++e) m[e] = __fdiv_rn(a.gsum[it.c0 + e], nf);
-    }
-    for (long long r = it.r0 + it.lane; r < it.r1; r += kStatRows * a.RL) {
-      bool ok[kStatRows];
-      Pack<T, V> zv[kStatRows];
-#pragma unroll
-      for (int j = 0; j < kStatRows; ++j) {  // every row's load first
-        const long long rj = r + j * a.RL;
-        ok[j] = rj < it.r1;
-        zv[j] = ld<T, V>(z + (ok[j] ? rj : r) * a.C + it.c0);
-      }
-#pragma unroll
-      for (int j = 0; j < kStatRows; ++j) {
-        if (!ok[j]) break;
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const float v = Cvt<T>::f(zv[j].e[e]);
-          if constexpr (kShift) {
-            const double d = __dsub_rn((double)v, k[e]);
-            s[e] = __dadd_rn(s[e], d);
-            q[e] = __fma_rn(d, d, q[e]);
-          } else if constexpr (P == kSumPass) {
-            s[e] = __dadd_rn(s[e], (double)v);
-          } else if constexpr (P == kCenteredPass) {
-            const double d = (double)__fsub_rn(v, m[e]);
-            q[e] = __fma_rn(d, d, q[e]);
-          } else {
-            s[e] = __fadd_rn(s[e], v);
-            q[e] = __fmaf_rn(v, v, q[e]);
-          }
-        }
-      }
+  for (int e = 0; e < V; ++e) {
+    const float v = Cvt<T>::f(zv.e[e]);
+    if constexpr (sizeof(T) == 4) {
+      const double d = __dsub_rn((double)v, k[e]);
+      s[e] = __dadd_rn(s[e], d);
+      q[e] = __fma_rn(d, d, q[e]);
+    } else {
+      s[e] = __fadd_rn(s[e], v);
+      q[e] = __fmaf_rn(v, v, q[e]);
     }
   }
-  // the row lanes in order
+}
+
+// The shift of float32's sums: the thread's channels' values in row 0.
+template <typename T, int V>
+__device__ __forceinline__ void shift_of(const T *z, const Item &it, double (&k)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) k[e] = 0.0;
+  if (sizeof(T) == 4 && it.active) {
+    const Pack<T, V> k0 = ld<T, V>(z + it.c0);
+#pragma unroll
+    for (int e = 0; e < V; ++e) k[e] = (double)Cvt<T>::f(k0.e[e]);
+  }
+}
+
+// The row lanes' sums in order, written as the item's row block's partials.
+template <typename T, int V, typename S>
+__device__ __forceinline__ void lane_totals(const Args &a, int item, const Item &it,
+                                            const S (&s)[V], const S (&q)[V], S *red) {
   const int gl = threadIdx.x % a.GC, width = a.GC * V;
   S *const rs = red, *const rq = red + kThreads * V;
 #pragma unroll
@@ -201,6 +192,59 @@ __device__ __forceinline__ void partials(const Args &a, int item,
     a.ps[(long long)rbk * a.C + c] = ss;
     a.pq[(long long)rbk * a.C + c] = sq;
   }
+}
+
+// Pass 1 for one work item: the per-channel partial sums over the item's rows.
+template <typename T, int V>
+__device__ __forceinline__ void partials(const Args &a, int item,
+                                         typename Stat<T>::type *red) {
+  using S = typename Stat<T>::type;
+  const Item it = item_of<V>(a, item);
+  const T *const z = (const T *)a.z;
+  S s[V], q[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = q[e] = 0;
+  double k[V];
+  shift_of<T, V>(z, it, k);
+  if (it.active) {
+    for (long long r = it.r0 + it.lane; r < it.r1; r += kStatRows * a.RL) {
+      bool ok[kStatRows];
+      Pack<T, V> zv[kStatRows];
+#pragma unroll
+      for (int j = 0; j < kStatRows; ++j) {  // every row's load first
+        const long long rj = r + j * a.RL;
+        ok[j] = rj < it.r1;
+        zv[j] = ld<T, V>(z + (ok[j] ? rj : r) * a.C + it.c0);
+      }
+#pragma unroll
+      for (int j = 0; j < kStatRows; ++j) {
+        if (!ok[j]) break;
+        add_row<T, V>(zv[j], k, s, q);
+      }
+    }
+  }
+  lane_totals<T, V>(a, item, it, s, q, red);
+}
+
+// The split statistics launch's pass 1: partials' sums, in partials' order
+// (each lane's rows in increasing order), its rows through ring_walk.
+template <typename T, int V>
+__device__ __forceinline__ void split_partials(const Args &a, int item, unsigned char *smem) {
+  using S = typename Stat<T>::type;
+  const Item it = item_of<V>(a, item);
+  const T *const z = (const T *)a.z;
+  S s[V], q[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = q[e] = 0;
+  double k[V];
+  shift_of<T, V>(z, it, k);
+  const T *const src[1] = {z};
+  auto add = [&](long long, const Pack<T, V> *v) { add_row<T, V>(v[0], k, s, q); };
+  if constexpr (V > 1 && kUseRing)
+    ring_walk<T, V, 1, false, kStages>(a, item, it, src, smem, kRing, add);
+  else
+    reg_walk<T, V, 1, false, kSplitRows>(a, it, src, add);
+  lane_totals<T, V>(a, item, it, s, q, reinterpret_cast<S *>(smem + ring_head(kStages)));
 }
 
 // Pass 2's sums for channel c, by one warp: lane l adds the partials of row
@@ -297,7 +341,7 @@ __device__ __forceinline__ void apply(const Args &a, int item) {
 template <typename T, int V, int ACT, bool RES>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_fused(const Args a) {
   __shared__ typename Stat<T>::type red[2 * kThreads * V];
-  partials<T, V, kFusedPass>(a, blockIdx.x, red);
+  partials<T, V>(a, blockIdx.x, red);
   cooperative_groups::this_grid().sync();
   const int warps = gridDim.x * (kThreads / 32);
   for (int c = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; c < a.C; c += warps)
@@ -306,58 +350,114 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_fused(const Args 
   apply<T, V, ACT, RES>(a, blockIdx.x);
 }
 
-// The split statistics launch (cooperative): passes 1 and 2's sums, written
-// as float32 per channel into lsum (S then Q for bf16/f16; S, or the
-// centred Q, for float32) for the all-reduce over the ranks.
-template <typename T, int V, int P>
+extern __shared__ __align__(16) unsigned char split_smem[];
+
+// The split statistics launch (cooperative): passes 1 and 2's sums, into
+// `stats` (bf16/f16: S, Q and n as floats; float32: this rank's row K, S',
+// Q', n of the zero-padded (world, 3C + 1) doubles, the other rows zeroed).
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_sums(const Args a) {
-  __shared__ typename Stat<T>::type red[2 * kThreads * V];
-  partials<T, V, P>(a, blockIdx.x, red);
+  split_partials<T, V>(a, blockIdx.x, split_smem);
   cooperative_groups::this_grid().sync();
   const int warps = gridDim.x * (kThreads / 32);
+  const long long w = 3LL * a.C + 1;
   for (int c = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; c < a.C; c += warps) {
     double S, Q;
     channel_totals(a, c, threadIdx.x % 32, S, Q);
     if (threadIdx.x % 32 != 0) continue;
-    if (P == kCenteredPass) {
-      a.lsum[c] = (float)Q;
+    if constexpr (sizeof(T) == 4) {
+      double *const row = (double *)a.stats + a.rank * w;
+      row[c] = (double)Cvt<T>::f(((const T *)a.z)[c]);
+      row[a.C + c] = S;
+      row[2 * a.C + c] = Q;
     } else {
-      a.lsum[c] = (float)S;
-      if (P == kFusedPass) a.lsum[a.C + c] = (float)Q;
+      ((float *)a.stats)[c] = (float)S;
+      ((float *)a.stats)[a.C + c] = (float)Q;
     }
   }
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t == 0) {
+    if constexpr (sizeof(T) == 4)
+      ((double *)a.stats)[a.rank * w + 3LL * a.C] = (double)a.n;
+    else
+      ((float *)a.stats)[2 * a.C] = (float)a.n;
+  }
+  if constexpr (sizeof(T) == 4)  // the other ranks' rows, for the all-reduce
+    for (long long i = t; i < (a.world - 1) * w; i += (long long)gridDim.x * kThreads)
+      ((double *)a.stats)[i < a.rank * w ? i : i + w] = 0.0;
 }
 
-// The split apply launch (one block a work item, no grid sync): each thread
-// forms its channels' statistics from the global sums gsum, gsq and row
-// count gn as the one-launch kernel's pass 2 does from its own (bf16/f16:
-// var = max(Q/n - mean^2, 0); float32: var = Q/n of the centred sums), the
-// first row block writes mean, var and inv, and pass 3 runs.
+// Channel c's float32 mean and var from the ranks' partials (world rows of
+// 3C + 1 doubles: K, S', Q', n), re-shifted to rank 0's K in rank order, in
+// double; at one rank pass 2's expressions on the one launch's sums.
+__device__ __forceinline__ void combine(const double *p, int world, int C, int c, float &m,
+                                        float &v) {
+  const long long w = 3LL * C + 1;
+  const double K = p[c];
+  double S = p[C + c], Q = p[2 * C + c], n = p[3LL * C];
+  for (int r = 1; r < world; ++r) {
+    const double *const q = p + r * w;
+    const double d = __dsub_rn(q[c], K), s = q[C + c], nr = q[3LL * C];
+    S = __dadd_rn(S, __dadd_rn(s, __dmul_rn(nr, d)));
+    Q = __dadd_rn(Q, __dadd_rn(__dadd_rn(q[2 * C + c], __dmul_rn(__dmul_rn(2.0, d), s)),
+                               __dmul_rn(nr, __dmul_rn(d, d))));
+    n = __dadd_rn(n, nr);
+  }
+  const double dm = __ddiv_rn(S, n);
+  m = (float)__dadd_rn(K, dm);
+  v = (float)fmax(__dsub_rn(__ddiv_rn(Q, n), __dmul_rn(dm, dm)), 0.0);
+}
+
+// The split apply launch (the statistics launch's grid and items, no grid
+// sync): each thread forms its channels' statistics from gstats (see
+// combine; bf16/f16: var = max(Q/n - mean^2, 0) from the float32 sums), the
+// first row block writes mean, var and inv, and pass 3 runs over the item's
+// rows from the last.
 template <typename T, int V, int ACT, bool RES>
-__global__ void __launch_bounds__(kThreads) bn_fwd_apply(const Args a) {
+__global__ void __launch_bounds__(kThreads, kMinBlocks) bn_fwd_apply(const Args a) {
   const Item it = item_of<V>(a, blockIdx.x);
-  if (!it.active) return;
-  const float nf = *a.gn;
-  const bool first = blockIdx.x / a.tiles == 0 && it.lane == 0;
   float sc[V], sh[V];
+  if (it.active) {
+    const bool first = blockIdx.x / a.tiles == 0 && it.lane == 0;
 #pragma unroll
-  for (int e = 0; e < V; ++e) {
-    const int c = it.c0 + e;
-    const float m = __fdiv_rn(a.gsum[c], nf);
-    const float v = sizeof(T) == 4
-                        ? __fdiv_rn(a.gsq[c], nf)
-                        : fmaxf(__fsub_rn(__fdiv_rn(a.gsq[c], nf), __fmul_rn(m, m)), 0.f);
-    const float iv = __frsqrt_rn(__fadd_rn(v, a.eps));
-    sc[e] = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv);
-    sh[e] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m, sc[e]));
-    if (first) {
-      a.mean[c] = m;
-      a.var[c] = v;
-      a.inv[c] = iv;
+    for (int e = 0; e < V; ++e) {
+      const int c = it.c0 + e;
+      float m, v;
+      if constexpr (sizeof(T) == 4) {
+        combine((const double *)a.gstats, a.world, a.C, c, m, v);
+      } else {
+        const float *const g = (const float *)a.gstats, nf = g[2 * a.C];
+        m = __fdiv_rn(g[c], nf);
+        v = fmaxf(__fsub_rn(__fdiv_rn(g[a.C + c], nf), __fmul_rn(m, m)), 0.f);
+      }
+      const float iv = __frsqrt_rn(__fadd_rn(v, a.eps));
+      sc[e] = __fmul_rn(Cvt<T>::f(((const T *)a.gamma)[c]), iv);
+      sh[e] = __fsub_rn(Cvt<T>::f(((const T *)a.beta)[c]), __fmul_rn(m, sc[e]));
+      if (first) {
+        a.mean[c] = m;
+        a.var[c] = v;
+        a.inv[c] = iv;
+      }
     }
   }
-  apply_rows<T, V, ACT, RES>(a, it, sc, sh);
+  constexpr int NT = RES ? 2 : 1;
+  const T *const src[2] = {(const T *)a.z, (const T *)a.res};
+  auto put = [&](long long i, const Pack<T, V> *v) {
+    Pack<T, V> o;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o.e[e] = Cvt<T>::t(act_fwd<T, ACT>(pre_act_of<T, RES>(
+          Cvt<T>::f(v[0].e[e]), RES ? Cvt<T>::f(v[NT - 1].e[e]) : 0.f, sc[e], sh[e])));
+    st<T, V>((T *)a.out + i, o);
+  };
+  if constexpr (V > 1 && kUseRing)
+    ring_walk<T, V, NT, true, kStages>(a, blockIdx.x, it, src, split_smem, kRing, put);
+  else
+    reg_walk<T, V, NT, true, kSplitRows>(a, it, src, put);
 }
+
+static_assert(kRing / kStages >= 2 * kLaneRowsBytes, "a stage holds a row a lane of 2 tensors");
+static_assert(2 * kThreads * 8 * 4 <= kRing, "the statistics' lane sums fit in the ring");
 
 template <typename T, int V, int ACT, bool RES>
 int plan(Args &a) {
@@ -365,45 +465,68 @@ int plan(Args &a) {
   return plan_grid(a, V, (const void *)bn_fwd_fused<T, V, ACT, RES>, kMinBlocks, resident);
 }
 
-// The statistics kernel of a pass, and its grid fitted (fit_grid).
-template <typename T, int V>
-const void *sums_kernel(int pass) {
-  if constexpr (sizeof(T) == 4)
-    return pass == kSumPass ? (const void *)bn_fwd_sums<T, V, kSumPass>
-                            : (const void *)bn_fwd_sums<T, V, kCenteredPass>;
-  else
-    return (const void *)bn_fwd_sums<T, V, kFusedPass>;
+// Dynamic shared memory of the split launches' blocks: the ring at V > 1;
+// at V = 1 the statistics launch's lane sums alone, the apply launch none.
+template <int V>
+constexpr int sums_smem() {
+  return V > 1 && kUseRing ? ring_smem(kStages, kRing)
+                           : ring_head(kStages) + 2 * kThreads * V * 8;
+}
+template <int V>
+constexpr int apply_smem() {
+  return V > 1 && kUseRing ? ring_smem(kStages, kRing) : 0;
 }
 
-template <typename T, int V>
-int fit_sums(Args &a) {
-  static std::atomic<int> resident[3][kMaxDevices];  // blocks, by pass and device
-  return fit_grid(a, V, sums_kernel<T, V>(a.pass), kMinBlocks, resident[a.pass]);
+// Allows `kernel` `bytes` of dynamic shared memory, once a device.
+inline int allow_smem(const void *kernel, int bytes, std::atomic<int> *allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev >= kMaxDevices || allowed[dev].load() == 0)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && dev < kMaxDevices) allowed[dev].store(1);
+  }
+  return (int)err;
+}
+
+// The split launches' grid: the one launch's (plan), fitted to the
+// statistics kernel (fit_grid).
+template <typename T, int V, int ACT, bool RES>
+int split_plan(Args &a) {
+  static std::atomic<int> allowed[kMaxDevices], resident[kMaxDevices];
+  int err = plan<T, V, ACT, RES>(a);
+  const void *kernel = (const void *)bn_fwd_sums<T, V>;
+  if (err == 0) err = allow_smem(kernel, sums_smem<V>(), allowed);
+  return err != 0 ? err : fit_grid(a, V, kernel, kMinBlocks, resident, sums_smem<V>());
 }
 
 // Plans the grid and sets *need to the scratch it takes (floats); then,
 // given scratch of at least that, launches `op`. The partial sums are
-// doubles, first in the scratch (which is 16-byte aligned), then scale and
-// shift. The apply launch takes no scratch.
+// doubles, first in the scratch (which is 16-byte aligned), then (the one
+// launch) scale and shift. The apply launch takes no scratch.
 template <typename T, int V, int ACT, bool RES>
 int run_v(int op, Args &a, float *scratch, long long cap, long long *need, cudaStream_t st) {
-  int err = plan<T, V, ACT, RES>(a);
-  if (err == 0 && op == kSums) err = fit_sums<T, V>(a);
-  if (err != 0) return err;
   if (op == kApply) {
-    bn_fwd_apply<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, 0, st>>>(a);
+    static std::atomic<int> allowed[kMaxDevices];
+    int err = split_plan<T, V, ACT, RES>(a);
+    if (err == 0)
+      err = allow_smem((const void *)bn_fwd_apply<T, V, ACT, RES>, apply_smem<V>(), allowed);
+    if (err != 0) return err;
+    bn_fwd_apply<T, V, ACT, RES><<<a.tiles * a.nrb, kThreads, apply_smem<V>(), st>>>(a);
     return (int)cudaGetLastError();
   }
-  *need = 4LL * a.nrb * a.C + 2LL * a.C;
+  const int err = op == kSums ? split_plan<T, V, ACT, RES>(a) : plan<T, V, ACT, RES>(a);
+  if (err != 0) return err;
+  *need = 4LL * a.nrb * a.C + (op == kSums ? 0 : 2LL * a.C);
   if (scratch == nullptr) return 0;
   if (cap < *need) return (int)cudaErrorInvalidValue;
   a.ps = (double *)scratch;
   a.pq = a.ps + (long long)a.nrb * a.C;
   a.coef = (float *)(a.pq + (long long)a.nrb * a.C);
   void *args[] = {(void *)&a};
-  const void *kernel = op == kSums ? sums_kernel<T, V>(a.pass)
+  const void *kernel = op == kSums ? (const void *)bn_fwd_sums<T, V>
                                    : (const void *)bn_fwd_fused<T, V, ACT, RES>;
-  return (int)cudaLaunchCooperativeKernel(kernel, a.tiles * a.nrb, kThreads, args, 0, st);
+  return (int)cudaLaunchCooperativeKernel(kernel, a.tiles * a.nrb, kThreads, args,
+                                          op == kSums ? sums_smem<V>() : 0, st);
 }
 
 template <typename T, int ACT>
@@ -421,9 +544,6 @@ template <typename T>
 int run(int op, int act, Args &a, bool res, int vec, float *scratch, long long cap,
         long long *need, cudaStream_t st) {
   if (!vec_ok<T>(vec)) return (int)cudaErrorInvalidValue;
-  if (op == kSums && (sizeof(T) == 4 ? (a.pass != kSumPass && a.pass != kCenteredPass)
-                                     : a.pass != kFusedPass))
-    return (int)cudaErrorInvalidValue;
   if (act == kRelu) return run_act<T, kRelu>(op, a, res, vec, scratch, cap, need, st);
   if (act == kLeakyRelu)
     return run_act<T, kLeakyRelu>(op, a, res, vec, scratch, cap, need, st);
@@ -434,6 +554,8 @@ int dispatch(int op, int dtype, int act, Args &a, bool res, int vec, float *scra
              long long cap, long long *need, cudaStream_t st) {
   if (a.n <= 0 || a.C <= 0 || act < kIdentity || act > kLeakyRelu || vec < 1 ||
       a.C % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  if (op != kFused && (a.world < 1 || a.rank < 0 || a.rank >= a.world))
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
@@ -446,12 +568,11 @@ int dispatch(int op, int dtype, int act, Args &a, bool res, int vec, float *scra
   return (int)cudaErrorInvalidValue;
 }
 
-long long scratch_of(int op, int dtype, int act, int has_res, long long n, int C, int vec,
-                     int pass) {
+long long scratch_of(int op, int dtype, int act, int has_res, long long n, int C, int vec) {
   Args a{};
   a.n = n;
   a.C = C;
-  a.pass = pass;
+  a.world = 1;
   long long need = 0;
   const int err = dispatch(op, dtype, act, a, has_res != 0, vec, nullptr, 0, &need, nullptr);
   return err != 0 ? -(long long)err : need;
@@ -464,7 +585,7 @@ long long scratch_of(int op, int dtype, int act, int has_res, long long n, int C
 // The scratch floats a launch over (n, C) takes, or minus a cudaError_t.
 extern "C" long long bn_act_fwd_scratch(int dtype, int act, int has_res, long long n, int C,
                                         int vec) {
-  return scratch_of(kFused, dtype, act, has_res, n, C, vec, kFusedPass);
+  return scratch_of(kFused, dtype, act, has_res, n, C, vec);
 }
 
 // scratch: scratch_floats floats, at least bn_act_fwd_scratch's count, 16-byte
@@ -495,31 +616,28 @@ extern "C" int bn_act_fwd_launch(int dtype, int act, const void *z, const void *
 
 // ---------------------------------------------- the split launches
 // At a data world above 1 the wrapper runs the statistics launch, sums its
-// float32 output over the ranks with the row count, and runs the apply
-// launch on the sums. act and has_res name the one-launch kernel whose grid
-// the statistics launch takes. pass: 0 for bf16/f16 (lsum gets S then Q, 2C
-// floats); for float32 1 (lsum gets S, C floats), then 2 after the first
-// all-reduce (lsum gets the centred Q; gsum and gn are the global S and row
-// count).
-extern "C" long long bn_act_fwd_sums_scratch(int dtype, int act, int has_res, int pass,
-                                             long long n, int C, int vec) {
-  return scratch_of(kSums, dtype, act, has_res, n, C, vec, pass);
+// output over the ranks in one all-reduce, and runs the apply launch on
+// the sums. act and has_res name the one-launch kernel whose grid both
+// launches take. stats: bf16/f16 2C + 1 floats (S, Q, n); float32 a
+// (world, 3C + 1) array of doubles, rank's row (K, S', Q', n) written and
+// the others zeroed.
+extern "C" long long bn_act_fwd_sums_scratch(int dtype, int act, int has_res, long long n,
+                                             int C, int vec) {
+  return scratch_of(kSums, dtype, act, has_res, n, C, vec);
 }
 
-extern "C" int bn_act_fwd_sums_launch(int dtype, int act, int has_res, int pass,
-                                      const void *z, long long n, int C, const float *gsum,
-                                      const float *gn, float *lsum, float *scratch,
-                                      long long scratch_floats, int vec, void *stream) {
+extern "C" int bn_act_fwd_sums_launch(int dtype, int act, int has_res, const void *z,
+                                      long long n, int C, int rank, int world, void *stats,
+                                      float *scratch, long long scratch_floats, int vec,
+                                      void *stream) {
   if (n <= 0 || C <= 0) return 0;
-  if (scratch == nullptr || ((uintptr_t)scratch & 15) != 0) return (int)cudaErrorInvalidValue;
-  if (pass == kCenteredPass && (gsum == nullptr || gn == nullptr))
+  if (scratch == nullptr || ((uintptr_t)scratch & 15) != 0 || stats == nullptr)
     return (int)cudaErrorInvalidValue;
   Args a{};
   a.z = z;
-  a.gsum = gsum;
-  a.gn = gn;
-  a.lsum = lsum;
-  a.pass = pass;
+  a.stats = stats;
+  a.rank = rank;
+  a.world = world;
   a.n = n;
   a.C = C;
   long long need = 0;
@@ -527,17 +645,15 @@ extern "C" int bn_act_fwd_sums_launch(int dtype, int act, int has_res, int pass,
                   (cudaStream_t)stream);
 }
 
-// gsum, gsq: the per-channel sums over the ranks (bf16/f16: S and Q; float32:
-// S and the centred Q); gn: the global row count. Writes out, mean, var and
-// inv as bn_act_fwd_launch does.
+// gstats: the statistics launch's output summed over the ranks (float32:
+// world rows). Writes out, mean, var and inv as bn_act_fwd_launch does.
 extern "C" int bn_act_fwd_apply_launch(int dtype, int act, const void *z, const void *gamma,
                                        const void *beta, const void *res, long long n, int C,
-                                       float eps, const float *gsum, const float *gsq,
-                                       const float *gn, void *out, float *mean, float *var,
-                                       float *inv, int vec, void *stream) {
+                                       float eps, int world, const void *gstats, void *out,
+                                       float *mean, float *var, float *inv, int vec,
+                                       void *stream) {
   if (n <= 0 || C <= 0) return 0;
-  if (out == nullptr || gsum == nullptr || gsq == nullptr || gn == nullptr)
-    return (int)cudaErrorInvalidValue;
+  if (out == nullptr || gstats == nullptr) return (int)cudaErrorInvalidValue;
   Args a{};
   a.z = z;
   a.res = res;
@@ -548,9 +664,8 @@ extern "C" int bn_act_fwd_apply_launch(int dtype, int act, const void *z, const 
   a.var = var;
   a.inv = inv;
   a.eps = eps;
-  a.gsum = gsum;
-  a.gsq = gsq;
-  a.gn = gn;
+  a.gstats = gstats;
+  a.world = world;
   a.n = n;
   a.C = C;
   long long need = 0;

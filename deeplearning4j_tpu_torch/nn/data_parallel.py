@@ -21,7 +21,11 @@ step:
   gradient, so each rank's gradient carries every rank's share of the
   statistics' derivative);
 - :func:`all_reduce_sums`: the two per-channel sums the fused block's
-  backward takes over the batch (Σdy and Σdy·x̂), with the row count.
+  backward takes over the batch (Σdy and Σdy·x̂), with the row count;
+- :func:`sum_over_ranks`: a flat buffer summed over the ranks in place,
+  the one collective of each direction of the bn kernels' split launches
+  (``perf/kernels/bn_act.py``): a zero-padded (world, k) buffer whose row
+  :func:`rank` each rank filled comes back with every rank's row.
 
 The mean over ranks of each rank's mean loss is the mean over the global
 batch because shards are equal (``ClusterTrainer`` checks it at each
@@ -40,8 +44,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["data_group", "world", "reducing", "mean_gradients", "global_batch_stats",
-           "all_reduce_sums", "all_reduces"]
+__all__ = ["data_group", "world", "rank", "reducing", "mean_gradients",
+           "global_batch_stats", "all_reduce_sums", "sum_over_ranks", "all_reduces"]
 
 _ACTIVE = {"group": None, "world": 1, "reduce": False}
 
@@ -52,6 +56,15 @@ all_reduces = 0
 def world() -> int:
     """Ranks of the active data group (1 when none is active)."""
     return _ACTIVE["world"]
+
+
+def rank() -> int:
+    """This process's rank in the active data group (0 when the step does
+    not reduce over a process group)."""
+    if not _ACTIVE["reduce"]:
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank(_ACTIVE["group"])
 
 
 def reducing() -> bool:
@@ -139,6 +152,12 @@ def all_reduce_sums(*sums: torch.Tensor, rows: int):
         out.append(flat[off:off + s.numel()].view(s.shape))
         off += s.numel()
     return (*out, flat[off])
+
+
+def sum_over_ranks(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` (contiguous) summed over the ranks in place, one collective;
+    returns it. Not differentiated."""
+    return _all_reduce(flat)
 
 
 def mean_gradients(leaves, loss: torch.Tensor) -> torch.Tensor:

@@ -40,22 +40,25 @@ sums: the step averages them with the other gradients). The one launch
 takes its statistics inside the launch, so on a CUDA tensor at a data
 world above 1 the wrappers take the split launches instead
 (:func:`bn_act_fwd_split`, :func:`bn_act_bwd_split`), each direction two
-launches around ``data_parallel.all_reduce_sums``:
+launches on the one launch's grid around one
+``data_parallel.sum_over_ranks``:
 
-- forward: a statistics launch writes this rank's per-channel float32
-  sums (bf16/f16: Σz and Σz² in one pass; float32: Σz, then after the
-  all-reduce a second launch Σ(z − mean)² with the global mean, the plain
-  global path's two passes), the sums go over the ranks with the row
-  count, and the apply launch forms the statistics and ``out``;
-- backward: a sums launch writes dpre (with ``res``) and this rank's
-  Σdpre·x̂ and Σdpre, they go over the ranks, and the dz launch forms dz
-  with the global row count.
+- forward: a statistics launch writes this rank's sums as the one launch
+  takes them (bf16/f16: float32 Σz, Σz² and the row count; float32: the
+  rank's row (K, S′, Q′, n) of a zero-padded (world, 3C + 1) float64
+  buffer, S′ = Σ(z − K) and Q′ = Σ(z − K)² shifted by its first row K),
+  they go over the ranks in one all-reduce, and the apply launch forms the
+  statistics in its prologue (float32: :func:`combine_rank_partials`'s
+  re-shift to rank 0's K, in rank order, in double) and ``out``;
+- backward: a sums launch writes dpre (with ``res``), this rank's
+  Σdpre·x̂ and Σdpre, and the two with the row count for one all-reduce;
+  the dz launch forms dz from z and dpre (with ``res``) or z and dout.
 
 The split entries are callable at world 1 too, where they skip the
-all-reduce: the statistics and sums launches run on the one-launch
-kernels' grids, so there they reproduce the one launch bitwise wherever
-the reduction order is shared (every output but the float32 forward's
-statistics, whose one launch sums shifted values in one read). Each split
+collective and reproduce the one launch bitwise in every dtype and both
+directions. :func:`bn_fwd_partials_plain` and
+:func:`combine_rank_partials` are the plain versions of the float32
+statistics launch and of the apply launch's combination. Each split
 wrapper call adds one to :data:`fwd_launches` / :data:`bwd_launches` and
 to :data:`fwd_split_launches` / :data:`bwd_split_launches`.
 """
@@ -73,9 +76,10 @@ from deeplearning4j_tpu_torch.nn.conf.normalization import (batch_stats, normali
                                                             scale_shift)
 
 __all__ = ["bn_act_fwd", "bn_act_bwd", "bn_act_fwd_plain", "bn_act_bwd_plain",
-           "bn_act_apply_plain", "bn_act_fwd_split", "bn_act_bwd_split", "bn_fwd_sums",
-           "bn_fwd_apply", "bn_bwd_sums", "bn_bwd_dz", "vec_width", "fwd_launches",
-           "bwd_launches", "fwd_split_launches", "bwd_split_launches", "KERNEL_ACTS"]
+           "bn_act_apply_plain", "bn_fwd_partials_plain", "combine_rank_partials",
+           "bn_act_fwd_split", "bn_act_bwd_split", "bn_fwd_sums", "bn_fwd_apply",
+           "bn_bwd_sums", "bn_bwd_dz", "vec_width", "fwd_launches", "bwd_launches",
+           "fwd_split_launches", "bwd_split_launches", "KERNEL_ACTS"]
 
 #: wrapper calls that launched the forward kernel or its split launches (a
 #: caller may reset it)
@@ -139,6 +143,42 @@ def bn_act_bwd_plain(act: str, eps: float, z, gamma, beta, res, mean, inv, dout)
         sum_g, sum_b, n = data_parallel.all_reduce_sums(dgamma, dbeta, rows=n)
     dz = (scale * (dpre32 - sum_b / n - xhat * (sum_g / n))).to(z.dtype)
     return dz, dgamma, dbeta, (dpre if res is not None else None)
+
+
+def bn_fwd_partials_plain(z, rank: int = 0, world: int = 1):
+    """The float32 statistics launch's output for this rank's ``z``: a
+    zero-padded (world, 3C + 1) float64 tensor whose row ``rank`` holds
+    K = z[0] (each channel's first value), S′ = Σ(z − K), Q′ = Σ(z − K)²
+    and the row count, in double."""
+    c = z.shape[-1]
+    zd = z.reshape(-1, c).double()
+    k = zd[0]
+    d = zd - k
+    out = torch.zeros((world, 3 * c + 1), dtype=torch.float64, device=z.device)
+    out[rank, :c] = k
+    out[rank, c:2 * c] = d.sum(dim=0)
+    out[rank, 2 * c:3 * c] = (d * d).sum(dim=0)
+    out[rank, 3 * c] = zd.shape[0]
+    return out
+
+
+def combine_rank_partials(parts):
+    """(mean, var) in float32 from every rank's row (K, S′, Q′, n) of
+    ``parts`` (world, 3C + 1), float64: each row re-shifted to rank 0's K in
+    rank order, in double (δ = K_r − K_0, S += S′_r + n_r·δ, Q += Q′_r +
+    2δ·S′_r + n_r·δ²), then mean = K_0 + S/n and var = max(Q/n − (S/n)², 0),
+    rounded once. The apply launch's prologue, operation for operation."""
+    c = (parts.shape[-1] - 1) // 3
+    k0 = parts[0, :c]
+    s, q, n = parts[0, c:2 * c], parts[0, 2 * c:3 * c], parts[0, 3 * c]
+    for row in parts[1:]:
+        d, sr, nr = row[:c] - k0, row[c:2 * c], row[3 * c]
+        s = s + (sr + nr * d)
+        q = q + ((row[2 * c:3 * c] + (2.0 * d) * sr) + nr * (d * d))
+        n = n + nr
+    dm = s / n
+    return ((k0 + dm).float(),
+            torch.clamp_min(q / n - dm * dm, 0.0).float())
 
 
 # ------------------------------------------------------------------ wrappers
@@ -212,11 +252,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _FWD_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _L, _I, _P]
 _BWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _L, _I, _P]
 _SCRATCH_ARGS = [_I, _I, _I, _L, _I, _I]
-_FWD_SUMS_SCRATCH_ARGS = [_I, _I, _I, _I, _L, _I, _I]
-_FWD_SUMS_ARGS = [_I, _I, _I, _I, _P, _L, _I, _P, _P, _P, _P, _L, _I, _P]
-_FWD_APPLY_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P]
-_BWD_SUMS_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _L, _I, _P]
-_BWD_DZ_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _I, _P]
+_FWD_SUMS_ARGS = [_I, _I, _I, _P, _L, _I, _I, _I, _P, _P, _L, _I, _P]
+_FWD_APPLY_ARGS = [_I, _I, _P, _P, _P, _P, _L, _I, _F, _I, _P, _P, _P, _P, _P, _I, _P]
+_BWD_SUMS_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _L, _I, _P]
+_BWD_DZ_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _I, _P]
 
 
 def _ptr(t):
@@ -306,108 +345,104 @@ def _codes(z, act):
     return _DTYPES[z.dtype], KERNEL_ACTS[str(act).lower()]
 
 
-def bn_fwd_sums(act: str, z, has_res: bool, pass_: int, gsum=None, gn=None, vec=None):
-    """The forward's statistics launch on CUDA ``z``: this rank's
-    per-channel float32 sums. ``pass_`` 0 (bf16/f16): Σz then Σz², 2C
-    floats; float32: 1, Σz (C floats), or 2, Σ(z − gsum/gn)² with the
-    global sums ``gsum`` (C) and row count ``gn`` (one float32 on the card).
+def _scratch(name, z, act, has_res, vec):
+    c = z.shape[-1]
+    need = _kernel(name, _SCRATCH_ARGS, "sums_scratch", ctypes.c_longlong)(
+        *_codes(z, act), int(has_res), z.numel() // c, c, vec)
+    if need < 0:
+        raise RuntimeError(f"{name} sums grid query failed with CUDA error {-need}")
+    return torch.empty(need, dtype=torch.float32, device=z.device)
+
+
+def bn_fwd_sums(act: str, z, has_res: bool, rank: int = 0, world: int = 1, vec=None):
+    """The forward's statistics launch on CUDA ``z``: bf16/f16, float32 Σz,
+    Σz² and the row count (2C + 1); float32, :func:`bn_fwd_partials_plain`'s
+    zero-padded (world, 3C + 1) float64 buffer with row ``rank`` filled.
     ``act`` and ``has_res`` name the one-launch kernel whose grid it takes;
     ``vec`` defaults to what ``z`` allows."""
     c = z.shape[-1]
     n = z.numel() // c
     vec = _vec(z) if vec is None else vec
-    dtype, act_code = _codes(z, act)
-    lsum = torch.empty(2 * c if pass_ == 0 else c, dtype=torch.float32, device=z.device)
+    stats = (torch.empty((world, 3 * c + 1), dtype=torch.float64, device=z.device)
+             if z.dtype == torch.float32 else
+             torch.empty(2 * c + 1, dtype=torch.float32, device=z.device))
     with torch.cuda.device(z.device):
-        need = _kernel("bn_act_fwd", _FWD_SUMS_SCRATCH_ARGS, "sums_scratch", ctypes.c_longlong)(
-            dtype, act_code, int(has_res), pass_, n, c, vec)
-        if need < 0:
-            raise RuntimeError(f"bn_act_fwd sums grid query failed with CUDA error {-need}")
-        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+        scratch = _scratch("bn_act_fwd", z, act, has_res, vec)
         err = _kernel("bn_act_fwd", _FWD_SUMS_ARGS, "sums_launch")(
-            dtype, act_code, int(has_res), pass_, z.data_ptr(), n, c, _ptr(gsum), _ptr(gn),
-            lsum.data_ptr(), scratch.data_ptr(), need, vec,
-            torch.cuda.current_stream().cuda_stream)
+            *_codes(z, act), int(has_res), z.data_ptr(), n, c, rank, world, stats.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"bn_act_fwd sums launch failed with CUDA error {err}")
-    return lsum
+    return stats
 
 
-def bn_fwd_apply(act: str, eps: float, z, gamma, beta, res, gsum, gsq, gn, vec=None):
+def bn_fwd_apply(act: str, eps: float, z, gamma, beta, res, stats, vec=None):
     """The forward's apply launch on CUDA ``z``: ``(out, mean, var, inv)``
-    from the global sums ``gsum`` and ``gsq`` (bf16/f16: Σz and Σz²;
-    float32: Σz and the centred Σ(z − mean)²) and row count ``gn``."""
+    from the statistics launch's ``stats`` summed over the ranks."""
     c = z.shape[-1]
     n = z.numel() // c
     out = torch.empty_like(z)
     vec = _vec(z, res, out) if vec is None else vec
     mean, var, inv = torch.empty((3, c), dtype=torch.float32, device=z.device)
-    dtype, act_code = _codes(z, act)
+    world = stats.shape[0] if z.dtype == torch.float32 else 1
     with torch.cuda.device(z.device):
         err = _kernel("bn_act_fwd", _FWD_APPLY_ARGS, "apply_launch")(
-            dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res), n, c,
-            float(eps), gsum.data_ptr(), gsq.data_ptr(), gn.data_ptr(), out.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), inv.data_ptr(), vec,
-            torch.cuda.current_stream().cuda_stream)
+            *_codes(z, act), z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res), n, c,
+            float(eps), world, stats.data_ptr(), out.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), inv.data_ptr(), vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"bn_act_fwd apply launch failed with CUDA error {err}")
     return out, mean, var, inv
 
 
 def bn_bwd_sums(act: str, z, gamma, beta, res, mean, inv, dout, vec=None):
-    """The backward's sums launch on CUDA ``z``: ``(dgamma, dbeta, dpre)``,
-    this rank's Σdpre·x̂ and Σdpre (float32) and dpre (None without
-    ``res``)."""
+    """The backward's sums launch on CUDA ``z``: ``(dgamma, dbeta, dpre,
+    sums)``, this rank's Σdpre·x̂ and Σdpre (float32), dpre (None without
+    ``res``), and the two with the row count (2C + 1 floats) for the
+    all-reduce."""
     c = z.shape[-1]
     n = z.numel() // c
     dpre = None if res is None else torch.empty_like(z)
     vec = _vec(z, res, dout, dpre) if vec is None else vec
-    dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=z.device) for _ in range(2))
-    dtype, act_code = _codes(z, act)
+    dgamma, dbeta = torch.empty((2, c), dtype=torch.float32, device=z.device)
+    sums = torch.empty(2 * c + 1, dtype=torch.float32, device=z.device)
     with torch.cuda.device(z.device):
-        need = _kernel("bn_act_bwd", _SCRATCH_ARGS, "sums_scratch", ctypes.c_longlong)(
-            dtype, act_code, int(res is not None), n, c, vec)
-        if need < 0:
-            raise RuntimeError(f"bn_act_bwd sums grid query failed with CUDA error {-need}")
-        scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+        scratch = _scratch("bn_act_bwd", z, act, res is not None, vec)
         err = _kernel("bn_act_bwd", _BWD_SUMS_ARGS, "sums_launch")(
-            dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
+            *_codes(z, act), z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
             mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, dgamma.data_ptr(),
-            dbeta.data_ptr(), _ptr(dpre), scratch.data_ptr(), need, vec,
-            torch.cuda.current_stream().cuda_stream)
+            dbeta.data_ptr(), _ptr(dpre), sums.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"bn_act_bwd sums launch failed with CUDA error {err}")
-    return dgamma, dbeta, dpre
+    return dgamma, dbeta, dpre, sums
 
 
-def bn_bwd_dz(act: str, z, gamma, beta, res, mean, inv, dout, gg, gb, gn, vec=None):
-    """The backward's dz launch on CUDA ``z``: dz from the global sums
-    ``gg`` (Σdpre·x̂), ``gb`` (Σdpre) and row count ``gn``."""
+def bn_bwd_dz(act: str, z, gamma, beta, res, mean, inv, dout, dpre, sums, vec=None):
+    """The backward's dz launch on CUDA ``z``: dz from the sums launch's
+    ``sums`` summed over the ranks; with ``res`` it reads z and the sums
+    launch's ``dpre``, without, z and ``dout``."""
     c = z.shape[-1]
     n = z.numel() // c
     dz = torch.empty_like(z)
-    vec = _vec(z, res, dout, dz) if vec is None else vec
-    dtype, act_code = _codes(z, act)
+    second = dout if res is None else dpre
+    vec = _vec(z, second, dz) if vec is None else vec
     with torch.cuda.device(z.device):
         err = _kernel("bn_act_bwd", _BWD_DZ_ARGS, "dz_launch")(
-            dtype, act_code, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
-            mean.data_ptr(), inv.data_ptr(), dout.data_ptr(), n, c, gg.data_ptr(),
-            gb.data_ptr(), gn.data_ptr(), dz.data_ptr(), vec,
-            torch.cuda.current_stream().cuda_stream)
+            *_codes(z, act), z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(res),
+            mean.data_ptr(), inv.data_ptr(), _ptr(dout), _ptr(dpre), n, c, sums.data_ptr(),
+            dz.data_ptr(), vec, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"bn_act_bwd dz launch failed with CUDA error {err}")
     return dz
 
 
-def _over_ranks(*sums, rows: int):
-    """The per-channel ``sums`` over the data group's ranks and the global
-    row count (a float32 on the card), one collective; at world 1 the sums
-    themselves and this rank's count."""
+def _over_ranks(stats):
+    """``stats`` summed over the data group's ranks in place (one
+    collective); at world 1 as they are."""
     if data_parallel.world() > 1:
-        *out, total = data_parallel.all_reduce_sums(*sums, rows=rows)
-        return out, total.reshape(1)
-    return list(sums), torch.full((1,), float(rows), dtype=torch.float32,
-                                  device=sums[0].device)
+        data_parallel.sum_over_ranks(stats)
+    return stats
 
 
 def bn_act_fwd_split(act: str, eps: float, z, gamma, beta, res=None):
@@ -420,17 +455,9 @@ def bn_act_fwd_split(act: str, eps: float, z, gamma, beta, res=None):
         return bn_act_fwd_plain(act, eps, z, gamma, beta, res)
     _check_cuda("bn_act_fwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res)), ())
-    c = z.shape[-1]
-    n = z.numel() // c
-    vec = _vec(z, res)
-    has_res = res is not None
-    if z.dtype == torch.float32:
-        (gsum,), gn = _over_ranks(bn_fwd_sums(act, z, has_res, 1, vec=vec), rows=n)
-        (gsq,), _ = _over_ranks(bn_fwd_sums(act, z, has_res, 2, gsum, gn, vec=vec), rows=n)
-    else:
-        sq = bn_fwd_sums(act, z, has_res, 0, vec=vec)
-        (gsum, gsq), gn = _over_ranks(sq[:c], sq[c:], rows=n)
-    out = bn_fwd_apply(act, eps, z, gamma, beta, res, gsum, gsq, gn)
+    stats = bn_fwd_sums(act, z, res is not None, data_parallel.rank(), data_parallel.world(),
+                        vec=_vec(z, res))
+    out = bn_fwd_apply(act, eps, z, gamma, beta, res, _over_ranks(stats))
     with _count_lock:
         fwd_launches += 1
         fwd_split_launches += 1
@@ -452,10 +479,9 @@ def bn_act_bwd_split(act: str, eps: float, z, gamma, beta, res, mean, inv, dout)
     _check_cuda("bn_act_bwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res),
                  ("dout", dout)), (("mean", mean), ("inv", inv)))
-    n = z.numel() // z.shape[-1]
-    dgamma, dbeta, dpre = bn_bwd_sums(act, z, gamma, beta, res, mean, inv, dout)
-    (gg, gb), gn = _over_ranks(dgamma, dbeta, rows=n)
-    dz = bn_bwd_dz(act, z, gamma, beta, res, mean, inv, dout, gg, gb, gn)
+    vec = _vec(z, res, dout)
+    dgamma, dbeta, dpre, sums = bn_bwd_sums(act, z, gamma, beta, res, mean, inv, dout, vec)
+    dz = bn_bwd_dz(act, z, gamma, beta, res, mean, inv, dout, dpre, _over_ranks(sums), vec)
     with _count_lock:
         bwd_launches += 1
         bwd_split_launches += 1

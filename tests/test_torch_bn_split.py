@@ -13,13 +13,22 @@ port's plain versions on the whole batch: statistics within rtol 1e-5 /
 atol 1e-6, out and dz within 1e-5 / 1e-6 in float32 and 1e-2 in bf16 (a
 bf16 ulp or two; the halves' float32 sums run in another order), dpre the
 same, the two ranks' dgamma and dbeta (each its own sums) summed within
-rtol / atol 1e-5 of the whole batch's (1e-2 in bf16).
+rtol / atol 1e-5 of the whole batch's (1e-2 in bf16). In the same spawn
+each rank's plain float32 partials (``bn_fwd_partials_plain``) go through
+``data_parallel.sum_over_ranks`` and must come back identical on both
+ranks, each rank's row its own.
+
+``combine_rank_partials`` (the apply launch's combination of the ranks'
+shifted sums) is held in one process, on 1-4 simulated ranks with unequal
+row blocks and a channel offset of 1e3 times the spread, to a float64
+reference of the whole batch (rtol 1e-6) and to the JAX package's
+``_bn_train_stats`` (rtol 1e-5 / atol 1e-6); float32 Σz² − n·mean² misses
+the float64 limit there.
 
 The ``cuda``-marked tests (skipped without a card) hold the split kernels
-at world 1 against the one launch (bitwise where the reduction order is
-shared: bf16/f16 forward, every backward; float32 statistics within rtol
-1e-5 of the plain version's), and two processes on one card over gloo
-against the plain versions on the whole batch.
+at world 1 bitwise against the one launch in every dtype and both
+directions, and two processes on one card over gloo against the plain
+versions on the whole batch.
 """
 
 import json
@@ -77,6 +86,19 @@ def _run_case(bn_act, data_parallel, case, rank, world, device):
     return got
 
 
+def _partials_over_ranks(bn_act, data_parallel, case, rank, world, device):
+    """This rank's plain float32 partials of its half of the case's z, alone
+    and after the collective helper."""
+    n, c, dtype, act, with_res = case
+    z = _tensors(_operands(n, c, with_res, n + c)[:1], dtype, device)[0]
+    k = n // world
+    z = z[rank * k:(rank + 1) * k].contiguous()
+    with data_parallel.data_group(None, world):
+        buf = bn_act.bn_fwd_partials_plain(z, data_parallel.rank(), data_parallel.world())
+        data_parallel.sum_over_ranks(buf)
+    return {"partials": buf.cpu().numpy(), "own": bn_act.bn_fwd_partials_plain(z).cpu().numpy()}
+
+
 def _worker(device, rank, port, tmp):
     import datetime
 
@@ -91,6 +113,9 @@ def _worker(device, rank, port, tmp):
     out = {}
     for i, case in enumerate(CASES):
         for key, v in _run_case(bn_act, data_parallel, case, rank, 2, device).items():
+            out[f"{i}_{key}"] = v
+        for key, v in _partials_over_ranks(bn_act, data_parallel, case, rank, 2,
+                                           device).items():
             out[f"{i}_{key}"] = v
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -187,9 +212,48 @@ def test_split_plain_path_at_two_ranks_matches_the_whole_batch(tmp_path):
             for name in ("mean", "var", "inv"):
                 np.testing.assert_array_equal(got[0][f"{i}_{how}_{name}"],
                                               got[1][f"{i}_{how}_{name}"])
+        # the partials came back every rank's, identical on both ranks
+        np.testing.assert_array_equal(got[0][f"{i}_partials"], got[1][f"{i}_partials"])
+        for r in (0, 1):
+            np.testing.assert_array_equal(got[r][f"{i}_partials"][r], got[r][f"{i}_own"][0])
+        mean, var = bn_act.combine_rank_partials(torch.from_numpy(got[0][f"{i}_partials"]))
+        for name, v in (("mean", mean), ("var", var)):
+            np.testing.assert_allclose(v.numpy(), jax_want[name], rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{case} combined {name}")
     # the CPU takes the plain versions: no launch is counted
     for m in meta:
         assert m["split_calls"] == [0, 0] and m["calls"] == [0, 0]
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_combine_rank_partials_holds_the_whole_batch(world):
+    """Unequal row blocks on ``world`` simulated ranks, each channel offset
+    by 1e3 times its spread, combined as the apply launch combines the
+    all-reduced buffer (the zero-padded rows summed)."""
+    import jax.numpy as jnp
+
+    from deeplearning4j_tpu.nn.conf import convolutional as jconv
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+
+    rng = np.random.default_rng(world)
+    n, c = 1999, 16
+    spread = rng.uniform(0.5, 2.0, c)
+    z = (rng.standard_normal((n, c)) * spread + 1e3 * spread).astype(np.float32)
+    cuts = np.sort(rng.choice(np.arange(1, n), world - 1, replace=False))
+    parts = sum(bn_act.bn_fwd_partials_plain(torch.from_numpy(block), r, world)
+                for r, block in enumerate(np.split(z, cuts)))
+    mean, var = bn_act.combine_rank_partials(parts)
+    zd = z.astype(np.float64)
+    np.testing.assert_allclose(mean.numpy(), zd.mean(axis=0), rtol=1e-6)
+    np.testing.assert_allclose(var.numpy(), zd.var(axis=0), rtol=1e-6)
+    j_mean, j_var = jconv._bn_train_stats(jnp.asarray(z))
+    np.testing.assert_allclose(mean.numpy(), np.asarray(j_mean), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(j_var), rtol=1e-5, atol=1e-6)
+    # the one-pass float32 form misses the float64 limit at this offset
+    zf = torch.from_numpy(z)
+    m32 = zf.sum(dim=0) / n
+    naive = (zf * zf).sum(dim=0) / n - m32 * m32
+    assert not np.allclose(naive.numpy(), zd.var(axis=0), rtol=1e-6)
 
 
 # ------------------------------------------------------------- on the card
@@ -218,16 +282,8 @@ def test_split_kernels_match_the_one_launch_at_world_1(cuda_device, shape, dtype
     torch.cuda.synchronize()
     assert (bn_act.fwd_split_launches, bn_act.bwd_split_launches) == (calls[0] + 1,
                                                                       calls[1] + 1)
-    if dtype == "float32":  # the one launch sums shifted values in double
-        plain = bn_act.bn_act_fwd_plain(act, EPS, z, gamma, beta, res)
-        for got, want in zip(spl[1:], plain[1:]):
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-        scale = gamma * spl[3]
-        shift = beta - spl[1] * scale
-        assert torch.equal(spl[0], bn_act.bn_act_apply_plain(act, z, scale, shift, res))
-    else:
-        for a, b in zip(one, spl):
-            assert torch.equal(a, b)
+    for a, b in zip(one, spl):
+        assert torch.equal(a, b)
     for a, b in zip(bone, bspl):
         assert (a is None and b is None) or torch.equal(a, b)
 

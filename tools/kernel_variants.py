@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Time variants of the port's redesigned kernels on one card: int4_dot,
 flash_attn_fwd, scatter_add, flash_attn_bwd_dkv, flash_attn_bwd_dq,
-bn_act_bwd, bn_act_fwd, adc_pq and adc_ivf_pq.
+bn_act_bwd, bn_act_fwd, adc_pq, adc_ivf_pq and the bn kernels' split
+launches (split_fwd_*, split_bwd_*: bn_act_fwd.cu / bn_act_bwd.cu's split
+launches at world 1 at chip_smoke.py's SPLIT_CASES, held bitwise against
+the variant's own one launch and timed beside the split's first design).
 
     python3 tools/kernel_variants.py
 
@@ -334,6 +337,39 @@ VARIANTS = [
        "        zv[j] = ld<T, V>(z + i[j]);\n"
        "      }\n"
        "      if (RES) rv[j] = ld<T, V>(res + i[j]);")], True),
+    # the split launches: ring bytes a block, stages, and the register walk
+    # (rows of loads in flight a thread) in place of the TMA ring at V > 1
+    ("split_fwd_as_built", "bn_act_fwd", [], True),
+    ("split_fwd_ring_16k", "bn_act_fwd",
+     [("constexpr int kRing = 32768;", "constexpr int kRing = 16384;")], True),
+    ("split_fwd_ring_64k", "bn_act_fwd",
+     [("constexpr int kRing = 32768;", "constexpr int kRing = 65536;")], True),
+    ("split_fwd_ring_64k_4_stages", "bn_act_fwd",
+     [("constexpr int kRing = 32768;", "constexpr int kRing = 65536;"),
+      ("constexpr int kStages = 2;", "constexpr int kStages = 4;")], True),
+    ("split_fwd_stages_4", "bn_act_fwd",
+     [("constexpr int kStages = 2;", "constexpr int kStages = 4;")], True),
+    ("split_fwd_registers_4", "bn_act_fwd",
+     [("constexpr bool kUseRing = true;", "constexpr bool kUseRing = false;")], True),
+    ("split_fwd_registers_8", "bn_act_fwd",
+     [("constexpr bool kUseRing = true;", "constexpr bool kUseRing = false;"),
+      ("constexpr int kSplitRows = 4;", "constexpr int kSplitRows = 8;")], True),
+    ("split_bwd_as_built", "bn_act_bwd", [], True),
+    ("split_bwd_registers_3", "bn_act_bwd",
+     [("constexpr int kSplitRows = 2;", "constexpr int kSplitRows = 3;")], True),
+    ("split_bwd_registers_4", "bn_act_bwd",
+     [("constexpr int kSplitRows = 2;", "constexpr int kSplitRows = 4;")], True),
+    ("split_bwd_ring_2_stages", "bn_act_bwd",
+     [("constexpr bool kUseRing = false;", "constexpr bool kUseRing = true;"),
+      ("constexpr int kStages = 4;", "constexpr int kStages = 2;")], True),
+    ("split_bwd_ring_4_stages", "bn_act_bwd",
+     [("constexpr bool kUseRing = false;", "constexpr bool kUseRing = true;")], True),
+    ("split_bwd_ring_8_stages", "bn_act_bwd",
+     [("constexpr bool kUseRing = false;", "constexpr bool kUseRing = true;"),
+      ("constexpr int kStages = 4;", "constexpr int kStages = 8;")], True),
+    ("split_bwd_ring_48k", "bn_act_bwd",
+     [("constexpr bool kUseRing = false;", "constexpr bool kUseRing = true;"),
+      ("constexpr int kRing = 98304;", "constexpr int kRing = 49152;")], True),
     ("adc_as_built", "adc_pq", [], True),
     # queries a block: groups of 8 (3 blocks an SM at 64 KB) or 4 (5 at 32 KB)
     ("adc_group_8", "adc_pq",
@@ -563,6 +599,77 @@ def bnf_call(torch, lib, act, z, gamma, beta, res):
     return out, mean, var, inv
 
 
+def _fn(lib, name, argtypes, restype=ctypes.c_int):
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+def split_fwd_call(torch, lib, act, z, gamma, beta, res, one=False):
+    """The variant's split forward at world 1 (statistics, then apply), or
+    with ``one`` its one launch."""
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    if one:
+        return bnf_call(torch, lib, act, z, gamma, beta, res)
+    c = z.shape[-1]
+    n = z.numel() // c
+    codes = (bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act])
+    vec = bn_act._vec(z, res)
+    stream = torch.cuda.current_stream().cuda_stream
+    need = _fn(lib, "bn_act_fwd_sums_scratch", bn_act._SCRATCH_ARGS, ctypes.c_longlong)(
+        *codes, int(res is not None), n, c, vec)
+    scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+    stats = (torch.empty((1, 3 * c + 1), dtype=torch.float64, device=z.device)
+             if z.dtype == torch.float32 else
+             torch.empty(2 * c + 1, dtype=torch.float32, device=z.device))
+    err = _fn(lib, "bn_act_fwd_sums_launch", bn_act._FWD_SUMS_ARGS)(
+        *codes, int(res is not None), z.data_ptr(), n, c, 0, 1, stats.data_ptr(),
+        scratch.data_ptr(), need, vec, stream)
+    out = torch.empty_like(z)
+    mean, var, inv = torch.empty((3, c), dtype=torch.float32, device=z.device)
+    if not err:
+        err = _fn(lib, "bn_act_fwd_apply_launch", bn_act._FWD_APPLY_ARGS)(
+            *codes, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            None if res is None else res.data_ptr(), n, c, cs.BN_EPS, 1, stats.data_ptr(),
+            out.data_ptr(), mean.data_ptr(), var.data_ptr(), inv.data_ptr(), vec, stream)
+    if err:
+        raise RuntimeError(f"split forward variant failed with CUDA error {err}")
+    return out, mean, var, inv
+
+
+def split_bwd_call(torch, lib, act, z, gamma, beta, res, mean, inv, dout, one=False):
+    """The variant's split backward at world 1 (sums, then dz), or with
+    ``one`` its one launch."""
+    from deeplearning4j_tpu_torch.perf.kernels import bn_act
+    if one:
+        return bn_call(torch, lib, act, z, gamma, beta, res, mean, inv, dout)
+    c = z.shape[-1]
+    n = z.numel() // c
+    codes = (bn_act._DTYPES[z.dtype], bn_act.KERNEL_ACTS[act])
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    vec = bn_act._vec(z, res, dout)
+    stream = torch.cuda.current_stream().cuda_stream
+    need = _fn(lib, "bn_act_bwd_sums_scratch", bn_act._SCRATCH_ARGS, ctypes.c_longlong)(
+        *codes, int(res is not None), n, c, vec)
+    scratch = torch.empty(need, dtype=torch.float32, device=z.device)
+    dg, db = torch.empty((2, c), dtype=torch.float32, device=z.device)
+    sums = torch.empty(2 * c + 1, dtype=torch.float32, device=z.device)
+    dpre = None if res is None else torch.empty_like(z)
+    dz = torch.empty_like(z)
+    err = _fn(lib, "bn_act_bwd_sums_launch", bn_act._BWD_SUMS_ARGS)(
+        *codes, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(res), mean.data_ptr(),
+        inv.data_ptr(), dout.data_ptr(), n, c, dg.data_ptr(), db.data_ptr(), ptr(dpre),
+        sums.data_ptr(), scratch.data_ptr(), need, vec, stream)
+    if not err:
+        err = _fn(lib, "bn_act_bwd_dz_launch", bn_act._BWD_DZ_ARGS)(
+            *codes, z.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(res), mean.data_ptr(),
+            inv.data_ptr(), dout.data_ptr(), ptr(dpre), n, c, sums.data_ptr(), dz.data_ptr(),
+            vec, stream)
+    if err:
+        raise RuntimeError(f"split backward variant failed with CUDA error {err}")
+    return dz, dg, db, dpre
+
+
 def adc_call(torch, lib, lut, codes):
     from deeplearning4j_tpu_torch.perf.kernels import adc
     fn = lib.adc_pq_launch
@@ -629,6 +736,28 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.int8, device=dev)
     for name, source, _, keeps in variants:
         lib = libs[name]
+        if name.startswith("split_"):
+            fwd = source == "bn_act_fwd"
+            for case, n, c, dtype_name, act, residual in cs.SPLIT_CASES:
+                (z, gamma, beta, res), (_, mean, _, inv), dout = cs.bn_operands(
+                    torch, dev, n, c, dtype_name, act, residual)
+                ops = (act, z, gamma, beta, res) if fwd else (act, z, gamma, beta, res, mean,
+                                                              inv, dout)
+                call = split_fwd_call if fwd else split_bwd_call
+                first = cs.first_design_split_fwd if fwd else cs.first_design_split_bwd
+                row = {"variant": name, "shape": [case, n, c, dtype_name, act, residual]}
+                got, one = call(torch, lib, *ops), call(torch, lib, *ops, one=True)
+                row["bitwise_vs_one_launch"] = all(
+                    (a is None and b is None) or torch.equal(a, b) for a, b in zip(got, one))
+                del got, one
+                row["ms"] = cs.time_ms(torch, lambda: call(torch, lib, *ops), flush)
+                row["one_launch_ms"] = cs.time_ms(torch, lambda: call(torch, lib, *ops,
+                                                                      one=True), flush)
+                row["first_design_ms"] = cs.time_ms(torch, lambda: first(torch, *ops), flush)
+                print(json.dumps(row), flush=True)
+                del z, gamma, beta, res, mean, inv, dout, ops
+                torch.cuda.empty_cache()
+            continue
         if source == "scatter_add":
             for label, n in SCATTER_SHAPES:
                 table, idx, grads = scatter_operands(torch, dev, label, n)
