@@ -154,6 +154,7 @@ def shard_snapshot(model) -> dict:
         "updaterState": _whole_blocks(upd),
         "generator": gen,
         "augmentation": snap["augmentation"],
+        "tuning_record": snap["tuning_record"],
     }
 
 
@@ -201,6 +202,7 @@ def simulated_shard_snapshots(model, num_hosts: int) -> List[dict]:
         "updaterState": split(upd, host),
         "generator": gen if host == 0 else None,
         "augmentation": snap["augmentation"],
+        "tuning_record": snap["tuning_record"],
     } for host in range(num_hosts)]
 
 
@@ -229,7 +231,7 @@ def shard_zip_bytes(snap: dict, extra_meta: Optional[dict] = None) -> bytes:
         "grad_compression": snap.get("grad_compression"),
         "has_compress": snap.get("compressState") is not None,
         "augmentation": snap.get("augmentation"),
-        "tuning_record": None,
+        "tuning_record": snap.get("tuning_record"),
     }
     meta.update(extra_meta or {})
     index, arrays = [], {}
@@ -349,9 +351,6 @@ def restore_from_payloads(payloads: List[bytes], load_updater: bool = True,
             "duplicated shard")
     meta_p = next(p for p in parsed if p["meta"].get("host") == 0)
     meta = meta_p["meta"]
-    if meta.get("tuning_record"):
-        raise NotImplementedError("this shard set carries an autotuner TuningRecord; "
-                                  "perf/autotune is not in the PyTorch port yet")
     conf_json = meta_p["conf_json"]
     if meta["model_type"] == "MultiLayerNetwork":
         model = MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json), device)
@@ -387,6 +386,9 @@ def restore_from_payloads(payloads: List[bytes], load_updater: bool = True,
     if meta.get("augmentation"):
         from deeplearning4j_tpu_torch.datasets.augment import ImageAugmentation
         model.set_augmentation(ImageAugmentation.from_dict(meta["augmentation"]))
+    if meta.get("tuning_record"):
+        from deeplearning4j_tpu_torch.perf.autotune import TuningRecord
+        model._tuning_record = TuningRecord.from_dict(meta["tuning_record"])
     model.iteration = iteration
     model.epoch = int(meta.get("epoch", 0))
     return model, meta

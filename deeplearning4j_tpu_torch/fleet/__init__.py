@@ -29,9 +29,10 @@ int8 lowerings through ``int4_dot`` on the card), its leases, its
 ``CheckpointManager`` and ``backend_from_url``; leases and HTTP bodies are
 the JAX package's, so a router of either package fronts replicas of both.
 A fresh replica restores its checkpoint, warms off-path, then flips its
-lease. The port compiles no programs: there is no ``TuningRecord`` ladder
-to inherit (a checkpoint carrying ``tuning.json`` is refused by name) and
-no compiled-program cache (``compile_cache_dir`` raises).
+lease. A checkpoint carrying ``tuning.json`` restores its autotuner
+``TuningRecord``, and the replica's endpoint warms the recorded ladder
+(``ParallelInference(tuning=)``). The port compiles no programs, so there
+is no compiled-program cache (``compile_cache_dir`` raises).
 """
 
 from deeplearning4j_tpu_torch.fleet.membership import (REPLICA_PREFIX, FleetView,

@@ -98,9 +98,9 @@ class ServingReplica:
         for ep in self.server.endpoints.values():
             if getattr(ep, "feature_shape", None) is not None:
                 continue
-            shape = _conf_feature_shape(ep.pi.model)
-            if shape is not None:
-                ep.feature_shape = shape
+            ex = ep.pi._tuning_example()
+            if ex is not None:
+                ep.feature_shape = tuple(ex.shape[1:])
 
     def _warm_and_flip(self):
         try:
@@ -138,27 +138,6 @@ class ServingReplica:
         self.server.stop(drain=True, drain_timeout_s=drain_timeout_s)
 
 
-def _conf_feature_shape(model) -> Optional[Tuple[int, ...]]:
-    """The conf-described shape of one example (the JAX package's
-    ``ParallelInference._tuning_example``); None when the conf does not pin
-    a single float input shape."""
-    conf = getattr(model, "conf", None)
-    it = getattr(conf, "input_type", None)
-    if it is None:
-        its = getattr(conf, "input_types", None) or ()
-        if len(its) != 1:
-            return None
-        it = its[0]
-    if it is None:
-        return None
-    if it.kind in ("rnn", "cnn1d") and it.timeseries_length is None:
-        return None  # no canonical length
-    try:
-        return tuple(it.example_shape(1)[1:])
-    except ValueError:
-        return None
-
-
 def restore_and_serve(store, models: List[Tuple[str, str]], *,
                       indexes: List[Tuple[str, object]] = (),
                       replica_id: Optional[str] = None, port: int = 0,
@@ -190,6 +169,10 @@ def restore_and_serve(store, models: List[Tuple[str, str]], *,
     width (``ModelServer.add_model(quantize=, weight_bits=)``); a model
     without a record raises. None serves the restored network as it is,
     as the JAX package does.
+
+    A checkpoint carrying an autotuner ``TuningRecord`` (``tuning.json``)
+    restores with it, and its endpoint's ``ParallelInference`` inherits it:
+    the record is checked against the network and its ladder warmed.
 
     ``compile_cache_dir`` raises ``NotImplementedError``: it points JAX's
     persistent compilation cache at a directory, and the port compiles no

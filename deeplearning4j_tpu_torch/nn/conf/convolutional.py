@@ -38,6 +38,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (BaseLayer, Layer, dropout_i
                                                      register_layer)
 from deeplearning4j_tpu_torch.nn.conf.normalization import running_update, scale_shift
 from deeplearning4j_tpu_torch.nn.initializers import init_weights
+from deeplearning4j_tpu_torch.perf.compile_watch import bump_active
 from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
 
@@ -597,6 +598,7 @@ class FusedConvBNActivation(BaseLayer):
         return _fused_bn_init(self, ConvolutionLayer.init(self, gen, it, device)[0], device)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None, res=None):
+        bump_active("fusion.fused_block")
         x = dropout_input(x, self.dropout, train, rng)
         z = conv2d_nhwc(x, params["W"], self.stride, self.padding,
                         self.convolution_mode, self.dilation)
@@ -651,6 +653,7 @@ class FusedSeparableConvBNActivation(BaseLayer):
         return _fused_bn_init(self, _separable_init(self, gen, it, device), device)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        bump_active("fusion.fused_block")
         x = dropout_input(x, self.dropout, train, rng)
         z = separable_conv_nhwc(x, params["W_dw"], params["W_pw"], self.stride,
                                 self.padding, self.convolution_mode)
@@ -693,6 +696,7 @@ class FusedConv1DBNActivation(BaseLayer):
         return _fused_bn_init(self, _conv1d_init(self, gen, it, device), device)
 
     def apply(self, params, state, x, *, train=False, rng=None, mask=None):
+        bump_active("fusion.fused_block")
         x = dropout_input(x, self.dropout, train, rng)
         z = conv1d_nwc(x, params["W"], self.stride, self.padding, self.convolution_mode,
                        self.dilation)

@@ -364,10 +364,13 @@ class ComputationGraph(TrainStep):
         if self.params is None:
             self.init()
         with torch.no_grad():
-            acts = self._forward(self.params, self.state,
-                                 [self._as_tensor(x) for x in inputs], False,
-                                 masks=self._masks(features_masks))[0]
-            return [acts[n].cpu().numpy() for n in self.conf.network_outputs]
+            outs = self._watched("output", self._output)(
+                [self._as_tensor(x) for x in inputs], self._masks(features_masks))
+            return [o.cpu().numpy() for o in outs]
+
+    def _output(self, inputs, masks):
+        acts = self._forward(self.params, self.state, inputs, False, masks=masks)[0]
+        return [acts[n] for n in self.conf.network_outputs]
 
     def output_single(self, *inputs, features_masks=None) -> np.ndarray:
         return self.output(*inputs, features_masks=features_masks)[0]
@@ -382,8 +385,12 @@ class ComputationGraph(TrainStep):
         mds = MultiDataSet.from_dataset(ds) if isinstance(ds, DataSet) else ds
         inputs, labels, fmasks, lmasks = self._batch(mds)
         with torch.no_grad():
-            return float(self._loss_fn(self.params, self.state, inputs, labels,
-                                       None, fmasks, lmasks)[0])
+            return float(self._watched("score", self._score_loss)(inputs, labels, fmasks,
+                                                                  lmasks))
+
+    def _score_loss(self, inputs, labels, fmasks, lmasks):
+        return self._loss_fn(self.params, self.state, inputs, labels, None, fmasks,
+                             lmasks)[0]
 
     def evaluate(self, iterator):
         """Classification evaluation over an iterator of DataSets (reference

@@ -20,9 +20,12 @@ the device, ``peak_bytes`` the allocator's peak over the copy and its step
 the peak less the arguments. ``output_bytes`` and
 ``generated_code_bytes`` stay 0 (an eager step has neither). On the CPU
 ``compiled`` is None, as the JAX report gives for a backend without memory
-statistics. ``training_activation_bytes`` (the JAX package's
-jaxpr-derived residual set) is None: the port has no tracer for it yet
-(``perf/fusion.py::training_activation_bytes`` raises).
+statistics. ``training_activation_bytes`` is the saved set of one
+train-mode loss forward, measured on the meta device
+(``perf/fusion.py::training_activation_bytes``); ``conf_memory_report(...,
+training_bytes=False)`` skips it, as the planner does, and it is None
+where the measurement does not apply (a configuration without a loss
+layer).
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ class MemoryReport:
     # measured over one train step on the card (module docstring); None
     # when the step was skipped or the network is on the CPU
     compiled: Optional[dict] = None
-    # the JAX package's jaxpr-derived residual bytes; None in the port
+    # the saved set of one train-mode loss forward (perf/fusion.py);
+    # None when skipped or not measurable
     training_activation_bytes: Optional[int] = None
     # FusedConvBNActivation blocks in the configuration
     fused_blocks: int = 0
@@ -192,13 +196,27 @@ def _activation(layer, it, itemsize: int):
     return _input_type_bytes(out_t, itemsize)
 
 
-def conf_memory_report(conf, input_type=None, minibatch: int = 32) -> MemoryReport:
+def _training_bytes(conf, minibatch: int) -> Optional[int]:
+    """``training_activation_bytes`` of ``conf``, None where the
+    measurement does not apply (no loss layer, a label shape it cannot
+    make)."""
+    from deeplearning4j_tpu_torch.perf.fusion import training_activation_bytes
+    try:
+        return int(training_activation_bytes(conf, minibatch=minibatch))
+    except Exception:
+        return None
+
+
+def conf_memory_report(conf, input_type=None, minibatch: int = 32,
+                       training_bytes: bool = True) -> MemoryReport:
     """Memory report for a CONFIGURATION: no network, no device buffers.
     Per-layer parameter counts come from each layer's init on the ``meta``
     device; parameter, activation and updater-state bytes are counted at
     the configuration's dtype, as the JAX package counts them. Accepts a
     MultiLayerConfiguration (``input_type`` may override the configured
-    one) or a ComputationGraphConfiguration."""
+    one) or a ComputationGraphConfiguration. ``training_bytes=False`` skips
+    the saved-set measurement (a meta-device forward of the whole network);
+    the planner measures it itself."""
     from deeplearning4j_tpu_torch.analysis.validation import meta_init
     itemsize = _ITEMSIZE[conf.dtype]
     conf, entries = _entries(conf, input_type)
@@ -221,7 +239,8 @@ def conf_memory_report(conf, input_type=None, minibatch: int = 32) -> MemoryRepo
         model_class=type(conf).__name__, minibatch=minibatch, dtype=conf.dtype,
         layers=reports, total_param_bytes=int(total_params),
         total_activation_bytes=int(total_act), updater_state_bytes=int(updater_bytes),
-        compiled=None, training_activation_bytes=None,
+        compiled=None,
+        training_activation_bytes=_training_bytes(conf, minibatch) if training_bytes else None,
         fused_blocks=_fused_blocks(layer for _, layer, _, _ in entries))
 
 
@@ -262,7 +281,7 @@ def get_memory_report(net, minibatch: int = 32, compile_step: bool = True) -> Me
         model_class=type(net).__name__, minibatch=minibatch, dtype=conf.dtype,
         layers=reports, total_param_bytes=int(_tree_bytes(net.params)),
         total_activation_bytes=int(total_act), updater_state_bytes=int(updater_bytes),
-        compiled=compiled, training_activation_bytes=None,
+        compiled=compiled, training_activation_bytes=_training_bytes(conf, minibatch),
         fused_blocks=_fused_blocks(layer for _, layer, _, _ in entries))
 
 

@@ -214,8 +214,10 @@ class MultiLayerNetwork(TrainStep):
         if self.params is None:
             self.init()
         fm = None if features_mask is None else self._as_input(features_mask)
-        return self._forward(self.params, self.state, self._as_input(x), False,
-                             mask=fm)[0][-1]
+        return self._watched("output", self._output)(self._as_input(x), fm)
+
+    def _output(self, x, fm):
+        return self._forward(self.params, self.state, x, False, mask=fm)[0][-1]
 
     def predict(self, x, features_mask=None) -> np.ndarray:
         """Class indices (reference MultiLayerNetwork.predict)."""
@@ -504,9 +506,14 @@ class MultiLayerNetwork(TrainStep):
         ``prefetch=True`` stages each batch onto the device while the step
         before it runs (``perf/prefetch.py``). A configuration outside the
         SGD family trains through the full-batch solver instead (module
-        docstring)."""
+        docstring). A network carrying an autotuner record
+        (``_tuning_record``: ``perf.autotune.build_network``, or restored
+        from a zip) re-slices a caller's iterator to the record's batch
+        size (``perf.bucketing.RebatchDataSetIterator``), above the resume
+        skip, as the JAX package does."""
         if self.params is None:
             self.init()
+        caller_iterator = labels is None and not isinstance(data, DataSet)
         if labels is not None:
             data = [DataSet(data, labels)]
         elif isinstance(data, DataSet):
@@ -514,6 +521,15 @@ class MultiLayerNetwork(TrainStep):
         if not is_sgd_family(self.conf):
             return self._fit_solver(data, num_epochs, checkpoint_manager,
                                     bucket_policy is not None or prefetch)
+        record = getattr(self, "_tuning_record", None)
+        if caller_iterator and record is not None and getattr(record, "batch_size", 0):
+            tuned = int(record.batch_size)
+            bs = getattr(data, "batch_size", None)
+            if (bs() if callable(bs) else None) != tuned:
+                from deeplearning4j_tpu_torch.perf.bucketing import RebatchDataSetIterator
+                if hasattr(data, "bind_epoch"):  # the reader under the re-slice
+                    data.bind_epoch(lambda: self.epoch)
+                data = RebatchDataSetIterator(data, tuned)
         return self._fit_epochs(data, num_epochs, checkpoint_manager, self._fit_batch,
                                 bucket_policy, prefetch)
 
@@ -599,8 +615,10 @@ class MultiLayerNetwork(TrainStep):
             self.init()
         x, y, fm, lm = self._batch(ds)
         with torch.no_grad():
-            return float(self._loss_fn(self.params, self.state, x, y, None, fm, lm,
-                                       train=False)[0])
+            return float(self._watched("score", self._score_loss)(x, y, fm, lm))
+
+    def _score_loss(self, x, y, fm, lm):
+        return self._loss_fn(self.params, self.state, x, y, None, fm, lm, train=False)[0]
 
     def evaluate(self, iterator):
         """Classification evaluation over an iterator of DataSets (reference

@@ -160,6 +160,19 @@ class TrainStep:
         # fit (exact-step resume); _restored_from is provenance only
         self._resume_state = None
         self._restored_from = None
+        # dispatch/compile counters of the train, output and score calls
+        # (perf/compile_watch.py); a compile is a call at a new signature
+        from deeplearning4j_tpu_torch.perf.compile_watch import CompileWatch
+        self.compile_watch = CompileWatch(type(self).__name__)
+        self._watched_fns: dict = {}
+
+    def _watched(self, key: str, fn):
+        """``fn`` wrapped by this network's CompileWatch under ``key``, one
+        wrapper a key (it keeps the signatures seen)."""
+        w = self._watched_fns.get(key)
+        if w is None:
+            w = self._watched_fns[key] = self.compile_watch.wrap(fn, key)
+        return w
 
     def _validate(self, validate: Optional[bool]):
         """``init``'s first step: ``conf.validate()`` unless ``validate`` is
@@ -284,7 +297,13 @@ class TrainStep:
     def _train_step(self, inputs, labels, *masks, **kw):
         """One step on one batch: gradients, updates, state, score. Returns
         the new carries of a tBPTT window (``kw`` holds ``carries``), else
-        None."""
+        None. Counted by ``compile_watch`` as ``train`` (``tbptt`` for a
+        window)."""
+        key = "tbptt" if kw.get("carries") is not None else "train"
+        return self._watched(key, self._step)(inputs, labels, *masks, **kw)
+
+    def _step(self, inputs, labels, *masks, **kw):
+        """:meth:`_train_step` without the counting."""
         if self.opt_state is None:  # parameters assigned directly
             self._reset_updaters()
         loss, grads, new_state, *carries = self._loss_and_grads(inputs, labels, self._gen,

@@ -322,11 +322,16 @@ def _sanitize(name: str) -> str:
 
 
 # ------------------------------------------------------------ absorb bridges
-def absorb_compile_watch(registry: MetricsRegistry, watch):
+def absorb_compile_watch(registry: MetricsRegistry, watch=None):
     """Pull a compile counter into gauges: total compiles/dispatches plus
-    every freeform counter (e.g. ``attention.flash_fallback``). ``watch``
-    is anything with ``compiles()``, ``dispatches()`` and ``counters()``
-    (the JAX package's ``CompileWatch``); the port keeps none of its own."""
+    every freeform counter (e.g. ``fusion.fused_block``). ``watch`` is
+    anything with ``compiles()``, ``dispatches()`` and ``counters()``: a
+    network's or an index's ``compile_watch``, ``perf.compile_watch.GLOBAL``
+    or the JAX package's ``CompileWatch``. The gauges keep the JAX
+    package's names and help text, so both packages' scrapes read alike.
+    ``None`` reads the process-wide ``GLOBAL`` watch."""
+    if watch is None:
+        from deeplearning4j_tpu_torch.perf.compile_watch import GLOBAL as watch
     w = watch
     registry.gauge("jit_compiles", unit="compiles",
                    help="cumulative XLA compiles seen by CompileWatch"

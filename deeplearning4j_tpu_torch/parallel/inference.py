@@ -41,8 +41,20 @@ the card, and each thread that does selects the card first.
 ``mesh=`` takes a one-rank ``parallel.make_mesh()`` and serves on its
 device; a mesh of several ranks raises ``MultiRankMeshError`` (each rank
 serves on its own device: the JAX package shards one dispatch over its
-mesh, the port runs one ``ParallelInference`` a rank). Not ported: tuning
-records (§A7), which raise ``NotImplementedError``.
+mesh, the port runs one ``ParallelInference`` a rank).
+
+A ``ComputationGraph`` with one network output is served as a
+``MultiLayerNetwork`` is (its output comes to the host once a dispatch).
+
+``tuning=`` takes an autotuner ``TuningRecord`` (``perf/autotune.py``;
+None inherits the model's ``_tuning_record``, restored from a zip or a
+checkpoint): it is verified against the model's architecture
+(``StaleTuningRecordError`` names a mismatch), its bucket ladder becomes
+the default bucket policy, and the ladder is warmed at construction from
+a zero example of the configuration's input shape
+(:meth:`_tuning_example`), so live traffic dispatches only warmed sizes.
+``stats()["tuning"]`` reports it. The model's ``compile_watch`` counts the
+dispatches and first-seen shapes (``stats()["model_compiles"]``).
 """
 
 from __future__ import annotations
@@ -145,10 +157,6 @@ class ParallelInference:
             # several raises (each rank serves on its own device)
             from deeplearning4j_tpu_torch.parallel.mesh import local_device_of
             device = local_device_of(mesh, device, "ParallelInference")
-        if tuning is not None or getattr(model, "_tuning_record", None) is not None:
-            raise NotImplementedError(
-                "ParallelInference(tuning=): tuning records (perf/autotune) "
-                "are not in the PyTorch port yet (ROADMAP §A7)")
         if inference_mode not in ("batched", "sequential"):
             raise ValueError(f"unknown inference_mode '{inference_mode}'")
         if int(queue_depth) < 1:
@@ -163,6 +171,18 @@ class ParallelInference:
                 "not move models")
         if model.params is None:
             model.init()
+        # a record restored with the model rides along unless overridden;
+        # it is checked against the raw conf it was searched on, before
+        # folding or quantizing rebuild the model
+        self._tuning = tuning = (tuning if tuning is not None
+                                 else getattr(model, "_tuning_record", None))
+        if tuning is not None:
+            from deeplearning4j_tpu_torch.perf.autotune import verify_tuning
+            from deeplearning4j_tpu_torch.perf.kernels import check_kernels_flag
+            verify_tuning(model.conf, tuning)
+            check_kernels_flag(tuning.pallas_kernels, self.device)
+            if bucket_policy is ParallelInference._DEFAULT_POLICY and tuning.buckets:
+                bucket_policy = BucketPolicy(buckets=tuning.buckets)
         self._fold_bn = bool(fold_bn)
         self._quantize = quantize
         self._weight_bits = int(weight_bits)
@@ -236,8 +256,36 @@ class ParallelInference:
                  "target (bucket ladder pad waste)",
             buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
         absorb_inference_stats(reg, self)
+        if tuning is not None and tuning.buckets:
+            # warm the RECORDED ladder now; a model whose input shape the
+            # conf does not pin (several inputs, no sequence length) warms
+            # on first traffic
+            ex = self._tuning_example()
+            if ex is not None:
+                self.warmup(ex, buckets=tuning.buckets)
         if checkpoint_manager is not None:
             self.start_hot_swap(checkpoint_manager, poll_secs=checkpoint_poll_secs)
+
+    def _tuning_example(self) -> Optional[np.ndarray]:
+        """A zero example of the configuration's input shape (one row),
+        for warming the TuningRecord's ladder; None when the conf does not
+        pin a single input shape."""
+        conf = self.model.conf
+        it = getattr(conf, "input_type", None)
+        if it is None:
+            its = getattr(conf, "input_types", None) or ()
+            if len(its) != 1:
+                return None
+            it = its[0]
+        if it is None:
+            return None
+        if it.kind in ("rnn", "cnn1d") and it.timeseries_length is None:
+            return None  # no canonical length to warm at
+        try:
+            shape = it.example_shape(1)
+        except ValueError:
+            return None
+        return np.zeros(shape, np.float32)
 
     def _lower(self, model):
         """The serving graph of ``model``: quantized (BN-folded first) or
@@ -278,6 +326,11 @@ class ParallelInference:
         with self._tracer.span("serving.dispatch", rows=n, target=target):
             with self._model_lock:
                 out = self.model.output(x)
+            if isinstance(out, list):  # a ComputationGraph's outputs, on the host
+                if len(out) != 1:
+                    raise ValueError(f"ParallelInference serves one output; this graph has "
+                                     f"{len(out)}")
+                return unpad(out[0], n)
             return unpad(out, n).cpu().numpy()
 
     def output(self, x) -> np.ndarray:
@@ -451,7 +504,9 @@ class ParallelInference:
                           "expired": self.deadline_evictions},
                 "bucket_policy": (None if self.bucket_policy is None
                                   else repr(self.bucket_policy)),
-                "tuning": {"applied": False, "buckets": None},
+                "tuning": {"applied": self._tuning is not None,
+                           "buckets": (list(self._tuning.buckets)
+                                       if self._tuning is not None else None)},
                 "warmed_buckets": sorted(self._warmed),
                 "bucket_dispatches": dict(self.bucket_dispatches),
                 "unwarmed_dispatches": self.unwarmed_dispatches,
@@ -468,6 +523,17 @@ class ParallelInference:
         out["batch_size"] = self._size_summary(sizes)
         out["row_size"] = self._size_summary(rows)
         out["attention"] = dict(counters)
+        cw = getattr(self.model, "compile_watch", None)
+        if cw is not None:
+            out["model_compiles"] = cw.compiles()
+            out["model_dispatches"] = cw.dispatches()
+            fus = cw.counters("fusion.")
+            if fus:
+                out["fusion"] = fus
+        # the last analysis.trace_check report on this model, if one ran
+        report = getattr(self.model, "last_trace_report", None)
+        if report is not None:
+            out["trace_hazards"] = report.counts()
         return out
 
     # -------------------------------------------------------- batched path

@@ -30,8 +30,16 @@
   after: the recompute draws the same masks, and the math is the same
   bitwise.
 
-``training_activation_bytes`` reads a jaxpr there and waits for the port's
-planner (ROADMAP §A7).
+``training_activation_bytes(conf, minibatch, augmentation)`` measures the
+saved set of one train-mode loss forward, the JAX package's definition:
+every tensor the backward keeps, parameters included, each storage counted
+once. The forward runs on the ``meta`` device, which allocates nothing (as
+the JAX package's jaxpr route), under ``torch.autograd.graph.
+saved_tensors_hooks``, whose pack hook sees each tensor autograd saves. The
+bn kernels' ``autograd.Function`` saves on meta what it saves on the card
+(its plain body runs there, ``perf/kernels/__init__.py``); a rematted
+layer's ``torch.utils.checkpoint`` saves its inputs through the same hook
+and keeps its own hooks inside, so its inner residuals are not counted.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from deeplearning4j_tpu_torch.nn.conf.normalization import BatchNormalization
 from deeplearning4j_tpu_torch.nn.tree import tree_map
 
 __all__ = ["REMAT_POLICIES", "remat_policy", "remat_apply", "fuse", "fuse_network",
-           "fold_bn"]
+           "fold_bn", "training_activation_bytes"]
 
 
 # ----------------------------------------------------------------- remat
@@ -507,3 +515,92 @@ def _fold_bn_graph(net):
     out = ComputationGraph(dataclasses.replace(net.conf, vertices=vertices), net.device)
     return out.set_params({n: params[n] for n in out.order},
                           {n: state[n] for n in out.order})
+
+
+# --------------------------------------------- saved-set measurement
+def _labels_meta(out_layer, out_type, minibatch: int):
+    """Float32 meta labels for an output layer (the JAX package's
+    ``_labels_struct``)."""
+    n_out = getattr(out_layer, "n_out", 0) or out_type.flat_size()
+    if out_type.kind in ("rnn", "cnn1d"):
+        t = out_type.timeseries_length or 16
+        return torch.empty((minibatch, t, n_out), dtype=torch.float32, device="meta")
+    return torch.empty((minibatch, n_out), dtype=torch.float32, device="meta")
+
+
+def meta_network(conf, minibatch: int, augmentation=None):
+    """``(net, params, state, inputs, labels)`` for one train step of
+    ``conf`` on the meta device: a network whose device is ``meta``, its
+    parameters and state from each layer's init there, and zero-cost
+    inputs and labels of ``minibatch`` rows. Dropout and augmentation draw
+    from CPU generators, which the meta device accepts."""
+    from deeplearning4j_tpu_torch.analysis.validation import (_input_struct, _is_index_layer,
+                                                              _meta_net, meta_init)
+    from deeplearning4j_tpu_torch.nn.conf.layers import Layer
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    if isinstance(conf, MultiLayerConfiguration):
+        if conf.input_type is None:
+            raise ValueError("training_activation_bytes needs an input_type")
+        net = _meta_net(MultiLayerNetwork, conf)
+        types = conf.layer_input_types()
+        params, state = [], []
+        for layer, it in zip(net.layers, types):
+            p, st = meta_init(layer, it)
+            params.append(p)
+            state.append(st)
+        inputs = _input_struct(conf.input_type, minibatch, _is_index_layer(net.layers[0]))
+        labels = _labels_meta(net.layers[-1], net.layers[-1].output_type(types[-1]),
+                              minibatch)
+    elif isinstance(conf, ComputationGraphConfiguration):
+        net = _meta_net(ComputationGraph, conf)
+        params, state = {}, {}
+        for name in net.order:
+            obj, _ = net.vertices[name]
+            if isinstance(obj, Layer):
+                params[name], state[name] = meta_init(obj, net.vertex_input_types[name][0])
+            else:
+                params[name], state[name] = {}, {}
+        inputs = []
+        for ni, it in zip(conf.network_inputs, conf.input_types):
+            cons = [conf.vertices[n][0] for n, (_, ins) in conf.vertices.items() if ni in ins]
+            idx = any(isinstance(c, Layer) and _is_index_layer(c) for c in cons)
+            inputs.append(_input_struct(it, minibatch, idx))
+        out_types = conf.vertex_output_types()
+        labels = [_labels_meta(conf.vertices[o][0], out_types[o], minibatch)
+                  for o in conf.network_outputs]
+    else:
+        raise TypeError(f"expected a network configuration, got {type(conf).__name__}")
+    net._gen, net._aug_gen = torch.Generator(), torch.Generator()
+    net.augmentation = augmentation
+    return net, params, state, inputs, labels
+
+
+class _SavedSet:
+    """Bytes of the distinct storages a pack hook sees."""
+
+    def __init__(self):
+        self.storages: Dict[int, int] = {}
+
+    def pack(self, t):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            self.storages.setdefault(st._cdata, int(st.nbytes()))
+        return t
+
+    def nbytes(self) -> int:
+        return sum(self.storages.values())
+
+
+def training_activation_bytes(conf, minibatch: int = 32, augmentation=None) -> int:
+    """Bytes the backward of one train-mode loss forward keeps (module
+    docstring), measured on the meta device. Fusion and ``remat=`` change
+    it as they change the step's device memory; ``augmentation``
+    (``datasets/augment.ImageAugmentation``) runs in the measured step."""
+    net, params, state, inputs, labels = meta_network(conf, minibatch, augmentation)
+    leaves = tree_map(lambda v: v.requires_grad_(True) if v.is_floating_point() else v,
+                      params)
+    saved = _SavedSet()
+    with torch.autograd.graph.saved_tensors_hooks(saved.pack, lambda t: t):
+        net._loss_fn(leaves, state, inputs, labels, net._gen, None, None)
+    return saved.nbytes()

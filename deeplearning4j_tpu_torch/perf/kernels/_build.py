@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 build_log: Dict[str, str] = {}
+#: libraries this process compiled (``perf/compile_watch.backend_compile_events``)
+builds = 0
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -58,6 +60,7 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every named kernel that has no current build, with all nvcc
     processes running at once. Returns name -> library path."""
+    global builds
     names = list(names)
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -78,6 +81,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             continue
         os.replace(tmp, lib)
+        builds += 1
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {name: library_path(name) for name in names}

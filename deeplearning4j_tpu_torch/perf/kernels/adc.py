@@ -30,6 +30,8 @@ import threading
 
 import torch
 
+from deeplearning4j_tpu_torch.perf.kernels import take
+
 __all__ = ["adc_pq", "adc_pq_plain", "adc_ivf_pq", "adc_ivf_pq_plain",
            "pq_launches", "ivf_pq_launches"]
 
@@ -110,7 +112,7 @@ def adc_pq(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     current stream."""
     global pq_launches
     _check_common(lut, codes, 3, "adc_pq")
-    if lut.device.type == "cpu":
+    if not take("adc_pq", lut.device):
         return adc_pq_plain(lut, codes)
     lut, codes = lut.contiguous(), codes.contiguous()
     b, m_count, ksub = lut.shape
@@ -146,7 +148,7 @@ def adc_ivf_pq(lut: torch.Tensor, flat_codes: torch.Tensor,
                          f"{tuple(pos.shape)} must both be (b={b}, C)")
     if seg.device != lut.device or pos.device != lut.device:
         raise ValueError("adc_ivf_pq: operands on different devices")
-    if lut.device.type == "cpu":
+    if not take("adc_ivf_pq", lut.device):
         return adc_ivf_pq_plain(lut, flat_codes, seg, pos)
     if b > 65535:
         raise ValueError(f"adc_ivf_pq takes at most 65535 queries a launch; got {b}")

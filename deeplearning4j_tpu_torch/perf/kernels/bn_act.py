@@ -23,7 +23,9 @@ channels-last ``z`` (rows × C, any leading shape) and per-channel
 The ``*_plain`` functions are the plain PyTorch versions: the JAX
 reference's jnp math (``convolutional.py`` ``_bn_act_fwd_math`` and
 ``_fused_bn_act_bwd``) written in torch, for any activation. The wrappers
-take them for CPU tensors only. On a CUDA tensor they launch
+take them for CPU tensors only, and for meta tensors as one kernel
+operation that launches nothing (``perf/kernels/__init__.py``: the
+planner's and the autotuner's measurements). On a CUDA tensor they launch
 ``csrc/bn_act_fwd.cu`` / ``csrc/bn_act_bwd.cu`` on the current stream or
 raise. Each kernel is one cooperative launch that plans its own grid; the
 wrapper passes what it observes, the vector width (:func:`vec_width`), and
@@ -74,6 +76,7 @@ from deeplearning4j_tpu_torch.nn import data_parallel
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.normalization import (batch_stats, normalize,
                                                             scale_shift)
+from deeplearning4j_tpu_torch.perf.kernels import on_meta, take
 
 __all__ = ["bn_act_fwd", "bn_act_bwd", "bn_act_fwd_plain", "bn_act_bwd_plain",
            "bn_act_apply_plain", "bn_fwd_partials_plain", "combine_rank_partials",
@@ -262,15 +265,32 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _takes_plain(z) -> bool:
+    """A CPU tensor, or a meta tensor outside a data group (the planner's
+    and the autotuner's measurements): at a data world above 1 anything
+    not on the CPU goes to the split launches, which run on a card only."""
+    return z.device.type == "cpu" or (z.device.type == "meta" and data_parallel.world() == 1)
+
+
+def _plain(family: str, fn, z, *args):
+    """The plain version for a tensor on the CPU, or on the meta device as
+    one kernel operation (``perf/kernels/__init__.py``)."""
+    if z.device.type == "meta":
+        return on_meta(family, fn, *args)
+    take(family, z.device)
+    return fn(*args)
+
+
 def bn_act_fwd(act: str, eps: float, z, gamma, beta, res=None):
     """``(out, mean, var, inv)``; see the module docstring. Does not
     synchronise: on a card the kernel runs on the current stream."""
     global fwd_launches
     _check("bn_act_fwd", z, gamma, beta, res)
-    if z.device.type == "cpu":
-        return bn_act_fwd_plain(act, eps, z, gamma, beta, res)
+    if _takes_plain(z):
+        return _plain("bn_act", bn_act_fwd_plain, z, act, eps, z, gamma, beta, res)
     if data_parallel.world() > 1:
         return bn_act_fwd_split(act, eps, z, gamma, beta, res)
+    take("bn_act", z.device)
     _check_cuda("bn_act_fwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res)), ())
     c = z.shape[-1]
@@ -305,10 +325,12 @@ def bn_act_bwd(act: str, eps: float, z, gamma, beta, res, mean, inv, dout):
     if dout.shape != z.shape:
         raise ValueError(f"bn_act_bwd: dout {tuple(dout.shape)} does not match "
                          f"z {tuple(z.shape)}")
-    if z.device.type == "cpu":
-        return bn_act_bwd_plain(act, eps, z, gamma, beta, res, mean, inv, dout)
+    if _takes_plain(z):
+        return _plain("bn_act_bwd", bn_act_bwd_plain, z, act, eps, z, gamma, beta, res,
+                      mean, inv, dout)
     if data_parallel.world() > 1:
         return bn_act_bwd_split(act, eps, z, gamma, beta, res, mean, inv, dout)
+    take("bn_act_bwd", z.device)
     dout = dout.contiguous()
     _check_cuda("bn_act_bwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res),
@@ -452,7 +474,8 @@ def bn_act_fwd_split(act: str, eps: float, z, gamma, beta, res=None):
     global fwd_launches, fwd_split_launches
     _check("bn_act_fwd", z, gamma, beta, res)
     if z.device.type == "cpu":
-        return bn_act_fwd_plain(act, eps, z, gamma, beta, res)
+        return _plain("bn_act", bn_act_fwd_plain, z, act, eps, z, gamma, beta, res)
+    take("bn_act", z.device)
     _check_cuda("bn_act_fwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res)), ())
     stats = bn_fwd_sums(act, z, res is not None, data_parallel.rank(), data_parallel.world(),
@@ -474,7 +497,9 @@ def bn_act_bwd_split(act: str, eps: float, z, gamma, beta, res, mean, inv, dout)
         raise ValueError(f"bn_act_bwd: dout {tuple(dout.shape)} does not match "
                          f"z {tuple(z.shape)}")
     if z.device.type == "cpu":
-        return bn_act_bwd_plain(act, eps, z, gamma, beta, res, mean, inv, dout)
+        return _plain("bn_act_bwd", bn_act_bwd_plain, z, act, eps, z, gamma, beta, res,
+                      mean, inv, dout)
+    take("bn_act_bwd", z.device)
     dout = dout.contiguous()
     _check_cuda("bn_act_bwd", act, z,
                 (("z", z), ("gamma", gamma), ("beta", beta), ("res", res),

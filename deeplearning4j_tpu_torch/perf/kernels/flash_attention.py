@@ -28,7 +28,9 @@ Sums are float32; outputs are rounded once. L and D are float32
   and computes no L.
 - :func:`flash_fwd`, :func:`flash_bwd_dkv` and :func:`flash_bwd_dq` are the
   wrappers of ``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd_dkv.cu`` and
-  ``csrc/flash_attn_bwd_dq.cu``. A CPU tensor takes the plain version. On a
+  ``csrc/flash_attn_bwd_dq.cu``. A CPU tensor takes the plain version, a
+  meta tensor too, as one kernel operation that launches nothing
+  (``perf/kernels/__init__.py``). On a
   CUDA tensor each launches its kernel on the current stream, or raises,
   and adds one to its counter: :data:`launches` (forward),
   :data:`launches_bwd_dkv`, :data:`launches_bwd_dq`.
@@ -50,6 +52,8 @@ import math
 import threading
 
 import torch
+
+from deeplearning4j_tpu_torch.perf.kernels import on_meta
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_fwd_plain", "flash_bwd_dkv_plain", "flash_bwd_dq_plain",
@@ -202,6 +206,8 @@ def flash_fwd(q, k, v, causal: bool = False):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal)
+    if q.device.type == "meta":
+        return on_meta("flash_attn_fwd", flash_fwd_plain, q, k, v, causal)
     return _fwd_kernel(q, k, v, causal, with_lse=True)
 
 
@@ -216,6 +222,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     do = _last_axis_contiguous(do)
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    if q.device.type == "meta":
+        return on_meta("flash_attn_bwd_dkv", flash_bwd_dkv_plain, q, k, v, do, lse, delta,
+                       causal)
     _on_cuda(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
@@ -232,6 +241,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     do = _last_axis_contiguous(do)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    if q.device.type == "meta":
+        return on_meta("flash_attn_bwd_dq", flash_bwd_dq_plain, q, k, v, do, lse, delta,
+                       causal)
     _on_cuda(q)
     dq = torch.empty_like(q)
     if dq.numel():
@@ -275,4 +287,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         from deeplearning4j_tpu_torch.parallel.ring_attention import reference_attention
         return reference_attention(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        return flash_fwd(q, k, v, causal)[0]
     return _fwd_kernel(q, k, v, causal, with_lse=False)[0]

@@ -25,6 +25,8 @@ import threading
 
 import torch
 
+from deeplearning4j_tpu_torch.perf.kernels import take
+
 from deeplearning4j_tpu_torch.quant.pack import packed_width, unpack_nibbles
 
 __all__ = ["int4_matmul", "int4_matmul_plain", "launches"]
@@ -80,10 +82,10 @@ def int4_matmul(qq: torch.Tensor, packed: torch.Tensor, d: int) -> torch.Tensor:
     Does not synchronise: the kernel runs on the current stream."""
     global launches
     _check(qq, packed, d)
-    if qq.device.type == "cpu":
-        return int4_matmul_plain(qq, packed, d)
-    if qq.device.type != "cuda":
+    if qq.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int4_matmul runs on cuda or cpu; got {qq.device}")
+    if not take("int4_dot", qq.device):
+        return int4_matmul_plain(qq, packed, d)
     b, n = qq.shape[0], packed.shape[0]
     out = torch.empty((b, n), dtype=torch.int32, device=qq.device)
     if b == 0 or n == 0:

@@ -400,8 +400,9 @@ def quantize(net, calibration, fold: bool = True, weight_bits: int = 8):
 
 # -------------------------------------------------------------- inspection
 def quantized_layers(net):
-    """(slot_key, layer) for every Quantized* layer of a network."""
-    return [(f"layer{i}", l) for i, l in enumerate(net.layers)
+    """(slot_key, layer) for every Quantized* layer of a network (none in a
+    ComputationGraph: the lowering rewrites layer stacks)."""
+    return [(f"layer{i}", l) for i, l in enumerate(getattr(net, "layers", ()))
             if isinstance(l, _QUANTIZED_TYPES)]
 
 

@@ -51,6 +51,7 @@ import torch
 from deeplearning4j_tpu_torch.clustering.kmeans import KMeansClustering
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.perf.bucketing import BucketPolicy, pad_to_bucket
+from deeplearning4j_tpu_torch.perf.compile_watch import CompileWatch
 from deeplearning4j_tpu_torch.perf.kernels import int4_dot
 from deeplearning4j_tpu_torch.quant.observers import QMAX, observe_stream
 from deeplearning4j_tpu_torch.quant.pack import (QMAX4, quantize_int4, unpack_nibbles,
@@ -416,6 +417,23 @@ class _DeviceIndex:
         raise NotImplementedError
 
     @property
+    def compile_watch(self) -> CompileWatch:
+        """Dispatches of the scoring step and its first-seen (batch, k)
+        shapes (``perf/compile_watch.py``), under the key ``search``."""
+        cw = self.__dict__.get("_compile_watch")
+        if cw is None:
+            cw = self.__dict__["_compile_watch"] = CompileWatch(f"retrieval.{self.kind}")
+        return cw
+
+    def _search_watched(self, q: torch.Tensor, k: int):
+        """:meth:`_search_device` through ``compile_watch``."""
+        w = self.__dict__.get("_search_watch")
+        if w is None:
+            w = self.__dict__["_search_watch"] = self.compile_watch.wrap(
+                self._search_device, "search")
+        return w(q, k)
+
+    @property
     def codec(self) -> str:
         """Compression rung of the stored table: fp32 / int8 / int4 (the
         PQ classes answer "pq")."""
@@ -468,7 +486,7 @@ class _DeviceIndex:
         if self.metric == "cosine":
             qp = qp / np.maximum(np.linalg.norm(qp, axis=1, keepdims=True),
                                  1e-12)
-        dist, idx = self._search_device(_as_tensor(qp, self.device), kp)
+        dist, idx = self._search_watched(_as_tensor(qp, self.device), kp)
         # the one host read of the dispatch
         dist = dist[:q.shape[0], :k_dev].cpu().numpy()
         idx = idx[:q.shape[0], :k_dev].to(torch.int32).cpu().numpy()
@@ -490,7 +508,7 @@ class _DeviceIndex:
         for b in self.query_policy.buckets_up_to(max(1, int(max_queries))):
             qp = _as_tensor(pad_to_bucket(zeros, b), self.device)
             for kp in kpads:
-                d, i = self._search_device(qp, kp)
+                d, i = self._search_watched(qp, kp)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 warmed.append((b, kp))
@@ -522,7 +540,8 @@ class _DeviceIndex:
                 "scale": self.scale, "nbytes": mb, "memory_bytes": mb,
                 "code_bytes": self.code_bytes(),
                 "bytes_per_vector": round(mb / max(1, self.size), 2),
-                "device": str(self.device)}
+                "device": str(self.device),
+                "compile_watch": self.compile_watch.as_dict()}
 
     # --------------------------------------------------------- persistence
     def _meta(self) -> dict:

@@ -895,8 +895,10 @@ class ModelServer:
         ``quant.CalibrationRecord``: the endpoint serves the int8 lowering
         (``ParallelInference(quantize=)``, with ``weight_bits`` 8 or 4) —
         re-applied on every checkpoint hot-swap — and accepts int8 binary
-        predict payloads. ``tuning`` raises (ROADMAP §A7). The endpoint's
-        ``ParallelInference`` runs on the model's device."""
+        predict payloads. ``tuning`` takes an autotuner ``TuningRecord``
+        (``ParallelInference(tuning=)``: verified against the model, its
+        ladder warmed; a model restored with a record brings it along).
+        The endpoint's ``ParallelInference`` runs on the model's device."""
         if name in self.endpoints:
             raise ValueError(f"model '{name}' already registered")
         if (quantize is not None or tuning is not None) \

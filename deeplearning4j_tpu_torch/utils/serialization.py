@@ -51,8 +51,12 @@ interrupted one would have; the metadata's ``"augmentation"`` holds an
 ``ImageAugmentation.to_dict()`` in both packages, and restoring a zip
 re-enables it on the network.
 
-Not ported, and refused by name on restore (``NotImplementedError``): the
-autotuner's ``tuning.json``. The port does not write it.
+``tuning.json`` is the autotuner's ``TuningRecord`` (``perf/autotune.py``)
+of a network built by ``build_network`` (its ``_tuning_record``), JSON with
+sorted keys, the JAX package's member byte for byte; the metadata says
+``"has_tuning_record"`` in a checkpoint. Restoring a zip that carries it
+attaches the record again, so a served or resumed network inherits the
+tuned batch size and bucket ladder.
 """
 
 from __future__ import annotations
@@ -255,6 +259,7 @@ def snapshot_training_state(model, staging: HostStaging = None) -> dict:
                      for k, v in upd.items()}
     gen = model._gen
     cal = getattr(model, "_quant_calibration", None)
+    tun = getattr(model, "_tuning_record", None)
     return {
         "model_type": model_type,
         "conf_json": model.conf.to_json(),
@@ -269,6 +274,7 @@ def snapshot_training_state(model, staging: HostStaging = None) -> dict:
                        "device": gen.device.type}),
         "augmentation": _augmentation_dict(model),
         "quant_calibration": None if cal is None else cal.to_dict(),
+        "tuning_record": None if tun is None else tun.to_dict(),
         "grad_compression": None if comp is None else comp.to_config(),
         "compress_state": ({k: host[f"x:{k}"] for k in cs_keys}
                            if comp is not None and cs is not None else None),
@@ -320,7 +326,7 @@ def checkpoint_zip_bytes(snap: dict, extra_meta: dict = None) -> memoryview:
         "grad_compression": snap.get("grad_compression"),
         "has_compress_state": snap.get("compress_state") is not None,
         "has_quant_calibration": snap.get("quant_calibration") is not None,
-        "has_tuning_record": False,
+        "has_tuning_record": snap.get("tuning_record") is not None,
         "augmentation": snap.get("augmentation"),
     }
     meta.update(extra_meta or {})
@@ -341,6 +347,8 @@ def checkpoint_zip_bytes(snap: dict, extra_meta: dict = None) -> memoryview:
                        json.dumps(snap["quant_calibration"], sort_keys=True))
         if snap.get("compress_state") is not None:
             _write_npz(z, "compressState.npz", snap["compress_state"])
+        if snap.get("tuning_record") is not None:
+            z.writestr("tuning.json", json.dumps(snap["tuning_record"], sort_keys=True))
     return buf.getbuffer()
 
 
@@ -360,15 +368,17 @@ def write_model(model, path, save_updater: bool = True):
             _write_npz(z, "updaterState.npz", snap["updater_state"])
         if snap["quant_calibration"] is not None:
             z.writestr("quantization.json", model._quant_calibration.to_json())
+        if snap["tuning_record"] is not None:
+            z.writestr("tuning.json", model._tuning_record.to_json())
 
 
 # ---------------------------------------------------------------- restore
-def _refuse_unported(z: zipfile.ZipFile, meta: dict):
-    names = set(z.namelist())
-    if "tuning.json" in names:
-        raise NotImplementedError("this zip carries tuning.json (an autotuner "
-                                  "TuningRecord); perf/autotune is not in the PyTorch "
-                                  "port yet")
+def _restore_tuning_record(model, z: zipfile.ZipFile):
+    """Re-attach the autotuner's TuningRecord when one rides in the zip (the
+    tuned configuration itself round-trips through configuration.json)."""
+    if "tuning.json" in z.namelist():
+        from deeplearning4j_tpu_torch.perf.autotune import TuningRecord
+        model._tuning_record = TuningRecord.from_json(z.read("tuning.json").decode())
 
 
 def _augmentation_dict(model):
@@ -386,7 +396,6 @@ def _read(source, expect, load_updater: bool, device, generator: bool):
         meta = json.loads(z.read("metadata.json"))
         if expect is not None and meta["model_type"] != expect:
             raise ValueError(f"Checkpoint holds a {meta['model_type']}, not a {expect}")
-        _refuse_unported(z, meta)
         cfg_json = z.read("configuration.json").decode()
         if meta["model_type"] == "MultiLayerNetwork":
             model = MultiLayerNetwork(MultiLayerConfiguration.from_json(cfg_json), device)
@@ -422,6 +431,7 @@ def _read(source, expect, load_updater: bool, device, generator: bool):
             from deeplearning4j_tpu_torch.quant.calibrate import CalibrationRecord
             model._quant_calibration = CalibrationRecord.from_json(
                 z.read("quantization.json").decode())
+        _restore_tuning_record(model, z)
         if meta.get("grad_compression"):
             from deeplearning4j_tpu_torch.parallel.compress import restore_compress_state
             arrays = None

@@ -410,18 +410,26 @@ def test_process_kill_mode_sigkills_the_process():
 
 # ---------------------------------------------------------------- refusals
 def test_unported_checkpoint_paths_are_refused(tmp_path):
-    """Zips and shard sets carrying modules the port lacks raise by name
-    (sharded=True itself is ported: checkpoint/sharded.py); restore_latest
-    does not fall back past such a zip as if it were corrupt. Gradient
-    compression is ported (parallel/compress.py): a shard set carrying it
-    restores with its scheme and state."""
+    """Zips and shard sets carrying the modules the port once lacked now
+    restore them (sharded=True: checkpoint/sharded.py). A TuningRecord
+    (perf/autotune.py) rides a shard set and a checkpoint zip, and
+    restore_latest returns the newest zip with it. Gradient compression
+    (parallel/compress.py): a shard set carrying it restores with its
+    scheme and state."""
     from deeplearning4j_tpu_torch.checkpoint import sharded as shd
     from deeplearning4j_tpu_torch.parallel import Int8Compression, enable_grad_compression
-    snap = shd.shard_snapshot(_net())
-    with pytest.raises(NotImplementedError, match="TuningRecord"):
-        shd.restore_from_payloads([shd.shard_zip_bytes(snap, {"tuning_record":
-                                                              {"batch_size": 8}})],
-                                  device="cpu")
+    from deeplearning4j_tpu_torch.perf.autotune import TuningRecord, conf_signature
+    net0 = _net()
+    sig = conf_signature(net0.conf)
+    rec = TuningRecord(model_type="MultiLayerConfiguration", dtype="float32", signature=sig,
+                       tuned_signature=sig, batch_size=8, fusion=False, donate=True,
+                       remat={}, buckets=(8,), objective={}, baseline={},
+                       candidates_searched=1)
+    # a TuningRecord is ported (perf/autotune.py): it rides a shard set
+    snap = shd.shard_snapshot(net0)
+    back, _ = shd.restore_from_payloads(
+        [shd.shard_zip_bytes(snap, {"tuning_record": rec.to_dict()})], device="cpu")
+    assert back._tuning_record == rec
     comp = _net()
     enable_grad_compression(comp, Int8Compression())
     comp.fit(_batches(32, batch=8, seed=1)[0])
@@ -436,12 +444,11 @@ def test_unported_checkpoint_paths_are_refused(tmp_path):
     with zipfile.ZipFile(path) as src, zipfile.ZipFile(buf, "w") as dst:
         for item in src.namelist():
             dst.writestr(item, src.read(item))
-        dst.writestr("tuning.json", json.dumps({"batch_size": 8}))
+        dst.writestr("tuning.json", rec.to_json())
     data = buf.getvalue()
     cm._storage.put(names[-1], data)
-    with cm._lock:  # journal the new bytes, so only the refusal can stop it
+    with cm._lock:  # journal the new bytes, so the newest zip is the one restored
         import hashlib
         cm._entries[-1]["sha256"] = hashlib.sha256(data).hexdigest()
-    with pytest.raises(NotImplementedError, match="tuning.json"):
-        cm.restore_latest()
+    assert cm.restore_latest()._tuning_record == rec
     cm.close()

@@ -432,8 +432,15 @@ def test_refusals_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="A7"):
         pserving.ModelServer(compile_cache_dir="/nonexistent")
     srv = pserving.ModelServer()
-    with pytest.raises(NotImplementedError, match="A7"):
-        srv.add_model("t", _port_of(_jax_net()), tuning=object())
+    # tuning records are ported (perf/autotune.py): a stale one is refused by name
+    from deeplearning4j_tpu_torch.perf.autotune import StaleTuningRecordError, TuningRecord
+    stale = TuningRecord(model_type="MultiLayerConfiguration", dtype="float32",
+                         signature=(("layer0", "DenseLayer", 3),),
+                         tuned_signature=(("layer0", "DenseLayer", 3),), batch_size=8,
+                         fusion=False, donate=True, remat={}, buckets=(8,), objective={},
+                         baseline={}, candidates_searched=1)
+    with pytest.raises(StaleTuningRecordError):
+        srv.add_model("t", _port_of(_jax_net()), tuning=stale)
     # meshes are ported (parallel/mesh.py); one of several ranks is refused
     # by design, each rank serving on its own device
     import torch

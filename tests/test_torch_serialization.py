@@ -263,7 +263,16 @@ def test_zip_with_unported_module_is_refused_by_name(tmp_path, member):
             if name == "metadata.json" and member == "augmentation":
                 data = json.dumps({**json.loads(data), "augmentation": {"flip_prob": 0.5}})
             w.writestr(name, data)
-        if member != "augmentation":
+        if member == "tuning.json":
+            from deeplearning4j_tpu.perf.autotune import TuningRecord, conf_signature
+            sig = conf_signature(_jax_net("multilayer").conf)
+            rec = TuningRecord(model_type="MultiLayerConfiguration", dtype="float32",
+                               signature=sig, tuned_signature=sig, batch_size=8,
+                               fusion=False, donate=True, remat={}, buckets=(8,),
+                               objective={"step_seconds": 0.5}, baseline={},
+                               candidates_searched=1)
+            w.writestr(member, rec.to_json())
+        elif member != "augmentation":
             w.writestr(member, b"{}")
     if member == "augmentation":
         # ported: the zip's augmentation is re-enabled on the network
@@ -277,8 +286,9 @@ def test_zip_with_unported_module_is_refused_by_name(tmp_path, member):
         assert pser.restore(out, device="cpu").grad_compression is None
         assert jser.restore(out).grad_compression is None
         return
-    with pytest.raises(NotImplementedError, match=member.split(".")[0]):
-        pser.restore(out, device="cpu")
+    # ported (perf/autotune.py): the record is attached again, in both packages
+    assert pser.restore(out, device="cpu")._tuning_record.to_dict() == rec.to_dict()
+    assert jser.restore(out)._tuning_record.to_dict() == rec.to_dict()
 
 
 def test_model_guesser(tmp_path):

@@ -188,7 +188,11 @@ def _same_report(got, want):
     for f in ("model_class", "minibatch", "dtype", "total_param_bytes",
               "total_activation_bytes", "updater_state_bytes", "fused_blocks"):
         assert getattr(got, f) == getattr(want, f), f
-    assert got.training_activation_bytes is None and got.compiled is None
+    assert got.compiled is None
+    # the saved set of one train step, measured on the meta device as the
+    # JAX package measures its residual set (tests/test_torch_planner_autotune.py
+    # holds the two against each other)
+    assert isinstance(got.training_activation_bytes, int) and got.training_activation_bytes > 0
 
 
 def test_memory_reports_match_jax():
