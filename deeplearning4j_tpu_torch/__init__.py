@@ -32,7 +32,12 @@ Ported so far:
   and elastic training over ``torch.distributed``, ring and Ulysses
   attention; at a data world above 1 the bn kernels run as split launches
   around the all-reduce; the serving fleet (``fleet/``) routes over
-  replicas of ``ModelServer``.
+  replicas of ``ModelServer``;
+- the training UI and Keras import: ``StatsListener`` (statistics reduced
+  on the card) into ``storage/`` and the dashboard ``UIServer`` (``ui/``),
+  ``modelimport/`` (Keras HDF5 and ``.keras`` models into networks on the
+  card, whose fused blocks train through the bn kernels), and the
+  sklearn-contract estimators (``mlpipeline.py``).
 """
 
 from deeplearning4j_tpu_torch.nn.conf import (InputType, MultiLayerConfiguration,

@@ -4,7 +4,9 @@ policy.
 Counterpart of ``deeplearning4j_tpu/utils/backoff.py``, the same schedule
 for the same arguments and seeded ``rng``. Used by
 ``checkpoint/storage.py``'s :class:`RetryingBackend` (transient
-object-store faults) and ``checkpoint/resume.py``'s restart loop. Linear
+object-store faults), ``checkpoint/resume.py``'s restart loop and
+``storage/remote.py``'s ``RemoteUIStatsStorageRouter`` (flaky UI-server
+posts). Linear
 growth under a correlated outage (the store is down, every worker retries)
 synchronizes retries into load spikes exactly when the dependency is least
 able to absorb them; exponential growth with jitter spreads them out.

@@ -2,9 +2,10 @@
 ``deeplearning4j_tpu/utils/model_guesser.py``; reference
 ``ModelGuesser.java``: ``loadModelGuess``, ``loadConfigGuess``).
 
-The framework's own zip is restored by ``utils/serialization.py``; a Keras
-file raises ``NotImplementedError`` until ``modelimport/`` is ported
-(ROADMAP §A7).
+The framework's own zip is restored by ``utils/serialization.py``; anything
+else is imported as a Keras file (``modelimport/``: a Keras 3 ``.keras`` zip
+or an HDF5 file), and a file that neither reads raises ``ValueError`` naming
+both formats.
 """
 
 from __future__ import annotations
@@ -36,14 +37,22 @@ def load_config_guess(source: str):
 
 def load_model_guess(path: str, device=None):
     """Load a model whose format is unknown (reference
-    ModelGuesser.loadModelGuess): the framework's own zip (metadata.json +
-    configuration.json) on ``device``; anything else would be a Keras file."""
+    ModelGuesser.loadModelGuess :114) onto ``device``: the framework's own
+    zip (metadata.json + configuration.json), a Keras 3 ``.keras`` zip, or a
+    Keras HDF5 file."""
     if zipfile.is_zipfile(path):
         with zipfile.ZipFile(path) as z:
             names = set(z.namelist())
         if "metadata.json" in names and "configuration.json" in names:
             from deeplearning4j_tpu_torch.utils.serialization import restore
             return restore(path, device=device)
-    raise NotImplementedError(
-        f"{path!r} is not a framework model zip; Keras import (modelimport/) is not "
-        "in the PyTorch port yet (ROADMAP §A7)")
+    # anything else is a Keras format — import_keras_model's archive opener
+    # already dispatches .keras zips vs HDF5 and validates both
+    from deeplearning4j_tpu_torch.modelimport import (KerasImportError,
+                                                      import_keras_model)
+    try:
+        return import_keras_model(path, device=device)
+    except (KerasImportError, OSError) as e:
+        raise ValueError(
+            f"Cannot guess the model format of {path!r}: neither a "
+            f"framework model zip nor a Keras file ({e})") from e

@@ -25,6 +25,7 @@ fixed seeds; no layer uses dropout.
 
 import io
 import json
+import pathlib
 import zipfile
 
 import jax
@@ -291,6 +292,14 @@ def test_zip_with_unported_module_is_refused_by_name(tmp_path, member):
     assert jser.restore(out)._tuning_record.to_dict() == rec.to_dict()
 
 
+# the m(x) of tests/data/keras/dense_sequential.h5 (written by Keras 3.13.1's
+# model.save for Sequential([Input((5,)), Dense(4, "relu"), Dense(2,
+# "softmax")]) after set_random_seed(0)), x = default_rng(0) normals (3, 5)
+KERAS_OUT = np.array([[0.579258382320404, 0.42074164748191833],
+                      [0.6601154208183289, 0.33988454937934875],
+                      [0.4465109705924988, 0.5534890294075012]])
+
+
 def test_model_guesser(tmp_path):
     jnet = _jax_net("graph")
     path = _write(jnet, tmp_path / "g.zip")
@@ -300,7 +309,22 @@ def test_model_guesser(tmp_path):
         np.testing.assert_array_equal(got, want)
     conf = model_guesser.load_config_guess(jnet.conf.to_json())
     assert conf.to_json() == jnet.conf.to_json()
-    keras = tmp_path / "m.h5"
-    keras.write_bytes(b"\x89HDF\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="Keras"):
-        model_guesser.load_model_guess(str(keras), device="cpu")
+    # a Keras file imports in both packages (modelimport/); a file that is
+    # neither a framework zip nor a Keras file raises the JAX package's
+    # ValueError naming both formats
+    from deeplearning4j_tpu.utils import model_guesser as jax_guesser
+    fake = tmp_path / "m.h5"
+    fake.write_bytes(b"\x89HDF\r\n\x1a\n")
+    for guess in (lambda p: model_guesser.load_model_guess(p, device="cpu"),
+                  jax_guesser.load_model_guess):
+        with pytest.raises(ValueError, match="neither a framework model zip nor a Keras file"):
+            guess(str(fake))
+    real = str(pathlib.Path(__file__).parent / "data" / "keras" / "dense_sequential.h5")
+    x = np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32)
+    got = model_guesser.load_model_guess(real, device="cpu")
+    want = jax_guesser.load_model_guess(real)
+    assert type(got).__name__ == "MultiLayerNetwork" and got.conf.to_json() == want.conf.to_json()
+    for g, w in zip(_port_params(got), _jax_leaves(want.params)):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(got.output(x).numpy(), np.asarray(want.output(x)), atol=1e-6)
+    np.testing.assert_allclose(got.output(x).numpy(), KERAS_OUT, atol=1e-6)
