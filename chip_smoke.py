@@ -292,7 +292,8 @@
    over SSE and one as JSON must equal an engine session of the same
    prompt. One "carry" hot swap while 8 sessions of 1024 tokens generate
    loses none. No
-   kernel of the port launches in this phase.
+   kernel of the port launches in this phase. After the server stops, the
+   syncs of one greedy step of its engine are kept for 48.
 29. IVF: IVFIndex(V) and IVFIndex(V, int8=True) on 7's 1,000,000 x 64
    corpus (1000 cells, nprobe 8), each dense and CSR, built on the card and
    served over HTTP behind add_index with 26's query load (answers against
@@ -492,7 +493,30 @@
 47. Estimator: DL4JClassifier on a seeded 4-class set on the card, bitwise
    a MultiLayerNetwork fit on the same seed and batches (see
    mlpipeline_phase).
-48. Prints the kernels JSON line (nine kernels; the bn rows' launches by
+48. Tools and lint (after 29, while 7's corpus and indexes are kept):
+   the port's offline tools through main(argv) in this process, each in
+   an obs span: build_index --kind ivf --pq 8 --nprobe 8 --rerank 8 over
+   7's corpus written as .npy, gated at RECALL_GATES["ivf_pq"], then
+   --load, the loaded index's device top-k ids for 64 queries bitwise those
+   of 7's IVF-PQ (adc_ivf_pq launches); build_index --kind brute --int4
+   (int4_dot launches); quantize on a LeNet checkpoint on the card and on
+   the CPU (the reports equal, ranges within 1e-5) and the zip restored and
+   predicting on the card; autotune on ResNet50 (zoo:resnet50, full width,
+   b 32 / 64, top 1, 1 rep; the confirm launches the bn kernels) and the
+   record into ParallelInference(tuning=); lake put / get / ls / gc on a
+   local directory; run_lint --json --audit-waivers cold and warm (0
+   violations, 0 stale waivers), and one python -m ...tools.run_lint
+   subprocess beside them; obs_report over the phase's event log and
+   flight dump, equal to render_report. Then the rules against the card:
+   under torch.cuda.set_sync_debug_mode("warn"), IVF-PQ, int4 brute and
+   PQ scoring of 64 device queries up to the device top-k, one
+   ThresholdCompression apply, one launch of each kernel wrapper, and 28's
+   greedy DecodeEngine step, each sync at the innermost frame of the port;
+   every sync must sit on a line analysis/lint.py flags (so waived) or in
+   SYNCS_NO_RULE_SEES; a copy of retrieval/index.py::_topk_smallest with
+   one .item() inserted is flagged (DLT013) and syncs on the card, the
+   unchanged copy does not (see lint_tools_phase).
+49. Prints the kernels JSON line (nine kernels; the bn rows' launches by
    path, data_tier, fused_update, transfer_learning, fit_featurized,
    cloud_checkpoint, supervised, parallel, parallel_compressed, elastic,
    data_parallel_world2, model_parallel, perf_tier, keras_resnet50 and
@@ -862,7 +886,7 @@ def serving_phase(torch, dev, card):
                                      dtype=np.float32) for _ in range(12)]
         try:
             for x in reqs:
-                t_sub = time.perf_counter()
+                t_sub = time.perf_counter()  # lint: disable=DLT003 (the answer comes back as host numpy: the server's readback is the sync)
                 out = pi.submit(x).get(timeout=600)
                 answers.append((x, out, time.perf_counter() - t_sub))
         except Exception as e:  # re-raised on the main thread below
@@ -1795,7 +1819,7 @@ def serve_index(name, ix, Q) -> dict:
                 rows = int(crng.integers(1, 9))
                 sel = crng.integers(0, len(Q), rows)
                 k = int(crng.choice([1, 10, 32], p=[0.15, 0.7, 0.15]))
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # lint: disable=DLT003 (ep.query returns host arrays: its readback is the sync)
                 idx, dist = ep.query(Q[sel], k)
                 answers.append((rows, k, idx, dist, time.perf_counter() - t0))
         except Exception as e:  # re-raised on the main thread below
@@ -2988,7 +3012,7 @@ def lm_train_run(torch, dev, card, dtype_name) -> dict:
 
 def lm_training_phase(torch, dev, card):
     torch.backends.cuda.matmul.allow_tf32 = False
-    t_phase = time.perf_counter()
+    t_phase = time.perf_counter()  # lint: disable=DLT003 (phase wall time; the phase's checks read its results back before it ends)
     runs = {dt: lm_train_run(torch, dev, card, dt) for dt in ("float32", "bfloat16")}
     print(f"lm training phase ran {time.perf_counter() - t_phase:.1f} s", flush=True)
     return runs
@@ -3459,7 +3483,7 @@ def checkpoint_phase(torch, dev, card, workdir) -> dict:
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
     from deeplearning4j_tpu_torch.utils.serialization import write_model
 
-    t_phase = time.perf_counter()
+    t_phase = time.perf_counter()  # lint: disable=DLT003 (phase and save wall times; each ends on a host read or a written file)
     conf = resnet50_train_conf()
     batches = ckpt_batches(torch, dev)
     ck = os.path.join(workdir, "ckpt")
@@ -4444,7 +4468,7 @@ def _header_only_post(port, path, length):
 
 
 def _wait_for(pred, what, timeout=120.0):
-    end = time.monotonic() + timeout
+    end = time.monotonic() + timeout  # lint: disable=DLT003 (a polling deadline, not a measurement)
     while not pred():
         if time.monotonic() > end:
             raise AssertionError(f"timed out waiting for {what}")
@@ -4459,7 +4483,7 @@ def _run_clients(jobs_of, clients):
     def client(cid):
         try:
             for label, path, body, meta in jobs_of(cid):
-                t0 = time.perf_counter()
+                t0 = time.perf_counter()  # lint: disable=DLT003 (an HTTP round trip; the server reads back before it answers)
                 code, parsed, _, nbytes = _http(BASE[0], "POST", path, body)
                 out.append((cid, label, meta, code, parsed,
                             (time.perf_counter() - t0) * 1e3, nbytes))
@@ -4467,7 +4491,7 @@ def _run_clients(jobs_of, clients):
             errors.append(e)
 
     threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # lint: disable=DLT003 (the wall time of HTTP client threads)
     for t in threads:
         t.start()
     for t in threads:
@@ -4677,7 +4701,8 @@ def _taxonomy_on_card(srv, ep, dev):
     held, threads = [], []
 
     def bg(body):
-        t = threading.Thread(target=lambda: held.append(_http(base, "POST", path, body)[:3]))
+        t = threading.Thread(target=lambda: held.append(_http(base, "POST", path, body)[:3]),
+                             daemon=True)
         t.start()
         threads.append(t)
 
@@ -4991,6 +5016,7 @@ def decode_phase(torch, dev, card):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     srv.stop(drain=True, drain_timeout_s=60)
+    SYNC_PATHS["decode_step"] = _sync_sites(torch, lambda: _decode_step(torch, eng))
     launches = _launch_counts()
     if any(launches.values()):
         raise AssertionError(f"a kernel of the port launched in the decode phase: {launches}")
@@ -5021,8 +5047,9 @@ class SharedIvfCells:
     cells (k-means++ seeding in host numpy, then Lloyd steps on the card,
     deterministic); the seeding alone is 10-30 s of a build. While this is
     installed the first call trains and every later one with the same
-    arguments on the same corpus gets a copy; ``trained`` / ``reused``
-    count them."""
+    arguments on an equal corpus (the same object, or the copy the
+    build_index tool reads back from a .npy) gets a copy; ``trained`` /
+    ``reused`` count them."""
 
     def __init__(self):
         from deeplearning4j_tpu_torch.retrieval import index, pq
@@ -5032,9 +5059,9 @@ class SharedIvfCells:
         self.trained = self.reused = 0
 
     def __call__(self, v, n_cells, train_size, max_iterations, seed, device):
-        key = (v.ctypes.data, v.shape, n_cells, train_size, max_iterations, seed, str(device))
+        key = (v.shape, n_cells, train_size, max_iterations, seed, str(device))
         hit = self._memo.get(key)
-        if hit is None or hit[0] is not v:
+        if hit is None or not (hit[0] is v or np.array_equal(hit[0], v)):
             self.trained += 1
             hit = self._memo[key] = (v, self._train(v, n_cells, train_size, max_iterations,
                                                     seed, device))
@@ -6635,7 +6662,7 @@ def cloud_checkpoint_phase(torch, dev, card, workdir, ckpt) -> dict:
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
-    t_phase = time.perf_counter()
+    t_phase = time.perf_counter()  # lint: disable=DLT003 (phase and save wall times; each ends on a host read or a written file)
     conf = resnet50_train_conf()
     batches = ckpt_batches(torch, dev)
     ref = ckpt["record"]
@@ -6861,7 +6888,7 @@ def supervised_phase(torch, dev, card, workdir, ckpt) -> dict:
     from deeplearning4j_tpu_torch.checkpoint import CheckpointManager, RestartPolicy
     from deeplearning4j_tpu_torch.checkpoint.supervisor import train_until_process
 
-    t_phase = time.perf_counter()
+    t_phase = time.perf_counter()  # lint: disable=DLT003 (wall time of a supervised child process)
     root = os.path.dirname(os.path.abspath(__file__))
     store = os.path.join(workdir, "store")
     prog = SUPERVISED_WORKER.format(root=root, workdir=workdir, ckpt=store)
@@ -7020,7 +7047,7 @@ def _timed_walks(model, walks=None) -> dict:
         def walks_of(epoch=0):
             if walks is not None:
                 return walks[epoch]
-            t0 = time.perf_counter()
+            t0 = time.perf_counter()  # lint: disable=DLT003 (host random walks (numpy), no device work)
             out = draw(epoch)
             record["seconds"] += time.perf_counter() - t0
             record["walks"].append(out)
@@ -7211,7 +7238,7 @@ def graph_embeddings_phase(torch, dev, card) -> dict:
     launches, iterations/s and the KL histories."""
     from deeplearning4j_tpu_torch.graphs import DeepWalk, Node2Vec
 
-    t_phase = time.perf_counter()
+    t_phase = time.perf_counter()  # lint: disable=DLT003 (phase wall time; the fits' checks read their results back)
     t0 = time.perf_counter()
     graph, block = planted_graph()
     graph_s = time.perf_counter() - t0
@@ -7541,9 +7568,9 @@ def _compress_device_ms(torch, dev, net, reps: int = 5) -> float:
         start.record()
         net.grad_compression.apply(grads, net.compress_state)
         end.record()
-        end.synchronize()
+        end.synchronize()  # lint: disable=DLT009 (CUDA-event timing of one apply: the wait is the measurement)
         out.append(start.elapsed_time(end))
-    return float(np.median(out[1:]))
+    return float(np.median(out[1:]))  # lint: disable=DLT009 (host list of event times)
 
 
 def parallel_training_phase(torch, dev, card) -> dict:
@@ -7726,7 +7753,7 @@ def elastic_phase(torch, dev, card, workdir) -> dict:
                                                    ElasticWorker)
     from deeplearning4j_tpu_torch.perf.kernels import bn_act
 
-    t_phase = time.perf_counter()
+    t_phase = time.perf_counter()  # lint: disable=DLT003 (phase and generation wall times; each ends on a host read)
     conf = resnet50_train_conf()
     batches = ckpt_batches(torch, dev)[:ELASTIC_BATCHES]
     epochs = 2
@@ -8720,7 +8747,7 @@ def fleet_phase(torch, dev, card, net, rec, workdir) -> dict:
             i = 0
             while True:
                 with lock:
-                    done = ("at" in killed and i >= FLEET_REQUESTS and time.perf_counter()
+                    done = ("at" in killed and i >= FLEET_REQUESTS and time.perf_counter()  # lint: disable=DLT003 (a client loop deadline over HTTP)
                             > killed["at"] + FLEET_TTL_S + FLEET_AFTER_S)
                 if done or i >= 50 * FLEET_REQUESTS:
                     return
@@ -9442,12 +9469,387 @@ def mlpipeline_phase(torch, dev, card) -> dict:
     return summary
 
 
+# ------------------------------------------------------------ lint_tools
+# the syncs the card reports on a guarded path that no rule of
+# analysis/lint.py can see, "path:line" -> why (each also in ROADMAP §C)
+SYNCS_NO_RULE_SEES = {}
+# the guarded paths' sync sites, "path:line" -> count: decode_phase adds
+# "decode_step" (its engine), lint_tools_phase the rest
+SYNC_PATHS = {}
+LT_QUERIES, LT_K = 64, 10
+# the autotune tool's model (full width) and its candidate batches
+LT_AUTOTUNE_MODEL, LT_AUTOTUNE_BATCHES, LT_INPUT = "zoo:resnet50", "32,64", (224, 224, 3)
+
+
+def _sync_sites(torch, fn) -> dict:
+    """The host syncs ``fn()`` makes on the card, as "path:line" -> count,
+    read from torch.cuda.set_sync_debug_mode("warn"): each at the
+    innermost frame under deeplearning4j_tpu_torch/, or "outside:" and the
+    innermost frame when none of the port's is on the stack. ``fn`` runs
+    once unwatched first, so one-time work (a library's handle, the
+    allocator's first block) is not counted."""
+    import traceback
+    import warnings
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = f"{os.sep}deeplearning4j_tpu_torch{os.sep}"
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message).lower():
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if not f.filename.endswith(f"{os.sep}warnings.py")]
+        ours = [f for f in frames if port in f.filename]
+        f = ours[-1] if ours else frames[-1]
+        key = ("" if ours else "outside:") + f"{os.path.relpath(f.filename, root)}:{f.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def _decode_step(torch, eng):
+    """One greedy DecodeEngine step on the engine's own state (its sessions
+    were greedy): the step function and the sampling, up to the device's
+    sampled ids; the dispatch's one bulk read (serving/decode.py
+    _host_read) comes after it."""
+    with torch.inference_mode():
+        eng._step(eng._params, eng._state, eng._dstate, eng._gen)
+
+
+def _kernel_wrapper_calls(torch, dev) -> dict:
+    """One call of each kernel wrapper outside the indexes (adc_pq and
+    adc_ivf_pq launch from the PQ and IVF-PQ scoring), at small shapes:
+    name -> thunk. The split bn launches run at world 1."""
+    from deeplearning4j_tpu_torch.perf.kernels import (bn_act, flash_attention, int4_dot,
+                                                       scatter_add)
+    g = torch.Generator(device=dev)
+    g.manual_seed(24)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    z, dout = randn(4096, 64), randn(4096, 64)
+    gamma, beta = randn(64).abs() + 0.5, randn(64)
+    _, mean, _, inv = bn_act.bn_act_fwd("relu", 1e-5, z, gamma, beta)
+    qq = torch.randint(-127, 128, (8, 64), generator=g, device=dev, dtype=torch.int8)
+    packed = torch.randint(-128, 128, (4096, 32), generator=g, device=dev, dtype=torch.int8)
+    table, grads = randn(1000, 128), randn(512, 128)
+    idx = torch.randint(0, 1000, (512,), generator=g, device=dev)
+    q, k, v = (randn(2, 4, 256, 64, dtype=torch.bfloat16) for _ in range(3))
+
+    def flash():
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        flash_attention.flash_attention(qg, kg, vg, causal=True).float().sum().backward()
+
+    return {
+        "bn_act_fwd": lambda: bn_act.bn_act_fwd("relu", 1e-5, z, gamma, beta),
+        "bn_act_bwd": lambda: bn_act.bn_act_bwd("relu", 1e-5, z, gamma, beta, None,
+                                                mean, inv, dout),
+        "bn_act_fwd_split": lambda: bn_act.bn_act_fwd_split("relu", 1e-5, z, gamma, beta),
+        "bn_act_bwd_split": lambda: bn_act.bn_act_bwd_split("relu", 1e-5, z, gamma, beta,
+                                                            None, mean, inv, dout),
+        "int4_dot": lambda: int4_dot.int4_matmul(qq, packed, 64),
+        "scatter_add": lambda: scatter_add.scatter_add(table, idx, grads),
+        "flash_attn (fwd, bwd_dkv, bwd_dq)": flash,
+    }
+
+
+def _control_check(torch, dev, lint, root) -> dict:
+    """The control: retrieval/index.py::_topk_smallest copied with one
+    .item() inserted before its return, compiled under a path in
+    retrieval/. The linter flags the inserted line (DLT013), the card
+    reports a sync there, and the unchanged copy reports none."""
+    import inspect
+    import textwrap
+
+    from deeplearning4j_tpu_torch.retrieval import index
+    src = textwrap.dedent(inspect.getsource(index._topk_smallest))
+    lines = src.splitlines()
+    at = next(i for i, line in enumerate(lines) if line.strip().startswith("return "))
+    lines.insert(at, "    top.max().item()")
+    seeded = "\n".join(lines) + "\n"
+    path = os.path.join(root, "deeplearning4j_tpu_torch", "retrieval", "lint_control.py")
+
+    def compiled(text):
+        ns = dict(vars(index))
+        exec(compile(text, path, "exec"), ns)
+        return ns["_topk_smallest"]
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    d2 = torch.rand((LT_QUERIES, 4096), generator=g, device=dev)
+    flagged = [(v.rule, v.line) for v in lint.lint_file(path, src=seeded)]
+    seeded_sites = _sync_sites(torch, lambda: compiled(seeded)(d2, LT_K))
+    plain_sites = _sync_sites(torch, lambda: compiled(src)(d2, LT_K))
+    want = f"{os.path.relpath(path, root)}:{at + 1}"
+    out = {"line": want, "flagged": flagged, "seeded_syncs": seeded_sites,
+           "plain_syncs": plain_sites}
+    if ("DLT013", at + 1) not in flagged or not seeded_sites.get(want) or plain_sites:
+        raise AssertionError(f"lint_tools: the seeded .item() control failed: {out}")
+    return out
+
+
+def _check_syncs_against_rules(lint, root, paths: dict) -> dict:
+    """Every sync of every guarded path sits on a line the port's linter
+    flags (and so carries a waiver: the port lints clean) or is listed in
+    SYNCS_NO_RULE_SEES. Returns path -> {"syncs": n, "lines": {...}}."""
+    flagged = {}
+    for v in lint.raw_findings(lint.DEFAULT_TARGETS(root)):
+        flagged.setdefault(f"{os.path.relpath(v.file, root)}:{v.line}", []).append(v.rule)
+    report, unexplained = {}, []
+    for name, sites in paths.items():
+        report[name] = {"syncs": sum(sites.values()),
+                        "lines": {s: {"count": n, "rules": flagged.get(s),
+                                      "known": s in SYNCS_NO_RULE_SEES}
+                                  for s, n in sorted(sites.items())}}
+        unexplained += [f"{name}: {s}" for s in sites
+                        if s not in flagged and s not in SYNCS_NO_RULE_SEES]
+    print("lint_tools_syncs " + json.dumps(report), flush=True)
+    if unexplained:
+        raise AssertionError(f"lint_tools: syncs on lines no rule flags: {unexplained}")
+    return report
+
+
+def _cli(torch, tracer, seconds, name, main, argv) -> str:
+    """One tool through its main(argv) in this process, inside a span; it
+    must exit 0. Returns what it printed."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tracer.span(f"tools.{name}", argv=" ".join(argv)), contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    seconds.setdefault(name, []).append(time.perf_counter() - t0)
+    if rc != 0:
+        raise AssertionError(f"lint_tools: {name} {argv} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def _json_line(text: str, key: str) -> dict:
+    """``key`` of the first JSON line of a tool's output that has it."""
+    for line in text.splitlines():
+        obj = json.loads(line) if line.startswith("{") else {}
+        if key in obj:
+            return obj[key]
+    raise AssertionError(f"lint_tools: no {key!r} in {text[-2000:]!r}")
+
+
+def lint_tools_phase(torch, dev, card, kept, workdir) -> dict:
+    """The port's offline tools through main(argv) on the card
+    (build_index, quantize, autotune, obs_report, lake, run_lint, and one
+    ``python -m deeplearning4j_tpu_torch.tools.run_lint`` subprocess), then
+    the linter's rules held against the syncs the card reports on the hot
+    paths they guard. Returns the launches of the tools' runs."""
+    from deeplearning4j_tpu_torch import obs, retrieval
+    from deeplearning4j_tpu_torch.analysis import lint
+    from deeplearning4j_tpu_torch.checkpoint import CheckpointManager
+    from deeplearning4j_tpu_torch.checkpoint.storage import LocalFSBackend
+    from deeplearning4j_tpu_torch.datasets import synthetic_mnist
+    from deeplearning4j_tpu_torch.models import LeNet
+    from deeplearning4j_tpu_torch.obs.flight import FlightRecorder
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.parallel.compress import (ThresholdCompression, _leaves,
+                                                            _rebuild)
+    from deeplearning4j_tpu_torch.perf import autotune as at
+    from deeplearning4j_tpu_torch.perf.kernels import adc, bn_act, int4_dot
+    from deeplearning4j_tpu_torch.tools import (autotune, build_index, lake, obs_report,
+                                                quantize, run_lint)
+    from deeplearning4j_tpu_torch.utils.serialization import restore
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the -m entry point on this host, beside the in-process runs (CPU only)
+    sub = subprocess.Popen([sys.executable, "-m", "deeplearning4j_tpu_torch.tools.run_lint",
+                            "--json", "--audit-waivers"], cwd=root, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        store = os.path.join(workdir, "obs")
+        backend = LocalFSBackend(store)
+        tracer = obs.Tracer(enabled=True, registry=obs.MetricsRegistry())
+        ring = FlightRecorder(capacity=64, store=backend, worker_id="chip")
+        elog = obs.EventLog(backend, name="events.jsonl")
+        tracer.add_sink(ring)
+        tracer.add_sink(elog)
+        seconds = {}
+        _zero_launch_counts()
+
+        # build_index: IVF-PQ over the retrieval corpus, gated, saved, loaded
+        corpus = os.path.join(workdir, "corpus.npy")
+        np.save(corpus, kept["V"])
+        ivfpq, int4 = os.path.join(workdir, "ivfpq.npz"), os.path.join(workdir, "int4.npz")
+        text = _cli(torch, tracer, seconds, "build_index", build_index.main, [
+            "--vectors", corpus, "--kind", "ivf", "--pq", "8", "--nprobe", "8", "--rerank", "8",
+            "--gate-min-recall", str(RECALL_GATES["ivf_pq"]), "--out", ivfpq])
+        gate = _json_line(text, "recall_gate")
+        _cli(torch, tracer, seconds, "build_index", build_index.main,
+             ["--load", ivfpq, "--query-random", "4"])
+        ivf_launches = adc.ivf_pq_launches
+        text = _cli(torch, tracer, seconds, "build_index", build_index.main, [
+            "--vectors", corpus, "--kind", "brute", "--int4", "--query-random", "4",
+            "--out", int4])
+        int4_launches = int4_dot.launches
+        loaded, ix = retrieval.load_index(ivfpq, device=dev), kept["ivf_pq"]
+        qdev = torch.from_numpy(np.ascontiguousarray(kept["Q"][:LT_QUERIES])).to(dev)
+        kp = ix._k_pad(ix._rerank_k(LT_K))
+        ids = [t._search_watched(qdev, kp)[1] for t in (loaded, ix)]
+        if not (ivf_launches and int4_launches and torch.equal(ids[0], ids[1])):
+            raise AssertionError(f"lint_tools: build_index launches {ivf_launches} / "
+                                 f"{int4_launches}, loaded ids equal the retrieval "
+                                 f"phase's: {torch.equal(ids[0], ids[1])}")
+
+        # quantize: a LeNet checkpoint, on the card and on the CPU
+        net = LeNet().init(dev)
+        ck = os.path.join(workdir, "lenet")
+        cm = CheckpointManager(ck, device=dev, async_write=False)
+        cm.save(net)
+        cm.close()
+        x, y = synthetic_mnist(128, seed=0)
+        data = os.path.join(workdir, "mnist.npz")
+        np.savez(data, x=x, y=y)
+        reports = {}
+        for where in ("cuda", "cpu"):
+            out = os.path.join(workdir, f"lenet_int8_{where}.zip")
+            _cli(torch, tracer, seconds, f"quantize_{where}", quantize.main, [
+                "--ckpt", ck, "--out", out, "--data", data, "--batches", "4",
+                "--batch-size", "32", "--device", where])
+            with open(out + ".report.json", encoding="utf-8") as f:
+                reports[where] = json.load(f)
+        qnet = restore(os.path.join(workdir, "lenet_int8_cuda.zip"), device=dev)
+        pred = qnet.output(torch.from_numpy(x[:32]).to(dev))
+        pred = (pred[0] if isinstance(pred, tuple) else pred).cpu().numpy()
+        card_r, cpu_r = reports["cuda"], reports["cpu"]
+        same = {k for k in card_r if k not in ("out", "ranges")
+                if card_r[k] == cpu_r[k]}
+        range_err = max(abs(card_r["ranges"][key][f] - b) / max(abs(b), 1e-12)
+                        for key, entry in cpu_r["ranges"].items() for f, b in entry.items()
+                        if isinstance(b, float))
+        if (same != set(card_r) - {"out", "ranges"} or card_r["ranges"].keys()
+                != cpu_r["ranges"].keys() or range_err > 1e-5 or pred.shape != (32, 10)
+                or not np.isfinite(pred).all()):
+            raise AssertionError(f"lint_tools: quantize report card {card_r} / cpu {cpu_r}, "
+                                 f"prediction {pred.shape}")
+
+        # autotune on ResNet50; the record into ParallelInference(tuning=)
+        rec_path = os.path.join(workdir, "tuning.json")
+        bn_before = bn_act.fwd_launches, bn_act.bwd_launches
+        _cli(torch, tracer, seconds, "autotune", autotune.main, [
+            "--model", LT_AUTOTUNE_MODEL, "--out", rec_path, "--batch-sizes", LT_AUTOTUNE_BATCHES,
+            "--top-k", "1", "--reps", "1", "--report"])
+        bn_confirm = (bn_act.fwd_launches - bn_before[0], bn_act.bwd_launches - bn_before[1])
+        rec = at.TuningRecord.load(rec_path)
+        tuned = at.build_network(autotune._load_conf(LT_AUTOTUNE_MODEL, dev), rec,
+                                 device=dev).init()
+        pi = ParallelInference(tuned, tuning=rec, inference_mode="sequential", device=dev)
+        try:
+            st = pi.stats()
+            served = pi.output(np.zeros((3,) + LT_INPUT, np.float32))
+        finally:
+            pi.shutdown()
+        if (not all(bn_confirm) or not st["tuning"]["applied"]
+                or st["warmed_buckets"] != sorted(rec.buckets)
+                or served.shape != (3, 10) or not np.isfinite(served).all()):
+            raise AssertionError(f"lint_tools: autotune bn launches {bn_confirm}, "
+                                 f"serving {st}")
+        del tuned, pi
+        torch.cuda.empty_cache()
+
+        # lake against a local-directory store
+        lake_url = "file:" + os.path.join(workdir, "lake")
+        blob = os.path.join(workdir, "blob.bin")
+        with open(blob, "wb") as f:
+            f.write(np.arange(4096, dtype=np.int32).tobytes())
+        _cli(torch, tracer, seconds, "lake", lake.main, ["put", lake_url, "a/blob", "--in", blob])
+        back = os.path.join(workdir, "blob.back")
+        _cli(torch, tracer, seconds, "lake", lake.main,
+             ["get", lake_url, "a/blob", "--out", back])
+        listing = _cli(torch, tracer, seconds, "lake", lake.main, ["ls", lake_url])
+        _cli(torch, tracer, seconds, "lake", lake.main, ["gc", lake_url])
+        with open(blob, "rb") as f, open(back, "rb") as g:
+            if f.read() != g.read() or listing.split() != ["a/blob"]:
+                raise AssertionError(f"lint_tools: lake listing {listing!r}")
+
+        # run_lint in this process, cold then warm
+        lint.clear_caches()
+        runs = []
+        for _ in range(2):
+            text = _cli(torch, tracer, seconds, "run_lint", run_lint.main,
+                        ["run_lint", "--json", "--audit-waivers"])
+            runs.append(json.loads(text))
+        if any(r["count"] or r["stale_waivers"] for r in runs):
+            raise AssertionError(f"lint_tools: run_lint found {runs[0]}")
+
+        launches = _launch_counts()
+        # obs_report over this phase's event log and flight dump
+        tracer.event("lint_tools.done", tools=len(seconds))
+        if not elog.flush() or ring.flush("chip_smoke lint_tools") != "flightrec-chip":
+            raise AssertionError("lint_tools: the event log or the flight dump was not written")
+        logs = [os.path.join(store, "events.jsonl"), os.path.join(store, "flightrec-chip")]
+        report = _cli(torch, tracer, seconds, "obs_report", obs_report.main,
+                      ["obs_report"] + logs)
+        records, dumps = [], []
+        for p in logs:
+            recs, dump = obs_report.load_records(p)
+            records += [r for r in recs if r not in records]
+            dumps += [dump] if dump is not None else []
+        records.sort(key=lambda r: r.get("wall", 0.0))
+        if report != obs_report.render_report(records, dumps) + "\n":
+            raise AssertionError("lint_tools: obs_report differs from render_report")
+
+        # the rules against the card
+        grads = _rebuild(net.params, {p: torch.randn_like(t.float())
+                                      for p, t in _leaves(net.params)})
+        scheme = ThresholdCompression()
+        state = scheme.init_state(net.params)
+        brute4 = retrieval.load_index(int4, device=dev)
+        SYNC_PATHS.update({
+            "ivf_pq_scoring": _sync_sites(torch, lambda: ix._search_watched(qdev, kp)),
+            "int4_brute_scoring": _sync_sites(torch, lambda: brute4._search_watched(
+                qdev, brute4._k_pad(LT_K))),
+            "pq_scoring": _sync_sites(torch, lambda: kept["pq"]._search_watched(
+                qdev, kept["pq"]._k_pad(kept["pq"]._rerank_k(LT_K)))),
+            "threshold_compression": _sync_sites(torch, lambda: scheme.apply(grads, state)),
+        })
+        for name, call in _kernel_wrapper_calls(torch, dev).items():
+            SYNC_PATHS[f"launch {name}"] = _sync_sites(torch, call)
+        checks = _check_syncs_against_rules(lint, root, SYNC_PATHS)
+        control = _control_check(torch, dev, lint, root)
+        out, err = sub.communicate(timeout=300)
+        if sub.returncode != 0 or json.loads(out)["count"] or json.loads(out)["stale_waivers"]:
+            raise AssertionError(f"lint_tools: python -m ...run_lint exited "
+                                 f"{sub.returncode}: {out[-2000:]} {err[-2000:]}")
+    finally:
+        if sub.poll() is None:
+            sub.kill()
+        sub.wait()
+    summary = {"card": card, "seconds_by_tool": seconds, "recall_gate": gate,
+               "loaded_ids_bitwise": True, "quantize_range_rel_err": range_err,
+               "autotune": {"bn_confirm_launches": list(bn_confirm),
+                            "batch_size": rec.batch_size, "buckets": list(rec.buckets)},
+               "run_lint": {"cold_s": seconds["run_lint"][0], "warm_s": seconds["run_lint"][1]},
+               "launches": launches, "syncs": {k: v["syncs"] for k, v in checks.items()},
+               "control": control, "seconds": time.perf_counter() - t_phase}
+    print("lint_tools " + json.dumps(summary), flush=True)
+    return launches
+
+
 PHASE_SECONDS = {}
 
 
 def _run(phase, *args):
     """Call one phase of main() and note its seconds in PHASE_SECONDS."""
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # lint: disable=DLT003 (phase seconds; every phase ends on host reads of its checks)
     out = phase(*args)
     PHASE_SECONDS[phase.__name__] = time.perf_counter() - t0
     return out
@@ -9489,7 +9891,7 @@ def main() -> int:
     from deeplearning4j_tpu_torch.device import resolve_device
     from deeplearning4j_tpu_torch.perf.kernels import _build
 
-    t_start = time.perf_counter()
+    t_start = time.perf_counter()  # lint: disable=DLT003 (the build's and the run's wall time; main() ends on host reads)
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -9568,6 +9970,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _run(decode_phase, torch, dev, card)
     ivf_rows_served = _run(ivf_phase, torch, dev, card, kept)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        tools_launches = _run(lint_tools_phase, torch, dev, card, kept, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     cells.remove()
     print(f"ivf cells trained {cells.trained} time(s), reused {cells.reused}", flush=True)
     ivf_launches = {k: sum(r["launches"][k] for r in ivf_rows_served)
@@ -9631,7 +10038,8 @@ def main() -> int:
                           "data_parallel_world2": dp2[kind], "model_parallel": mp[kind],
                           "perf_tier": perf_launches[kind],
                           "keras_resnet50": keras_launches[kind],
-                          "keras_cnn": keras_cnn_launches[kind]}
+                          "keras_cnn": keras_cnn_launches[kind],
+                          "lint_tools": tools_launches[f"bn_act_{kind}"]}
                    for kind, n in (("fwd", bn_fwd), ("bwd", bn_bwd))}
 
     # the kernel line reports fc1 at the batch the serving phase dispatched
@@ -9650,16 +10058,19 @@ def main() -> int:
         "replaces": "deeplearning4j_tpu/perf/pallas/adc.py:150",
         # its paths: VGG16 serving, the int4 brute-force index, VGG16
         # behind ModelServer before and after a hot swap, and LeNet's int4
-        # layers under the quantization gate
+        # layers under the quantization gate, and the build_index tool's int4
+        # brute-force index
         "launches": (launches + served["int4"]["launches"] + ms_launches["int4_dot"]
-                     + swap_launches["int4_dot"] + gates["int4_dot"] + fleet_launches),
+                     + swap_launches["int4_dot"] + gates["int4_dot"] + fleet_launches
+                     + tools_launches["int4_dot"]),
         "launches_by_path": {"vgg16_serving": launches,
                              "retrieval_int4": served["int4"]["launches"],
                              "model_server": ms_launches["int4_dot"],
                              "hot_swap": swap_launches["int4_dot"],
                              "ivf": ivf_launches["int4_dot"],
                              "lenet_gates": gates["int4_dot"],
-                             "fleet": fleet_launches},
+                             "fleet": fleet_launches,
+                             "lint_tools": tools_launches["int4_dot"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows + [fc1] + int4_retr + gates["rows"]),
         "ms": fc1["ms"], "host_ms": fc1["host_ms"], "previous_ms": fc1["previous_ms"],
         "plain_ms": fc1["plain_ms"],
@@ -9674,11 +10085,13 @@ def main() -> int:
         _bn_kernel_entry("bn_act_bwd", bn_rows, bn_launches["bwd"], split_rows),
         _adc_kernel_entry("adc_pq", pq_rows, {
             "retrieval_pq": served["pq"]["launches"], "model_server": ms_launches["adc_pq"],
-            "hot_swap": swap_launches["adc_pq"], "ivf": ivf_launches["adc_pq"]}, 59),
+            "hot_swap": swap_launches["adc_pq"], "ivf": ivf_launches["adc_pq"],
+            "lint_tools": tools_launches["adc_pq"]}, 59),
         _adc_kernel_entry("adc_ivf_pq", ivf_rows, {
             "retrieval_ivf_pq": served["ivf_pq"]["launches"],
             "model_server": ms_launches["adc_ivf_pq"],
-            "hot_swap": swap_launches["adc_ivf_pq"], "ivf": ivf_launches["adc_ivf_pq"]}, 103),
+            "hot_swap": swap_launches["adc_ivf_pq"], "ivf": ivf_launches["adc_ivf_pq"],
+            "lint_tools": tools_launches["adc_ivf_pq"]}, 103),
         _scatter_kernel_entry(scatter_rows, w2v, graph_launches),
         _flash_kernel_entry(flash_rows, lm, train),
         dict(_flash_bwd_kernel_entry("flash_attn_bwd_dkv", bwd_rows, train),

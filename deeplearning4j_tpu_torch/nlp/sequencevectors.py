@@ -84,7 +84,7 @@ class SequenceVectors:
         self._rng = np.random.default_rng(seed)
         self.words_processed = 0
         self.loss_history: List[float] = []
-        self.counters = Counter()
+        self.counters = Counter()  # lint: disable=DLT007 (fit's own record of what ran, read by its callers; not a served metric)
 
     # ------------------------------------------------------------ vocab/init
     def build_vocab(self, sequences: Iterable[List[str]]):

@@ -388,11 +388,11 @@ def restore_compress_state(model, scheme_config, arrays=None, origin="checkpoint
             for path, leaf in want.items():
                 if path not in arrays:
                     raise ValueError(f"Missing array '{path}' in checkpoint")
-                a = np.asarray(arrays[path])
+                a = np.asarray(arrays[path])  # lint: disable=DLT009 (restore time: checkpoint arrays onto the card once, never in a step)
                 if tuple(a.shape) != tuple(leaf.shape):
                     raise ValueError(f"Shape mismatch for '{path}': checkpoint "
                                      f"{a.shape} vs model {tuple(leaf.shape)}")
-                vals[path] = torch.from_numpy(np.array(a, dtype=np.float32)).to(leaf.device)
+                vals[path] = torch.from_numpy(np.array(a, dtype=np.float32)).to(leaf.device)  # lint: disable=DLT009 (restore time)
             model.compress_state = {
                 "residual": (None if template["residual"] is None else
                              _rebuild(template["residual"], vals, "residual")),
@@ -464,7 +464,7 @@ def measure_compression_overhead(model, repeats: int = 3) -> float:
                 start.record()
                 scheme.apply(grads, state)
                 end.record()
-                end.synchronize()
+                end.synchronize()  # lint: disable=DLT009 (an isolated timing probe: the wait is the measurement)
                 ms = start.elapsed_time(end)
             else:
                 t0 = time.perf_counter()

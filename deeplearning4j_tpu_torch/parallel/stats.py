@@ -24,7 +24,7 @@ class TrainingStats:
         self._durations: Dict[str, List[float]] = {}
         self.examples = 0
         self.minibatches = 0
-        self.counters: Dict[str, int] = {}  # read by obs.absorb_training_stats
+        self.counters: Dict[str, int] = {}  # lint: disable=DLT007 (pre-obs surface; absorbed into the registry by obs.absorb_training_stats)
 
     # -------------------------------------------------------------- record
     class _Timer:

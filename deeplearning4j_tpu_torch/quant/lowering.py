@@ -87,7 +87,7 @@ def quantize_weights_int4(w) -> Tuple[np.ndarray, np.ndarray]:
 def _requantize(acc_i32: torch.Tensor, act_scale: float, w_scale: torch.Tensor):
     """int32 accumulator → f32: ``acc * (s_in * s_w[c])``."""
     s = float(np.float32(act_scale)) * w_scale
-    return acc_i32.to(torch.float32) * s
+    return acc_i32.to(torch.float32) * s  # lint: disable=DLT010 (the single per-layer requantize)
 
 
 def _dense_int4_acc(xq: torch.Tensor, wq_packed: torch.Tensor, n_in: int):
@@ -231,7 +231,7 @@ class QuantizedConvolutionLayer(Layer):
                                   self.n_in, self.n_out)
         else:
             w = params["Wq"]
-        acc = conv2d_nhwc(xq.to(torch.float64), w.to(torch.float64),
+        acc = conv2d_nhwc(xq.to(torch.float64), w.to(torch.float64),  # lint: disable=DLT010 (CUDA has no integer convolution: float64 holds every int8 partial sum exactly, cast to int32 below)
                           self.stride, self.padding, self.convolution_mode,
                           self.dilation).to(torch.int32)
         return get_activation(self.activation)(_finish(self, params, acc)), state
@@ -280,14 +280,14 @@ class QuantizedConvolution1DLayer(Layer):
                                   self.n_in, self.n_out)
         else:
             w = params["Wq"]
-        xc = xq.to(torch.float64).permute(0, 2, 1)               # NCW
+        xc = xq.to(torch.float64).permute(0, 2, 1)  # NCW  # lint: disable=DLT010 (exact integer conv in float64, as above)
         if self.convolution_mode == "same":
             lo, hi = _same_pads(xc.shape[2], self.kernel_size, self.stride,
                                 self.dilation)
         else:
             lo = hi = self.padding
         xc = F.pad(xc, (lo, hi))
-        acc = F.conv1d(xc, w.to(torch.float64).permute(2, 1, 0),
+        acc = F.conv1d(xc, w.to(torch.float64).permute(2, 1, 0),  # lint: disable=DLT010 (exact integer conv in float64)
                        stride=self.stride, dilation=self.dilation)
         acc = acc.permute(0, 2, 1).to(torch.int32)
         return get_activation(self.activation)(_finish(self, params, acc)), state

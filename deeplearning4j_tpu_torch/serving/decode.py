@@ -244,6 +244,15 @@ class DecodeEngine:
         self._shapes: Dict[str, set] = {k: set() for k in
                                         ("step", "join", "clear", "grow", "prefill")}
         self._new_shapes_after_warmup = 0
+        # every dispatch through the network's CompileWatch under the JAX
+        # engine's keys; what CompileWatch.wrap is handed is a step root of
+        # the port's linter (analysis/lint.py), as the jitted programs are
+        watch = net.compile_watch
+        self._step = watch.wrap(self._step, "decode.step")
+        self._join = watch.wrap(self._join, "decode.join")
+        self._clear = watch.wrap(self._clear, "decode.clear")
+        self._grow = watch.wrap(self._grow, "decode.grow")
+        self._prefill = watch.wrap(self._prefill, "decode.prefill")
 
         # hot swap
         self._swap_cm = None
